@@ -12,8 +12,9 @@ This package never imports ``jax``, ``flax`` or ``mode_tpu``. Its entry points
 run on CUDA unless the caller passes ``device="cpu"``; without a card they
 raise instead of running on the CPU.
 
-Ported so far: the stage-1 eval forward of ``ModeDisparity`` with the
-PSMNet feature extractor (``conv="Regular"``).
+Ported so far: the stage-1 eval forward of ``ModeDisparity``, at any
+batch, with the sphere feature extractor (``conv="Sphere"``, Cassini, the
+default) or PSMNet's (``conv="Regular"``).
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes``; no PyTorch header is
 compiled, which keeps a build to seconds. The build runs at first use. Its
 output goes to ``kernels/build/`` (listed in ``.gitignore``), named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Missing libraries are compiled in parallel, one
-``nvcc`` per source.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+Missing libraries are compiled in parallel, one ``nvcc`` per source.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("conv3d", "regression")
+SOURCES = ("conv3d", "regression", "sphere_conv", "conv2d")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +41,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
   """Where the library built from ``csrc/<name>.cu`` lives."""
   digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC_DIR.glob("*.cuh")):
+    digest.update(header.read_bytes())
   digest.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -19,56 +19,23 @@
 // output voxel costs 2*27*Cin*Cout flops (110 kflop at 64 -> 32) against
 // (Cin + Cout) values of compulsory traffic, far above the H100's ridge
 // point, so the kernel is bound by arithmetic. The design is an implicit
-// GEMM with M = output voxels, N = Cout, K = taps x Cin. A block of 256
-// threads computes a BM x BN output tile. Each K step stages a BM x 16 slice
-// of the input, gathered at one tap's offset and zero outside the volume,
-// and the matching 16 x BN weight slice in shared memory. The slices are
-// double-buffered through registers, so the next step's global loads are in
-// flight while the current step's FMAs run. Each thread keeps a TM x TN
-// tile of f32 sums in registers. The transposed conv does no zero-stuffing:
-// blockIdx.z picks one of the eight output parity phases, and a phase visits
-// only the 1, 2, 4 or 8 taps that land on it. This first version runs on the
-// FP32 pipes (bf16 is widened to f32 on load, the sums stay f32); tensor
-// cores (wgmma) and TMA loads are later work.
+// GEMM with M = output voxels, N = Cout, K = taps x Cin, on the tile
+// machinery of igemm.cuh: each K step gathers a BM x 16 slice of the input
+// at one tap's offset, zero outside the volume. The transposed conv does no
+// zero-stuffing: blockIdx.z picks one of the eight output parity phases,
+// and a phase visits only the 1, 2, 4 or 8 taps that land on it. This first
+// version runs on the FP32 pipes; tensor cores (wgmma) and TMA loads are
+// later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "igemm.cuh"
 
 namespace {
 
 constexpr int MODE_S1 = 0;
 constexpr int MODE_S2 = 1;
 constexpr int MODE_DECONV = 2;
-constexpr int NT = 256;  // threads per block
-constexpr int BK = 16;   // input channels per K step
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// N consecutive floats from shared memory, 16 bytes at a time where N allows
-// (the tiles keep every such row 16-byte aligned).
-template <int N>
-__device__ __forceinline__ void load_row(float (&v)[N], const float* p) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = t.x;
-      v[4 * q + 1] = t.y;
-      v[4 * q + 2] = t.z;
-      v[4 * q + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[i];
-  }
-}
+using igemm::BK;
+using igemm::NT;
 
 // Tap j of one spatial axis: kernel index k and input offset off, so that
 // the input index is stride * z + off for grid coordinate z.
@@ -94,15 +61,7 @@ conv3d_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const T* __restrict__ res, T* __restrict__ out, int nb,
                      int di, int hi, int wi, int cin, int dout, int hout,
                      int wout, int cout, int relu) {
-  static_assert((BM / TM) * (BN / TN) == NT, "one thread per TM x TN tile");
-  static_assert((BM * BK) % NT == 0, "every thread stages whole A rows");
-  constexpr int RA = BM * BK / NT;             // A values staged per thread
-  constexpr int RB = (BK * BN + NT - 1) / NT;  // B values staged per thread
-  constexpr int AP = BM + 4;  // padded A row: fewer bank conflicts on stores
-  __shared__ __align__(16) float As[2][BK][AP];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const int tid = threadIdx.x;
+  constexpr int RA = BM * BK / NT;  // A rows gathered per thread
   // M walks the output voxels in NDHW order; for the transposed conv it
   // walks the input-sized grid of one parity phase.
   const int gd = MODE == MODE_DECONV ? di : dout;
@@ -118,17 +77,13 @@ conv3d_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int nt_h = MODE == MODE_DECONV ? 1 + ph : 3;
   const int nt_w = MODE == MODE_DECONV ? 1 + pw : 3;
   const int stride = MODE == MODE_S2 ? 2 : 1;
-  const int nchunk = (cin + BK - 1) / BK;
-  const int nsteps = nt_d * nt_h * nt_w * nchunk;
 
-  // The A rows this thread stages stay the same for every K step.
-  const int a_k = tid % BK;
-  const int a_row = tid / BK;
+  // The A rows this thread gathers stay the same for every K step.
   int rb[RA], rz0[RA], rz1[RA], rz2[RA];
   bool rv[RA];
 #pragma unroll
   for (int r = 0; r < RA; ++r) {
-    const long long m = m0 + a_row + r * (NT / BK);
+    const long long m = m0 + igemm::a_row() + r * (NT / BK);
     rv[r] = m < mtot;
     long long t = rv[r] ? m : 0;
     rz2[r] = (int)(t % gw);
@@ -139,113 +94,50 @@ conv3d_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
     rb[r] = (int)(t / gd);
   }
 
-  float ra[RA];
-  float rw[RB];
-  auto fetch = [&](int s) {
-    const int chunk = s % nchunk;
-    int t = s / nchunk;
-    const int j2 = t % nt_w;
-    t /= nt_w;
-    const int j1 = t % nt_h;
-    const int j0 = t / nt_h;
-    int k0, o0, k1, o1, k2, o2;
-    tap<MODE>(pd, j0, k0, o0);
-    tap<MODE>(ph, j1, k1, o1);
-    tap<MODE>(pw, j2, k2, o2);
-    const int ci = chunk * BK + a_k;
-#pragma unroll
-    for (int r = 0; r < RA; ++r) {
-      const int id = stride * rz0[r] + o0;
-      const int ih = stride * rz1[r] + o1;
-      const int iw = stride * rz2[r] + o2;
-      float v = 0.f;
-      if (rv[r] && ci < cin && (unsigned)id < (unsigned)di &&
-          (unsigned)ih < (unsigned)hi && (unsigned)iw < (unsigned)wi) {
-        v = to_f32(x[((((long long)rb[r] * di + id) * hi + ih) * wi + iw) *
-                         cin + ci]);
-      }
-      ra[r] = v;
-    }
-    const int tp = (k0 * 3 + k1) * 3 + k2;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int idx = tid + r * NT;
-      const int c = chunk * BK + idx / BN;
-      const int co = n0 + idx % BN;
-      float v = 0.f;
-      if (idx < BK * BN && c < cin && co < cout) {
-        v = to_f32(w[((long long)tp * cin + c) * cout + co]);
-      }
-      rw[r] = v;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < RA; ++r) As[buf][a_k][a_row + r * (NT / BK)] = ra[r];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int idx = tid + r * NT;
-      if (idx < BK * BN) Bs[buf][idx / BN][idx % BN] = rw[r];
-    }
-  };
-
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
   float acc[TM][TN];
+  igemm::mainloop<T, BM, BN, TM, TN>(
+      acc, w, cin, cout, n0, nt_d * nt_h * nt_w,
+      [&](int t, int ci, float(&ra)[RA]) {
+        const int j2 = t % nt_w;
+        t /= nt_w;
+        const int j1 = t % nt_h;
+        const int j0 = t / nt_h;
+        int k0, o0, k1, o1, k2, o2;
+        tap<MODE>(pd, j0, k0, o0);
+        tap<MODE>(ph, j1, k1, o1);
+        tap<MODE>(pw, j2, k2, o2);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+        for (int r = 0; r < RA; ++r) {
+          const int id = stride * rz0[r] + o0;
+          const int ih = stride * rz1[r] + o1;
+          const int iw = stride * rz2[r] + o2;
+          float v = 0.f;
+          if (rv[r] && ci < cin && (unsigned)id < (unsigned)di &&
+              (unsigned)ih < (unsigned)hi && (unsigned)iw < (unsigned)wi) {
+            v = igemm::to_f32(
+                x[((((long long)rb[r] * di + id) * hi + ih) * wi + iw) * cin +
+                  ci]);
+          }
+          ra[r] = v;
+        }
+        return (k0 * 3 + k1) * 3 + k2;
+      });
 
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int s = 0; s < nsteps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nsteps) fetch(s + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-      load_row(a, &As[buf][kk][ty * TM]);
-      load_row(b, &Bs[buf][kk][tx * TN]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // The other buffer was last read in step s-1, which every thread has
-    // left (the barrier below closed it), so it can be refilled now.
-    if (s + 1 < nsteps) stash(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= mtot) continue;
-    long long o = m;
-    if (MODE == MODE_DECONV) {
-      long long t = m;
-      const int z2 = (int)(t % gw);
-      t /= gw;
-      const int z1 = (int)(t % gh);
-      t /= gh;
-      const int z0 = (int)(t % gd);
-      const long long b = t / gd;
-      o = ((b * dout + 2 * z0 + pd) * hout + 2 * z1 + ph) * wout + 2 * z2 + pw;
-    }
-    o *= cout;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co < cout) {
-        float y = acc[i][j] * scale[co] + bias[co];
-        if (res != nullptr) y += to_f32(res[o + co]);
-        if (relu) y = fmaxf(y, 0.f);
-        store(out + o + co, y);
-      }
-    }
-  }
+  igemm::epilogue<T, BN, TM, TN>(
+      acc, m0, mtot, n0, cout, scale, bias, res, out, relu,
+      [&](long long m) {
+        if (MODE != MODE_DECONV) return m * cout;
+        long long t = m;
+        const int z2 = (int)(t % gw);
+        t /= gw;
+        const int z1 = (int)(t % gh);
+        t /= gh;
+        const int z0 = (int)(t % gd);
+        const long long b = t / gd;
+        return (((b * dout + 2 * z0 + pd) * hout + 2 * z1 + ph) * wout +
+                2 * z2 + pw) *
+               cout;
+      });
 }
 
 template <typename T, int MODE, int BM, int BN, int TM, int TN>

@@ -7,23 +7,30 @@ where the reference has them), so the port's ``state_dict`` keys are the
 reference's keys and the JAX package's Flax paths joined with dots.
 
 The 2-D blocks take NCHW tensors, as the reference's torch modules do; the
-feature extractor hands them channels-last memory, so the NHWC images and
-features at its boundary are views, not copies. The 3-D blocks take NDHWC
-volumes and run the fused conv kernels of ``ops/conv3d.py`` with the
-BatchNorm folded into the epilogue. Each keeps its weight in the kernel's
+feature extractors hand them channels-last memory, so the NHWC images and
+features at their boundary are views, not copies. A 2-D conv + BN runs
+``F.conv2d`` and the BN, as the JAX package leaves its convs to XLA, or, where
+the caller asks for it (``fused=True``: the convs that reach the JAX
+package's 2-D band kernels), the fused kernel of ``ops/conv2d.py``. The
+sphere convs run the fused kernel of ``ops/sphere_conv.py`` and the 3-D
+blocks, on NDHWC volumes, those of ``ops/conv3d.py``, each with the BatchNorm
+folded into the epilogue. A fused layer keeps its weight in the kernel's
 layout and its folded BN between calls, and remakes them only after one of
 its parameters or buffers changes.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
 
+from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
                                        deconv3d_bn_act, pack_weight)
+from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
 
 
 class _Operands:
@@ -73,15 +80,57 @@ class TorchBatchNorm(nn.Module):
     return y.to(x.dtype)
 
 
-def convbn(cin: int, cout: int, kernel: int, stride: int, pad: int,
-           dilation: int) -> nn.Sequential:
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+  """The contiguous NHWC tensor of an NCHW one (a view of channels-last
+  memory, copied only if the memory is not)."""
+  return x.permute(0, 2, 3, 1).contiguous()
+
+
+class ConvBn2d(nn.Sequential):
   """``convbn``: conv (no bias) + BN, with the reference's padding quirk
-  ``padding = dilation if dilation > 1 else pad``."""
-  return nn.Sequential(
-      nn.Conv2d(cin, cout, kernel, stride,
-                padding=dilation if dilation > 1 else pad,
-                dilation=dilation, bias=False),
-      TorchBatchNorm(cout))
+  ``padding = dilation if dilation > 1 else pad``; NCHW in and out.
+
+  ``forward(x, residual, relu)`` computes ``act(BN(conv(x)) (+ residual))``.
+  By default the conv is ``F.conv2d``. With ``fused=True`` the layer, which
+  must then be a 3x3 stride-1 conv, runs as one call of
+  ``ops/conv2d.py:conv2d_s1_bn_act`` with the BN, residual and ReLU in its
+  epilogue (``plain`` asks for that op's plain version).
+  """
+
+  def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+               pad: int, dilation: int):
+    super().__init__(
+        nn.Conv2d(cin, cout, kernel, stride,
+                  padding=dilation if dilation > 1 else pad,
+                  dilation=dilation, bias=False),
+        TorchBatchNorm(cout))
+    self._operands = _Operands()
+
+  def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+              relu: bool = False, *, fused: bool = False,
+              plain: bool = False) -> torch.Tensor:
+    conv = self[0]
+    if not fused:
+      y = self[1](conv(x))
+      if residual is not None:
+        y = y + residual
+      return torch.relu(y) if relu else y
+    if (conv.kernel_size != (3, 3) or conv.stride != (1, 1)
+        or conv.padding != conv.dilation):
+      raise ValueError("the fused 2-D conv is 3x3, stride 1, padding = "
+                       f"dilation; this layer is {conv}")
+    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
+    y = conv2d_ops.conv2d_s1_bn_act(
+        _nhwc(x), weight, scale, bias,
+        None if residual is None else _nhwc(residual), relu,
+        conv.dilation[0], plain=plain)
+    return y.permute(0, 3, 1, 2)
+
+
+def convbn(cin: int, cout: int, kernel: int, stride: int, pad: int,
+           dilation: int) -> ConvBn2d:
+  """``convbn`` (``mode_tpu/models/blocks.py``)."""
+  return ConvBn2d(cin, cout, kernel, stride, pad, dilation)
 
 
 def downsample_shortcut(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -91,7 +140,12 @@ def downsample_shortcut(cin: int, cout: int, stride: int) -> nn.Sequential:
 
 
 class BasicBlockNoRelu(nn.Module):
-  """PSMNet ``BasicBlock``: no ReLU after the residual add. NCHW."""
+  """PSMNet ``BasicBlock``: no ReLU after the residual add. NCHW.
+
+  ``fused=True`` runs its stride-1 3x3 convs through the fused 2-D kernel,
+  the shortcut add in conv2's epilogue.
+  """
+  relu_after_add = False
 
   def __init__(self, cin: int, cout: int, stride: int = 1, pad: int = 1,
                dilation: int = 1, has_downsample: bool = False):
@@ -102,11 +156,65 @@ class BasicBlockNoRelu(nn.Module):
     self.downsample = (downsample_shortcut(cin, cout, stride)
                        if has_downsample else None)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    out = self.conv2(self.conv1(x))
-    if self.downsample is not None:
-      x = self.downsample(x)
-    return out + x
+  def forward(self, x: torch.Tensor, *, fused: bool = False,
+              plain: bool = False) -> torch.Tensor:
+    conv1 = self.conv1[0]
+    out = conv1(x, relu=True, fused=fused and conv1[0].stride == (1, 1),
+                plain=plain)
+    shortcut = x if self.downsample is None else self.downsample(x)
+    return self.conv2(out, shortcut, self.relu_after_add, fused=fused,
+                      plain=plain)
+
+
+class RegularBasicBlock(BasicBlockNoRelu):
+  """``RegularBasicBlock``: the same block with a ReLU after the add."""
+  relu_after_add = True
+
+
+class SphereConv(nn.Module):
+  """The reference ``SphereConv`` (3x3, stride 1, no bias): holds the
+  weight, torch layout ``(Cout, Cin, 3, 3)``. The sampling tables are
+  functions of the input's shape (``ops/sphere_conv.py``)."""
+
+  def __init__(self, cin: int, cout: int):
+    super().__init__()
+    self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+
+
+class SphereConvBn(nn.Sequential):
+  """``sphere_convbn``: sphere conv + BN, run as one call of
+  ``ops/sphere_conv.py:sphere_conv_bn_act`` with the BN, an optional
+  residual and ReLU in its epilogue; NCHW in and out."""
+
+  def __init__(self, cin: int, cout: int):
+    super().__init__(SphereConv(cin, cout), TorchBatchNorm(cout))
+    self._operands = _Operands()
+
+  def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+              relu: bool = False, *, plain: bool = False) -> torch.Tensor:
+    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
+    y = sphere_conv_bn_act(_nhwc(x), weight, scale, bias,
+                           None if residual is None else _nhwc(residual),
+                           relu, plain=plain)
+    return y.permute(0, 3, 1, 2)
+
+
+class SphereBasicBlock(nn.Module):
+  """``SphereBasicBlock``: two sphere conv + BN stages, the shortcut (a 1x1
+  conv + BN where the width changes) added and a ReLU after, the add and
+  the ReLU in conv2's epilogue. NCHW."""
+
+  def __init__(self, cin: int, cout: int, has_downsample: bool = False):
+    super().__init__()
+    self.conv1 = nn.Sequential(SphereConvBn(cin, cout), nn.ReLU())
+    self.conv2 = SphereConvBn(cout, cout)
+    self.downsample = (downsample_shortcut(cin, cout, 1)
+                       if has_downsample else None)
+
+  def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    out = self.conv1[0](x, relu=True, plain=plain)
+    shortcut = x if self.downsample is None else self.downsample(x)
+    return self.conv2(out, shortcut, relu=True, plain=plain)
 
 
 class Conv3dWeight(nn.Module):
@@ -146,7 +254,7 @@ class ConvBn3d(nn.Sequential):
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
-    weight, scale, bias = _fused_operands(self, transpose=False)
+    weight, scale, bias = _fused_operands(self, pack_weight)
     if self[0].stride == 1:
       return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
                               plain=plain)
@@ -165,17 +273,18 @@ class DeconvBn3d(nn.Sequential):
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
-    weight, scale, bias = _fused_operands(self, transpose=True)
+    weight, scale, bias = _fused_operands(
+        self, functools.partial(pack_weight, transpose=True))
     return deconv3d_bn_act(x, weight, scale, bias, residual, relu,
                            plain=plain)
 
 
-def _fused_operands(layer: nn.Sequential, transpose: bool):
-  """``(packed weight, scale, bias)`` of a conv + BN layer."""
+def _fused_operands(layer: nn.Sequential, pack):
+  """``(pack(weight), scale, bias)`` of a conv + BN layer."""
   bn = layer[1]
   return layer._operands.get(
       (layer[0].weight, bn.weight, bn.bias, bn.running_mean, bn.running_var),
-      lambda: (pack_weight(layer[0].weight, transpose), *bn.folded()))
+      lambda: (pack(layer[0].weight), *bn.folded()))
 
 
 class Classif(nn.Sequential):
@@ -195,14 +304,17 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
   """The reference's initialisation, drawn from ``generator`` in module
   order: conv weights ~ N(0, sqrt(2 / (prod(k) * C_out))), BN weight 1 and
   bias 0, transpose-conv weights ~ U(+-1 / sqrt(C_out * prod(k))) (torch's
-  default for them)."""
+  default for them), sphere-conv weights ~ U(+-1 / sqrt(C_in * prod(k)))
+  (the reference ``SphereConv``'s own)."""
   for m in module.modules():
     if isinstance(m, (nn.Conv2d, Conv3dWeight)):
       w = m.weight
       n = math.prod(w.shape[2:]) * w.shape[0]
       w.copy_(torch.empty(w.shape).normal_(0, math.sqrt(2.0 / n),
                                            generator=generator))
-    elif isinstance(m, ConvTranspose3dWeight):
+    elif isinstance(m, (ConvTranspose3dWeight, SphereConv)):
+      # fan: C_out * prod(k) for the transpose conv's (I, O, *k) layout,
+      # C_in * prod(k) for the sphere conv's (O, I, *k)
       w = m.weight
       bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
       w.copy_(torch.empty(w.shape).uniform_(-bound, bound,

@@ -1,13 +1,21 @@
 """MODE stage 1: omnidirectional stereo matching, eval forward
 (``mode_tpu/models/disparity.py``).
 
-PSMNet feature extraction, the concat-shift cost volume, three stacked 3-D
-hourglasses with additive deep supervision, and the fused regression head
-(trilinear upsample, softmax, soft-argmin, confidence). Images are NHWC,
-cost volumes NDHWC, outputs ``(B, H, W)``, as in the JAX package. The 3-D
-stack and the head run the CUDA kernels of ``ops/conv3d.py`` and
-``ops/regression.py``; the feature extractor's 2-D convs run ``F.conv2d``,
-as the JAX package leaves them to XLA at batch 1.
+A shared feature extractor (the sphere one of ``conv="Sphere"``, the
+default, or PSMNet's of ``conv="Regular"``), the concat-shift cost volume,
+three stacked 3-D hourglasses with additive deep supervision, and the fused
+regression head (trilinear upsample, softmax, soft-argmin, confidence).
+Images are NHWC, cost volumes NDHWC, outputs ``(B, H, W)``, as in the JAX
+package. The 3-D stack and the head run the CUDA kernels of
+``ops/conv3d.py`` and ``ops/regression.py``, the sphere convs that of
+``ops/sphere_conv.py``.
+
+The feature extractors' 2-D convs run the fused kernel of ``ops/conv2d.py``
+exactly where the JAX package runs its 2-D band kernels at the same batch:
+at batch 1, the Sphere stem's ``firstconv.2`` and ``.4``
+(``conv2d_band_pallas``); at batch >= 2, every stride-1 3x3 conv of either
+feature extractor (``conv2d_band_bpack``). The others run ``F.conv2d``, as
+the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -17,20 +25,73 @@ from torch import nn
 
 from mode_tpu_torch.device import resolve_device
 from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
-                                          ConvBn3d, DeconvBn3d, convbn,
-                                          init_weights)
+                                          ConvBn3d, DeconvBn3d,
+                                          RegularBasicBlock, SphereBasicBlock,
+                                          convbn, init_weights)
 from mode_tpu_torch.ops.cost_volume import build_cost_volume
 from mode_tpu_torch.ops.regression import fused_disparity_regression
 from mode_tpu_torch.ops.resize import interpolate
 
 
-def _stage(cin: int, cout: int, blocks: int, stride: int,
+def _stage(block, cin: int, cout: int, blocks: int, stride: int,
            dilation: int) -> nn.Sequential:
-  layers = [BasicBlockNoRelu(cin, cout, stride, 1, dilation,
-                             has_downsample=(stride != 1 or cin != cout))]
-  layers += [BasicBlockNoRelu(cout, cout, 1, 1, dilation)
-             for _ in range(1, blocks)]
+  layers = [block(cin, cout, stride, 1, dilation,
+                  has_downsample=(stride != 1 or cin != cout))]
+  layers += [block(cout, cout, 1, 1, dilation) for _ in range(1, blocks)]
   return nn.Sequential(*layers)
+
+
+def _run(stage: nn.Sequential, x: torch.Tensor, **kw) -> torch.Tensor:
+  for block in stage:
+    x = block(x, **kw)
+  return x
+
+
+def _stem(firstconv: nn.Sequential, x: torch.Tensor, fused: bool,
+          plain: bool) -> torch.Tensor:
+  """``firstconv``: a strided conv, then two stride-1 3x3 convs, each with
+  BN and ReLU; ``fused`` runs the latter two through the 2-D kernel."""
+  x = firstconv[0](x, relu=True)
+  x = firstconv[2](x, relu=True, fused=fused, plain=plain)
+  return firstconv[4](x, relu=True, fused=fused, plain=plain)
+
+
+class SphereFeatureExtraction(nn.Module):
+  """The ``conv="Sphere"`` feature extractor, Cassini: a 7x7 stride-2 stem,
+  three regular residual stages (dilation 2 in the third), a stage of 8
+  sphere residual blocks, and ``concat(64 + 64 + 128)`` through ``lastconv``
+  (1x1, 3x3, 1x1, each with BN and ReLU): ``(B, H, W, 3)`` ->
+  ``(B, H/4, W/4, 32)``, H = 2W."""
+
+  def __init__(self):
+    super().__init__()
+    self.firstconv = nn.Sequential(
+        convbn(3, 32, 7, 2, 3, 1), nn.ReLU(),
+        convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
+        convbn(32, 32, 3, 1, 1, 1), nn.ReLU())
+    self.layer1 = _stage(RegularBasicBlock, 32, 64, 3, 1, 1)
+    self.layer2 = _stage(RegularBasicBlock, 64, 64, 8, 2, 1)
+    self.layer3 = _stage(RegularBasicBlock, 64, 64, 4, 1, 2)
+    self.layer4 = nn.Sequential(
+        SphereBasicBlock(64, 128, has_downsample=True),
+        *[SphereBasicBlock(128, 128) for _ in range(7)])
+    self.lastconv = nn.Sequential(
+        convbn(256, 128, 1, 1, 0, 1), nn.ReLU(),
+        convbn(128, 128, 3, 1, 1, 1), nn.ReLU(),
+        convbn(128, 32, 1, 1, 0, 1), nn.ReLU())
+
+  def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    fused = x.shape[0] > 1
+    # the stem's 3x3 convs take the 2-D kernel at every batch (K8 at 1)
+    x = _stem(self.firstconv, x.permute(0, 3, 1, 2), True, plain)
+    x = _run(self.layer1, x, fused=fused, plain=plain)
+    out_raw = _run(self.layer2, x, fused=fused, plain=plain)
+    out_reg = _run(self.layer3, out_raw, fused=fused, plain=plain)
+    out_sph = _run(self.layer4, out_reg, plain=plain)
+    feat = torch.cat([out_raw, out_reg, out_sph], dim=1)
+    feat = self.lastconv[0](feat, relu=True)
+    feat = self.lastconv[2](feat, relu=True, fused=fused, plain=plain)
+    return self.lastconv[4](feat, relu=True).permute(0, 2, 3, 1)
 
 
 class PSMNetFeatureExtraction(nn.Module):
@@ -43,27 +104,30 @@ class PSMNetFeatureExtraction(nn.Module):
         convbn(3, 32, 3, 2, 1, 1), nn.ReLU(),
         convbn(32, 32, 3, 1, 1, 1), nn.ReLU(),
         convbn(32, 32, 3, 1, 1, 1), nn.ReLU())
-    self.layer1 = _stage(32, 32, 3, 1, 1)
-    self.layer2 = _stage(32, 64, 16, 2, 1)
-    self.layer3 = _stage(64, 128, 3, 1, 1)
-    self.layer4 = _stage(128, 128, 3, 1, 2)
+    self.layer1 = _stage(BasicBlockNoRelu, 32, 32, 3, 1, 1)
+    self.layer2 = _stage(BasicBlockNoRelu, 32, 64, 16, 2, 1)
+    self.layer3 = _stage(BasicBlockNoRelu, 64, 128, 3, 1, 1)
+    self.layer4 = _stage(BasicBlockNoRelu, 128, 128, 3, 1, 2)
     for i, pool in enumerate((64, 32, 16, 8)):
       self.add_module(f"branch{i + 1}", nn.Sequential(
           nn.AvgPool2d(pool, pool), convbn(128, 32, 1, 1, 0, 1), nn.ReLU()))
     self.lastconv = nn.Sequential(convbn(320, 128, 3, 1, 1, 1), nn.ReLU(),
                                   nn.Conv2d(128, 32, 1, bias=False))
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    x = self.firstconv(x.permute(0, 3, 1, 2))   # NCHW view of NHWC memory
-    x = self.layer1(x)
-    out_raw = self.layer2(x)
-    out_skip = self.layer4(self.layer3(out_raw))
+  def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    fused = x.shape[0] > 1
+    x = _stem(self.firstconv, x.permute(0, 3, 1, 2), fused, plain)
+    x = _run(self.layer1, x, fused=fused, plain=plain)
+    out_raw = _run(self.layer2, x, fused=fused, plain=plain)
+    out_skip = _run(self.layer3, out_raw, fused=fused, plain=plain)
+    out_skip = _run(self.layer4, out_skip, fused=fused, plain=plain)
     h, w = out_skip.shape[2:]
     branches = [interpolate(branch(out_skip), {2: h, 3: w})
                 for branch in (self.branch4, self.branch3, self.branch2,
                                self.branch1)]
     feat = torch.cat([out_raw, out_skip, *branches], dim=1)
-    return self.lastconv(feat).permute(0, 2, 3, 1)
+    feat = self.lastconv[0](feat, relu=True, fused=fused, plain=plain)
+    return self.lastconv[2](feat).permute(0, 2, 3, 1)
 
 
 class Hourglass(nn.Module):
@@ -92,31 +156,37 @@ class Hourglass(nn.Module):
 class ModeDisparity(nn.Module):
   """Stage-1 network, eval only: ``forward(left, right)`` with NHWC images
   returns ``pred``, or ``(pred, conf)`` when ``out_conf``, each
-  ``(B, H, W)`` f32.
+  ``(B, H, W)`` f32, at any batch.
 
-  This slice of the port runs ``conv="Regular"`` (the PSMNet feature
-  extractor). The weights are drawn from ``generator`` (seed 0 if None) as
-  the reference initialises them; load trained ones with
-  ``load_state_dict`` (reference torch keys, see ``utils/convert.py``).
-  ``device`` defaults to the CUDA card and raises without one; pass
-  ``"cpu"`` to run the plain PyTorch path on the CPU.
+  ``conv="Sphere"`` (the default) builds the sphere feature extractor on
+  Cassini panoramas (H = 2W); ``sphere_type="ERP"`` raises, it comes with a
+  later slice. ``conv="Regular"`` builds PSMNet's. The weights are drawn
+  from ``generator`` (seed 0 if None) as the reference initialises them;
+  load trained ones with ``load_state_dict`` (reference torch keys, see
+  ``utils/convert.py``). ``device`` defaults to the CUDA card and raises
+  without one; pass ``"cpu"`` to run the plain PyTorch path on the CPU.
   """
 
   def __init__(self, maxdisp: int = 192, conv: str = "Sphere",
-               out_conf: bool = False, *,
+               sphere_type: str = "Cassini", out_conf: bool = False, *,
                device: str | torch.device | None = None,
                generator: torch.Generator | None = None):
     super().__init__()
     if conv == "Sphere":
-      raise NotImplementedError(
-          "conv='Sphere' comes with the next slice of the port (the sphere "
-          "feature extractor: the sphere conv and the 2-D band conv "
-          "kernels); this slice runs conv='Regular'")
-    if conv != "Regular":
+      if sphere_type == "ERP":
+        raise NotImplementedError(
+            "sphere_type='ERP' comes with the ERP slice of the port (the ERP "
+            "sphere conv kernel, K10); this slice runs 'Cassini'")
+      if sphere_type != "Cassini":
+        raise ValueError(f"unknown sphere_type {sphere_type!r}")
+      fe = SphereFeatureExtraction()
+    elif conv == "Regular":
+      fe = PSMNetFeatureExtraction()
+    else:
       raise NotImplementedError("Convolution Type must be Regular or Sphere!")
     self.maxdisp = maxdisp
     self.out_conf = out_conf
-    self.feature_extraction = PSMNetFeatureExtraction()
+    self.feature_extraction = fe
     self.dres0 = nn.Sequential(ConvBn3d(64, 32), nn.ReLU(),
                                ConvBn3d(32, 32), nn.ReLU())
     self.dres1 = nn.Sequential(ConvBn3d(32, 32), nn.ReLU(),
@@ -149,14 +219,9 @@ class ModeDisparity(nn.Module):
     if left.device != self.device or right.device != self.device:
       raise ValueError(f"inputs on {left.device}/{right.device}, model on "
                        f"{self.device}")
-    if left.device.type == "cuda" and left.shape[0] != 1:
-      raise NotImplementedError(
-          "batch > 1 on CUDA: the JAX package runs the feature extractor's "
-          "3x3 convs through the batch-packed 2-D band kernel there "
-          "(conv2d_band_bpack), which this slice of the port does not have")
     h, w = left.shape[1:3]
-    cost = build_cost_volume(self.feature_extraction(left),
-                             self.feature_extraction(right),
+    cost = build_cost_volume(self.feature_extraction(left, plain=plain),
+                             self.feature_extraction(right, plain=plain),
                              self.maxdisp // 4)
 
     cost0 = self.dres0[0](cost, relu=True, plain=plain)

@@ -1,0 +1,123 @@
+"""Stride-1 3x3 2-D convolution with a fused epilogue, on NHWC maps.
+
+:func:`conv2d_s1_bn_act` computes ``act(conv2d(x, w) * scale + bias (+
+residual))`` with padding = dilation (1 or 2), where ``scale``/``bias`` are
+the folded eval-BatchNorm affine (f32) and ``act`` an optional ReLU, and
+returns ``x.dtype``. It replaces ``mode_tpu/ops/pallas/conv2d_kernel.py:
+conv2d_band_pallas`` (K8) and ``conv2d_band_bpack`` (K9): on the card the
+batch is part of the GEMM's M, so one kernel takes both.
+
+On a CUDA tensor it launches the kernel of ``kernels/csrc/conv2d.cu`` (its
+source note says what bounds it and how it is built), or raises on an input
+the kernel does not take. On a CPU tensor, or when the caller passes
+``plain=True``, it runs the plain PyTorch version: ``F.conv2d`` in f32 and
+the same epilogue.
+
+The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's ``(9, Cin,
+Cout)`` layout from :func:`pack_weight`, which saves the per-call repack
+where a layer keeps it (``models/blocks.py`` does).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from mode_tpu_torch.kernels import LAUNCHES
+from mode_tpu_torch.kernels import build
+from mode_tpu_torch.ops.epilogue import affine, epilogue
+
+_NAME = "conv2d_s1_bn_act"
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.cache
+def _conv2d_lib():
+  lib = build.load("conv2d")
+  lib.conv2d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+  lib.conv2d_s1_bn_act.restype = ctypes.c_int
+  return lib
+
+
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+  """``(9, Cin, Cout)``, taps row-major over (kh, kw), from a torch
+  ``(Cout, Cin, 3, 3)`` weight."""
+  if weight.dim() != 4 or weight.shape[2:] != (3, 3):
+    raise ValueError(f"expected a 3x3 torch weight, got "
+                     f"{tuple(weight.shape)}")
+  return weight.permute(2, 3, 1, 0).reshape(9, weight.shape[1],
+                                            weight.shape[0]).contiguous()
+
+
+def _plain(x, weight, scale, bias, residual, relu, dilation):
+  if weight.dim() == 3:            # (9, Cin, Cout) -> (Cout, Cin, 3, 3)
+    weight = weight.reshape(3, 3, *weight.shape[1:]).permute(3, 2, 0, 1)
+  y = F.conv2d(x.float().permute(0, 3, 1, 2), weight.float(),
+               padding=dilation, dilation=dilation)
+  return epilogue(y.permute(0, 2, 3, 1), scale, bias, residual, relu,
+                  x.dtype)
+
+
+def _launch(x, weight, scale, bias, residual, relu, dilation):
+  if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
+    raise ValueError(f"{_NAME}: x must be a contiguous f32 or bf16 NHWC "
+                     f"map, got {tuple(x.shape)} {x.dtype}")
+  n, h, w, cin = x.shape
+  wk = weight if weight.dim() == 3 else pack_weight(weight)
+  if (wk.shape[:2] != (9, cin) or wk.dtype != x.dtype
+      or wk.device != x.device or not wk.is_contiguous()):
+    raise ValueError(f"{_NAME}: weight {tuple(weight.shape)} {weight.dtype} "
+                     f"does not match x {tuple(x.shape)} {x.dtype}")
+  cout = wk.shape[2]
+  shape = (n, h, w, cout)
+  if residual is not None and (tuple(residual.shape) != shape
+                               or residual.dtype != x.dtype
+                               or residual.device != x.device
+                               or not residual.is_contiguous()):
+    raise ValueError(f"{_NAME}: residual must be a contiguous {x.dtype} "
+                     f"tensor of shape {shape}")
+  out = torch.empty(shape, dtype=x.dtype, device=x.device)
+  err = _conv2d_lib().conv2d_s1_bn_act(
+      int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
+      scale.data_ptr(), bias.data_ptr(),
+      None if residual is None else residual.data_ptr(), out.data_ptr(),
+      n, h, w, cin, cout, dilation, int(relu),
+      torch.cuda.current_stream(x.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"{_NAME}: kernel launch failed with CUDA error {err}")
+  LAUNCHES[_NAME] += 1
+  return out
+
+
+def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
+                     scale: torch.Tensor | None = None,
+                     bias: torch.Tensor | None = None,
+                     residual: torch.Tensor | None = None,
+                     relu: bool = False, dilation: int = 1, *,
+                     plain: bool = False) -> torch.Tensor:
+  """Stride-1 3x3 conv, padding = dilation, + affine (+ residual) (+ ReLU).
+
+  Args:
+    x: ``(N, H, W, Cin)`` f32 or bf16, contiguous.
+    weight: torch ``(Cout, Cin, 3, 3)``, or its :func:`pack_weight` layout
+      ``(9, Cin, Cout)``; same dtype as ``x``.
+    scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
+    residual: optional ``(N, H, W, Cout)`` added before the ReLU.
+    dilation: 1 or 2; the padding equals it, so the map keeps its size.
+    plain: run the plain PyTorch version even on a CUDA tensor.
+  Returns:
+    ``(N, H, W, Cout)`` in ``x.dtype``.
+  """
+  if dilation not in (1, 2):
+    raise ValueError(f"{_NAME}: dilation must be 1 or 2, got {dilation}")
+  cout = weight.shape[2] if weight.dim() == 3 else weight.shape[0]
+  scale, bias = affine(scale, bias, cout, x.device)
+  if plain or x.device.type == "cpu":
+    return _plain(x, weight, scale, bias, residual, relu, dilation)
+  if x.device.type != "cuda":
+    raise ValueError(f"{_NAME}: unsupported device {x.device}")
+  return _launch(x, weight, scale, bias, residual, relu, dilation)

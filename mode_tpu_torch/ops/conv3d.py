@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from mode_tpu_torch.kernels import LAUNCHES
 from mode_tpu_torch.kernels import build
+from mode_tpu_torch.ops.epilogue import affine, epilogue
 
 _S1, _S2, _DECONV = 0, 1, 2
 _NAMES = {_S1: "conv3d_s1_bn_act", _S2: "conv3d_s2_bn_act",
@@ -82,17 +83,6 @@ def _out_shape(mode: int, x_shape, cout: int) -> tuple[int, ...]:
   return (b, 2 * d, 2 * h, 2 * w, cout)
 
 
-def _affine(scale, bias, cout, device):
-  scale = (torch.ones(cout, device=device) if scale is None
-           else scale.to(device=device, dtype=torch.float32))
-  bias = (torch.zeros(cout, device=device) if bias is None
-          else bias.to(device=device, dtype=torch.float32))
-  if scale.shape != (cout,) or bias.shape != (cout,):
-    raise ValueError(f"scale and bias must be ({cout},), got "
-                     f"{tuple(scale.shape)} and {tuple(bias.shape)}")
-  return scale.contiguous(), bias.contiguous()
-
-
 def _plain(mode, x, weight, scale, bias, residual, relu):
   """The same function in plain PyTorch, in f32, cast to ``x.dtype``."""
   xc = x.float().permute(0, 4, 1, 2, 3)
@@ -103,12 +93,8 @@ def _plain(mode, x, weight, scale, bias, residual, relu):
   else:
     y = F.conv3d(xc, weight.float(), stride=1 if mode == _S1 else 2,
                  padding=1)
-  y = y.permute(0, 2, 3, 4, 1) * scale + bias
-  if residual is not None:
-    y = y + residual.float()
-  if relu:
-    y = torch.relu(y)
-  return y.to(x.dtype).contiguous()
+  return epilogue(y.permute(0, 2, 3, 4, 1), scale, bias, residual, relu,
+                  x.dtype)
 
 
 def _launch(mode, x, weight, scale, bias, residual, relu):
@@ -150,7 +136,7 @@ def _run(mode, x, weight, scale, bias, residual, relu, plain):
     cout = weight.shape[2]
   else:
     cout = weight.shape[1] if mode == _DECONV else weight.shape[0]
-  scale, bias = _affine(scale, bias, cout, x.device)
+  scale, bias = affine(scale, bias, cout, x.device)
   if plain or x.device.type == "cpu":
     return _plain(mode, x, weight, scale, bias, residual, relu)
   if x.device.type != "cuda":

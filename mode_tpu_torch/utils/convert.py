@@ -6,11 +6,14 @@ JAX package names its Flax children with the same path segments
 (``mode_tpu/models/blocks.py``). So :func:`params_from_jax` is the inverse of
 ``mode_tpu/utils/torch_convert.py:convert_state_dict``: join the Flax path
 with dots, rename the leaf, and permute conv-like arrays back to torch's
-layout. Its result loads with ``load_state_dict(strict=True)``.
+layout (the sphere convs' HWIO ``kernel`` included). Its result loads with
+``load_state_dict(strict=True)``. :func:`load_npz` loads the repo's
+reference-layout ``.npz`` weights (``tests/data/trained_mirror*.npz``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -74,3 +77,16 @@ def unwrap_checkpoint(obj: Mapping[str, Any]) -> dict[str, Any]:
   if "state_dict" in obj and not any(k.endswith("weight") for k in obj):
     obj = obj["state_dict"]
   return strip_module_prefix(obj)
+
+
+def load_npz(model: torch.nn.Module, path: str | os.PathLike
+             ) -> torch.nn.Module:
+  """Load a reference-layout ``.npz`` state_dict (torch keys; float16
+  arrays widened to float32) into ``model`` with ``strict=True``; returns
+  ``model``."""
+  with np.load(path) as z:
+    state = {k: torch.from_numpy(z[k].astype(np.float32)
+                                 if z[k].dtype == np.float16 else z[k])
+             for k in z.files}
+  model.load_state_dict(state, strict=True)
+  return model

@@ -19,41 +19,10 @@ from mode_tpu.ops.pallas import conv3d_kernel as ck
 from mode_tpu.utils.torch_convert import convert_state_dict
 from mode_tpu_torch.models import blocks as tblocks
 from mode_tpu_torch.models import disparity as tdisp
-from mode_tpu_torch.utils.convert import params_from_jax, unwrap_checkpoint
+from mode_tpu_torch.utils.convert import unwrap_checkpoint
+from tests.port_weights import carry, numpy_variables
 
 torch.set_num_threads(2)
-
-
-def _numpy_variables(shapes, seed, head_scale=1.0):
-  """Values for every leaf of an ``eval_shape``'d variables tree: convs
-  ~ N(0, sqrt(2 / (prod(k) * C_out))) (times ``head_scale`` for the
-  1-channel classifier heads), transpose convs ~ U(+-1/sqrt(fan)), BN
-  scale/var ~ U(0.8, 1.2), bias/mean ~ N(0, 0.05)."""
-  rng = np.random.default_rng(seed)
-
-  def leaf(path, s):
-    name = path[-1].key
-    if name == "kernel":
-      std = np.sqrt(2.0 / (np.prod(s.shape[:-2]) * s.shape[-1]))
-      if s.shape[-1] == 1:
-        std *= head_scale
-      v = rng.normal(size=s.shape) * std
-    elif name == "kernel_t":
-      bound = 1.0 / np.sqrt(s.shape[-2] * np.prod(s.shape[:-2]))
-      v = rng.uniform(-bound, bound, size=s.shape)
-    elif name in ("scale", "var"):
-      v = rng.uniform(0.8, 1.2, size=s.shape)
-    else:
-      v = rng.normal(size=s.shape) * 0.05
-    return v.astype(np.float32)
-
-  return jax.tree_util.tree_map_with_path(leaf, shapes)
-
-
-def _carry(module: torch.nn.Module, variables) -> torch.nn.Module:
-  module.load_state_dict(params_from_jax(jax.tree_util.tree_map(
-      np.asarray, variables)), strict=True)
-  return module.eval()
 
 
 @pytest.mark.parametrize("cin,cout,stride,dilation", [
@@ -67,10 +36,10 @@ def test_basic_block_no_relu_matches_flax(cin, cout, stride, dilation):
                                    dilation=dilation, has_downsample=True)
   shapes = jax.eval_shape(lambda: block.init(jax.random.PRNGKey(0),
                                              jnp.asarray(x), False))
-  variables = _numpy_variables(shapes, 1)
+  variables = numpy_variables(shapes, 1)
   want = block.apply(variables, jnp.asarray(x), False)
-  port = _carry(tblocks.BasicBlockNoRelu(cin, cout, stride, 1, dilation,
-                                         has_downsample=True), variables)
+  port = carry(tblocks.BasicBlockNoRelu(cin, cout, stride, 1, dilation,
+                                        has_downsample=True), variables)
   with torch.no_grad():
     got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -88,9 +57,9 @@ def test_hourglass_matches_flax(with_skips):
   shapes = jax.eval_shape(lambda: hg.init(jax.random.PRNGKey(0),
                                           jnp.asarray(x), jskip, jskip,
                                           False))
-  variables = _numpy_variables(shapes, 3)
+  variables = numpy_variables(shapes, 3)
   want = hg.apply(variables, jnp.asarray(x), jskip, jskip, False)
-  port = _carry(tdisp.Hourglass(8), variables)
+  port = carry(tdisp.Hourglass(8), variables)
   tskip = None if skip is None else torch.from_numpy(skip)
   with torch.no_grad():
     got = port(torch.from_numpy(x), tskip, tskip)
@@ -147,9 +116,9 @@ def slice_pair():
   # the activations to ~1e7 (nothing calibrates the BN statistics); the
   # heads are scaled down so the logits spread over a few units and the
   # softmax stays soft, as a trained net's does
-  variables = _numpy_variables(shapes, 5, head_scale=1e-6)
+  variables = numpy_variables(shapes, 5, head_scale=1e-6)
   port = tdisp.ModeDisparity(maxdisp, "Regular", out_conf=True, device="cpu")
-  _carry(port, variables)
+  carry(port, variables)
   return jmodel, variables, port, left, right
 
 

@@ -60,6 +60,8 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu(monkeypatch):
   from mode_tpu_torch.models.disparity import ModeDisparity
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   with pytest.raises(RuntimeError, match="no CUDA device"):
+    ModeDisparity()                       # the default: conv="Sphere"
+  with pytest.raises(RuntimeError, match="no CUDA device"):
     ModeDisparity(32, "Regular", out_conf=True)
   with pytest.raises(RuntimeError):
     resolve_device("cuda")
@@ -67,6 +69,11 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_sphere_feature_extractor_is_the_next_slice():
-  from mode_tpu_torch.models.disparity import ModeDisparity
-  with pytest.raises(NotImplementedError, match="next slice"):
-    ModeDisparity(32, "Sphere", device="cpu")
+  """The Cassini sphere feature extractor is ported; the ERP one comes with
+  a later slice and raises until then."""
+  from mode_tpu_torch.models.disparity import (ModeDisparity,
+                                               SphereFeatureExtraction)
+  model = ModeDisparity(32, device="cpu")
+  assert isinstance(model.feature_extraction, SphereFeatureExtraction)
+  with pytest.raises(NotImplementedError, match="ERP slice"):
+    ModeDisparity(32, "Sphere", "ERP", device="cpu")
