@@ -19,16 +19,30 @@
    before and read just after, checks that every kernel of the path ran, at
    the recorded count, and runs one call again through the plain versions
    and compares; the output must not be degenerate.
-3. Kernel phase: calls each kernel's wrapper at every shape the paths gave
-   it (the recorded calls) and the regression shapes, in f32 and bf16,
-   holds the result against the kernel's plain PyTorch version on the same
-   inputs, and times the kernel, the plain version and one PyTorch library
-   call of the same function where there is one.
-4. Full-resolution anchor: the trained reference weights
+3. ``train_b2``: the stage-1 training step (``mode_tpu_torch.training``) of
+   the same model, seeded weights, at batch 2 on a seeded uint8 pair and
+   ground truth with a NaN patch. Step 1 runs through the kernels (and
+   records every kernel call, forward and backward) and again through the
+   plain versions from an identical copy: the loss and every gradient are
+   held against the plain step's, the gradients within a bar that adds the
+   gradient's own spread under f32-level input jitter. Three more steps
+   are timed with the launch counts set to 0 before and read after; they
+   must launch every kernel of the path at the JAX path's counts and lower
+   the loss. One more step runs under ``torch.profiler`` for the time
+   breakdown. The trained weights then take one step through the kernels
+   and one through the plain versions on the anchor's textured pair, held
+   the same way (``train_anchor``).
+4. Kernel phase: calls each kernel's wrapper at every shape the paths gave
+   it (the recorded calls; the training step adds the grad-input shapes and
+   the sphere conv's two backward kernels) and the regression shapes, in
+   f32 and bf16, holds the result against the kernel's plain PyTorch
+   version on the same inputs, and times the kernel, the plain version and
+   one PyTorch library call of the same function where there is one.
+5. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
    against the frame's committed (pred, conf).
-5. Prints a ``{"kernels": [...]}`` line, then as the last line
+6. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, when there is no card or when any
@@ -37,6 +51,8 @@ check fails. Needs one card, the CUDA toolkit (``nvcc``) and no network.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import inspect
 import json
 import re
@@ -57,6 +73,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CONV_PY = "mode_tpu/ops/pallas/conv3d_kernel.py"
 CONV2D_PY = "mode_tpu/ops/pallas/conv2d_kernel.py"
+SPHERE_PY = "mode_tpu/ops/pallas/sphere_conv_kernel.py"
 # kernel: (source, the TPU kernels it replaces as file:line)
 KERNELS = {
     "conv3d_s1_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d.cu",
@@ -73,13 +90,21 @@ KERNELS = {
         ("mode_tpu/ops/pallas/sphere_conv_kernel.py:272",)),
     "conv2d_s1_bn_act": ("mode_tpu_torch/kernels/csrc/conv2d.cu",
                          (f"{CONV2D_PY}:162", f"{CONV2D_PY}:346")),
+    "sphere_conv_bwd_input": (
+        "mode_tpu_torch/kernels/csrc/sphere_conv_bwd.cu",
+        (f"{SPHERE_PY}:572", f"{SPHERE_PY}:514")),
+    "sphere_conv_bwd_weight": (
+        "mode_tpu_torch/kernels/csrc/sphere_conv_bwd.cu",
+        (f"{SPHERE_PY}:572", f"{SPHERE_PY}:559")),
 }
+SPHERE_BWD = ("sphere_conv_bwd_input", "sphere_conv_bwd_weight")
 # The TPU kernel (ROADMAP's numbering) each kernel took over; the hourglass
 # layers at the 1/16 level, which the TPU ran M*L-folded; and the 2-D band
 # kernel, per-image at batch 1 and batch-packed above.
 TPU_KERNEL = {"conv3d_s1_bn_act": "K1", "conv3d_s2_bn_act": "K4",
               "deconv3d_bn_act": "K5", "fused_disparity_regression": "K2",
-              "sphere_conv_bn_act": "K3"}
+              "sphere_conv_bn_act": "K3", "sphere_conv_bwd_input": "K3b",
+              "sphere_conv_bwd_weight": "K3b"}
 TPU_FOLDED = {"conv4": "K6", "conv5": "K7"}
 H, W, MAXDISP = 1024, 512, 192
 # path: (conv, pairs per call, calls served, the JAX path's launches per
@@ -94,8 +119,37 @@ PATHS = {
     "sphere_b6": ("Sphere", 6, 2, {**JAX_3D, "sphere_conv_bn_act": "K3 32",
                                    "conv2d_s1_bn_act": "K9 64"}),
 }
-# the path whose per-pair numbers the kernels line carries
+# the served path whose per-pair numbers the kernels line carries for the
+# kernels that do not train (the regression head)
 MAIN_PATH = "sphere_b1"
+# The training path: the Sphere model, batch 2, f32; steps timed after the
+# first. Its launches per step, by kernel: what the JAX package's Pallas
+# training gates (their TPU memory budgets left out) send to its kernels at
+# this shape, forward + grad-input: the stride-1 conv at the 1/4 (7) and 1/8
+# (3) levels; the stride-2 convs (6) and the deconvs (6), each also the
+# other's grad-input; every stride-1 3x3 FE conv (32 per view); the 16
+# sphere convs per view, forward and both backward kernels.
+TRAIN = "train_b2"
+TRAIN_BATCH, TRAIN_STEPS = 2, 3
+TRAIN_EXPECT = {"conv3d_s1_bn_act": 20, "conv3d_s2_bn_act": 12,
+                "deconv3d_bn_act": 12, "conv2d_s1_bn_act": 128,
+                "sphere_conv_bn_act": 32, "sphere_conv_bwd_input": 32,
+                "sphere_conv_bwd_weight": 32}
+TRAIN_JAX = {"conv3d_s1_bn_act": "K1 10 + 10",
+             "conv3d_s2_bn_act": "K4 6 + 6",
+             "deconv3d_bn_act": "K5 3 + K7 3, + 6",
+             "conv2d_s1_bn_act": "K9 64 + 64", "sphere_conv_bn_act": "K3 32",
+             "sphere_conv_bwd_input": "K3b 32",
+             "sphere_conv_bwd_weight": "K3b 32"}
+# A training step on the card against the same step through the plain
+# versions from the same weights: the loss within LOSS_RTOL; each gradient
+# leaf within GRAD_RTOL of its norm plus twice its spread, the largest
+# distance by which the plain step's gradient moves when the normalised
+# inputs are multiplied by 1 + INPUT_JITTER * N(0, 1) (two draws). With
+# seeded weights the BN-ReLU stack of the feature extractor is chaotic at
+# init: on an H100 that jitter moves the gradients by about 3.6% of their
+# norm, more than the kernels' summation order does.
+LOSS_RTOL, GRAD_RTOL, INPUT_JITTER = 1e-4, 1e-3, 1e-6
 # Spread of the served model's final logits (std over the volume): enough
 # for a softmax that is neither flat nor one-hot
 LOGIT_STD = 4.0
@@ -367,10 +421,14 @@ def _scale_heads(model, raw_std: float) -> None:
       getattr(model, f"classif{i}")[2].weight.mul_(LOGIT_STD / raw_std)
 
 
-def _tpu_kernel(kernel, layers, batch):
-  """The TPU kernel that ran these layers' calls."""
+def _tpu_kernel(case, layers, batch):
+  """The TPU kernel that ran these layers' calls (or, for the training
+  step's calls, would run them)."""
+  kernel, xs = case[:2]
   if kernel == "conv2d_s1_bn_act":
     return "K8" if batch == 1 else "K9"
+  if kernel == "deconv3d_bn_act" and xs[2] % 128 and xs[3] % 128:
+    return "K7"                     # no lane axis: the folded deconv
   folded = {TPU_FOLDED.get(seg) for n in layers for seg in n.split(".")}
   folded.discard(None)
   return folded.pop() if folded else TPU_KERNEL[kernel]
@@ -476,6 +534,307 @@ def _serve_path(label, model, gen, seed_shift):
           "peak_gib": peak_gib, "check": check}
 
 
+@contextlib.contextmanager
+def _recorded_launches():
+  """Record every kernel launch of the op modules while the block runs:
+  ``{(kernel, x shape (NHWC / NDHWC; the sphere conv's backward: the dx
+  shape), Cout, residual, relu, dilation): ["step", ...]}``, one entry per
+  launch, forward and backward alike."""
+  from mode_tpu_torch.ops import conv2d, conv3d, sphere_conv
+  calls = {}
+
+  def note(key):
+    calls.setdefault(key, []).append("step")
+
+  def conv3d_launch(mode, x, weight, scale, bias, residual, relu):
+    out = orig[0](mode, x, weight, scale, bias, residual, relu)
+    note((conv3d._NAMES[mode], tuple(x.shape), out.shape[-1],
+          residual is not None, bool(relu), 1))
+    return out
+
+  def conv2d_launch(x, weight, scale, bias, residual, relu, dilation):
+    out = orig[1](x, weight, scale, bias, residual, relu, dilation)
+    note(("conv2d_s1_bn_act", tuple(x.shape), out.shape[-1],
+          residual is not None, bool(relu), dilation))
+    return out
+
+  def sphere_launch(x, weight, scale, bias, residual, relu):
+    out = orig[2](x, weight, scale, bias, residual, relu)
+    note(("sphere_conv_bn_act", tuple(x.shape), out.shape[-1],
+          residual is not None, bool(relu), 1))
+    return out
+
+  def bwd_input_launch(g, weight):
+    dx = orig[3](g, weight)
+    note(("sphere_conv_bwd_input", tuple(dx.shape), g.shape[-1], False,
+          False, 1))
+    return dx
+
+  def bwd_weight_launch(x, g):
+    dw = orig[4](x, g)
+    note(("sphere_conv_bwd_weight", tuple(x.shape), g.shape[-1], False,
+          False, 1))
+    return dw
+
+  names = ((conv3d, "_launch", conv3d_launch),
+           (conv2d, "_launch", conv2d_launch),
+           (sphere_conv, "_launch", sphere_launch),
+           (sphere_conv, "_launch_bwd_input", bwd_input_launch),
+           (sphere_conv, "_launch_bwd_weight", bwd_weight_launch))
+  orig = [getattr(mod, name) for mod, name, _ in names]
+  for mod, name, fn in names:
+    setattr(mod, name, fn)
+  try:
+    yield calls
+  finally:
+    for (mod, name, _), fn in zip(names, orig):
+      setattr(mod, name, fn)
+
+
+def _train_batch(gen):
+  """A uint8 pair (the right view the left rolled by 24 and 64 columns)
+  and ground truth in [0, MAXDISP) with a NaN patch."""
+  left = torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), generator=gen,
+                       device=DEVICE, dtype=torch.uint8)
+  right = torch.stack([torch.roll(left[b], -d, dims=1)
+                       for b, d in enumerate((24, 64))])
+  gt = torch.rand((TRAIN_BATCH, H, W), generator=gen, device=DEVICE) * MAXDISP
+  gt[:, 300:400, 100:220] = float("nan")
+  return left, right.contiguous(), gt
+
+
+def _grad_check(label, twin, batch, kernel_loss, kernel_grads):
+  """Hold a kernel step's loss and gradients against the plain step of an
+  identical model ``twin``; returns what it saw, fails out of bounds."""
+  from mode_tpu_torch import training
+  left, right, gt = batch
+  lf = training.normalize_rgb_on_device(left)
+  rf = training.normalize_rgb_on_device(right)
+
+  def plain_step(l, r):
+    m = copy.deepcopy(twin)
+    step = training.make_disparity_train_step(
+        m, training.make_optimizer(m.parameters()), plain=True)
+    loss = float(step(l, r, gt))
+    return loss, {n: p.grad for n, p in m.named_parameters()}
+
+  loss, grads = plain_step(lf, rf)
+  spread = dict.fromkeys(grads, 0.0)
+  jgen = torch.Generator(device=DEVICE).manual_seed(7)
+  for _ in range(2):
+    jit = 1 + INPUT_JITTER * torch.randn(lf.shape, generator=jgen,
+                                         device=DEVICE)
+    _, other = plain_step(lf * jit, rf * jit)
+    for n, g in other.items():
+      spread[n] = max(spread[n], float(torch.linalg.vector_norm(g - grads[n])))
+  rows, err2, ref2, spread2 = [], 0.0, 0.0, 0.0
+  for n, g in kernel_grads.items():
+    err = float(torch.linalg.vector_norm(g - grads[n]))
+    norm = float(torch.linalg.vector_norm(grads[n]))
+    err2, ref2, spread2 = err2 + err**2, ref2 + norm**2, spread2 + spread[n]**2
+    rows.append({"leaf": n, "rel": err / norm, "spread_rel": spread[n] / norm,
+                 "ratio": err / (GRAD_RTOL * norm + 2 * spread[n])})
+  worst = max(rows, key=lambda r: r["ratio"])
+  most = max(rows, key=lambda r: r["rel"])
+  check = {"loss": kernel_loss, "plain_loss": loss,
+           "loss_rel": abs(kernel_loss - loss) / abs(loss),
+           "grad_rel_global": (err2 / ref2) ** 0.5,
+           "grad_spread_global": (spread2 / ref2) ** 0.5,
+           "grad_rel_median": statistics.median(r["rel"] for r in rows),
+           "worst_leaf": worst, "largest_rel_leaf": most}
+  print(f"{label} step vs plain step (f32): loss {kernel_loss:.7g} vs "
+        f"{loss:.7g} (rel {check['loss_rel']:.3g}, bar {LOSS_RTOL}); "
+        f"gradients: global rel {check['grad_rel_global']:.3g} (the plain "
+        f"step's spread under {INPUT_JITTER} input jitter "
+        f"{check['grad_spread_global']:.3g}), median leaf "
+        f"{check['grad_rel_median']:.3g}; worst leaf against its bar "
+        f"{worst['leaf']}: rel {worst['rel']:.3g}, spread "
+        f"{worst['spread_rel']:.3g}, ratio {worst['ratio']:.3g} (bar 1); "
+        f"largest rel {most['leaf']} {most['rel']:.3g}", flush=True)
+  if check["loss_rel"] > LOSS_RTOL or worst["ratio"] > 1:
+    _fail(f"{label}: the training step disagrees with its plain step")
+  return check
+
+
+def _profile_step(step, batch):
+  """One step under torch.profiler: device time by kind of kernel (ms) and
+  the host time of the step."""
+  from torch.profiler import ProfilerActivity, profile
+  kinds = (("port: sphere conv backward", ("bwd_input_kernel",
+                                           "bwd_weight_kernel",
+                                           "reduce_splits_kernel")),
+           ("port: sphere conv forward", ("sphere_conv_kernel",)),
+           ("port: 3-D convs", ("conv3d_bn_act_kernel",)),
+           ("port: 2-D convs", ("conv2d_kernel",)),
+           ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                          "welford")),
+           ("library convs (cuDNN: grad-weight, other convs)",
+            ("cudnn", "fprop", "dgrad", "wgrad", "conv", "implicit")),
+           ("matmul (the heads' upsample)", ("gemm", "gemv", "cutlass")),
+           ("Adam", ("adam", "multi_tensor")))
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    step(*batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+  other = "other (elementwise, copies, reductions)"
+  by_kind = {name: 0.0 for name, _ in kinds}
+  by_kind[other] = 0.0
+  by_name = {}
+  for e in prof.key_averages():
+    if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+      continue
+    ms = getattr(e, "self_device_time_total",
+                 getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    key = e.key.lower()
+    kind = next((name for name, subs in kinds
+                 if any(sub in key for sub in subs)), other)
+    by_kind[kind] += ms
+    by_name[e.key[:90]] = (by_name.get(e.key[:90], (0.0, 0))[0] + ms,
+                           e.count)
+  device_ms = sum(by_kind.values())
+  top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+  return {"host_ms": host_ms, "device_ms": device_ms,
+          "idle_share": (1 - device_ms / host_ms) if device_ms else None,
+          "by_kind_ms": by_kind,
+          "top_kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top}}
+
+
+def _train_path(gen):
+  """Drive the training step: step 1 recorded and checked, three timed,
+  one profiled."""
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  model = ModeDisparity(MAXDISP, device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+  twin = copy.deepcopy(model)
+  batch = _train_batch(gen)
+  step = training.make_disparity_train_step(
+      model, training.make_optimizer(model.parameters()))
+  kernels.reset_launches()
+  with _recorded_launches() as calls:
+    t = time.perf_counter()
+    losses = [float(step(*batch))]
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+  first = dict(kernels.LAUNCHES)
+  check = _grad_check(TRAIN, twin, batch, losses[0],
+                      {n: p.grad.clone() for n, p in model.named_parameters()})
+  del twin
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launches()
+  step_ms = []
+  for _ in range(TRAIN_STEPS):
+    t = time.perf_counter()
+    losses.append(float(step(*batch)))
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t) * 1e3)
+  launches = dict(kernels.LAUNCHES)
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in KERNELS}
+  ms = statistics.median(step_ms[-2:])
+  print(f"{TRAIN}: Sphere, f32, ({TRAIN_BATCH}, {H}, {W}, 3) uint8 pair, "
+        f"maxdisp {MAXDISP}, seeded weights; step 1 {first_ms:.2f} ms, "
+        f"steps 2-{TRAIN_STEPS + 1} " + ", ".join(f"{t:.2f}" for t in step_ms)
+        + f" ms: {ms:.2f} ms/step (median of the last two), "
+        f"{ms / TRAIN_BATCH:.2f} ms/example, peak memory {peak_gib:.2f} GiB; "
+        "loss " + " -> ".join(f"{x:.5g}" for x in losses), flush=True)
+  print(f"{TRAIN} launches per step: " + json.dumps(per_step)
+        + " (JAX path: " + ", ".join(TRAIN_JAX.values()) + ")", flush=True)
+  for name in set(TRAIN_EXPECT) | set(launches) | set(first):
+    want = TRAIN_EXPECT.get(name, 0)
+    if first.get(name, 0) != want or launches.get(name, 0) != want * TRAIN_STEPS:
+      _fail(f"{TRAIN}: {name} launched {first.get(name, 0)} times in step 1 "
+            f"and {launches.get(name, 0)} in {TRAIN_STEPS} steps, expected "
+            f"{want} per step")
+  if not losses[-1] < losses[0]:
+    _fail(f"{TRAIN}: the loss did not fall over {TRAIN_STEPS + 1} steps")
+  prof = _profile_step(step, batch)
+  print(f"{TRAIN} profiled step: host {prof['host_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.2f} ms; by kind (ms): "
+        + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
+        + "; top kernels (ms, launches): " + json.dumps(prof["top_kernels_ms"]),
+        flush=True)
+  return {"calls": calls, "batch": TRAIN_BATCH, "ncalls": TRAIN_STEPS,
+          "launches": launches, "call_ms": step_ms, "first_ms": first_ms,
+          "peak_gib": peak_gib, "losses": losses, "profile": prof,
+          "check": check}
+
+
+def _train_anchor():
+  """The trained weights take one step through the kernels and one through
+  the plain versions, on the anchor's textured pair (disparity d; a NaN
+  patch in the ground truth): where the gradient is well conditioned."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.utils.convert import load_npz
+  with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
+    seed, disp = int(z["seed"]), int(z["disp"])
+  lefts, rights = zip(*(_make_anchor_batch(seed + b, disp, H, W)
+                        for b in range(TRAIN_BATCH)))
+  left = torch.cat(lefts).permute(0, 2, 3, 1).contiguous().to(DEVICE)
+  right = torch.cat(rights).permute(0, 2, 3, 1).contiguous().to(DEVICE)
+  gt = torch.full((TRAIN_BATCH, H, W), float(disp), device=DEVICE)
+  gt[:, 300:400, 100:220] = float("nan")
+  model = load_npz(ModeDisparity(MAXDISP, device=DEVICE),
+                   ROOT / "tests/data/trained_mirror_mid.npz")
+  twin = copy.deepcopy(model)
+  step = training.make_disparity_train_step(
+      model, training.make_optimizer(model.parameters()))
+  loss = float(step(left, right, gt))
+  return _grad_check("train_anchor (trained weights)", twin,
+                     (left, right, gt), loss,
+                     {n: p.grad for n, p in model.named_parameters()})
+
+
+def _sphere_bwd_case(case, dtype, gen):
+  """Compare and time one of the sphere conv's backward kernels at a
+  recorded shape; returns the row it prints."""
+  from mode_tpu_torch.ops import conv2d, sphere_conv
+  name, xs, cout = case[:3]
+  dev = torch.device(DEVICE)
+  n, h, w, cin = xs
+  x = (torch.randn(xs, generator=gen, device=dev) * 0.5).to(dtype)
+  g = (torch.randn((n, h, w, cout), generator=gen, device=dev)
+       * 0.5).to(dtype)
+  wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+        * (2.0 / (9 * cout)) ** 0.5).to(dtype)
+  packed = conv2d.pack_weight(wt)
+  m = n * h * w
+  if name == "sphere_conv_bwd_input":
+    def run(plain):
+      return sphere_conv.sphere_conv_bwd_input(g, wt if plain else packed,
+                                               plain=plain)
+    # the blend of g's channels: 4 products and 3 sums per sample
+    ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cout
+    nbytes = (g.numel() + wt.numel() + x.numel()) * x.element_size()
+  else:
+    def run(plain):
+      return sphere_conv.sphere_conv_bwd_weight(x, g, plain=plain)
+    ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cin
+    nbytes = (x.numel() + g.numel()) * x.element_size() + wt.numel() * 4
+  nbytes += w * 9 * 32                         # the shift tables
+  got, want = run(False), run(True)
+  torch.cuda.synchronize()
+  if name == "sphere_conv_bwd_input":
+    abs_err, rel_err, ok = _close(got, want, dtype)
+  else:
+    # dw is an f32 sum over the N*H*W pixels on both sides, in other orders
+    abs_err = float((got - want).abs().max())
+    rel_err = abs_err / float(want.abs().max())
+    ok = rel_err <= 1e-5
+  kernel_ms, plain_ms = _time_in_turns([lambda: run(False),
+                                        lambda: run(True)], 5)
+  return {"name": name, "dtype": str(dtype).split(".")[1],
+          "shape": f"{xs}->{cout}", "max_abs_err": abs_err,
+          "max_rel_err": rel_err, "pass": ok, "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "library_ms": None,
+          **_bound(ops_n, nbytes, dtype), "tflops": ops_n / kernel_ms / 1e9}
+
+
 def _make_anchor_batch(seed: int, disp: int, h: int, w: int):
   """The inputs of ``tests/trained_mirror.py:_make_batch`` for one pair,
   made on the CPU: half-resolution noise upsampled x2 plus a coarse layer;
@@ -568,20 +927,34 @@ def main() -> int:
   del model
   torch.cuda.empty_cache()
 
+  # ---- training
+  seen[TRAIN] = _train_path(gen)
+  torch.cuda.empty_cache()
+  train_anchor = _train_anchor()
+  torch.cuda.empty_cache()
+
   # ---- kernel phase: every recorded shape once, f32 and bf16
   cases = {}                 # case -> {path: launches per call}, layers
   for label, s in seen.items():
     for case, layers in s["calls"].items():
-      entry = cases.setdefault(case, ({}, layers, s["batch"]))
+      # a training call at the shape of a served call shares its timing
+      # (the epilogue's residual and ReLU aside)
+      same = [c for c in cases if c[:3] == case[:3] and c[5] == case[5]]
+      entry = (cases[same[0]] if label == TRAIN and same
+               else cases.setdefault(case, ({}, layers, s["batch"])))
       entry[0][label] = len(layers)
   reg_cases = {((s["batch"], MAXDISP // 4, H // 4, W // 4), MAXDISP, H, W):
                {label: 1 for label, t in seen.items()
-                if t["batch"] == s["batch"]} for s in seen.values()}
+                if t["batch"] == s["batch"] and label in PATHS}
+               for label, s in seen.items() if label in PATHS}
   rows = []
   for dtype in (torch.float32, torch.bfloat16):
     for case, (per_call, layers, batch) in cases.items():
-      row = _conv_case(case, dtype, gen)
-      row.update(per_call=per_call, tpu=_tpu_kernel(case[0], layers, batch),
+      if case[0] in SPHERE_BWD:
+        row = _sphere_bwd_case(case, dtype, gen)
+      else:
+        row = _conv_case(case, dtype, gen)
+      row.update(per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
                  layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
                                                 else ""))
       rows.append(row)
@@ -624,20 +997,21 @@ def main() -> int:
           "library_ms": total("library_ms"),
           "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                        else "bytes")}
-    main = per_path[MAIN_PATH]
+    main_path = TRAIN if TRAIN in per_path else MAIN_PATH
+    main = per_path[main_path]
     summary.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces[0], "also_replaces": list(replaces[1:]),
-        "launches": main["launches"],
-        "launches_per_pair": main["launches_per_call"],
+        "main_path": main_path, "launches": main["launches"],
+        "launches_per_call": main["launches_per_call"],
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         "max_abs_err_bf16": max(r["max_abs_err"] for r in b16),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
-        "times": f"f32, ms per pair on the {MAIN_PATH} path: each shape's "
-                 "time alone times its launches per pair, summed; per_path "
-                 "gives every served path, per call",
+        "times": "f32, ms per call of main_path (a training step, or one "
+                 "pair served): each shape's time alone times its launches "
+                 "per call, summed; per_path gives every path",
         "per_path": per_path,
         "pass": all(r["pass"] for r in f32 + b16)})
   print("kernels: " + ", ".join(
@@ -647,7 +1021,14 @@ def main() -> int:
       "median_ms_per_call": statistics.median(s["call_ms"]),
       "pairs_per_call": s["batch"], "fe_ms": s["fe_ms"],
       "peak_gib": s["peak_gib"], **s["check"]}
-      for label, s in seen.items()} | {"anchor": anchor}))
+      for label, s in seen.items() if label in PATHS} | {
+          TRAIN: {"ms_per_step": statistics.median(seen[TRAIN]["call_ms"][-2:]),
+                  "step_ms": seen[TRAIN]["call_ms"],
+                  "first_step_ms": seen[TRAIN]["first_ms"],
+                  "batch": TRAIN_BATCH, "peak_gib": seen[TRAIN]["peak_gib"],
+                  "losses": seen[TRAIN]["losses"],
+                  "profile": seen[TRAIN]["profile"], **seen[TRAIN]["check"]},
+          "train_anchor": train_anchor, "anchor": anchor}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)
   print(json.dumps({"ok": True, "device": {

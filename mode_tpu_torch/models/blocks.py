@@ -1,5 +1,4 @@
-"""Building blocks of the stage-1 network, eval subset
-(``mode_tpu/models/blocks.py``).
+"""Building blocks of the stage-1 network (``mode_tpu/models/blocks.py``).
 
 Every module is named with the reference's torch ``state_dict`` path
 segments (``nn.Sequential`` indices included, with ``nn.ReLU`` placeholders
@@ -17,6 +16,16 @@ blocks, on NDHWC volumes, those of ``ops/conv3d.py``, each with the BatchNorm
 folded into the epilogue. A fused layer keeps its weight in the kernel's
 layout and its folded BN between calls, and remakes them only after one of
 its parameters or buffers changes.
+
+In training (``module.train()``) each conv + BN layer runs in the JAX
+package's order: the bare conv, BN with batch statistics, the residual, the
+ReLU. The bare conv is the autograd Function of its op module (forward and
+grad-input on the port's kernels) exactly where the JAX package takes its
+Pallas training path at the same shape and batch (the ``train_*eligible``
+gates of ``ops/``); elsewhere it is ``F.conv2d``/``F.conv3d``/
+``F.conv_transpose3d`` or the plain sphere conv under autograd, as the JAX
+package leaves those convs to XLA. The Functions take the torch-layout
+``Parameter`` and pack it in each call, so its gradient reaches it.
 """
 
 from __future__ import annotations
@@ -25,9 +34,12 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mode_tpu_torch.ops import conv2d as conv2d_ops
+from mode_tpu_torch.ops import conv3d as conv3d_ops
+from mode_tpu_torch.ops import sphere_conv as sphere_ops
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
                                        deconv3d_bn_act, pack_weight)
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
@@ -53,9 +65,14 @@ class _Operands:
 
 
 class TorchBatchNorm(nn.Module):
-  """Eval BatchNorm with torch's parameters and buffers (``weight``,
-  ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``),
-  over channel axis 1."""
+  """BatchNorm with torch's parameters and buffers (``weight``, ``bias``,
+  ``running_mean``, ``running_var``, ``num_batches_tracked``), over channel
+  axis 1. In training it normalises with the batch's f32 statistics over
+  every other axis (biased variance) and updates the running ones with
+  momentum 0.1 and the unbiased variance ``var * n / (n - 1)``, as
+  ``mode_tpu/models/blocks.py:TorchBatchNorm`` does."""
+
+  momentum = 0.1
 
   def __init__(self, num_features: int, eps: float = 1e-5):
     super().__init__()
@@ -73,6 +90,14 @@ class TorchBatchNorm(nn.Module):
     return inv, self.bias - self.running_mean * inv
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.training:
+      y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
+                       self.running_mean, self.running_var,
+                       self.weight, self.bias, training=True,
+                       momentum=self.momentum, eps=self.eps)
+      with torch.no_grad():
+        self.num_batches_tracked += 1
+      return y.to(x.dtype)
     shape = (-1,) + (1,) * (x.dim() - 2)
     inv = torch.rsqrt(self.running_var + self.eps) * self.weight
     y = ((x.float() - self.running_mean.view(shape)) * inv.view(shape)
@@ -84,6 +109,34 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
   """The contiguous NHWC tensor of an NCHW one (a view of channels-last
   memory, copied only if the memory is not)."""
   return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _bn_act(bn: TorchBatchNorm, y: torch.Tensor,
+            residual: torch.Tensor | None, relu: bool,
+            channels_last: bool = False) -> torch.Tensor:
+  """``act(BN(y) (+ residual))``, the training tail of a conv + BN layer;
+  ``channels_last``: the channels are ``y``'s last axis (NDHWC)."""
+  if channels_last:
+    n = y.dim()
+    y = bn(y.permute(0, n - 1, *range(1, n - 1))).permute(
+        0, *range(2, n), 1)
+  else:
+    y = bn(y)
+  if residual is not None:
+    y = y + residual
+  return torch.relu(y) if relu else y
+
+
+def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
+                  plain: bool) -> torch.Tensor:
+  """The bare pad-1 3x3x3 conv of a training step, NDHWC: the kernels'
+  Function where the JAX package trains on Pallas, else ``F.conv3d``."""
+  gate = (conv3d_ops.train_s1_eligible if stride == 1
+          else conv3d_ops.train_s2_eligible)
+  if gate(x.shape, weight.shape[0]):
+    return conv3d_ops.conv3d_train(x, weight, stride, plain=plain)
+  return F.conv3d(x.permute(0, 4, 1, 2, 3), weight, stride=stride,
+                  padding=1).permute(0, 2, 3, 4, 1)
 
 
 class ConvBn2d(nn.Sequential):
@@ -110,6 +163,13 @@ class ConvBn2d(nn.Sequential):
               relu: bool = False, *, fused: bool = False,
               plain: bool = False) -> torch.Tensor:
     conv = self[0]
+    if self.training:
+      if self._kernel_in_training(x):
+        y = conv2d_ops.conv2d_train(_nhwc(x), conv.weight, conv.dilation[0],
+                                    plain=plain).permute(0, 3, 1, 2)
+      else:
+        y = conv(x)
+      return _bn_act(self[1], y, residual, relu)
     if not fused:
       y = self[1](conv(x))
       if residual is not None:
@@ -125,6 +185,17 @@ class ConvBn2d(nn.Sequential):
         None if residual is None else _nhwc(residual), relu,
         conv.dilation[0], plain=plain)
     return y.permute(0, 3, 1, 2)
+
+  def _kernel_in_training(self, x: torch.Tensor) -> bool:
+    """Whether the JAX package trains this conv on its 2-D kernel (K9):
+    a stride-1 3x3 conv with padding = dilation, at a shape and batch
+    ``conv2d_ops.train_kernel_eligible`` takes."""
+    conv = self[0]
+    return (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+            and conv.padding == conv.dilation and conv.dilation[0] in (1, 2)
+            and conv2d_ops.train_kernel_eligible(
+                (x.shape[0], x.shape[2], x.shape[3], x.shape[1]),
+                conv.out_channels))
 
 
 def convbn(cin: int, cout: int, kernel: int, stride: int, pad: int,
@@ -192,6 +263,13 @@ class SphereConvBn(nn.Sequential):
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
+    if self.training:
+      xn = _nhwc(x)
+      if sphere_ops.train_kernel_eligible(xn.shape):
+        y = sphere_ops.sphere_conv_train(xn, self[0].weight, plain=plain)
+      else:
+        y = sphere_ops.sphere_conv(xn, self[0].weight)
+      return _bn_act(self[1], y.permute(0, 3, 1, 2), residual, relu)
     weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
     y = sphere_conv_bn_act(_nhwc(x), weight, scale, bias,
                            None if residual is None else _nhwc(residual),
@@ -229,6 +307,8 @@ class Conv3dWeight(nn.Module):
 
   def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     """The bare conv (no affine, no ReLU), NDHWC."""
+    if self.training:
+      return _conv3d_train(x, self.weight, self.stride, plain)
     conv = conv3d_s1_bn_act if self.stride == 1 else conv3d_s2_bn_act
     packed = self._operands.get((self.weight,),
                                 lambda: pack_weight(self.weight))
@@ -254,6 +334,9 @@ class ConvBn3d(nn.Sequential):
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
+    if self.training:
+      y = _conv3d_train(x, self[0].weight, self[0].stride, plain)
+      return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(self, pack_weight)
     if self[0].stride == 1:
       return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
@@ -273,6 +356,15 @@ class DeconvBn3d(nn.Sequential):
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
+    if self.training:
+      weight = self[0].weight
+      if conv3d_ops.train_deconv_eligible(x.shape, weight.shape[1]):
+        y = conv3d_ops.deconv3d_train(x, weight, plain=plain)
+      else:
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), weight, stride=2,
+                               padding=1, output_padding=1).permute(
+                                   0, 2, 3, 4, 1)
+      return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
         self, functools.partial(pack_weight, transpose=True))
     return deconv3d_bn_act(x, weight, scale, bias, residual, relu,

@@ -1,4 +1,4 @@
-"""MODE stage 1: omnidirectional stereo matching, eval forward
+"""MODE stage 1: omnidirectional stereo matching
 (``mode_tpu/models/disparity.py``).
 
 A shared feature extractor (the sphere one of ``conv="Sphere"``, the
@@ -16,11 +16,22 @@ at batch 1, the Sphere stem's ``firstconv.2`` and ``.4``
 (``conv2d_band_pallas``); at batch >= 2, every stride-1 3x3 conv of either
 feature extractor (``conv2d_band_bpack``). The others run ``F.conv2d``, as
 the JAX package leaves them to XLA.
+
+In training (``model.train()``) the forward returns the three deep-
+supervision predictions. Each layer runs its training path
+(``models/blocks.py``: batch-statistic BN, the kernels' autograd Functions
+where the JAX package trains on Pallas). The three full-resolution heads
+(trilinear upsample, f32 softmax, soft-argmin) run in plain PyTorch under
+``torch.utils.checkpoint``, as the JAX package runs them in XLA under
+``jax.checkpoint``: K2 has no backward, and each head's softmax volume
+(maxdisp x H x W f32 per example) is recomputed in the backward rather than
+kept.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from mode_tpu_torch.device import resolve_device
@@ -29,8 +40,9 @@ from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
                                           RegularBasicBlock, SphereBasicBlock,
                                           convbn, init_weights)
 from mode_tpu_torch.ops.cost_volume import build_cost_volume
-from mode_tpu_torch.ops.regression import fused_disparity_regression
-from mode_tpu_torch.ops.resize import interpolate
+from mode_tpu_torch.ops.regression import (disparity_regression,
+                                           fused_disparity_regression)
+from mode_tpu_torch.ops.resize import interpolate, upsample_trilinear
 
 
 def _stage(block, cin: int, cout: int, blocks: int, stride: int,
@@ -153,10 +165,20 @@ class Hourglass(nn.Module):
     return self.conv6(post, plain=plain), pre, post                # 1/4
 
 
+def _regress(cost: torch.Tensor, maxdisp: int, h: int,
+             w: int) -> torch.Tensor:
+  """A training head: ``(B, D, Hq, Wq)`` logits -> ``(B, h, w)`` f32
+  prediction (trilinear upsample, f32 softmax, soft-argmin)."""
+  up = upsample_trilinear(cost[..., None], maxdisp, h, w)[..., 0]
+  up = up.to(torch.promote_types(up.dtype, torch.float32))
+  return disparity_regression(torch.softmax(up, dim=1), maxdisp)
+
+
 class ModeDisparity(nn.Module):
-  """Stage-1 network, eval only: ``forward(left, right)`` with NHWC images
-  returns ``pred``, or ``(pred, conf)`` when ``out_conf``, each
-  ``(B, H, W)`` f32, at any batch.
+  """Stage-1 network. In eval mode (the default) ``forward(left, right)``
+  with NHWC images returns ``pred``, or ``(pred, conf)`` when ``out_conf``,
+  each ``(B, H, W)`` f32, at any batch; after ``train()`` it returns the
+  three deep-supervision predictions ``(pred1, pred2, pred3)``.
 
   ``conv="Sphere"`` (the default) builds the sphere feature extractor on
   Cassini panoramas (H = 2W); ``sphere_type="ERP"`` raises, it comes with a
@@ -204,13 +226,6 @@ class ModeDisparity(nn.Module):
     self.to(self.device)
     self.eval()
 
-  def train(self, mode: bool = True):
-    if mode:
-      raise NotImplementedError("training comes with a later slice of the "
-                                "port; this one is eval only")
-    return super().train(False)
-
-  @torch.no_grad()
   def forward(self, left: torch.Tensor, right: torch.Tensor, *,
               plain: bool = False):
     """``left``/``right``: ``(B, H, W, 3)`` on the model's device.
@@ -220,6 +235,18 @@ class ModeDisparity(nn.Module):
       raise ValueError(f"inputs on {left.device}/{right.device}, model on "
                        f"{self.device}")
     h, w = left.shape[1:3]
+    if self.training:
+      return tuple(torch.utils.checkpoint.checkpoint(
+          _regress, cost, self.maxdisp, h, w, use_reentrant=False)
+                   for cost in self._costs(left, right, plain))
+    with torch.no_grad():
+      cost3 = self._costs(left, right, plain)[2]
+      pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
+                                              plain=plain)
+    return (pred, conf) if self.out_conf else pred
+
+  def _costs(self, left, right, plain):
+    """The three classifiers' summed logits ``(B, D, Hq, Wq)``."""
     cost = build_cost_volume(self.feature_extraction(left, plain=plain),
                              self.feature_extraction(right, plain=plain),
                              self.maxdisp // 4)
@@ -239,6 +266,4 @@ class ModeDisparity(nn.Module):
     cost1 = self.classif1(out1, plain=plain)
     cost2 = self.classif2(out2, plain=plain) + cost1
     cost3 = self.classif3(out3, plain=plain) + cost2
-    pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
-                                            plain=plain)
-    return (pred, conf) if self.out_conf else pred
+    return cost1, cost2, cost3

@@ -16,6 +16,10 @@ the same epilogue.
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's ``(9, Cin,
 Cout)`` layout from :func:`pack_weight`, which saves the per-call repack
 where a layer keeps it (``models/blocks.py`` does).
+
+For training, :func:`conv2d_train` is the bare conv as an autograd Function
+whose forward and grad-input run the kernel, as ``conv2d_3x3_fast_train``
+runs K9 in the JAX package, where :func:`train_kernel_eligible` says so.
 """
 
 from __future__ import annotations
@@ -121,3 +125,55 @@ def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
   if x.device.type != "cuda":
     raise ValueError(f"{_NAME}: unsupported device {x.device}")
   return _launch(x, weight, scale, bias, residual, relu, dilation)
+
+
+# --- training ---------------------------------------------------------------
+
+
+def train_kernel_eligible(x_shape, cout: int) -> bool:
+  """Where the JAX package trains a stride-1 3x3 conv on its batch-packed
+  kernel (``conv2d_kernel.py:train_bpack2d_g``), with its memory budget
+  left out: batch >= 2 with a pack factor (2, 3 or 6 divides it), Cin and
+  Cout multiples of 8, and W or H (NHWC) a multiple of 128."""
+  b, h, w, cin = x_shape
+  return (b >= 2 and (b % 2 == 0 or b % 3 == 0) and cin % 8 == 0
+          and cout % 8 == 0 and (w % 128 == 0 or h % 128 == 0))
+
+
+class _Conv2d(torch.autograd.Function):
+  """The bare stride-1 3x3 conv (padding = dilation) whose forward and
+  grad-input run the kernel (its plain version on the CPU or with
+  ``plain``), the grad-input with the spatially flipped, io-swapped weight
+  at the same dilation (``conv2d_kernel.py:522-555``); the grad-weight is a
+  library call. The weight is the torch-layout ``Parameter``."""
+
+  @staticmethod
+  def forward(ctx, x, weight, dilation, plain):
+    x = x.contiguous()
+    ctx.save_for_backward(x, weight)
+    ctx.dilation, ctx.plain = dilation, plain
+    return conv2d_s1_bn_act(x, weight, dilation=dilation, plain=plain)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    dil = ctx.dilation
+    g = g.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = conv2d_s1_bn_act(g, weight.flip((2, 3)).transpose(0, 1),
+                            dilation=dil, plain=ctx.plain)
+    if ctx.needs_input_grad[1]:
+      dw = torch.nn.grad.conv2d_weight(
+          x.permute(0, 3, 1, 2), weight.shape, g.permute(0, 3, 1, 2),
+          padding=dil, dilation=dil)
+    return dx, dw, None, None
+
+
+def conv2d_train(x: torch.Tensor, weight: torch.Tensor, dilation: int = 1, *,
+                 plain: bool = False) -> torch.Tensor:
+  """The bare stride-1 3x3 conv with the kernel's gradients; ``x`` NHWC,
+  ``weight`` torch ``(Cout, Cin, 3, 3)``."""
+  if dilation not in (1, 2):
+    raise ValueError(f"{_NAME}: dilation must be 1 or 2, got {dilation}")
+  return _Conv2d.apply(x, weight, dilation, plain)

@@ -23,6 +23,11 @@ below: ``F.conv3d``/``F.conv_transpose3d`` in f32 and the same epilogue.
 The weight is the torch layout, or the kernel's own ``(27, Cin, Cout)``
 layout from :func:`pack_weight`, which saves the per-call repack where a
 layer keeps it (``models/blocks.py`` does).
+
+For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
+convs as autograd Functions whose forward and grad-input run these kernels
+(the JAX package's custom VJPs), and ``train_*_eligible`` are the JAX
+package's gates for them.
 """
 
 from __future__ import annotations
@@ -189,3 +194,126 @@ def deconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
   or its ``pack_weight(weight, transpose=True)`` layout; the other arguments are as for :func:`conv3d_s1_bn_act`.
   """
   return _run(_DECONV, x, weight, scale, bias, residual, relu, plain)
+
+
+# --- training ---------------------------------------------------------------
+# The JAX package's custom VJPs around its 3-D kernels
+# (conv3d_kernel.py:1317-1343, 1526-1580) as autograd Functions: the forward
+# and the grad-input run the port's kernels, the grad-weight stays a library
+# call (cuDNN on the card), as the JAX package leaves it to XLA.
+
+
+def _lane_axis(shape) -> bool:
+  """Whether an NDHWC volume has a spatial axis the TPU kernels put on the
+  lanes (``conv3d_kernel.py:lane_axis_for``): W or H a multiple of 128."""
+  return shape[3] % 128 == 0 or shape[2] % 128 == 0
+
+
+def _deconv_routable(shape, cout: int) -> bool:
+  """``conv3d_kernel.py:_deconv_route`` is not None: a band deconv on a lane
+  axis, or the folded one over H*W (a multiple of 128)."""
+  return (shape[4] % 8 == 0 and cout % 8 == 0
+          and (_lane_axis(shape) or (shape[2] * shape[3]) % 128 == 0))
+
+
+def _s2_routable(shape, cout: int) -> bool:
+  """``conv3d_kernel.py:_s2_route`` is not None."""
+  b, d, h, w, c = shape
+  return (_lane_axis(shape) and c % 8 == 0 and cout % 8 == 0
+          and d % 2 == 0 and h % 2 == 0 and w % 2 == 0)
+
+
+# The TPU kernels' training gates with their memory budgets left out (a TPU
+# limit). The stride-1 conv needs batch >= 2 (conv3d_kernel.py:1230).
+TRAIN_MIN_BATCH = 2
+
+
+def train_s1_eligible(x_shape, cout: int) -> bool:
+  """``conv3d_kernel.py:train_conv3d_eligible``: batch >= 2, a lane axis,
+  Cin and Cout multiples of 8. The Cout-1 classifier heads and the 1/16
+  level (no lane axis) stay off the kernel."""
+  return (x_shape[0] >= TRAIN_MIN_BATCH and _lane_axis(x_shape)
+          and x_shape[4] % 8 == 0 and cout % 8 == 0)
+
+
+def train_s2_eligible(x_shape, cout: int) -> bool:
+  """``conv3d_kernel.py:train_s2_eligible``: the stride-2 conv and its
+  grad-input deconv (at the half-resolution cotangent) both route."""
+  b, d, h, w, c = x_shape
+  return (_s2_routable(x_shape, cout)
+          and _deconv_routable((b, d // 2, h // 2, w // 2, cout), c))
+
+
+def train_deconv_eligible(x_shape, cout: int) -> bool:
+  """``conv3d_kernel.py:train_deconv_eligible``: the deconv and its
+  grad-input stride-2 conv (at the double-resolution cotangent) both
+  route."""
+  b, d, h, w, c = x_shape
+  return (_deconv_routable(x_shape, cout)
+          and _s2_routable((b, 2 * d, 2 * h, 2 * w, cout), c))
+
+
+def _grad_weight(mode, x, weight, g):
+  """The weight's gradient, one library call on channels-last views."""
+  xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+  if mode == _DECONV:
+    # the deconv is the adjoint of the stride-2 conv with the same tensor:
+    # <g, deconv(x, w)> = <conv_s2(g, w), x>
+    return torch.nn.grad.conv3d_weight(gc, weight.shape, xc, stride=2,
+                                       padding=1)
+  return torch.nn.grad.conv3d_weight(xc, weight.shape, gc,
+                                     stride=1 if mode == _S1 else 2,
+                                     padding=1)
+
+
+class _Conv3d(torch.autograd.Function):
+  """A bare 3-D conv (no affine, no residual, no ReLU) whose forward and
+  grad-input run the port's kernels (their plain versions on the CPU or
+  with ``plain``):
+    * stride 1: grad-input is the stride-1 conv with the spatially flipped,
+      io-swapped weight;
+    * stride 2: grad-input is the deconv kernel with the same tensor, the
+      conv's ``(Cout, Cin, k)`` read as the transpose conv's ``(I, O, k)``;
+    * deconv: grad-input is the stride-2 kernel with the same tensor.
+  The weight is the torch-layout ``Parameter``, packed in each call."""
+
+  @staticmethod
+  def forward(ctx, x, weight, mode, plain):
+    x = x.contiguous()
+    ctx.save_for_backward(x, weight)
+    ctx.mode, ctx.plain = mode, plain
+    return _run(mode, x, weight, None, None, None, False, plain)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    mode, plain = ctx.mode, ctx.plain
+    g = g.contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      if mode == _S1:
+        wt = weight.flip((2, 3, 4)).transpose(0, 1)
+        dx = _run(_S1, g, wt, None, None, None, False, plain)
+      else:
+        dx = _run(_DECONV if mode == _S2 else _S2, g, weight, None, None,
+                  None, False, plain)
+    if ctx.needs_input_grad[1]:
+      dw = _grad_weight(mode, x, weight, g)
+    return dx, dw, None, None
+
+
+def conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, *,
+                 plain: bool = False) -> torch.Tensor:
+  """The bare stride-1 or stride-2 pad-1 3x3x3 conv with the kernels'
+  gradients; ``x`` NDHWC, ``weight`` torch ``(Cout, Cin, 3, 3, 3)``."""
+  if stride == 2 and any(n % 2 for n in x.shape[1:4]):
+    raise ValueError("the stride-2 conv trains on even extents only, its "
+                     "grad-input deconv doubles them")
+  return _Conv3d.apply(x, weight, _S1 if stride == 1 else _S2, plain)
+
+
+def deconv3d_train(x: torch.Tensor, weight: torch.Tensor, *,
+                   plain: bool = False) -> torch.Tensor:
+  """The bare ConvTranspose3d(k3, s2, p1, output_padding 1) with the
+  kernels' gradients; ``weight`` torch ``(Cin, Cout, 3, 3, 3)``."""
+  return _Conv3d.apply(x, weight, _DECONV, plain)

@@ -64,7 +64,10 @@ def interpolate(x: torch.Tensor, sizes: dict[int, int],
   """Linearly resize the axes of ``x`` named in ``sizes`` (axis -> length).
 
   Each axis is one matrix product, taken in float32 and cast back to
-  ``x.dtype``, in the order of ``sizes``.
+  ``x.dtype``, in the order of ``sizes``. The other axes are folded into
+  the product's rows, so it is one GEMM: given the strided view,
+  ``matmul`` may batch it as one matrix-vector product per row (the
+  training heads' trailing axis of 1 made it do so on the card).
   """
   for axis, n_out in sizes.items():
     n_in = x.shape[axis]
@@ -72,7 +75,8 @@ def interpolate(x: torch.Tensor, sizes: dict[int, int],
       continue
     mat = torch.from_numpy(linear_matrix(n_out, n_in, align_corners)).to(
         x.device)
-    y = torch.movedim(x, axis, -1).float() @ mat.T
+    xm = torch.movedim(x, axis, -1).float()
+    y = (xm.reshape(-1, n_in) @ mat.T).reshape(*xm.shape[:-1], n_out)
     x = torch.movedim(y.to(x.dtype), -1, axis)
   return x
 

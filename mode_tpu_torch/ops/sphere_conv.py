@@ -25,6 +25,18 @@ on a CPU tensor, or with ``plain=True``, it runs the plain version: the
 4-corner gather and GEMM of :func:`sphere_conv` (``sphere_conv_xla``) in f32
 and the same epilogue.
 
+The backward, :func:`sphere_conv_backward`, replaces
+``sphere_conv_cassini_pallas_bwd`` (K3b) with the two kernels of
+``kernels/csrc/sphere_conv_bwd.cu``: :func:`sphere_conv_bwd_input` (dx, a
+gather over the same shift tables, no atomics) and
+:func:`sphere_conv_bwd_weight` (dw in f32, per-block partial sums added in a
+fixed order). Their plain versions are the explicit transpose of the gather
+version: ``g @ W^T`` scattered back through the 4 corners with
+``index_add_``, and the gathered samples contracted with ``g``.
+:func:`sphere_conv_train` is the bare conv as an autograd ``Function``
+(forward K3, backward K3b), which the training path of ``models/blocks.py``
+runs where :func:`train_kernel_eligible` says the JAX package runs Pallas.
+
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the ``(9, Cin, Cout)``
 layout of ``ops/conv2d.py:pack_weight``, the taps row-major over (kh, kw)
 as ``weight.reshape(kh * kw, cin, cout)`` orders them in the JAX package.
@@ -241,19 +253,10 @@ def _device_tables(kind: str, h: int, w: int, device: torch.device):
           torch.from_numpy(quad).to(device))
 
 
-def sphere_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-  """The bare stride-1 3x3 Cassini sphere conv, plain PyTorch, in f32: the
-  4-corner bilinear gather of every tap (``build_gather_tables``), then
-  one GEMM with the ``(9 * Cin, Cout)`` weight.
-
-  ``x`` is ``(N, H, W, Cin)`` with H = 2W; ``weight`` torch or packed.
-  Returns ``(N, H, W, Cout)`` f32.
-  """
+def _im2col(x: torch.Tensor) -> torch.Tensor:
+  """The 9 taps' samples ``(N, 9, H, W, Cin)`` in f32: the 4-corner
+  bilinear gather of ``build_gather_tables``."""
   n, h, w, cin = x.shape
-  wk = _packed(weight).float()
-  if wk.shape[:2] != (_TAPS, cin):
-    raise ValueError(f"weight {tuple(weight.shape)} does not match x "
-                     f"{tuple(x.shape)}")
   idx, wgt = _device_tables("gather", h, w, x.device)
   xf = x.float().reshape(n, h * w, cin)
   col = None
@@ -262,7 +265,27 @@ def sphere_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
         n, _TAPS, h, w, cin)
     g = g * wgt[corner][None, ..., None]
     col = g if col is None else col + g
-  return torch.einsum("nkhwc,kco->nhwo", col, wk)
+  return col
+
+
+def _checked_packed(weight: torch.Tensor, cin: int, shape) -> torch.Tensor:
+  wk = _packed(weight)
+  if wk.shape[:2] != (_TAPS, cin):
+    raise ValueError(f"weight {tuple(weight.shape)} does not match x "
+                     f"{tuple(shape)}")
+  return wk
+
+
+def sphere_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+  """The bare stride-1 3x3 Cassini sphere conv, plain PyTorch, in f32: the
+  4-corner bilinear gather of every tap (``build_gather_tables``), then
+  one GEMM with the ``(9 * Cin, Cout)`` weight.
+
+  ``x`` is ``(N, H, W, Cin)`` with H = 2W; ``weight`` torch or packed.
+  Returns ``(N, H, W, Cout)`` f32.
+  """
+  wk = _checked_packed(weight, x.shape[-1], x.shape).float()
+  return torch.einsum("nkhwc,kco->nhwo", _im2col(x), wk)
 
 
 def _plain(x, weight, scale, bias, residual, relu):
@@ -270,14 +293,18 @@ def _plain(x, weight, scale, bias, residual, relu):
                   x.dtype)
 
 
+def _check_map(name, t, what):
+  if t.dim() != 4 or t.dtype not in _DTYPES or not t.is_contiguous():
+    raise ValueError(f"{name}: {what} must be a contiguous f32 or bf16 NHWC "
+                     f"map, got {tuple(t.shape)} {t.dtype}")
+  if t.shape[1] != 2 * t.shape[2]:
+    raise ValueError(f"{name}: {what} must be a Cassini map (H = 2W), got "
+                     f"{t.shape[1]}x{t.shape[2]}")
+
+
 def _launch(x, weight, scale, bias, residual, relu):
-  if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
-    raise ValueError(f"{_NAME}: x must be a contiguous f32 or bf16 NHWC "
-                     f"map, got {tuple(x.shape)} {x.dtype}")
+  _check_map(_NAME, x, "x")
   n, h, w, cin = x.shape
-  if h != 2 * w:
-    raise ValueError(f"{_NAME}: x must be a Cassini map (H = 2W), got "
-                     f"{h}x{w}")
   wk = _packed(weight)
   if (wk.shape[:2] != (_TAPS, cin) or wk.dtype != x.dtype
       or wk.device != x.device or not wk.is_contiguous()):
@@ -330,3 +357,231 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
   if x.device.type != "cuda":
     raise ValueError(f"{_NAME}: unsupported device {x.device}")
   return _launch(x, weight, scale, bias, residual, relu)
+
+
+# --- backward (K3b) ---------------------------------------------------------
+
+_BWD_INPUT = "sphere_conv_bwd_input"
+_BWD_WEIGHT = "sphere_conv_bwd_weight"
+# the most samples of one tap that read one input column
+# (sphere_conv_bwd.cu:MAXE)
+_MAX_CONTRIB = 4
+
+
+@functools.cache
+def _bwd_lib():
+  lib = build.load("sphere_conv_bwd")
+  lib.sphere_conv_bwd_input.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                        + [ctypes.c_int] * 6
+                                        + [ctypes.c_void_p])
+  lib.sphere_conv_bwd_input.restype = ctypes.c_int
+  lib.sphere_conv_bwd_weight.argtypes = ([ctypes.c_int]
+                                         + [ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 7
+                                         + [ctypes.c_void_p])
+  lib.sphere_conv_bwd_weight.restype = ctypes.c_int
+  return lib
+
+
+@functools.lru_cache(maxsize=32)
+def transpose_bounds(h: int, w: int) -> tuple[int, int]:
+  """``(reach, most)`` of the shift tables' transpose: the largest
+  ``|c - j|`` between an input column ``c`` and an output column ``j``
+  whose tap reads it with a nonzero corner weight, and the most such output
+  columns for one (input column, tap). The dx kernel scans ``reach``
+  columns to each side and keeps ``most`` <= 4 samples (2 and 4 on the
+  Cassini grids of 32x16 to 1024x512)."""
+  _, colint, quad, _ = build_shift_tables(h, w, 3)
+  c = np.arange(w)[:, None, None]                      # input column
+  on0 = colint[None, ..., 0] == c                      # (W_c, W_j, 9)
+  on1 = colint[None, ..., 1] == c
+  hit = ((on0 & ((quad[None, ..., 0] != 0) | (quad[None, ..., 1] != 0)))
+         | (on1 & ((quad[None, ..., 2] != 0) | (quad[None, ..., 3] != 0))))
+  dist = np.abs(np.arange(w)[None, :, None] - c)
+  reach = int(np.where(hit, dist, 0).max())
+  return reach, int(hit.sum(axis=1).max())
+
+
+def _torch_layout(dw: torch.Tensor) -> torch.Tensor:
+  """``(9, Cin, Cout)`` -> torch ``(Cout, Cin, 3, 3)``."""
+  return dw.reshape(3, 3, *dw.shape[1:]).permute(3, 2, 0, 1).contiguous()
+
+
+def _plain_bwd_input(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+  """dx in f32: ``dcol = g @ W^T`` per tap, each of the gather's 4 corners
+  scattered back with its weight (``index_add_``)."""
+  n, h, w, _ = g.shape
+  wk = _packed(weight).float()
+  idx, wgt = _device_tables("gather", h, w, g.device)
+  dcol = torch.einsum("nhwo,kco->nkhwc", g.float(), wk)  # (N, 9, H, W, Cin)
+  dx = torch.zeros((n, h * w, wk.shape[1]), device=g.device)
+  for corner in range(4):
+    src = (dcol * wgt[corner][None, ..., None]).reshape(n, -1, wk.shape[1])
+    dx.index_add_(1, idx[corner].reshape(-1), src)
+  return dx.reshape(n, h, w, -1)
+
+
+def _plain_bwd_weight(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """dw ``(9, Cin, Cout)`` in f32: the gather's samples against g."""
+  return torch.einsum("nkhwc,nhwo->kco", _im2col(x), g.float())
+
+
+def _launch_bwd_input(g, weight):
+  _check_map(_BWD_INPUT, g, "g")
+  n, h, w, cout = g.shape
+  wk = _packed(weight)
+  if (wk.shape[0] != _TAPS or wk.shape[2] != cout or wk.dtype != g.dtype
+      or wk.device != g.device):
+    raise ValueError(f"{_BWD_INPUT}: weight {tuple(weight.shape)} "
+                     f"{weight.dtype} does not match g {tuple(g.shape)} "
+                     f"{g.dtype}")
+  cin = wk.shape[1]
+  reach, most = transpose_bounds(h, w)
+  if most > _MAX_CONTRIB or h * w * max(cin, cout) >= 2**31:
+    raise ValueError(f"{_BWD_INPUT}: a {h}x{w} map with {cin}/{cout} "
+                     "channels exceeds the kernel's table or offset bounds")
+  wt = wk.transpose(1, 2).contiguous()                   # (9, Cout, Cin)
+  itab, ftab = _device_tables("shift", h, w, g.device)
+  scale, bias = affine(None, None, cin, g.device)
+  dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
+  err = _bwd_lib().sphere_conv_bwd_input(
+      int(g.dtype == torch.bfloat16), g.data_ptr(), wt.data_ptr(),
+      itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+      dx.data_ptr(), n, h, w, cin, cout, reach,
+      torch.cuda.current_stream(g.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"{_BWD_INPUT}: kernel launch failed with CUDA error "
+                       f"{err}")
+  LAUNCHES[_BWD_INPUT] += 1
+  return dx
+
+
+def _weight_splits(n, h, w, cin, cout, device) -> tuple[int, int]:
+  """``(nsplit, chunk)``: the pixel ranges of the dw kernel, about two
+  blocks for each SM of the card."""
+  pixels = n * h * w
+  tiles = -(-_TAPS * cin // 64) * -(-cout // (128 if cout > 64 else 64))
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  nsplit = max(1, min(2 * sms // tiles, -(-pixels // 256)))
+  chunk = -(-pixels // nsplit)
+  return -(-pixels // chunk), chunk
+
+
+def _launch_bwd_weight(x, g):
+  _check_map(_BWD_WEIGHT, x, "x")
+  _check_map(_BWD_WEIGHT, g, "g")
+  n, h, w, cin = x.shape
+  cout = g.shape[3]
+  if g.shape[:3] != x.shape[:3] or g.dtype != x.dtype or g.device != x.device:
+    raise ValueError(f"{_BWD_WEIGHT}: g {tuple(g.shape)} {g.dtype} does not "
+                     f"match x {tuple(x.shape)} {x.dtype}")
+  nsplit, chunk = _weight_splits(n, h, w, cin, cout, x.device)
+  itab, ftab = _device_tables("shift", h, w, x.device)
+  part = torch.empty((nsplit, _TAPS * cin, cout), device=x.device)
+  dw = torch.empty((_TAPS, cin, cout), device=x.device)
+  err = _bwd_lib().sphere_conv_bwd_weight(
+      int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
+      itab.data_ptr(), ftab.data_ptr(), part.data_ptr(), dw.data_ptr(),
+      n, h, w, cin, cout, nsplit, chunk,
+      torch.cuda.current_stream(x.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"{_BWD_WEIGHT}: kernel launch failed with CUDA "
+                       f"error {err}")
+  LAUNCHES[_BWD_WEIGHT] += 1
+  return dw
+
+
+def sphere_conv_bwd_input(g: torch.Tensor, weight: torch.Tensor, *,
+                          plain: bool = False) -> torch.Tensor:
+  """The gradient of the bare sphere conv's input.
+
+  Args:
+    g: ``(N, H, W, Cout)`` cotangent of the conv's output, H = 2W, f32 or
+      bf16, contiguous.
+    weight: torch ``(Cout, Cin, 3, 3)`` or packed ``(9, Cin, Cout)``, in
+      ``g``'s dtype.
+    plain: run the plain PyTorch version even on a CUDA tensor.
+  Returns:
+    dx ``(N, H, W, Cin)`` in ``g.dtype``.
+  """
+  if plain or g.device.type == "cpu":
+    return _plain_bwd_input(g, weight).to(g.dtype)
+  if g.device.type != "cuda":
+    raise ValueError(f"{_BWD_INPUT}: unsupported device {g.device}")
+  return _launch_bwd_input(g, weight)
+
+
+def sphere_conv_bwd_weight(x: torch.Tensor, g: torch.Tensor, *,
+                           plain: bool = False) -> torch.Tensor:
+  """The gradient of the bare sphere conv's weight, ``(9, Cin, Cout)`` f32,
+  for the forward input ``x`` ``(N, H, W, Cin)`` and the cotangent ``g``
+  ``(N, H, W, Cout)`` (same dtype, f32 or bf16, contiguous); summed in f32
+  over the pixels in a fixed order."""
+  if plain or x.device.type == "cpu":
+    return _plain_bwd_weight(x, g)
+  if x.device.type != "cuda":
+    raise ValueError(f"{_BWD_WEIGHT}: unsupported device {x.device}")
+  return _launch_bwd_weight(x, g)
+
+
+def sphere_conv_backward(x: torch.Tensor, weight: torch.Tensor,
+                         g: torch.Tensor, *, plain: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+  """``(dx, dw)`` of the bare stride-1 3x3 Cassini sphere conv: replaces
+  ``sphere_conv_kernel.py:sphere_conv_cassini_pallas_bwd`` (K3b).
+
+  ``x`` ``(N, H, W, Cin)`` and ``g`` ``(N, H, W, Cout)`` in one dtype;
+  ``weight`` torch or packed. Returns dx in ``x.dtype`` and dw in f32, in
+  the layout of ``weight``. On a CUDA tensor the two kernels of
+  ``kernels/csrc/sphere_conv_bwd.cu`` run; on a CPU tensor, or with
+  ``plain=True``, their plain versions: the explicit transpose of the
+  gather + GEMM of :func:`sphere_conv`.
+  """
+  _checked_packed(weight, x.shape[-1], x.shape)
+  dx = sphere_conv_bwd_input(g, weight.to(g.dtype), plain=plain)
+  dw = sphere_conv_bwd_weight(x, g, plain=plain)
+  return dx.to(x.dtype), (dw if weight.dim() == 3 else _torch_layout(dw))
+
+
+def train_kernel_eligible(x_shape) -> bool:
+  """Where the JAX package runs its Pallas sphere conv (K3, K3b) in
+  training, ``ops/sphere_conv.py:_pallas_eligible`` with its TPU memory
+  budget left out: a Cassini map whose H (the TPU's lane axis) is a
+  multiple of 128, W a multiple of 8 up to 2048, Cin a multiple of 8."""
+  _, h, w, cin = x_shape
+  return (h == 2 * w and h % 128 == 0 and w % 8 == 0 and w <= 2048
+          and cin % 8 == 0)
+
+
+class _SphereConv(torch.autograd.Function):
+  """The bare conv: forward K3 (scale 1, bias 0, no residual, no ReLU),
+  backward the two K3b kernels; their plain versions on the CPU or with
+  ``plain``. The weight enters in torch layout and is packed here, so its
+  gradient reaches the ``Parameter``."""
+
+  @staticmethod
+  def forward(ctx, x, weight, plain):
+    x = x.contiguous()
+    packed = _checked_packed(weight, x.shape[-1], x.shape).to(x.dtype)
+    ctx.save_for_backward(x, packed)
+    ctx.plain = plain
+    return sphere_conv_bn_act(x, packed, plain=plain)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, packed = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = sphere_conv_bwd_input(g, packed, plain=ctx.plain)
+    if ctx.needs_input_grad[1]:
+      dw = _torch_layout(sphere_conv_bwd_weight(x, g, plain=ctx.plain))
+    return dx, dw, None
+
+
+def sphere_conv_train(x: torch.Tensor, weight: torch.Tensor, *,
+                      plain: bool = False) -> torch.Tensor:
+  """The bare sphere conv with its kernels' gradients: ``x`` ``(N, H, W,
+  Cin)``, ``weight`` torch ``(Cout, Cin, 3, 3)`` (a ``Parameter``);
+  returns ``(N, H, W, Cout)`` in ``x.dtype``."""
+  return _SphereConv.apply(x, weight, plain)

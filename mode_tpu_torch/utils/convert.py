@@ -90,3 +90,11 @@ def load_npz(model: torch.nn.Module, path: str | os.PathLike
              for k in z.files}
   model.load_state_dict(state, strict=True)
   return model
+
+
+def grads_from_jax(grads: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+  """A JAX gradient tree (the ``params`` tree's structure) as the port's
+  parameter names and layouts: ``{name: tensor}`` for
+  ``model.named_parameters()``, the conv-like arrays permuted as
+  :func:`params_from_jax` permutes the parameters."""
+  return params_from_jax({"params": grads})

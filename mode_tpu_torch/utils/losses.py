@@ -1,0 +1,25 @@
+"""Stage-1 training losses (``mode_tpu/utils/losses.py``), with masks so
+every pixel keeps its place in the batch."""
+
+from __future__ import annotations
+
+import torch
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+  """Masked mean smooth-L1 (beta 1), torch ``F.smooth_l1_loss`` semantics:
+  the sum over ``mask`` divided by ``max(sum(mask), 1)``."""
+  d = torch.abs(pred - target)
+  loss = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+  mask = mask.to(loss.dtype)
+  return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def disparity_deep_supervision(preds, disp_true: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+  """``0.5 * L(pred1) + 0.7 * L(pred2) + 1.0 * L(pred3)``."""
+  p1, p2, p3 = preds
+  return (0.5 * smooth_l1(p1, disp_true, mask)
+          + 0.7 * smooth_l1(p2, disp_true, mask)
+          + smooth_l1(p3, disp_true, mask))

@@ -2,8 +2,10 @@
 at small and ragged shapes that the production shapes of ``chip_smoke.py``
 do not reach: Cin not a multiple of the 16-channel K step, Cout not a
 multiple of the output tile, odd extents for the stride-2 conv, batch 2,
-dilation 2, Cassini maps whose tables have a drop row; and the stage-1
-model at batch 2 against its plain path.
+dilation 2, Cassini maps whose tables have a drop row; the stage-1 model at
+batch 2 against its plain path; the sphere conv's two backward kernels; and
+one training step at 512x256, where every kernel family trains, against
+the same step through the plain versions.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -192,3 +194,101 @@ def test_slice_at_batch_two_runs_the_kernels(gen, conv, shape):
                                                   else 104)
   assert pred.shape == conf.shape == (2, *shape)
   assert bool(torch.isfinite(pred).all() and torch.isfinite(conf).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout", [
+    ((2, 64, 32, 24), 40),      # drop row; Cin, Cout off the tiles
+    ((1, 32, 16, 8), 128),
+    ((2, 128, 64, 64), 128),    # the first layer-4 conv, at half size
+    ((1, 64, 32, 128), 64),
+])
+def test_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout, dtype):
+  """dx against the plain scatter (index_add_), dw (f32, split over pixel
+  blocks and summed in a fixed order) against the plain contraction; the
+  kernel's dw is the same on a second run (no atomics)."""
+  n, h, w, cin = x_shape
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  g = torch.randn((n, h, w, cout), generator=gen, device="cuda").to(dtype)
+  wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+        * 0.2).to(dtype)
+  kernels.reset_launches()
+  dx, dw = S.sphere_conv_backward(x, wt, g)
+  again = S.sphere_conv_bwd_weight(x, g)
+  torch.cuda.synchronize()
+  assert kernels.LAUNCHES["sphere_conv_bwd_input"] == 1
+  assert kernels.LAUNCHES["sphere_conv_bwd_weight"] == 2
+  want_dx, want_dw = S.sphere_conv_backward(x, wt, g, plain=True)
+  assert dx.dtype == dtype and dw.dtype == torch.float32
+  assert dw.shape == wt.shape
+  _close(dx, want_dx, dtype)
+  _close(dw, want_dw, torch.float32)
+  assert torch.equal(again, S.pack_weight(dw))
+
+
+def test_train_step_kernels_match_plain(gen):
+  """One step at 512x256, batch 2, where every kernel family trains
+  (tests/test_torch_train_step.py counts the routing), with the trained
+  mid-resolution weights (maxdisp 48) on a textured pair, through the
+  kernels and through the plain versions from an identical copy: the same
+  loss; all the gradients within 1e-3 of the plain ones' norm plus twice
+  their spread, the largest distance by which a 1e-6 jitter of the
+  normalised inputs moves the plain step's gradients (two draws); each leaf
+  within 1e-2 plus twice its spread. The BN stack amplifies f32 rounding in
+  the gradients by ~1e2-1e3 at this size, so a leaf may part from the plain
+  one by a few 1e-3; the kernels themselves are held at 1e-5 above."""
+  import copy
+  import pathlib
+  import torch.nn.functional as F
+  from mode_tpu_torch import training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.utils.convert import load_npz
+  root = pathlib.Path(__file__).resolve().parents[1]
+  model = load_npz(ModeDisparity(48, device="cuda"),
+                   root / "tests/data/trained_mirror_mid.npz")
+  twin = copy.deepcopy(model)
+  fine = torch.randn((2, 3, 256, 128), generator=gen, device="cuda")
+  coarse = torch.randn((2, 3, 64, 32), generator=gen, device="cuda")
+  left = (F.interpolate(fine, size=(512, 256), mode="bilinear")
+          + 0.5 * F.interpolate(coarse, size=(512, 256), mode="bilinear"))
+  left = left.permute(0, 2, 3, 1).contiguous()
+  right = torch.roll(left, -12, dims=2)
+  gt = torch.full((2, 512, 256), 12.0, device="cuda")
+  gt[:, 40:80, 20:60] = float("nan")
+
+  def run(m, plain, jitter=None):
+    step = training.make_disparity_train_step(
+        m, training.make_optimizer(m.parameters()), plain=plain)
+    l, r = (left, right) if jitter is None else (left * jitter,
+                                                 right * jitter)
+    kernels.reset_launches()
+    loss = float(step(l, r, gt))
+    torch.cuda.synchronize()
+    return loss, {n: p.grad for n, p in m.named_parameters()}
+
+  loss, grads = run(model, False)
+  launched = dict(kernels.LAUNCHES)
+  assert launched == {"conv3d_s1_bn_act": 14, "conv3d_s2_bn_act": 6,
+                      "deconv3d_bn_act": 6, "conv2d_s1_bn_act": 128,
+                      "sphere_conv_bn_act": 32, "sphere_conv_bwd_input": 32,
+                      "sphere_conv_bwd_weight": 32}, launched
+  ref_loss, ref = run(copy.deepcopy(twin), True)
+  spread = dict.fromkeys(ref, 0.0)
+  for _ in range(2):
+    jitter = 1 + 1e-6 * torch.randn(left.shape, generator=gen, device="cuda")
+    _, other = run(copy.deepcopy(twin), True, jitter)
+    for name, g in other.items():
+      spread[name] = max(spread[name],
+                         float(torch.linalg.vector_norm(g - ref[name])))
+  assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss), (loss, ref_loss)
+  total = {"err": 0.0, "norm": 0.0, "spread": 0.0}
+  for name, g in grads.items():
+    err = float(torch.linalg.vector_norm(g - ref[name]))
+    norm = float(torch.linalg.vector_norm(ref[name]))
+    for key, value in (("err", err), ("norm", norm),
+                       ("spread", spread[name])):
+      total[key] += value**2
+    assert err <= 1e-2 * norm + 2 * spread[name], (name, err, norm,
+                                                   spread[name])
+  assert total["err"]**0.5 <= (1e-3 * total["norm"]**0.5
+                               + 2 * total["spread"]**0.5), total

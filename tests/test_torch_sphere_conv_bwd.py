@@ -1,0 +1,181 @@
+"""The sphere conv's backward in mode_tpu_torch (``sphere_conv_backward``,
+K3b's plain version, CPU, f32) against the JAX package's Pallas backward
+``sphere_conv_cassini_pallas_bwd`` in interpret mode and against autograd
+of the plain forward; and numpy models of the two CUDA kernels' arithmetic
+(the dx gather over the forward's shift tables, the dw samples) against
+the plain version, with the edge rules that the transpose must keep.
+
+Tolerance against Pallas rtol = atol = 2e-4, the JAX package's own bar
+between its Pallas backward and its XLA VJP
+(``tests/test_pallas_sphere_conv.py``); against autograd, which sums the
+same products in another order, 1e-5 of the largest gradient.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from mode_tpu.ops.pallas import sphere_conv_kernel as jsck
+from mode_tpu_torch.ops import sphere_conv as tsc
+from tests.test_torch_sphere_conv import _shift_sample
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+  orig = pl.pallas_call
+  monkeypatch.setattr(pl, "pallas_call",
+                      functools.partial(orig, interpret=True))
+
+
+def _case(h, w, cin, cout, seed=0):
+  rng = np.random.default_rng(seed)
+  x = rng.normal(size=(2, h, w, cin)).astype(np.float32)
+  wgt = (rng.normal(size=(3, 3, cin, cout)) * 0.2).astype(np.float32)
+  g = rng.normal(size=(2, h, w, cout)).astype(np.float32)
+  return x, wgt, g
+
+
+def _torch_weight(w_hwio):
+  return torch.from_numpy(np.ascontiguousarray(
+      np.transpose(w_hwio, (3, 2, 0, 1))))
+
+
+@pytest.mark.parametrize("h,w,cin,cout,bj", [(32, 16, 8, 16, 8),
+                                             (64, 32, 16, 8, 4)])
+def test_plain_backward_matches_pallas(interpret_pallas, h, w, cin, cout,
+                                       bj):
+  x, wgt, g = _case(h, w, cin, cout)
+  dx, dw = tsc.sphere_conv_backward(torch.from_numpy(x), _torch_weight(wgt),
+                                    torch.from_numpy(g))
+  jdx, jdw = jsck.sphere_conv_cassini_pallas_bwd(
+      jnp.asarray(x), jnp.asarray(wgt), jnp.asarray(g), block_j=bj)
+  assert dx.dtype == torch.float32 and dw.dtype == torch.float32
+  np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=2e-4,
+                             atol=2e-4)
+  # torch layout (Cout, Cin, 3, 3) back to the JAX package's HWIO
+  np.testing.assert_allclose(dw.permute(2, 3, 1, 0).numpy(), np.asarray(jdw),
+                             rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(32, 16, 8, 16), (64, 32, 16, 8)])
+def test_plain_backward_matches_autograd(h, w, cin, cout):
+  """The explicit transpose equals autograd of the plain forward; dw comes
+  back in the layout of the weight passed."""
+  x, wgt, g = (torch.from_numpy(a) for a in _case(h, w, cin, cout, 1))
+  wt = _torch_weight(wgt.numpy()).requires_grad_()
+  xg = x.clone().requires_grad_()
+  want_dx, want_dw = torch.autograd.grad(tsc.sphere_conv(xg, wt), (xg, wt),
+                                         g)
+  dx, dw = tsc.sphere_conv_backward(x, wt.detach(), g)
+  _, dw_packed = tsc.sphere_conv_backward(x, tsc.pack_weight(wt.detach()), g)
+  for got, want in ((dx, want_dx), (dw, want_dw),
+                    (dw_packed, tsc.pack_weight(want_dw))):
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_bf16_backward_keeps_dx_type_and_dw_in_f32():
+  x, wgt, g = _case(32, 16, 8, 16, 2)
+  xb = torch.from_numpy(x).bfloat16()
+  dx, dw = tsc.sphere_conv_backward(xb, _torch_weight(wgt).bfloat16(),
+                                    torch.from_numpy(g).bfloat16())
+  assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+
+
+def _dx_like_the_kernel(g, wk, h, w, seam=True, drop=True):
+  """dx as ``sphere_conv_bwd.cu:bwd_input_kernel`` forms it: each input
+  pixel (r, c) gathers, for each tap k, from the output columns j within
+  ``reach`` of c whose corner c0 or c1 is c; from output row (r - sigma)
+  mod H through the (s, .) corners and (r - 1 - sigma) mod H through the
+  successor corners; nothing through a successor corner at r = 0
+  (``seam``) or from the output row drop_row (``drop``)."""
+  sigma, colint, quad, drop_row = tsc.build_shift_tables(h, w, 3)
+  reach, most = tsc.transpose_bounds(h, w)
+  dcol = np.einsum("nhwo,kco->nhwkc", g, wk)          # (N, H, W, 9, Cin)
+  r = np.arange(h)
+  dx = np.zeros(g.shape[:3] + (wk.shape[1],), np.float64)
+  for c in range(w):
+    for k in range(9):
+      used = 0
+      for j in range(max(c - reach, 0), min(c + reach, w - 1) + 1):
+        c0, c1 = colint[j, k].astype(np.int64)
+        q = quad[j, k]
+        a_s = (q[0] if c0 == c else 0.0) + (q[2] if c1 == c else 0.0)
+        a_n = (q[1] if c0 == c else 0.0) + (q[3] if c1 == c else 0.0)
+        if a_s == 0 and a_n == 0:
+          continue
+        used += 1
+        i_s = (r - sigma[j, k]) % h
+        i_n = (i_s - 1) % h
+        ws = np.full(h, a_s)
+        wn = np.full(h, a_n)
+        if drop:
+          ws = np.where(i_s == drop_row[j, k], 0.0, ws)
+          wn = np.where(i_n == drop_row[j, k], 0.0, wn)
+        if seam:
+          wn = np.where(r == 0, 0.0, wn)
+        dx[:, :, c] += (ws[None, :, None] * dcol[:, i_s, j, k]
+                        + wn[None, :, None] * dcol[:, i_n, j, k])
+      assert used <= most
+  return dx
+
+
+def test_transpose_bounds_fit_the_kernel():
+  """The dx kernel scans ``reach`` columns to each side and keeps at most
+  four samples per (input column, tap): so do the Cassini grids from the
+  tests' sizes to the production's and beyond."""
+  for h, w in ((32, 16), (64, 32), (256, 128), (512, 256), (1024, 512)):
+    reach, most = tsc.transpose_bounds(h, w)
+    assert reach == 2 and 2 <= most <= tsc._MAX_CONTRIB, (h, w, reach, most)
+
+
+def test_dx_gather_keeps_the_edge_rules():
+  """At 64x32 the tables have a drop row (column 0, tap 5) and the
+  successor corners reach the seam. The kernel's gather equals the plain
+  scatter there, and each of the two rules is needed for that: without
+  the seam or the drop rule the two part."""
+  h, w = 64, 32
+  _, _, _, drop_row = tsc.build_shift_tables(h, w, 3)
+  assert (drop_row >= 0).sum() >= 1
+  x, wgt, g = _case(h, w, 4, 6, 3)
+  wk = wgt.reshape(9, 4, 6)
+  want = tsc.sphere_conv_bwd_input(torch.from_numpy(g),
+                                   torch.from_numpy(wk)).numpy()
+  np.testing.assert_allclose(_dx_like_the_kernel(g, wk, h, w), want,
+                             rtol=1e-4, atol=1e-4)
+  for rule in ("seam", "drop"):
+    wrong = _dx_like_the_kernel(g, wk, h, w, **{rule: False})
+    assert np.abs(wrong - want).max() > 0.1, rule
+
+
+def test_dw_samples_like_the_kernel():
+  """dw as ``bwd_weight_kernel`` forms it: the forward's samples rebuilt
+  from the shift tables (with both edge rules) against g."""
+  h, w = 64, 32
+  x, wgt, g = _case(h, w, 4, 6, 4)
+  col = _shift_sample(x, h, w)                        # (N, 9, H, W, Cin)
+  want = tsc.sphere_conv_bwd_weight(torch.from_numpy(x),
+                                    torch.from_numpy(g)).numpy()
+  np.testing.assert_allclose(np.einsum("nkhwc,nhwo->kco", col, g), want,
+                             rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,ok", [
+    ((2, 256, 128, 64), True), ((2, 256, 128, 128), True),
+    ((2, 128, 64, 128), True), ((2, 64, 32, 128), False),
+    ((2, 256, 128, 12), False), ((2, 256, 256, 64), False)])
+def test_train_gate_is_the_jax_gate(monkeypatch, shape, ok):
+  """``train_kernel_eligible`` is ``ops/sphere_conv.py:_pallas_eligible``
+  with the Pallas mode on and the TPU memory budget left out."""
+  import importlib
+  jsc = importlib.import_module("mode_tpu.ops.sphere_conv")
+  monkeypatch.setattr(jsc, "_PALLAS_MODE", "on")
+  x = jnp.zeros(shape, jnp.float32)
+  assert jsc._pallas_eligible(x, 3, 3, "Cassini", 1, 1, 1) == ok
+  assert tsc.train_kernel_eligible(shape) == ok
