@@ -6,7 +6,7 @@
 1. Prints the card's name and power limit (``nvidia-smi``), builds the
    port's CUDA kernels from ``mode_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, in parallel) and prints the build time.
-2. Three served paths, each with seeded random weights and BN statistics,
+2. Served paths, each with seeded random weights and BN statistics,
    scaled so the features have unit std and the softmax is neither flat
    nor one-hot (measured on the path's first pair, which also records every
    kernel call its layers make):
@@ -14,24 +14,29 @@
      Cassini pair per call;
    * ``sphere_b1``: ``ModeDisparity(192)``, the flagship ``conv="Sphere"``
      model, one pair per call;
-   * ``sphere_b6``: the same model, a frame's six pairs per call.
+   * ``sphere_b6``: the same model, a frame's six pairs per call;
+   * ``erp_b1``: ``ModeDisparity(192, "Sphere", "ERP")``, one 512x1024
+     equirectangular pair per call.
    Each path serves a few calls with every launch count set to 0 just
    before and read just after, checks that every kernel of the path ran, at
-   the recorded count, and runs one call again through the plain versions
-   and compares; the output must not be degenerate.
-3. ``train_b2``: the stage-1 training step (``mode_tpu_torch.training``) of
-   the same model, seeded weights, at batch 2 on a seeded uint8 pair and
-   ground truth with a NaN patch. Step 1 runs through the kernels (and
+   the recorded count, which must be the JAX path's, and runs one call
+   again through the plain versions and compares; the output must not be
+   degenerate.
+3. Training paths: the stage-1 training step (``mode_tpu_torch.training``)
+   of the Sphere model, seeded weights, at batch 2 on a seeded uint8 pair
+   and ground truth with a NaN patch: ``train_b2`` (Cassini, 1024x512) and
+   ``erp_train_b2`` (ERP, 512x1024). Step 1 runs through the kernels (and
    records every kernel call, forward and backward) and again through the
    plain versions from an identical copy: the loss and every gradient are
    held against the plain step's, the gradients within a bar that adds the
    gradient's own spread under f32-level input jitter. Three more steps
    are timed with the launch counts set to 0 before and read after; they
-   must launch every kernel of the path at the JAX path's counts and lower
+   must launch every kernel of the path at the counts of the JAX package's
+   training gates traced at the path's shape (``TRAIN_TRACED``) and lower
    the loss. One more step runs under ``torch.profiler`` for the time
-   breakdown. The trained weights then take one step through the kernels
-   and one through the plain versions on the anchor's textured pair, held
-   the same way (``train_anchor``).
+   breakdown. After ``train_b2`` the trained weights take one step through
+   the kernels and one through the plain versions on the anchor's textured
+   pair, held the same way (``train_anchor``).
 4. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training step adds the grad-input shapes and
    the sphere conv's two backward kernels) and the regression shapes, in
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import inspect
 import json
 import re
@@ -96,51 +102,75 @@ KERNELS = {
     "sphere_conv_bwd_weight": (
         "mode_tpu_torch/kernels/csrc/sphere_conv_bwd.cu",
         (f"{SPHERE_PY}:572", f"{SPHERE_PY}:559")),
+    "sphere_conv_erp_bn_act": (
+        "mode_tpu_torch/kernels/csrc/sphere_conv.cu", (f"{SPHERE_PY}:304",)),
+    "sphere_conv_erp_bwd_input": (
+        "mode_tpu_torch/kernels/csrc/sphere_conv_bwd.cu",
+        (f"{SPHERE_PY}:605", f"{SPHERE_PY}:514")),
+    "sphere_conv_erp_bwd_weight": (
+        "mode_tpu_torch/kernels/csrc/sphere_conv_bwd.cu",
+        (f"{SPHERE_PY}:605", f"{SPHERE_PY}:559")),
 }
-SPHERE_BWD = ("sphere_conv_bwd_input", "sphere_conv_bwd_weight")
+# the sphere conv's kernels (forward, dx, dw) by layout, as
+# mode_tpu_torch/ops/sphere_conv.py names them
+SPHERE_KERNELS = {"Cassini": ("sphere_conv_bn_act", "sphere_conv_bwd_input",
+                              "sphere_conv_bwd_weight"),
+                  "ERP": ("sphere_conv_erp_bn_act",
+                          "sphere_conv_erp_bwd_input",
+                          "sphere_conv_erp_bwd_weight")}
+SPHERE_FWD = tuple(k[0] for k in SPHERE_KERNELS.values())
+SPHERE_BWD = tuple(n for k in SPHERE_KERNELS.values() for n in k[1:])
 # The TPU kernel (ROADMAP's numbering) each kernel took over; the hourglass
 # layers at the 1/16 level, which the TPU ran M*L-folded; and the 2-D band
 # kernel, per-image at batch 1 and batch-packed above.
 TPU_KERNEL = {"conv3d_s1_bn_act": "K1", "conv3d_s2_bn_act": "K4",
               "deconv3d_bn_act": "K5", "fused_disparity_regression": "K2",
               "sphere_conv_bn_act": "K3", "sphere_conv_bwd_input": "K3b",
-              "sphere_conv_bwd_weight": "K3b"}
+              "sphere_conv_bwd_weight": "K3b", "sphere_conv_erp_bn_act": "K10",
+              "sphere_conv_erp_bwd_input": "K10b",
+              "sphere_conv_erp_bwd_weight": "K10b"}
 TPU_FOLDED = {"conv4": "K6", "conv5": "K7"}
-H, W, MAXDISP = 1024, 512, 192
-# path: (conv, pairs per call, calls served, the JAX path's launches per
-# call, by kernel)
-JAX_3D = {"conv3d_s1_bn_act": "K1 13 + K6 3", "conv3d_s2_bn_act": "K4 6",
-          "deconv3d_bn_act": "K5 3 + K7 3",
-          "fused_disparity_regression": "K2 1"}
+MAXDISP = 192
+# (H, W) of a full-resolution pair in each layout: the Deep360 Cassini
+# frame, and the equirectangular panorama of the same pixel count
+GEOMETRY = {"Cassini": (1024, 512), "ERP": (512, 1024)}
+# path: (conv, sphere_type, pairs per call, calls served, the JAX path's
+# launches per call by kernel: (TPU kernels, count))
+JAX_3D = {"conv3d_s1_bn_act": ("K1 13 + K6 3", 16),
+          "conv3d_s2_bn_act": ("K4 6", 6),
+          "deconv3d_bn_act": ("K5 3 + K7 3", 6),
+          "fused_disparity_regression": ("K2 1", 1)}
 PATHS = {
-    "regular_b1": ("Regular", 1, 2, JAX_3D),
-    "sphere_b1": ("Sphere", 1, 3, {**JAX_3D, "sphere_conv_bn_act": "K3 32",
-                                   "conv2d_s1_bn_act": "K8 4"}),
-    "sphere_b6": ("Sphere", 6, 2, {**JAX_3D, "sphere_conv_bn_act": "K3 32",
-                                   "conv2d_s1_bn_act": "K9 64"}),
+    "regular_b1": ("Regular", "Cassini", 1, 2, JAX_3D),
+    "sphere_b1": ("Sphere", "Cassini", 1, 3, {
+        **JAX_3D, "sphere_conv_bn_act": ("K3 32", 32),
+        "conv2d_s1_bn_act": ("K8 4", 4)}),
+    "sphere_b6": ("Sphere", "Cassini", 6, 2, {
+        **JAX_3D, "sphere_conv_bn_act": ("K3 32", 32),
+        "conv2d_s1_bn_act": ("K9 64", 64)}),
+    "erp_b1": ("Sphere", "ERP", 1, 3, {
+        **JAX_3D, "sphere_conv_erp_bn_act": ("K10 32", 32),
+        "conv2d_s1_bn_act": ("K8 4", 4)}),
 }
 # the served path whose per-pair numbers the kernels line carries for the
 # kernels that do not train (the regression head)
 MAIN_PATH = "sphere_b1"
-# The training path: the Sphere model, batch 2, f32; steps timed after the
-# first. Its launches per step, by kernel: what the JAX package's Pallas
-# training gates (their TPU memory budgets left out) send to its kernels at
-# this shape, forward + grad-input: the stride-1 conv at the 1/4 (7) and 1/8
-# (3) levels; the stride-2 convs (6) and the deconvs (6), each also the
-# other's grad-input; every stride-1 3x3 FE conv (32 per view); the 16
-# sphere convs per view, forward and both backward kernels.
-TRAIN = "train_b2"
-TRAIN_BATCH, TRAIN_STEPS = 2, 3
-TRAIN_EXPECT = {"conv3d_s1_bn_act": 20, "conv3d_s2_bn_act": 12,
-                "deconv3d_bn_act": 12, "conv2d_s1_bn_act": 128,
-                "sphere_conv_bn_act": 32, "sphere_conv_bwd_input": 32,
-                "sphere_conv_bwd_weight": 32}
-TRAIN_JAX = {"conv3d_s1_bn_act": "K1 10 + 10",
-             "conv3d_s2_bn_act": "K4 6 + 6",
-             "deconv3d_bn_act": "K5 3 + K7 3, + 6",
-             "conv2d_s1_bn_act": "K9 64 + 64", "sphere_conv_bn_act": "K3 32",
-             "sphere_conv_bwd_input": "K3b 32",
-             "sphere_conv_bwd_weight": "K3b 32"}
+# The training paths: the Sphere model in each layout, f32; steps timed
+# after the first. path: (sphere_type, batch, (H, W)).
+TRAINS = {"train_b2": ("Cassini", 2, GEOMETRY["Cassini"]),
+          "erp_train_b2": ("ERP", 2, GEOMETRY["ERP"])}
+TRAIN_STEPS = 3
+# Per training forward, by kernel family: the calls that the JAX package's
+# Pallas training gates send to its custom VJPs at the path's shape and
+# batch, traced with counting stubs under jax.eval_shape, the strided gates
+# at the bf16 itemsize so that no f32-only TPU memory budget enters
+# (tests/test_torch_erp_train_step.py traces them and holds these numbers):
+# the stride-1 conv at the 1/4 (7) and 1/8 (3) levels, the stride-2 convs
+# and the deconvs (6 each), every stride-1 3x3 FE conv (32 per view), the
+# 16 sphere convs per view.
+TRAIN_TRACED = {
+    label: {"conv3d_s1": 10, "conv3d_s2": 6, "deconv3d": 6, "conv2d": 64,
+            "sphere": 32} for label in TRAINS}
 # A training step on the card against the same step through the plain
 # versions from the same weights: the loss within LOSS_RTOL; each gradient
 # leaf within GRAD_RTOL of its norm plus twice its spread, the largest
@@ -164,6 +194,25 @@ PRED_MAE, PRED_MAX, CONF_MAE = 1e-3, 1e-2, 1e-3
 # The full-resolution anchor: the bars of
 # tests/test_trained_parity_fullres.py.
 ANCHOR_MAE, ANCHOR_MAX, ANCHOR_CONF_MAE = 1e-3, 5e-2, 1e-3
+
+
+def train_expect(label: str) -> dict[str, int]:
+  """Kernel launches per step of a training path, from its traced calls:
+  each Function launches its kernel in the forward and again as its
+  grad-input (the stride-2 conv and the deconv each as the other's), and
+  each sphere conv its forward and both backward kernels."""
+  t = TRAIN_TRACED[label]
+  fwd, dx, dw = SPHERE_KERNELS[TRAINS[label][0]]
+  strided = t["conv3d_s2"] + t["deconv3d"]
+  return {"conv3d_s1_bn_act": 2 * t["conv3d_s1"],
+          "conv3d_s2_bn_act": strided, "deconv3d_bn_act": strided,
+          "conv2d_s1_bn_act": 2 * t["conv2d"], fwd: t["sphere"],
+          dx: t["sphere"], dw: t["sphere"]}
+
+
+def _layout(kernel: str) -> str:
+  """The map layout a sphere kernel takes."""
+  return "ERP" if kernel in SPHERE_KERNELS["ERP"] else "Cassini"
 
 
 def _fail(msg: str) -> None:
@@ -219,7 +268,7 @@ def _conv_case(case, dtype, gen):
   dev = torch.device(DEVICE)
   cin = xs[-1]
   deconv = name == "deconv3d_bn_act"
-  two_d = name in ("conv2d_s1_bn_act", "sphere_conv_bn_act")
+  two_d = name in ("conv2d_s1_bn_act", *SPHERE_FWD)
   x = (torch.randn(xs, generator=gen, device=dev) * 0.5).to(dtype)
   if two_d:
     wshape = (cout, cin, 3, 3)
@@ -243,8 +292,10 @@ def _conv_case(case, dtype, gen):
   if name == "conv2d_s1_bn_act":
     kw["dilation"] = dil
     fn, packed = conv2d.conv2d_s1_bn_act, conv2d.pack_weight(w)
-  elif name == "sphere_conv_bn_act":
-    fn, packed = sphere_conv.sphere_conv_bn_act, conv2d.pack_weight(w)
+  elif name in SPHERE_FWD:
+    fn = functools.partial(sphere_conv.sphere_conv_bn_act,
+                           sphere_type=_layout(name))
+    packed = conv2d.pack_weight(w)
   else:
     fn, packed = getattr(conv3d, name), conv3d.pack_weight(w, deconv)
 
@@ -282,11 +333,12 @@ def _conv_case(case, dtype, gen):
   isz = x.element_size()
   nbytes = (x.numel() + w.numel() + (r.numel() if res else 0)
             + torch.Size(oshape).numel()) * isz + 2 * cout * 4
-  if name == "sphere_conv_bn_act":
+  if name in SPHERE_FWD:
     # the bilinear blend: 4 products and 3 sums per (pixel, tap, channel);
-    # the shift tables: an int4 and a float4 per (column, tap)
+    # the shift tables: an int4 and a float4 per (band index, tap), the
+    # band being the Cassini map's columns and the ERP map's rows
     ops_n += 7 * m * taps * cin
-    nbytes += xs[2] * taps * 32
+    nbytes += xs[1 if _layout(name) == "ERP" else 2] * taps * 32
   return {"name": name, "dtype": str(dtype).split(".")[1],
           "shape": f"{xs}->{cout}" + (" +res" if res else "")
                    + (" relu" if relu else "") + (f" dil{dil}" if dil > 1
@@ -373,8 +425,8 @@ def _record_calls(model, left, right):
       if isinstance(mod, (ConvBn2d, SphereConvBn)):
         if isinstance(mod, ConvBn2d) and not a.get("fused", False):
           return                           # F.conv2d, not a kernel of ours
-        kernel = ("sphere_conv_bn_act" if isinstance(mod, SphereConvBn)
-                  else "conv2d_s1_bn_act")
+        kernel = (SPHERE_KERNELS[mod.sphere_type][0]
+                  if isinstance(mod, SphereConvBn) else "conv2d_s1_bn_act")
         xs = (xs[0], xs[2], xs[3], xs[1])  # the NHWC shape of an NCHW view
         cout = out.shape[1]
         if isinstance(mod, ConvBn2d):
@@ -401,6 +453,23 @@ def _record_calls(model, left, right):
   for h in handles:
     h.remove()
   return calls, sum(logits)
+
+
+def _served_model(label, gen):
+  """The path's model with seeded weights and random BN statistics, its
+  features scaled to unit std on a random pair's left view."""
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  conv, sphere_type = PATHS[label][:2]
+  h, w = GEOMETRY[sphere_type]
+  model = ModeDisparity(MAXDISP, conv, sphere_type, out_conf=True,
+                        device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+  _randomize_for_serving(model, 1)
+  left = torch.randn((1, h, w, 3), generator=gen, device=DEVICE) * 0.5
+  feat_std = _calibrate(model, left)
+  print(f"{label}: features scaled by 1/{feat_std:.4g} to unit std",
+        flush=True)
+  return model
 
 
 def _calibrate(model, left) -> float:
@@ -434,20 +503,20 @@ def _tpu_kernel(case, layers, batch):
   return folded.pop() if folded else TPU_KERNEL[kernel]
 
 
-def _pairs(gen, batch, count, first_shift):
-  """``count`` calls of ``batch`` random pairs; the right view is the left
-  rolled along W by a shift that differs between pairs."""
+def _pairs(gen, batch, count, first_shift, h, w):
+  """``count`` calls of ``batch`` random ``h x w`` pairs; the right view is
+  the left rolled along W by a shift that differs between pairs."""
   out = []
   for i in range(count):
-    left = torch.randn((batch, H, W, 3), generator=gen, device=DEVICE) * 0.5
+    left = torch.randn((batch, h, w, 3), generator=gen, device=DEVICE) * 0.5
     right = torch.stack([torch.roll(left[b], shifts=first_shift + 8 * (
         i * batch + b) % 160, dims=1) for b in range(batch)])
     out.append((left, right.contiguous()))
   return out
 
 
-def _check_output(label, pred, conf, ref_pred, ref_conf, batch):
-  if pred.shape != (batch, H, W) or conf.shape != (batch, H, W):
+def _check_output(label, pred, conf, ref_pred, ref_conf, shape):
+  if pred.shape != shape or conf.shape != shape:
     _fail(f"{label}: output shapes {tuple(pred.shape)} {tuple(conf.shape)}")
   if not (torch.isfinite(pred).all() and torch.isfinite(conf).all()):
     _fail(f"{label}: non-finite outputs")
@@ -481,8 +550,9 @@ def _check_output(label, pred, conf, ref_pred, ref_conf, batch):
 def _serve_path(label, model, gen, seed_shift):
   """Calibrate, record, serve and check one path; returns what it saw."""
   from mode_tpu_torch import kernels
-  conv, batch, ncalls, jax_counts = PATHS[label]
-  inputs = _pairs(gen, batch, ncalls + 1, seed_shift)
+  conv, sphere_type, batch, ncalls, jax_counts = PATHS[label]
+  h, w = GEOMETRY[sphere_type]
+  inputs = _pairs(gen, batch, ncalls + 1, seed_shift, h, w)
   calls, logits = _record_calls(model, *inputs[0])
   if label != "sphere_b6":          # the b6 path serves the b1 model as is
     _scale_heads(model, float(logits.std()))
@@ -508,27 +578,32 @@ def _serve_path(label, model, gen, seed_shift):
   launches = dict(kernels.LAUNCHES)
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
   unit = "pair" if batch == 1 else f"{batch}-pair call"
-  print(f"{label}: {conv}, {ncalls} calls of ({batch}, {H}, {W}, 3) maxdisp "
+  print(f"{label}: {conv} {sphere_type}, {ncalls} calls of ({batch}, {h}, "
+        f"{w}, 3) maxdisp "
         f"{MAXDISP}, median {statistics.median(call_ms):.2f} ms/{unit} "
         f"(all: " + ", ".join(f"{t:.2f}" for t in call_ms)
         + f"), feature extraction of both views {fe_ms:.2f} ms, peak memory "
         f"{peak_gib:.2f} GiB", flush=True)
   print(f"{label} launches per call: " + json.dumps(
       {k: launches.get(k, 0) / ncalls for k in KERNELS})
-        + " (JAX path: " + ", ".join(jax_counts.values()) + ")", flush=True)
+        + " (JAX path: " + ", ".join(t for t, _ in jax_counts.values())
+        + ")", flush=True)
   for name in set(expect) | set(launches):
     if launches.get(name, 0) != expect.get(name, 0) * ncalls:
       _fail(f"{label}: {name} launched {launches.get(name, 0)} times in "
             f"{ncalls} calls, expected {expect.get(name, 0) * ncalls}")
-  missing = [k for k in jax_counts if not expect.get(k)]
-  if missing:
-    _fail(f"{label}: kernels of the path not launched: {missing}")
+  wrong = {k: expect.get(k, 0) for k in set(expect) | set(jax_counts)
+           if expect.get(k, 0) != jax_counts.get(k, ("", 0))[1]}
+  if wrong:
+    _fail(f"{label}: the layers called these kernels per call {wrong}, "
+          f"not as the JAX path: {jax_counts}")
 
   pred, conf = outputs[0]
   with torch.no_grad():
     ref_pred, ref_conf = model(*inputs[1], plain=True)
   torch.cuda.synchronize()
-  check = _check_output(label, pred, conf, ref_pred, ref_conf, batch)
+  check = _check_output(label, pred, conf, ref_pred, ref_conf,
+                        (batch, h, w))
   return {"calls": calls, "batch": batch, "ncalls": ncalls,
           "launches": launches, "call_ms": call_ms, "fe_ms": fe_ms,
           "peak_gib": peak_gib, "check": check}
@@ -558,22 +633,23 @@ def _recorded_launches():
           residual is not None, bool(relu), dilation))
     return out
 
-  def sphere_launch(x, weight, scale, bias, residual, relu):
-    out = orig[2](x, weight, scale, bias, residual, relu)
-    note(("sphere_conv_bn_act", tuple(x.shape), out.shape[-1],
+  # each sphere launch under the kernel name of its layout
+  def sphere_launch(x, weight, scale, bias, residual, relu, sphere_type):
+    out = orig[2](x, weight, scale, bias, residual, relu, sphere_type)
+    note((sphere_conv.FORWARD[sphere_type], tuple(x.shape), out.shape[-1],
           residual is not None, bool(relu), 1))
     return out
 
-  def bwd_input_launch(g, weight):
-    dx = orig[3](g, weight)
-    note(("sphere_conv_bwd_input", tuple(dx.shape), g.shape[-1], False,
-          False, 1))
+  def bwd_input_launch(g, weight, sphere_type):
+    dx = orig[3](g, weight, sphere_type)
+    note((sphere_conv.BWD_INPUT[sphere_type], tuple(dx.shape), g.shape[-1],
+          False, False, 1))
     return dx
 
-  def bwd_weight_launch(x, g):
-    dw = orig[4](x, g)
-    note(("sphere_conv_bwd_weight", tuple(x.shape), g.shape[-1], False,
-          False, 1))
+  def bwd_weight_launch(x, g, sphere_type):
+    dw = orig[4](x, g, sphere_type)
+    note((sphere_conv.BWD_WEIGHT[sphere_type], tuple(x.shape), g.shape[-1],
+          False, False, 1))
     return dw
 
   names = ((conv3d, "_launch", conv3d_launch),
@@ -591,14 +667,14 @@ def _recorded_launches():
       setattr(mod, name, fn)
 
 
-def _train_batch(gen):
+def _train_batch(gen, batch, h, w):
   """A uint8 pair (the right view the left rolled by 24 and 64 columns)
   and ground truth in [0, MAXDISP) with a NaN patch."""
-  left = torch.randint(0, 256, (TRAIN_BATCH, H, W, 3), generator=gen,
+  left = torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                        device=DEVICE, dtype=torch.uint8)
   right = torch.stack([torch.roll(left[b], -d, dims=1)
                        for b, d in enumerate((24, 64))])
-  gt = torch.rand((TRAIN_BATCH, H, W), generator=gen, device=DEVICE) * MAXDISP
+  gt = torch.rand((batch, h, w), generator=gen, device=DEVICE) * MAXDISP
   gt[:, 300:400, 100:220] = float("nan")
   return left, right.contiguous(), gt
 
@@ -701,15 +777,16 @@ def _profile_step(step, batch):
           "top_kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top}}
 
 
-def _train_path(gen):
-  """Drive the training step: step 1 recorded and checked, three timed,
+def _train_path(gen, label):
+  """Drive one training path: step 1 recorded and checked, three timed,
   one profiled."""
   from mode_tpu_torch import kernels, training
   from mode_tpu_torch.models.disparity import ModeDisparity
-  model = ModeDisparity(MAXDISP, device=DEVICE,
+  sphere_type, batch_size, (h, w) = TRAINS[label]
+  model = ModeDisparity(MAXDISP, "Sphere", sphere_type, device=DEVICE,
                         generator=torch.Generator().manual_seed(0))
   twin = copy.deepcopy(model)
-  batch = _train_batch(gen)
+  batch = _train_batch(gen, batch_size, h, w)
   step = training.make_disparity_train_step(
       model, training.make_optimizer(model.parameters()))
   kernels.reset_launches()
@@ -719,7 +796,7 @@ def _train_path(gen):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t) * 1e3
   first = dict(kernels.LAUNCHES)
-  check = _grad_check(TRAIN, twin, batch, losses[0],
+  check = _grad_check(label, twin, batch, losses[0],
                       {n: p.grad.clone() for n, p in model.named_parameters()})
   del twin
 
@@ -736,29 +813,32 @@ def _train_path(gen):
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
   per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in KERNELS}
   ms = statistics.median(step_ms[-2:])
-  print(f"{TRAIN}: Sphere, f32, ({TRAIN_BATCH}, {H}, {W}, 3) uint8 pair, "
-        f"maxdisp {MAXDISP}, seeded weights; step 1 {first_ms:.2f} ms, "
-        f"steps 2-{TRAIN_STEPS + 1} " + ", ".join(f"{t:.2f}" for t in step_ms)
+  print(f"{label}: Sphere {sphere_type}, f32, ({batch_size}, {h}, {w}, 3) "
+        f"uint8 pair, maxdisp {MAXDISP}, seeded weights; step 1 "
+        f"{first_ms:.2f} ms, steps 2-{TRAIN_STEPS + 1} "
+        + ", ".join(f"{t:.2f}" for t in step_ms)
         + f" ms: {ms:.2f} ms/step (median of the last two), "
-        f"{ms / TRAIN_BATCH:.2f} ms/example, peak memory {peak_gib:.2f} GiB; "
+        f"{ms / batch_size:.2f} ms/example, peak memory {peak_gib:.2f} GiB; "
         "loss " + " -> ".join(f"{x:.5g}" for x in losses), flush=True)
-  print(f"{TRAIN} launches per step: " + json.dumps(per_step)
-        + " (JAX path: " + ", ".join(TRAIN_JAX.values()) + ")", flush=True)
-  for name in set(TRAIN_EXPECT) | set(launches) | set(first):
-    want = TRAIN_EXPECT.get(name, 0)
+  expect = train_expect(label)
+  print(f"{label} launches per step: " + json.dumps(per_step)
+        + " (the JAX gates traced at this shape, per forward: "
+        + json.dumps(TRAIN_TRACED[label]) + ")", flush=True)
+  for name in set(expect) | set(launches) | set(first):
+    want = expect.get(name, 0)
     if first.get(name, 0) != want or launches.get(name, 0) != want * TRAIN_STEPS:
-      _fail(f"{TRAIN}: {name} launched {first.get(name, 0)} times in step 1 "
+      _fail(f"{label}: {name} launched {first.get(name, 0)} times in step 1 "
             f"and {launches.get(name, 0)} in {TRAIN_STEPS} steps, expected "
             f"{want} per step")
   if not losses[-1] < losses[0]:
-    _fail(f"{TRAIN}: the loss did not fall over {TRAIN_STEPS + 1} steps")
+    _fail(f"{label}: the loss did not fall over {TRAIN_STEPS + 1} steps")
   prof = _profile_step(step, batch)
-  print(f"{TRAIN} profiled step: host {prof['host_ms']:.2f} ms, device "
+  print(f"{label} profiled step: host {prof['host_ms']:.2f} ms, device "
         f"{prof['device_ms']:.2f} ms; by kind (ms): "
         + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
         + "; top kernels (ms, launches): " + json.dumps(prof["top_kernels_ms"]),
         flush=True)
-  return {"calls": calls, "batch": TRAIN_BATCH, "ncalls": TRAIN_STEPS,
+  return {"calls": calls, "batch": batch_size, "ncalls": TRAIN_STEPS,
           "launches": launches, "call_ms": step_ms, "first_ms": first_ms,
           "peak_gib": peak_gib, "losses": losses, "profile": prof,
           "check": check}
@@ -771,13 +851,14 @@ def _train_anchor():
   from mode_tpu_torch import training
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.utils.convert import load_npz
+  _, batch, (h, w) = TRAINS["train_b2"]
   with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
     seed, disp = int(z["seed"]), int(z["disp"])
-  lefts, rights = zip(*(_make_anchor_batch(seed + b, disp, H, W)
-                        for b in range(TRAIN_BATCH)))
+  lefts, rights = zip(*(_make_anchor_batch(seed + b, disp, h, w)
+                        for b in range(batch)))
   left = torch.cat(lefts).permute(0, 2, 3, 1).contiguous().to(DEVICE)
   right = torch.cat(rights).permute(0, 2, 3, 1).contiguous().to(DEVICE)
-  gt = torch.full((TRAIN_BATCH, H, W), float(disp), device=DEVICE)
+  gt = torch.full((batch, h, w), float(disp), device=DEVICE)
   gt[:, 300:400, 100:220] = float("nan")
   model = load_npz(ModeDisparity(MAXDISP, device=DEVICE),
                    ROOT / "tests/data/trained_mirror_mid.npz")
@@ -795,6 +876,7 @@ def _sphere_bwd_case(case, dtype, gen):
   recorded shape; returns the row it prints."""
   from mode_tpu_torch.ops import conv2d, sphere_conv
   name, xs, cout = case[:3]
+  sphere_type = _layout(name)
   dev = torch.device(DEVICE)
   n, h, w, cin = xs
   x = (torch.randn(xs, generator=gen, device=dev) * 0.5).to(dtype)
@@ -804,22 +886,24 @@ def _sphere_bwd_case(case, dtype, gen):
         * (2.0 / (9 * cout)) ** 0.5).to(dtype)
   packed = conv2d.pack_weight(wt)
   m = n * h * w
-  if name == "sphere_conv_bwd_input":
+  if name in SPHERE_KERNELS[sphere_type][1]:
     def run(plain):
-      return sphere_conv.sphere_conv_bwd_input(g, wt if plain else packed,
-                                               plain=plain)
+      return sphere_conv.sphere_conv_bwd_input(
+          g, wt if plain else packed, sphere_type=sphere_type, plain=plain)
     # the blend of g's channels: 4 products and 3 sums per sample
     ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cout
     nbytes = (g.numel() + wt.numel() + x.numel()) * x.element_size()
   else:
     def run(plain):
-      return sphere_conv.sphere_conv_bwd_weight(x, g, plain=plain)
+      return sphere_conv.sphere_conv_bwd_weight(
+          x, g, sphere_type=sphere_type, plain=plain)
     ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cin
     nbytes = (x.numel() + g.numel()) * x.element_size() + wt.numel() * 4
-  nbytes += w * 9 * 32                         # the shift tables
+  # the shift tables: 32 bytes per (band index, tap)
+  nbytes += (h if sphere_type == "ERP" else w) * 9 * 32
   got, want = run(False), run(True)
   torch.cuda.synchronize()
-  if name == "sphere_conv_bwd_input":
+  if name in SPHERE_KERNELS[sphere_type][1]:
     abs_err, rel_err, ok = _close(got, want, dtype)
   else:
     # dw is an f32 sum over the N*H*W pixels on both sides, in other orders
@@ -886,7 +970,6 @@ def main() -> int:
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
     return 1
   from mode_tpu_torch.kernels import build
-  from mode_tpu_torch.models.disparity import ModeDisparity
 
   t_start = time.time()
   smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -911,26 +994,26 @@ def main() -> int:
     print(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
           f"registers, spill stores up to {max(spills)} bytes", flush=True)
 
-  # ---- served paths
+  # ---- the Cassini paths: served, trained, the trained weights' step
   gen = torch.Generator(device=DEVICE).manual_seed(0)
   seen = {}
-  for label, conv in (("regular_b1", "Regular"), ("sphere_b1", "Sphere")):
-    model = ModeDisparity(MAXDISP, conv, out_conf=True, device=DEVICE,
-                          generator=torch.Generator().manual_seed(0))
-    _randomize_for_serving(model, 1)
-    left = torch.randn((1, H, W, 3), generator=gen, device=DEVICE) * 0.5
-    feat_std = _calibrate(model, left)
-    print(f"{label}: features scaled by 1/{feat_std:.4g} to unit std",
-          flush=True)
+  for label in ("regular_b1", "sphere_b1"):
+    model = _served_model(label, gen)
     seen[label] = _serve_path(label, model, gen, 4)
   seen["sphere_b6"] = _serve_path("sphere_b6", model, gen, 12)
   del model
   torch.cuda.empty_cache()
-
-  # ---- training
-  seen[TRAIN] = _train_path(gen)
+  seen["train_b2"] = _train_path(gen, "train_b2")
   torch.cuda.empty_cache()
   train_anchor = _train_anchor()
+  torch.cuda.empty_cache()
+
+  # ---- the ERP paths
+  model = _served_model("erp_b1", gen)
+  seen["erp_b1"] = _serve_path("erp_b1", model, gen, 4)
+  del model
+  torch.cuda.empty_cache()
+  seen["erp_train_b2"] = _train_path(gen, "erp_train_b2")
   torch.cuda.empty_cache()
 
   # ---- kernel phase: every recorded shape once, f32 and bf16
@@ -940,13 +1023,15 @@ def main() -> int:
       # a training call at the shape of a served call shares its timing
       # (the epilogue's residual and ReLU aside)
       same = [c for c in cases if c[:3] == case[:3] and c[5] == case[5]]
-      entry = (cases[same[0]] if label == TRAIN and same
+      entry = (cases[same[0]] if label in TRAINS and same
                else cases.setdefault(case, ({}, layers, s["batch"])))
       entry[0][label] = len(layers)
-  reg_cases = {((s["batch"], MAXDISP // 4, H // 4, W // 4), MAXDISP, H, W):
-               {label: 1 for label, t in seen.items()
-                if t["batch"] == s["batch"] and label in PATHS}
-               for label, s in seen.items() if label in PATHS}
+  reg_cases = {}             # the served paths' regression shapes
+  for label in PATHS:
+    h, w = GEOMETRY[PATHS[label][1]]
+    case = ((seen[label]["batch"], MAXDISP // 4, h // 4, w // 4), MAXDISP, h,
+            w)
+    reg_cases.setdefault(case, {})[label] = 1
   rows = []
   for dtype in (torch.float32, torch.bfloat16):
     for case, (per_call, layers, batch) in cases.items():
@@ -997,7 +1082,9 @@ def main() -> int:
           "library_ms": total("library_ms"),
           "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                        else "bytes")}
-    main_path = TRAIN if TRAIN in per_path else MAIN_PATH
+    # a training step where the kernel trains, else one pair served
+    main_path = next(p for p in (*TRAINS, MAIN_PATH, "erp_b1")
+                     if p in per_path)
     main = per_path[main_path]
     summary.append({
         "name": name, "route": "cuda", "source": source,
@@ -1022,12 +1109,12 @@ def main() -> int:
       "pairs_per_call": s["batch"], "fe_ms": s["fe_ms"],
       "peak_gib": s["peak_gib"], **s["check"]}
       for label, s in seen.items() if label in PATHS} | {
-          TRAIN: {"ms_per_step": statistics.median(seen[TRAIN]["call_ms"][-2:]),
-                  "step_ms": seen[TRAIN]["call_ms"],
-                  "first_step_ms": seen[TRAIN]["first_ms"],
-                  "batch": TRAIN_BATCH, "peak_gib": seen[TRAIN]["peak_gib"],
-                  "losses": seen[TRAIN]["losses"],
-                  "profile": seen[TRAIN]["profile"], **seen[TRAIN]["check"]},
+          label: {"ms_per_step": statistics.median(s["call_ms"][-2:]),
+                  "step_ms": s["call_ms"], "first_step_ms": s["first_ms"],
+                  "batch": s["batch"], "peak_gib": s["peak_gib"],
+                  "losses": s["losses"], "profile": s["profile"],
+                  **s["check"]}
+          for label, s in seen.items() if label in TRAINS} | {
           "train_anchor": train_anchor, "anchor": anchor}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)

@@ -1,32 +1,39 @@
-// Backward of the stride-1 3x3 Cassini sphere convolution (sphere_conv.cu)
-// on NHWC maps with H = 2W: the gradient of the input, dx (N, H, W, Cin),
-// and of the weight, dw (9, Cin, Cout) in f32, for a cotangent g
-// (N, H, W, Cout) of the bare conv's output.
+// Backward of the stride-1 3x3 sphere convolution (sphere_conv.cu) on NHWC
+// Cassini maps (H = 2W) or ERP maps (W = 2H): the gradient of the input, dx
+// (N, H, W, Cin), and of the weight, dw (9, Cin, Cout) in f32, for a
+// cotangent g (N, H, W, Cout) of the bare conv's output.
 //
 // Replaces mode_tpu/ops/pallas/sphere_conv_kernel.py:
-// sphere_conv_cassini_pallas_bwd (K3b): its dx pallas_call (_bwd_input_kernel)
-// and its dw pallas_call (_bwd_weight_kernel). Both read the forward's W x 9
-// shift tables: int4 (sigma, c0, c1, drop_row) and float4 (the corner weights
-// of (s, c0), (s+1, c0), (s, c1), (s+1, c1)), where output pixel (i, j) at
-// tap k samples row s = (i + sigma[j,k]) mod H and its successor.
+// sphere_conv_cassini_pallas_bwd (K3b) and sphere_conv_erp_pallas_bwd
+// (K10b): their dx pallas_call (_bwd_input_kernel) and their dw pallas_call
+// (_bwd_weight_kernel). As there, one body serves both layouts, with
+// (band, lane) = (column, row) for Cassini and (row, column) for ERP
+// (sphere_conv.cu says what the two axes are); here the layout is a
+// compile-time parameter (ERP), so each instantiation's inner loop has no
+// layout branch. Both kernels read the forward's B x 9 shift tables (B the
+// band extent): int4 (sigma, b0, b1, drop) and float4 (the corner weights
+// of (b0, s), (b0, s+1), (b1, s), (b1, s+1) in (band, lane) terms), where
+// the output pixel with band index b and lane index l samples at tap k the
+// lane s = (l + sigma[b,k]) mod L and its successor.
 //
-// sphere_conv_bwd_input. dx[r, c] = sum over the samples that read input
-// pixel (r, c) of their corner weight times dcol = g . W^T at that sample.
-// The K3b kernel and the reference's col2im (sphere_conv_cuda_kernel.cu)
+// sphere_conv_bwd_input. dx[p] = sum over the samples that read input
+// pixel p of their corner weight times dcol = g . W^T at that sample. The
+// Pallas kernels and the reference's col2im (sphere_conv_cuda_kernel.cu)
 // scatter those contributions; here each dx pixel gathers its own, so the
-// result is deterministic with no atomics. Tap k's corners land on column c
-// from the output columns j with c0[j,k] == c or c1[j,k] == c, all within
-// `reach` (2 on the Cassini grid) columns of c; from output row
-// (r - sigma) mod H for the (s, .) corners and (r - 1 - sigma) mod H for the
-// successor corners. The forward's edge rules, transposed: a successor
-// corner never lands on row 0 (the forward does not wrap the successor of
-// source row H-1); a corner read by the output row drop_row[j,k] carries
-// nothing; the clamped columns have weight zero and so never match. Since
-// W^T does not depend on the pixel, the blend and the GEMM fuse into one
-// implicit GEMM: M = dx pixels, N = Cin, K = 9 taps x Cout, whose A value at
-// (pixel, tap k, channel co) blends g[., co] over the at most MAXE
-// contributing samples (4 on the Cassini grid; the wrapper checks both
-// bounds on the tables), and whose B slice for tap k is W[k]^T.
+// result is deterministic with no atomics. Tap k's corners land on band
+// index c from the output band indices j with b0[j,k] == c or
+// b1[j,k] == c, all within `reach` (2 on the Cassini and ERP grids) of c;
+// from output lane (l - sigma) mod L for the (., s) corners and
+// (l - 1 - sigma) mod L for the successor corners. The forward's edge
+// rules, transposed: a successor corner never lands on lane 0 (the forward
+// does not wrap the successor of lane L-1); a corner read by the output
+// lane drop[j,k] carries nothing; the clamped band indices have weight zero
+// and so never match. Since W^T does not depend on the pixel, the blend and
+// the GEMM fuse into one implicit GEMM: M = dx pixels, N = Cin,
+// K = 9 taps x Cout, whose A value at (pixel, tap k, channel co) blends
+// g[., co] over the at most MAXE contributing samples (4 on both grids; the
+// wrapper checks both bounds on the tables), and whose B slice for tap k is
+// W[k]^T.
 //
 // sphere_conv_bwd_weight. dw[k, ci, co] = sum over the N*H*W pixels of
 // col[p, k, ci] * g[p, co], col being the forward's blended sample, rebuilt
@@ -51,9 +58,9 @@ namespace {
 using igemm::BK;
 using igemm::NT;
 constexpr int TAPS = 9;
-constexpr int MAXE = 4;  // contributing samples per (input column, tap)
+constexpr int MAXE = 4;  // contributing samples per (input band index, tap)
 
-template <typename T, int BM, int BN, int TM, int TN>
+template <typename T, int BM, int BN, int TM, int TN, bool ERP>
 __global__ void __launch_bounds__(NT)
 bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
                  const int4* __restrict__ itab,
@@ -65,10 +72,12 @@ bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
   const long long mtot = (long long)nb * wd * h;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
+  const int nband = ERP ? h : wd, nlane = ERP ? wd : h;
 
-  // M walks the dx pixels column by column, m = (n*W + c)*H + r, so the
-  // rows of a block share their column and its table entries.
-  int rr[RA], rc[RA];
+  // M walks the dx pixels band index by band index, m = (n*B + c)*L + l
+  // (Cassini: column by column; ERP: row by row), so the rows of a block
+  // share their band index and its table entries.
+  int rl[RA], rc[RA];  // lane and band index
   long long rimg[RA];  // offset of the row's image in g
   bool rv[RA];
 #pragma unroll
@@ -76,10 +85,10 @@ bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
     const long long m = m0 + igemm::a_row() + r * (NT / BK);
     rv[r] = m < mtot;
     long long t = rv[r] ? m : 0;
-    rr[r] = (int)(t % h);
-    t /= h;
-    rc[r] = (int)(t % wd);
-    rimg[r] = (t / wd) * h * wd * (long long)cout;
+    rl[r] = (int)(t % nlane);
+    t /= nlane;
+    rc[r] = (int)(t % nband);
+    rimg[r] = (t / nband) * h * wd * (long long)cout;
   }
 
   // The current tap's contributions to each gathered row: the offsets in g
@@ -94,23 +103,24 @@ bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
     for (int r = 0; r < RA; ++r) {
       ne[r] = 0;
       const int c = rc[r];
-      const int jlo = max(c - reach, 0), jhi = min(c + reach, wd - 1);
+      const int jlo = max(c - reach, 0), jhi = min(c + reach, nband - 1);
       for (int j = jlo; j <= jhi; ++j) {
         const int4 it = itab[j * TAPS + k];
         const float4 f = ftab[j * TAPS + k];
         float a_s = (it.y == c ? f.x : 0.f) + (it.z == c ? f.z : 0.f);
         float a_n = (it.y == c ? f.y : 0.f) + (it.z == c ? f.w : 0.f);
         if (a_s == 0.f && a_n == 0.f) continue;
-        int is = rr[r] - it.x;  // the output row reading (r, c) as row s
-        if (is < 0) is += h;
-        const int in = is == 0 ? h - 1 : is - 1;  // ... as row s + 1
+        int is = rl[r] - it.x;  // the output lane reading (c, l) as lane s
+        if (is < 0) is += nlane;
+        const int in = is == 0 ? nlane - 1 : is - 1;  // ... as lane s + 1
         if (is == it.w) a_s = 0.f;
-        if (rr[r] == 0 || in == it.w) a_n = 0.f;
+        if (rl[r] == 0 || in == it.w) a_n = 0.f;
 #pragma unroll
         for (int e = 0; e < MAXE; ++e) {
           if (e == ne[r]) {
-            ps[r][e] = (is * wd + j) * cout;
-            pn[r][e] = (in * wd + j) * cout;
+            // the offsets in g of output pixels (band j, lane is / in)
+            ps[r][e] = (ERP ? j * wd + is : is * wd + j) * cout;
+            pn[r][e] = (ERP ? j * wd + in : in * wd + j) * cout;
             ws[r][e] = a_s;
             wn[r][e] = a_n;
           }
@@ -147,6 +157,7 @@ bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
   igemm::epilogue<T, BN, TM, TN>(
       acc, m0, mtot, n0, cin, scale, bias, static_cast<const T*>(nullptr),
       dx, 0, [&](long long m) {
+        if (ERP) return m * cin;  // M is NHWC's own order
         const int i = (int)(m % h);
         const long long t = m / h;
         return (((t / wd) * h + i) * wd + t % wd) * cin;
@@ -159,7 +170,7 @@ bwd_input_kernel(const T* __restrict__ g, const T* __restrict__ wt,
 // part[z][m][co]. Each thread stages, per step of BK pixels, the A values
 // of one row (fixed tap and channel, so the warp's loads are channel-
 // contiguous) at BK*BM/NT pixels, and BK*BN/NT values of g.
-template <typename T, int BM, int BN, int TM, int TN>
+template <typename T, int BM, int BN, int TM, int TN, bool ERP>
 __global__ void __launch_bounds__(NT)
 bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ g,
                   const int4* __restrict__ itab,
@@ -188,6 +199,10 @@ bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int aci = arow ? am % cin : 0;
   const int apix = tid / BM;
   const long long img = (long long)h * wd;
+  // the lane extent, and the element steps of one band and one lane
+  const int nlane = ERP ? wd : h;
+  const long long band_step = ERP ? (long long)wd * cin : cin;
+  const long long lane_step = ERP ? cin : (long long)wd * cin;
 
   float ra[RA], rb[RB];
   auto fetch = [&](long long p0) {
@@ -200,16 +215,17 @@ bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ g,
         const long long t = p / wd;
         const int i = (int)(t % h);
         const long long base = (t / h) * img * cin + aci;
-        const int4 it = itab[j * TAPS + ak];
-        const float4 f = ftab[j * TAPS + ak];
-        int s = i + it.x;
-        if (s >= h) s -= h;
-        if (i != it.w) {
-          const bool seam = s == h - 1;
-          const long long row = base + (long long)s * wd * cin;
-          const long long nxt = seam ? 0 : (long long)wd * cin;
-          const T* p0c = x + row + (long long)it.y * cin;
-          const T* p1c = x + row + (long long)it.z * cin;
+        const int b = ERP ? i : j, l = ERP ? j : i;  // band and lane index
+        const int4 it = itab[b * TAPS + ak];
+        const float4 f = ftab[b * TAPS + ak];
+        int s = l + it.x;
+        if (s >= nlane) s -= nlane;
+        if (l != it.w) {
+          const bool seam = s == nlane - 1;
+          const long long lane = base + s * lane_step;
+          const long long nxt = seam ? 0 : lane_step;
+          const T* p0c = x + lane + it.y * band_step;
+          const T* p1c = x + lane + it.z * band_step;
           v = f.x * igemm::to_f32(p0c[0]) + f.z * igemm::to_f32(p1c[0]);
           if (!seam) {
             v += f.y * igemm::to_f32(p0c[nxt]) + f.w * igemm::to_f32(p1c[nxt]);
@@ -296,7 +312,7 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename T>
+template <typename T, bool ERP>
 void launch_input(const void* g, const void* wt, const int4* itab,
                   const float4* ftab, const float* scale, const float* bias,
                   void* dx, int nb, int h, int wd, int cin, int cout,
@@ -306,18 +322,18 @@ void launch_input(const void* g, const void* wt, const int4* itab,
   // covers Cout
   if (cin > 64) {
     dim3 grid((unsigned)((mtot + 63) / 64), (cin + 127) / 128);
-    bwd_input_kernel<T, 64, 128, 4, 8><<<grid, NT, 0, stream>>>(
+    bwd_input_kernel<T, 64, 128, 4, 8, ERP><<<grid, NT, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const T*>(wt), itab, ftab,
         scale, bias, static_cast<T*>(dx), nb, h, wd, cin, cout, reach);
   } else {
     dim3 grid((unsigned)((mtot + 63) / 64), (cin + 63) / 64);
-    bwd_input_kernel<T, 64, 64, 4, 4><<<grid, NT, 0, stream>>>(
+    bwd_input_kernel<T, 64, 64, 4, 4, ERP><<<grid, NT, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const T*>(wt), itab, ftab,
         scale, bias, static_cast<T*>(dx), nb, h, wd, cin, cout, reach);
   }
 }
 
-template <typename T>
+template <typename T, bool ERP>
 void launch_weight(const void* x, const void* g, const int4* itab,
                    const float4* ftab, float* part, int nb, int h, int wd,
                    int cin, int cout, int nsplit, int chunk,
@@ -325,66 +341,51 @@ void launch_weight(const void* x, const void* g, const int4* itab,
   const int mrows = TAPS * cin;
   if (cout > 64) {
     dim3 grid((mrows + 63) / 64, (cout + 127) / 128, nsplit);
-    bwd_weight_kernel<T, 64, 128, 4, 8><<<grid, NT, 0, stream>>>(
+    bwd_weight_kernel<T, 64, 128, 4, 8, ERP><<<grid, NT, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), itab, ftab, part,
         nb, h, wd, cin, cout, chunk);
   } else {
     dim3 grid((mrows + 63) / 64, (cout + 63) / 64, nsplit);
-    bwd_weight_kernel<T, 64, 64, 4, 4><<<grid, NT, 0, stream>>>(
+    bwd_weight_kernel<T, 64, 64, 4, 4, ERP><<<grid, NT, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(g), itab, ftab, part,
         nb, h, wd, cin, cout, chunk);
   }
 }
 
-}  // namespace
-
-// g: (nb, h, wd, cout); wt: (9, cout, cin), the forward's (9, cin, cout)
-// weight with its channel axes swapped; itab, ftab: the forward's shift
-// tables, (wd, 9) int4 and float4; scale, bias: (cin,) f32 ones and zeros
-// (the shared epilogue's affine); dx: (nb, h, wd, cin). reach: the largest
-// |c - j| between an input column c and an output column j that samples it.
-// g, wt and dx are f32 (bf16 == 0) or bf16 (bf16 == 1). Returns
-// cudaGetLastError() after the launch.
-extern "C" int sphere_conv_bwd_input(int bf16, const void* g, const void* wt,
-                                     const void* itab, const void* ftab,
-                                     const void* scale, const void* bias,
-                                     void* dx, int nb, int h, int wd, int cin,
-                                     int cout, int reach, void* stream) {
+template <bool ERP>
+int run_input(int bf16, const void* g, const void* wt, const void* itab,
+              const void* ftab, const void* scale, const void* bias, void* dx,
+              int nb, int h, int wd, int cin, int cout, int reach,
+              void* stream) {
   const int4* it = static_cast<const int4*>(itab);
   const float4* ft = static_cast<const float4*>(ftab);
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    launch_input<__nv_bfloat16>(g, wt, it, ft, s, b, dx, nb, h, wd, cin, cout,
-                                reach, st);
+    launch_input<__nv_bfloat16, ERP>(g, wt, it, ft, s, b, dx, nb, h, wd, cin,
+                                     cout, reach, st);
   } else {
-    launch_input<float>(g, wt, it, ft, s, b, dx, nb, h, wd, cin, cout, reach,
-                        st);
+    launch_input<float, ERP>(g, wt, it, ft, s, b, dx, nb, h, wd, cin, cout,
+                             reach, st);
   }
   return (int)cudaGetLastError();
 }
 
-// x: (nb, h, wd, cin); g: (nb, h, wd, cout); itab, ftab: the forward's shift
-// tables; part: (nsplit, 9 * cin, cout) f32 scratch; dw: (9, cin, cout) f32.
-// The pixels are split into nsplit ranges of chunk pixels
-// (nsplit * chunk >= nb * h * wd). x and g are f32 (bf16 == 0) or bf16
-// (bf16 == 1). Returns cudaGetLastError() after the two launches.
-extern "C" int sphere_conv_bwd_weight(int bf16, const void* x, const void* g,
-                                      const void* itab, const void* ftab,
-                                      void* part, void* dw, int nb, int h,
-                                      int wd, int cin, int cout, int nsplit,
-                                      int chunk, void* stream) {
+template <bool ERP>
+int run_weight(int bf16, const void* x, const void* g, const void* itab,
+               const void* ftab, void* part, void* dw, int nb, int h, int wd,
+               int cin, int cout, int nsplit, int chunk, void* stream) {
   const int4* it = static_cast<const int4*>(itab);
   const float4* ft = static_cast<const float4*>(ftab);
   float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    launch_weight<__nv_bfloat16>(x, g, it, ft, pt, nb, h, wd, cin, cout,
-                                 nsplit, chunk, st);
+    launch_weight<__nv_bfloat16, ERP>(x, g, it, ft, pt, nb, h, wd, cin, cout,
+                                      nsplit, chunk, st);
   } else {
-    launch_weight<float>(x, g, it, ft, pt, nb, h, wd, cin, cout, nsplit,
-                         chunk, st);
+    launch_weight<float, ERP>(x, g, it, ft, pt, nb, h, wd, cin, cout, nsplit,
+                              chunk, st);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -393,4 +394,60 @@ extern "C" int sphere_conv_bwd_weight(int bf16, const void* x, const void* g,
   reduce_splits_kernel<<<blocks, 256, 0, st>>>(pt, static_cast<float*>(dw), n,
                                                nsplit);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// g: (nb, h, wd, cout) with h = 2*wd; wt: (9, cout, cin), the forward's
+// (9, cin, cout) weight with its channel axes swapped; itab, ftab: the
+// forward's shift tables, (wd, 9) int4 and float4; scale, bias: (cin,) f32
+// ones and zeros (the shared epilogue's affine); dx: (nb, h, wd, cin).
+// reach: the largest |c - j| between an input column c and an output column
+// j that samples it. g, wt and dx are f32 (bf16 == 0) or bf16 (bf16 == 1).
+// Returns cudaGetLastError() after the launch.
+extern "C" int sphere_conv_bwd_input(int bf16, const void* g, const void* wt,
+                                     const void* itab, const void* ftab,
+                                     const void* scale, const void* bias,
+                                     void* dx, int nb, int h, int wd, int cin,
+                                     int cout, int reach, void* stream) {
+  return run_input<false>(bf16, g, wt, itab, ftab, scale, bias, dx, nb, h, wd,
+                          cin, cout, reach, stream);
+}
+
+// The same on an ERP map (wd = 2*h) with the ERP shift tables, (h, 9) int4
+// (sigma, r0, r1, drop_col) and float4; reach: the largest |c - i| between
+// an input row c and an output row i that samples it.
+extern "C" int sphere_conv_erp_bwd_input(int bf16, const void* g,
+                                         const void* wt, const void* itab,
+                                         const void* ftab, const void* scale,
+                                         const void* bias, void* dx, int nb,
+                                         int h, int wd, int cin, int cout,
+                                         int reach, void* stream) {
+  return run_input<true>(bf16, g, wt, itab, ftab, scale, bias, dx, nb, h, wd,
+                         cin, cout, reach, stream);
+}
+
+// x: (nb, h, wd, cin) with h = 2*wd; g: (nb, h, wd, cout); itab, ftab: the
+// forward's shift tables; part: (nsplit, 9 * cin, cout) f32 scratch; dw:
+// (9, cin, cout) f32. The pixels are split into nsplit ranges of chunk
+// pixels (nsplit * chunk >= nb * h * wd). x and g are f32 (bf16 == 0) or
+// bf16 (bf16 == 1). Returns cudaGetLastError() after the two launches.
+extern "C" int sphere_conv_bwd_weight(int bf16, const void* x, const void* g,
+                                      const void* itab, const void* ftab,
+                                      void* part, void* dw, int nb, int h,
+                                      int wd, int cin, int cout, int nsplit,
+                                      int chunk, void* stream) {
+  return run_weight<false>(bf16, x, g, itab, ftab, part, dw, nb, h, wd, cin,
+                           cout, nsplit, chunk, stream);
+}
+
+// The same on an ERP map (wd = 2*h) with the ERP shift tables.
+extern "C" int sphere_conv_erp_bwd_weight(int bf16, const void* x,
+                                          const void* g, const void* itab,
+                                          const void* ftab, void* part,
+                                          void* dw, int nb, int h, int wd,
+                                          int cin, int cout, int nsplit,
+                                          int chunk, void* stream) {
+  return run_weight<true>(bf16, x, g, itab, ftab, part, dw, nb, h, wd, cin,
+                          cout, nsplit, chunk, stream);
 }

@@ -255,37 +255,46 @@ class SphereConv(nn.Module):
 class SphereConvBn(nn.Sequential):
   """``sphere_convbn``: sphere conv + BN, run as one call of
   ``ops/sphere_conv.py:sphere_conv_bn_act`` with the BN, an optional
-  residual and ReLU in its epilogue; NCHW in and out."""
+  residual and ReLU in its epilogue; NCHW in and out. ``sphere_type`` is
+  the maps' layout, ``"Cassini"`` (H = 2W) or ``"ERP"`` (W = 2H); it
+  chooses the sampling tables and the kernel, not the parameters."""
 
-  def __init__(self, cin: int, cout: int):
+  def __init__(self, cin: int, cout: int, sphere_type: str = "Cassini"):
     super().__init__(SphereConv(cin, cout), TorchBatchNorm(cout))
+    if sphere_type not in sphere_ops.FORWARD:
+      raise ValueError(f"unknown sphere_type {sphere_type!r}")
+    self.sphere_type = sphere_type
     self._operands = _Operands()
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
+    kind = self.sphere_type
     if self.training:
       xn = _nhwc(x)
-      if sphere_ops.train_kernel_eligible(xn.shape):
-        y = sphere_ops.sphere_conv_train(xn, self[0].weight, plain=plain)
+      if sphere_ops.train_kernel_eligible(xn.shape, kind):
+        y = sphere_ops.sphere_conv_train(xn, self[0].weight, sphere_type=kind,
+                                         plain=plain)
       else:
-        y = sphere_ops.sphere_conv(xn, self[0].weight)
+        y = sphere_ops.sphere_conv(xn, self[0].weight, kind)
       return _bn_act(self[1], y.permute(0, 3, 1, 2), residual, relu)
     weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
     y = sphere_conv_bn_act(_nhwc(x), weight, scale, bias,
                            None if residual is None else _nhwc(residual),
-                           relu, plain=plain)
+                           relu, sphere_type=kind, plain=plain)
     return y.permute(0, 3, 1, 2)
 
 
 class SphereBasicBlock(nn.Module):
   """``SphereBasicBlock``: two sphere conv + BN stages, the shortcut (a 1x1
   conv + BN where the width changes) added and a ReLU after, the add and
-  the ReLU in conv2's epilogue. NCHW."""
+  the ReLU in conv2's epilogue. NCHW, in the layout ``sphere_type``."""
 
-  def __init__(self, cin: int, cout: int, has_downsample: bool = False):
+  def __init__(self, cin: int, cout: int, has_downsample: bool = False,
+               sphere_type: str = "Cassini"):
     super().__init__()
-    self.conv1 = nn.Sequential(SphereConvBn(cin, cout), nn.ReLU())
-    self.conv2 = SphereConvBn(cout, cout)
+    self.conv1 = nn.Sequential(SphereConvBn(cin, cout, sphere_type),
+                               nn.ReLU())
+    self.conv2 = SphereConvBn(cout, cout, sphere_type)
     self.downsample = (downsample_shortcut(cin, cout, 1)
                        if has_downsample else None)
 

@@ -69,13 +69,15 @@ def _stem(firstconv: nn.Sequential, x: torch.Tensor, fused: bool,
 
 
 class SphereFeatureExtraction(nn.Module):
-  """The ``conv="Sphere"`` feature extractor, Cassini: a 7x7 stride-2 stem,
-  three regular residual stages (dilation 2 in the third), a stage of 8
-  sphere residual blocks, and ``concat(64 + 64 + 128)`` through ``lastconv``
-  (1x1, 3x3, 1x1, each with BN and ReLU): ``(B, H, W, 3)`` ->
-  ``(B, H/4, W/4, 32)``, H = 2W."""
+  """The ``conv="Sphere"`` feature extractor: a 7x7 stride-2 stem, three
+  regular residual stages (dilation 2 in the third), a stage of 8 sphere
+  residual blocks, and ``concat(64 + 64 + 128)`` through ``lastconv`` (1x1,
+  3x3, 1x1, each with BN and ReLU): ``(B, H, W, 3)`` -> ``(B, H/4, W/4,
+  32)``. ``sphere_type`` is the panoramas' layout, ``"Cassini"`` (H = 2W)
+  or ``"ERP"`` (W = 2H); only the sphere convs of layer 4 depend on it, and
+  the parameters are the same for both."""
 
-  def __init__(self):
+  def __init__(self, sphere_type: str = "Cassini"):
     super().__init__()
     self.firstconv = nn.Sequential(
         convbn(3, 32, 7, 2, 3, 1), nn.ReLU(),
@@ -85,8 +87,10 @@ class SphereFeatureExtraction(nn.Module):
     self.layer2 = _stage(RegularBasicBlock, 64, 64, 8, 2, 1)
     self.layer3 = _stage(RegularBasicBlock, 64, 64, 4, 1, 2)
     self.layer4 = nn.Sequential(
-        SphereBasicBlock(64, 128, has_downsample=True),
-        *[SphereBasicBlock(128, 128) for _ in range(7)])
+        SphereBasicBlock(64, 128, has_downsample=True,
+                         sphere_type=sphere_type),
+        *[SphereBasicBlock(128, 128, sphere_type=sphere_type)
+          for _ in range(7)])
     self.lastconv = nn.Sequential(
         convbn(256, 128, 1, 1, 0, 1), nn.ReLU(),
         convbn(128, 128, 3, 1, 1, 1), nn.ReLU(),
@@ -181,8 +185,9 @@ class ModeDisparity(nn.Module):
   three deep-supervision predictions ``(pred1, pred2, pred3)``.
 
   ``conv="Sphere"`` (the default) builds the sphere feature extractor on
-  Cassini panoramas (H = 2W); ``sphere_type="ERP"`` raises, it comes with a
-  later slice. ``conv="Regular"`` builds PSMNet's. The weights are drawn
+  Cassini panoramas (H = 2W), or with ``sphere_type="ERP"`` on
+  equirectangular ones (W = 2H); the two have the same parameters.
+  ``conv="Regular"`` builds PSMNet's. The weights are drawn
   from ``generator`` (seed 0 if None) as the reference initialises them;
   load trained ones with ``load_state_dict`` (reference torch keys, see
   ``utils/convert.py``). ``device`` defaults to the CUDA card and raises
@@ -195,13 +200,7 @@ class ModeDisparity(nn.Module):
                generator: torch.Generator | None = None):
     super().__init__()
     if conv == "Sphere":
-      if sphere_type == "ERP":
-        raise NotImplementedError(
-            "sphere_type='ERP' comes with the ERP slice of the port (the ERP "
-            "sphere conv kernel, K10); this slice runs 'Cassini'")
-      if sphere_type != "Cassini":
-        raise ValueError(f"unknown sphere_type {sphere_type!r}")
-      fe = SphereFeatureExtraction()
+      fe = SphereFeatureExtraction(sphere_type)
     elif conv == "Regular":
       fe = PSMNetFeatureExtraction()
     else:

@@ -1,4 +1,4 @@
-"""Spherical convolution on Cassini panoramas, with a fused epilogue.
+"""Spherical convolution on Cassini and ERP panoramas, with a fused epilogue.
 
 The sampling grid is the reference's inverse-gnomonic construction
 (``mode_tpu/ops/sphere_conv.py``), kept here as its own numpy copy and
@@ -8,34 +8,44 @@ cached per shape:
     which each kernel tap samples for each output pixel;
   * :func:`build_gather_tables` — the 4 bilinear corners of every position,
     with zero weight outside the image: the plain version's tables;
-  * :func:`build_shift_tables` — the compact per-(output column, tap)
-    tables of the Cassini structure (``mode_tpu/ops/pallas/
-    sphere_conv_kernel.py:59-104``): the row coordinate of tap k at output
-    pixel (i, j) is ``(i + Δ[j, k]) mod H`` and its column depends on j and
-    k only, so W x 9 entries describe the whole grid. The CUDA kernel reads
-    these.
+  * :func:`build_shift_tables` and :func:`build_shift_tables_erp` — the
+    compact tables of the grid's structure (``mode_tpu/ops/pallas/
+    sphere_conv_kernel.py:59-104, 169-209``), which the CUDA kernels read.
+    One image axis is the *band*: the taps sample within +-2 of the output
+    pixel's band index, at two source band indices that depend on the band
+    index and the tap only. The other is the circular *lane* axis: the tap's
+    lane coordinate is ``(lane + Δ[band, k]) mod L``. So ``band x 9`` entries
+    describe the whole grid. A Cassini map (H = 2W) has (band, lane) =
+    (column, row); an ERP map (W = 2H) the transpose, (row, column).
 
 :func:`sphere_conv_bn_act` computes ``act(sphere_conv(x, w) * scale + bias
-(+ residual))`` on ``(N, H, W, Cin)`` Cassini maps (H = 2W), stride 1,
-dense output. It replaces ``mode_tpu/ops/pallas/sphere_conv_kernel.py:
-sphere_conv_cassini_pallas`` (K3); the BN, shortcut add and ReLU that the JAX
-package applies after it in XLA (``SphereBasicBlock``) run in its epilogue.
-On a CUDA tensor it launches the kernel of ``kernels/csrc/sphere_conv.cu``;
-on a CPU tensor, or with ``plain=True``, it runs the plain version: the
-4-corner gather and GEMM of :func:`sphere_conv` (``sphere_conv_xla``) in f32
-and the same epilogue.
+(+ residual))`` on ``(N, H, W, Cin)`` maps, stride 1, dense output, for
+``sphere_type="Cassini"`` (H = 2W) or ``"ERP"`` (W = 2H). It replaces
+``mode_tpu/ops/pallas/sphere_conv_kernel.py:sphere_conv_cassini_pallas``
+(K3) and ``sphere_conv_erp_pallas`` (K10); the BN, shortcut add and ReLU
+that the JAX package applies after it in XLA (``SphereBasicBlock``) run in
+its epilogue. On a CUDA tensor it launches the kernel of its layout from
+``kernels/csrc/sphere_conv.cu``; on a CPU tensor, or with ``plain=True``, it
+runs the plain version: the 4-corner gather and GEMM of :func:`sphere_conv`
+(``sphere_conv_xla``) in f32 and the same epilogue.
 
 The backward, :func:`sphere_conv_backward`, replaces
-``sphere_conv_cassini_pallas_bwd`` (K3b) with the two kernels of
-``kernels/csrc/sphere_conv_bwd.cu``: :func:`sphere_conv_bwd_input` (dx, a
-gather over the same shift tables, no atomics) and
-:func:`sphere_conv_bwd_weight` (dw in f32, per-block partial sums added in a
-fixed order). Their plain versions are the explicit transpose of the gather
-version: ``g @ W^T`` scattered back through the 4 corners with
-``index_add_``, and the gathered samples contracted with ``g``.
-:func:`sphere_conv_train` is the bare conv as an autograd ``Function``
-(forward K3, backward K3b), which the training path of ``models/blocks.py``
-runs where :func:`train_kernel_eligible` says the JAX package runs Pallas.
+``sphere_conv_cassini_pallas_bwd`` (K3b) and ``sphere_conv_erp_pallas_bwd``
+(K10b) with the two kernels of ``kernels/csrc/sphere_conv_bwd.cu``, each
+built for both layouts: :func:`sphere_conv_bwd_input` (dx, a gather over the
+same shift tables, no atomics) and :func:`sphere_conv_bwd_weight` (dw in
+f32, per-block partial sums added in a fixed order). Their plain versions
+are the explicit transpose of the gather version: ``g @ W^T`` scattered back
+through the 4 corners with ``index_add_``, and the gathered samples
+contracted with ``g``. :func:`sphere_conv_train` is the bare conv as an
+autograd ``Function`` (forward K3/K10, backward K3b/K10b), which the
+training path of ``models/blocks.py`` runs where
+:func:`train_kernel_eligible` says the JAX package runs Pallas.
+
+Each layout's kernels have their own names, which are their C entry points
+and their ``LAUNCHES`` keys (:data:`FORWARD`, :data:`BWD_INPUT`,
+:data:`BWD_WEIGHT`), so a run shows the ERP kernels apart from the Cassini
+ones.
 
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the ``(9, Cin, Cout)``
 layout of ``ops/conv2d.py:pack_weight``, the taps row-major over (kh, kw)
@@ -55,9 +65,14 @@ from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops.conv2d import pack_weight
 from mode_tpu_torch.ops.epilogue import affine, epilogue
 
-_NAME = "sphere_conv_bn_act"
 _DTYPES = (torch.float32, torch.bfloat16)
 _TAPS = 9
+# the kernel of each pass, by layout: its C entry point and LAUNCHES key
+FORWARD = {"Cassini": "sphere_conv_bn_act", "ERP": "sphere_conv_erp_bn_act"}
+BWD_INPUT = {"Cassini": "sphere_conv_bwd_input",
+             "ERP": "sphere_conv_erp_bwd_input"}
+BWD_WEIGHT = {"Cassini": "sphere_conv_bwd_weight",
+              "ERP": "sphere_conv_erp_bwd_weight"}
 
 
 @functools.lru_cache(maxsize=64)
@@ -68,9 +83,10 @@ def gen_sphere_positions(in_height: int, in_width: int, kh: int, kw: int,
   Returns ``(kh*kw, H, W, 2)`` float32: ``[k, i, j, 0]`` is the row and
   ``[..., 1]`` the column in the input at which tap ``k`` (row-major over
   the kernel window) samples for output pixel ``(i, j)``. For Cassini,
-  H = 2W. The reference's quirks are kept: the ``kerY`` divisor uses
-  ``delta_lon``, the centre tap's rho is clamped to 1e-8, longitude wraps
-  modulo the width and latitude does not (zero past the poles).
+  H = 2W; for ERP, W = 2H. The reference's quirks are kept: the ``kerY``
+  divisor uses ``delta_lon``, the centre tap's rho is clamped to 1e-8,
+  longitude wraps modulo the width and latitude does not (zero past the
+  poles).
   """
   # the gnomonic grid lives on an ERP-shaped (h, w) = (min, max) canvas;
   # the Cassini image is its transpose
@@ -223,12 +239,81 @@ def build_shift_tables(h: int, w: int, k: int
           np.ascontiguousarray(drop_row.T.astype(np.int32)))
 
 
+@functools.lru_cache(maxsize=32)
+def build_shift_tables_erp(h: int, w: int, k: int
+                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                      np.ndarray]:
+  """The per-(output row, tap) tables of a ``k x k`` ERP sphere conv, the
+  transpose of :func:`build_shift_tables`: rows are the band (latitude,
+  which does not wrap: a row outside the image has weight zero), columns
+  the circular lane axis.
+
+  Returns ``(sigma, rowint, quad, drop_col)``:
+    * ``sigma`` int32 ``(H, K)``: the integer column shift
+      ``floor(Δ) mod W``;
+    * ``rowint`` float32 ``(H, K, 2)``: the two source rows ``r0``,
+      ``r0 + 1``, clamped into range;
+    * ``quad`` float32 ``(H, K, 4)``: the bilinear weights of the corners
+      (r0, s), (r0, s+1), (r1, s), (r1, s+1), with ``s = (j + sigma) mod W``;
+      zero for a row outside the image;
+    * ``drop_col`` int32 ``(H, K)``: the output column whose whole sample is
+      dropped (its f32 position rounds to exactly W), or -1.
+  The successor of source column W-1 is not wrapped: it contributes zero.
+  """
+  pos = gen_sphere_positions(h, w, k, k, "ERP")       # (K, H, W, 2)
+  delta = pos[:, :, 0, 1].astype(np.float64)          # Δ mod W at j = 0
+  sigma = np.floor(delta).astype(np.int64) % w
+  frac = (delta - np.floor(delta)).astype(np.float32)
+
+  at_w = pos[:, :, :, 1] >= w                         # (K, H, W)
+  drop_col = np.where(at_w.any(axis=2), at_w.argmax(axis=2), -1)  # (K, H)
+
+  rows = pos[:, :, 0, 0].astype(np.float64)           # (K, H)
+  r0 = np.floor(rows)
+  wr = (rows - r0).astype(np.float32)
+  ok0 = (r0 >= 0) & (r0 < h)
+  ok1 = (r0 + 1 >= 0) & (r0 + 1 < h)
+  wr0 = np.where(ok0, 1.0 - wr, 0.0)
+  wr1 = np.where(ok1, wr, 0.0)
+  quad = np.stack([wr0 * (1.0 - frac), wr0 * frac,
+                   wr1 * (1.0 - frac), wr1 * frac],
+                  axis=-1).astype(np.float32)         # (K, H, 4)
+  rowint = np.stack([np.clip(r0, 0, h - 1), np.clip(r0 + 1, 0, h - 1)],
+                    axis=-1).astype(np.float32)       # (K, H, 2)
+  return (np.ascontiguousarray(sigma.T.astype(np.int32)),
+          np.ascontiguousarray(rowint.transpose(1, 0, 2)),
+          np.ascontiguousarray(quad.transpose(1, 0, 2)),
+          np.ascontiguousarray(drop_col.T.astype(np.int32)))
+
+
+def shift_tables(h: int, w: int, sphere_type: str):
+  """The 3x3 shift tables of a map's layout, indexed by band:
+  :func:`build_shift_tables` (Cassini) or :func:`build_shift_tables_erp`
+  (ERP)."""
+  if sphere_type == "ERP":
+    return build_shift_tables_erp(h, w, 3)
+  return build_shift_tables(h, w, 3)
+
+
+def _check_layout(name: str, h: int, w: int, sphere_type: str) -> None:
+  if sphere_type == "Cassini":
+    ok, want = h == 2 * w, "a Cassini map (H = 2W)"
+  elif sphere_type == "ERP":
+    ok, want = w == 2 * h, "an ERP map (W = 2H)"
+  else:
+    raise ValueError(f"{name}: unknown sphere_type {sphere_type!r}")
+  if not ok:
+    raise ValueError(f"{name}: expected {want}, got {h}x{w}")
+
+
 @functools.cache
 def _sphere_lib():
   lib = build.load("sphere_conv")
-  lib.sphere_conv_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-  lib.sphere_conv_bn_act.restype = ctypes.c_int
+  for name in FORWARD.values():
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   return lib
 
 
@@ -237,27 +322,29 @@ def _packed(weight: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _device_tables(kind: str, h: int, w: int, device: torch.device):
+def _device_tables(kind: str, h: int, w: int, sphere_type: str,
+                   device: torch.device):
   """The tables of :func:`build_gather_tables` (``"gather"``) or
-  :func:`build_shift_tables` (``"shift"``, packed as ``sphere_conv.cu``
-  reads them) as tensors on ``device``."""
+  :func:`shift_tables` (``"shift"``, packed as ``sphere_conv.cu`` reads
+  them) of a map's layout, as tensors on ``device``."""
   if kind == "gather":
-    idx, wgt = build_gather_tables(h, w, 3, 3, "Cassini", 1, 1, 1)
+    idx, wgt = build_gather_tables(h, w, 3, 3, sphere_type, 1, 1, 1)
     return (torch.from_numpy(idx.astype(np.int64)).to(device),
             torch.from_numpy(wgt).to(device))
-  sigma, colint, quad, drop = build_shift_tables(h, w, 3)
-  # per (column, tap): int4 (sigma, c0, c1, drop_row), float4 quad
-  itab = np.stack([sigma, colint[..., 0].astype(np.int32),
-                   colint[..., 1].astype(np.int32), drop], axis=-1)
+  sigma, pairint, quad, drop = shift_tables(h, w, sphere_type)
+  # per (band index, tap): int4 (sigma, first, second source band index,
+  # drop), float4 quad
+  itab = np.stack([sigma, pairint[..., 0].astype(np.int32),
+                   pairint[..., 1].astype(np.int32), drop], axis=-1)
   return (torch.from_numpy(np.ascontiguousarray(itab, np.int32)).to(device),
           torch.from_numpy(quad).to(device))
 
 
-def _im2col(x: torch.Tensor) -> torch.Tensor:
+def _im2col(x: torch.Tensor, sphere_type: str) -> torch.Tensor:
   """The 9 taps' samples ``(N, 9, H, W, Cin)`` in f32: the 4-corner
   bilinear gather of ``build_gather_tables``."""
   n, h, w, cin = x.shape
-  idx, wgt = _device_tables("gather", h, w, x.device)
+  idx, wgt = _device_tables("gather", h, w, sphere_type, x.device)
   xf = x.float().reshape(n, h * w, cin)
   col = None
   for corner in range(4):
@@ -276,39 +363,35 @@ def _checked_packed(weight: torch.Tensor, cin: int, shape) -> torch.Tensor:
   return wk
 
 
-def sphere_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-  """The bare stride-1 3x3 Cassini sphere conv, plain PyTorch, in f32: the
-  4-corner bilinear gather of every tap (``build_gather_tables``), then
-  one GEMM with the ``(9 * Cin, Cout)`` weight.
+def sphere_conv(x: torch.Tensor, weight: torch.Tensor,
+                sphere_type: str = "Cassini") -> torch.Tensor:
+  """The bare stride-1 3x3 sphere conv, plain PyTorch, in f32: the 4-corner
+  bilinear gather of every tap (``build_gather_tables``), then one GEMM
+  with the ``(9 * Cin, Cout)`` weight.
 
-  ``x`` is ``(N, H, W, Cin)`` with H = 2W; ``weight`` torch or packed.
-  Returns ``(N, H, W, Cout)`` f32.
+  ``x`` is ``(N, H, W, Cin)``, H = 2W for Cassini and W = 2H for ERP;
+  ``weight`` torch or packed. Returns ``(N, H, W, Cout)`` f32.
   """
+  _check_layout("sphere_conv", x.shape[1], x.shape[2], sphere_type)
   wk = _checked_packed(weight, x.shape[-1], x.shape).float()
-  return torch.einsum("nkhwc,kco->nhwo", _im2col(x), wk)
+  return torch.einsum("nkhwc,kco->nhwo", _im2col(x, sphere_type), wk)
 
 
-def _plain(x, weight, scale, bias, residual, relu):
-  return epilogue(sphere_conv(x, weight), scale, bias, residual, relu,
-                  x.dtype)
-
-
-def _check_map(name, t, what):
+def _check_map(name, t, what, sphere_type):
   if t.dim() != 4 or t.dtype not in _DTYPES or not t.is_contiguous():
     raise ValueError(f"{name}: {what} must be a contiguous f32 or bf16 NHWC "
                      f"map, got {tuple(t.shape)} {t.dtype}")
-  if t.shape[1] != 2 * t.shape[2]:
-    raise ValueError(f"{name}: {what} must be a Cassini map (H = 2W), got "
-                     f"{t.shape[1]}x{t.shape[2]}")
+  _check_layout(name, t.shape[1], t.shape[2], sphere_type)
 
 
-def _launch(x, weight, scale, bias, residual, relu):
-  _check_map(_NAME, x, "x")
+def _launch(x, weight, scale, bias, residual, relu, sphere_type):
+  name = FORWARD[sphere_type]
+  _check_map(name, x, "x", sphere_type)
   n, h, w, cin = x.shape
   wk = _packed(weight)
   if (wk.shape[:2] != (_TAPS, cin) or wk.dtype != x.dtype
       or wk.device != x.device or not wk.is_contiguous()):
-    raise ValueError(f"{_NAME}: weight {tuple(weight.shape)} {weight.dtype} "
+    raise ValueError(f"{name}: weight {tuple(weight.shape)} {weight.dtype} "
                      f"does not match x {tuple(x.shape)} {x.dtype}")
   cout = wk.shape[2]
   shape = (n, h, w, cout)
@@ -316,19 +399,19 @@ def _launch(x, weight, scale, bias, residual, relu):
                                or residual.dtype != x.dtype
                                or residual.device != x.device
                                or not residual.is_contiguous()):
-    raise ValueError(f"{_NAME}: residual must be a contiguous {x.dtype} "
+    raise ValueError(f"{name}: residual must be a contiguous {x.dtype} "
                      f"tensor of shape {shape}")
-  itab, ftab = _device_tables("shift", h, w, x.device)
+  itab, ftab = _device_tables("shift", h, w, sphere_type, x.device)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  err = _sphere_lib().sphere_conv_bn_act(
+  err = getattr(_sphere_lib(), name)(
       int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
       n, h, w, cin, cout, int(relu),
       torch.cuda.current_stream(x.device).cuda_stream)
   if err != 0:
-    raise RuntimeError(f"{_NAME}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[_NAME] += 1
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+  LAUNCHES[name] += 1
   return out
 
 
@@ -336,16 +419,18 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
                        scale: torch.Tensor | None = None,
                        bias: torch.Tensor | None = None,
                        residual: torch.Tensor | None = None,
-                       relu: bool = False, *, plain: bool = False
-                       ) -> torch.Tensor:
-  """Stride-1 3x3 Cassini sphere conv + affine (+ residual) (+ ReLU).
+                       relu: bool = False, *, sphere_type: str = "Cassini",
+                       plain: bool = False) -> torch.Tensor:
+  """Stride-1 3x3 sphere conv + affine (+ residual) (+ ReLU).
 
   Args:
-    x: ``(N, H, W, Cin)`` with H = 2W, f32 or bf16, contiguous.
+    x: ``(N, H, W, Cin)``, H = 2W for ``sphere_type="Cassini"`` and W = 2H
+      for ``"ERP"``; f32 or bf16, contiguous.
     weight: torch ``(Cout, Cin, 3, 3)``, or its ``pack_weight`` layout
       ``(9, Cin, Cout)``; same dtype as ``x``.
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(N, H, W, Cout)`` added before the ReLU.
+    sphere_type: the map's layout; the kernel is ``FORWARD[sphere_type]``.
     plain: run the plain PyTorch version even on a CUDA tensor.
   Returns:
     ``(N, H, W, Cout)`` in ``x.dtype``.
@@ -353,17 +438,17 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
   cout = weight.shape[2] if weight.dim() == 3 else weight.shape[0]
   scale, bias = affine(scale, bias, cout, x.device)
   if plain or x.device.type == "cpu":
-    return _plain(x, weight, scale, bias, residual, relu)
+    return epilogue(sphere_conv(x, weight, sphere_type), scale, bias,
+                    residual, relu, x.dtype)
   if x.device.type != "cuda":
-    raise ValueError(f"{_NAME}: unsupported device {x.device}")
-  return _launch(x, weight, scale, bias, residual, relu)
+    raise ValueError(f"{FORWARD[sphere_type]}: unsupported device "
+                     f"{x.device}")
+  return _launch(x, weight, scale, bias, residual, relu, sphere_type)
 
 
-# --- backward (K3b) ---------------------------------------------------------
+# --- backward (K3b, K10b) ---------------------------------------------------
 
-_BWD_INPUT = "sphere_conv_bwd_input"
-_BWD_WEIGHT = "sphere_conv_bwd_weight"
-# the most samples of one tap that read one input column
+# the most samples of one tap that read one input band index
 # (sphere_conv_bwd.cu:MAXE)
 _MAX_CONTRIB = 4
 
@@ -371,33 +456,37 @@ _MAX_CONTRIB = 4
 @functools.cache
 def _bwd_lib():
   lib = build.load("sphere_conv_bwd")
-  lib.sphere_conv_bwd_input.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                        + [ctypes.c_int] * 6
-                                        + [ctypes.c_void_p])
-  lib.sphere_conv_bwd_input.restype = ctypes.c_int
-  lib.sphere_conv_bwd_weight.argtypes = ([ctypes.c_int]
-                                         + [ctypes.c_void_p] * 6
-                                         + [ctypes.c_int] * 7
-                                         + [ctypes.c_void_p])
-  lib.sphere_conv_bwd_weight.restype = ctypes.c_int
+  for name in BWD_INPUT.values():
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+  for name in BWD_WEIGHT.values():
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
   return lib
 
 
 @functools.lru_cache(maxsize=32)
-def transpose_bounds(h: int, w: int) -> tuple[int, int]:
+def transpose_bounds(h: int, w: int,
+                     sphere_type: str = "Cassini") -> tuple[int, int]:
   """``(reach, most)`` of the shift tables' transpose: the largest
-  ``|c - j|`` between an input column ``c`` and an output column ``j``
-  whose tap reads it with a nonzero corner weight, and the most such output
-  columns for one (input column, tap). The dx kernel scans ``reach``
-  columns to each side and keeps ``most`` <= 4 samples (2 and 4 on the
-  Cassini grids of 32x16 to 1024x512)."""
-  _, colint, quad, _ = build_shift_tables(h, w, 3)
-  c = np.arange(w)[:, None, None]                      # input column
-  on0 = colint[None, ..., 0] == c                      # (W_c, W_j, 9)
-  on1 = colint[None, ..., 1] == c
+  distance between an input band index ``c`` and an output band index
+  ``j`` whose tap reads it with a nonzero corner weight, and the most such
+  output band indices for one (input band index, tap). The dx kernel scans
+  ``reach`` band indices to each side and keeps ``most`` <= 4 samples (2
+  and 4 on the Cassini grids of 32x16 to 1024x512 and on the ERP grids of
+  16x32 to 512x1024)."""
+  _, pairint, quad, _ = shift_tables(h, w, sphere_type)
+  band = pairint.shape[0]
+  c = np.arange(band)[:, None, None]                   # input band index
+  on0 = pairint[None, ..., 0] == c                     # (band_c, band_j, 9)
+  on1 = pairint[None, ..., 1] == c
   hit = ((on0 & ((quad[None, ..., 0] != 0) | (quad[None, ..., 1] != 0)))
          | (on1 & ((quad[None, ..., 2] != 0) | (quad[None, ..., 3] != 0))))
-  dist = np.abs(np.arange(w)[None, :, None] - c)
+  dist = np.abs(np.arange(band)[None, :, None] - c)
   reach = int(np.where(hit, dist, 0).max())
   return reach, int(hit.sum(axis=1).max())
 
@@ -407,12 +496,14 @@ def _torch_layout(dw: torch.Tensor) -> torch.Tensor:
   return dw.reshape(3, 3, *dw.shape[1:]).permute(3, 2, 0, 1).contiguous()
 
 
-def _plain_bwd_input(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _plain_bwd_input(g: torch.Tensor, weight: torch.Tensor,
+                     sphere_type: str) -> torch.Tensor:
   """dx in f32: ``dcol = g @ W^T`` per tap, each of the gather's 4 corners
   scattered back with its weight (``index_add_``)."""
   n, h, w, _ = g.shape
+  _check_layout(BWD_INPUT[sphere_type], h, w, sphere_type)
   wk = _packed(weight).float()
-  idx, wgt = _device_tables("gather", h, w, g.device)
+  idx, wgt = _device_tables("gather", h, w, sphere_type, g.device)
   dcol = torch.einsum("nhwo,kco->nkhwc", g.float(), wk)  # (N, 9, H, W, Cin)
   dx = torch.zeros((n, h * w, wk.shape[1]), device=g.device)
   for corner in range(4):
@@ -421,38 +512,39 @@ def _plain_bwd_input(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
   return dx.reshape(n, h, w, -1)
 
 
-def _plain_bwd_weight(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _plain_bwd_weight(x: torch.Tensor, g: torch.Tensor,
+                      sphere_type: str) -> torch.Tensor:
   """dw ``(9, Cin, Cout)`` in f32: the gather's samples against g."""
-  return torch.einsum("nkhwc,nhwo->kco", _im2col(x), g.float())
+  _check_layout(BWD_WEIGHT[sphere_type], x.shape[1], x.shape[2], sphere_type)
+  return torch.einsum("nkhwc,nhwo->kco", _im2col(x, sphere_type), g.float())
 
 
-def _launch_bwd_input(g, weight):
-  _check_map(_BWD_INPUT, g, "g")
+def _launch_bwd_input(g, weight, sphere_type):
+  name = BWD_INPUT[sphere_type]
+  _check_map(name, g, "g", sphere_type)
   n, h, w, cout = g.shape
   wk = _packed(weight)
   if (wk.shape[0] != _TAPS or wk.shape[2] != cout or wk.dtype != g.dtype
       or wk.device != g.device):
-    raise ValueError(f"{_BWD_INPUT}: weight {tuple(weight.shape)} "
-                     f"{weight.dtype} does not match g {tuple(g.shape)} "
-                     f"{g.dtype}")
+    raise ValueError(f"{name}: weight {tuple(weight.shape)} {weight.dtype} "
+                     f"does not match g {tuple(g.shape)} {g.dtype}")
   cin = wk.shape[1]
-  reach, most = transpose_bounds(h, w)
+  reach, most = transpose_bounds(h, w, sphere_type)
   if most > _MAX_CONTRIB or h * w * max(cin, cout) >= 2**31:
-    raise ValueError(f"{_BWD_INPUT}: a {h}x{w} map with {cin}/{cout} "
-                     "channels exceeds the kernel's table or offset bounds")
+    raise ValueError(f"{name}: a {h}x{w} map with {cin}/{cout} channels "
+                     "exceeds the kernel's table or offset bounds")
   wt = wk.transpose(1, 2).contiguous()                   # (9, Cout, Cin)
-  itab, ftab = _device_tables("shift", h, w, g.device)
+  itab, ftab = _device_tables("shift", h, w, sphere_type, g.device)
   scale, bias = affine(None, None, cin, g.device)
   dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
-  err = _bwd_lib().sphere_conv_bwd_input(
+  err = getattr(_bwd_lib(), name)(
       int(g.dtype == torch.bfloat16), g.data_ptr(), wt.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
       dx.data_ptr(), n, h, w, cin, cout, reach,
       torch.cuda.current_stream(g.device).cuda_stream)
   if err != 0:
-    raise RuntimeError(f"{_BWD_INPUT}: kernel launch failed with CUDA error "
-                       f"{err}")
-  LAUNCHES[_BWD_INPUT] += 1
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+  LAUNCHES[name] += 1
   return dx
 
 
@@ -467,37 +559,38 @@ def _weight_splits(n, h, w, cin, cout, device) -> tuple[int, int]:
   return -(-pixels // chunk), chunk
 
 
-def _launch_bwd_weight(x, g):
-  _check_map(_BWD_WEIGHT, x, "x")
-  _check_map(_BWD_WEIGHT, g, "g")
+def _launch_bwd_weight(x, g, sphere_type):
+  name = BWD_WEIGHT[sphere_type]
+  _check_map(name, x, "x", sphere_type)
+  _check_map(name, g, "g", sphere_type)
   n, h, w, cin = x.shape
   cout = g.shape[3]
   if g.shape[:3] != x.shape[:3] or g.dtype != x.dtype or g.device != x.device:
-    raise ValueError(f"{_BWD_WEIGHT}: g {tuple(g.shape)} {g.dtype} does not "
-                     f"match x {tuple(x.shape)} {x.dtype}")
+    raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} does not match "
+                     f"x {tuple(x.shape)} {x.dtype}")
   nsplit, chunk = _weight_splits(n, h, w, cin, cout, x.device)
-  itab, ftab = _device_tables("shift", h, w, x.device)
+  itab, ftab = _device_tables("shift", h, w, sphere_type, x.device)
   part = torch.empty((nsplit, _TAPS * cin, cout), device=x.device)
   dw = torch.empty((_TAPS, cin, cout), device=x.device)
-  err = _bwd_lib().sphere_conv_bwd_weight(
+  err = getattr(_bwd_lib(), name)(
       int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), part.data_ptr(), dw.data_ptr(),
       n, h, w, cin, cout, nsplit, chunk,
       torch.cuda.current_stream(x.device).cuda_stream)
   if err != 0:
-    raise RuntimeError(f"{_BWD_WEIGHT}: kernel launch failed with CUDA "
-                       f"error {err}")
-  LAUNCHES[_BWD_WEIGHT] += 1
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+  LAUNCHES[name] += 1
   return dw
 
 
 def sphere_conv_bwd_input(g: torch.Tensor, weight: torch.Tensor, *,
+                          sphere_type: str = "Cassini",
                           plain: bool = False) -> torch.Tensor:
   """The gradient of the bare sphere conv's input.
 
   Args:
-    g: ``(N, H, W, Cout)`` cotangent of the conv's output, H = 2W, f32 or
-      bf16, contiguous.
+    g: ``(N, H, W, Cout)`` cotangent of the conv's output in the layout of
+      ``sphere_type`` (Cassini H = 2W, ERP W = 2H), f32 or bf16, contiguous.
     weight: torch ``(Cout, Cin, 3, 3)`` or packed ``(9, Cin, Cout)``, in
       ``g``'s dtype.
     plain: run the plain PyTorch version even on a CUDA tensor.
@@ -505,83 +598,98 @@ def sphere_conv_bwd_input(g: torch.Tensor, weight: torch.Tensor, *,
     dx ``(N, H, W, Cin)`` in ``g.dtype``.
   """
   if plain or g.device.type == "cpu":
-    return _plain_bwd_input(g, weight).to(g.dtype)
+    return _plain_bwd_input(g, weight, sphere_type).to(g.dtype)
   if g.device.type != "cuda":
-    raise ValueError(f"{_BWD_INPUT}: unsupported device {g.device}")
-  return _launch_bwd_input(g, weight)
+    raise ValueError(f"{BWD_INPUT[sphere_type]}: unsupported device "
+                     f"{g.device}")
+  return _launch_bwd_input(g, weight, sphere_type)
 
 
 def sphere_conv_bwd_weight(x: torch.Tensor, g: torch.Tensor, *,
+                           sphere_type: str = "Cassini",
                            plain: bool = False) -> torch.Tensor:
   """The gradient of the bare sphere conv's weight, ``(9, Cin, Cout)`` f32,
   for the forward input ``x`` ``(N, H, W, Cin)`` and the cotangent ``g``
-  ``(N, H, W, Cout)`` (same dtype, f32 or bf16, contiguous); summed in f32
-  over the pixels in a fixed order."""
+  ``(N, H, W, Cout)`` (same dtype, f32 or bf16, contiguous, in the layout
+  of ``sphere_type``); summed in f32 over the pixels in a fixed order."""
   if plain or x.device.type == "cpu":
-    return _plain_bwd_weight(x, g)
+    return _plain_bwd_weight(x, g, sphere_type)
   if x.device.type != "cuda":
-    raise ValueError(f"{_BWD_WEIGHT}: unsupported device {x.device}")
-  return _launch_bwd_weight(x, g)
+    raise ValueError(f"{BWD_WEIGHT[sphere_type]}: unsupported device "
+                     f"{x.device}")
+  return _launch_bwd_weight(x, g, sphere_type)
 
 
 def sphere_conv_backward(x: torch.Tensor, weight: torch.Tensor,
-                         g: torch.Tensor, *, plain: bool = False
+                         g: torch.Tensor, *, sphere_type: str = "Cassini",
+                         plain: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-  """``(dx, dw)`` of the bare stride-1 3x3 Cassini sphere conv: replaces
-  ``sphere_conv_kernel.py:sphere_conv_cassini_pallas_bwd`` (K3b).
+  """``(dx, dw)`` of the bare stride-1 3x3 sphere conv: replaces
+  ``sphere_conv_kernel.py:sphere_conv_cassini_pallas_bwd`` (K3b) and
+  ``sphere_conv_erp_pallas_bwd`` (K10b).
 
-  ``x`` ``(N, H, W, Cin)`` and ``g`` ``(N, H, W, Cout)`` in one dtype;
-  ``weight`` torch or packed. Returns dx in ``x.dtype`` and dw in f32, in
-  the layout of ``weight``. On a CUDA tensor the two kernels of
-  ``kernels/csrc/sphere_conv_bwd.cu`` run; on a CPU tensor, or with
-  ``plain=True``, their plain versions: the explicit transpose of the
-  gather + GEMM of :func:`sphere_conv`.
+  ``x`` ``(N, H, W, Cin)`` and ``g`` ``(N, H, W, Cout)`` in one dtype and
+  the layout of ``sphere_type``; ``weight`` torch or packed. Returns dx in
+  ``x.dtype`` and dw in f32, in the layout of ``weight``. On a CUDA tensor
+  the two kernels of ``kernels/csrc/sphere_conv_bwd.cu`` run; on a CPU
+  tensor, or with ``plain=True``, their plain versions: the explicit
+  transpose of the gather + GEMM of :func:`sphere_conv`.
   """
   _checked_packed(weight, x.shape[-1], x.shape)
-  dx = sphere_conv_bwd_input(g, weight.to(g.dtype), plain=plain)
-  dw = sphere_conv_bwd_weight(x, g, plain=plain)
+  dx = sphere_conv_bwd_input(g, weight.to(g.dtype), sphere_type=sphere_type,
+                             plain=plain)
+  dw = sphere_conv_bwd_weight(x, g, sphere_type=sphere_type, plain=plain)
   return dx.to(x.dtype), (dw if weight.dim() == 3 else _torch_layout(dw))
 
 
-def train_kernel_eligible(x_shape) -> bool:
-  """Where the JAX package runs its Pallas sphere conv (K3, K3b) in
-  training, ``ops/sphere_conv.py:_pallas_eligible`` with its TPU memory
-  budget left out: a Cassini map whose H (the TPU's lane axis) is a
-  multiple of 128, W a multiple of 8 up to 2048, Cin a multiple of 8."""
+def train_kernel_eligible(x_shape, sphere_type: str = "Cassini") -> bool:
+  """Where the JAX package runs its Pallas sphere conv (K3/K3b, K10/K10b)
+  in training, ``ops/sphere_conv.py:_pallas_eligible`` with its TPU memory
+  budget left out: a map of the layout whose lane axis (Cassini H, ERP W)
+  is a multiple of 128 and whose band axis (Cassini W, ERP H) a multiple
+  of 8 up to 2048, Cin a multiple of 8."""
   _, h, w, cin = x_shape
-  return (h == 2 * w and h % 128 == 0 and w % 8 == 0 and w <= 2048
+  if sphere_type == "ERP":
+    band, lanes, ok = h, w, w == 2 * h
+  elif sphere_type == "Cassini":
+    band, lanes, ok = w, h, h == 2 * w
+  else:
+    raise ValueError(f"unknown sphere_type {sphere_type!r}")
+  return (ok and lanes % 128 == 0 and band % 8 == 0 and band <= 2048
           and cin % 8 == 0)
 
 
 class _SphereConv(torch.autograd.Function):
-  """The bare conv: forward K3 (scale 1, bias 0, no residual, no ReLU),
-  backward the two K3b kernels; their plain versions on the CPU or with
-  ``plain``. The weight enters in torch layout and is packed here, so its
-  gradient reaches the ``Parameter``."""
+  """The bare conv: forward K3/K10 (scale 1, bias 0, no residual, no ReLU),
+  backward the two K3b/K10b kernels; their plain versions on the CPU or
+  with ``plain``. The weight enters in torch layout and is packed here, so
+  its gradient reaches the ``Parameter``."""
 
   @staticmethod
-  def forward(ctx, x, weight, plain):
+  def forward(ctx, x, weight, sphere_type, plain):
     x = x.contiguous()
     packed = _checked_packed(weight, x.shape[-1], x.shape).to(x.dtype)
     ctx.save_for_backward(x, packed)
-    ctx.plain = plain
-    return sphere_conv_bn_act(x, packed, plain=plain)
+    ctx.sphere_type, ctx.plain = sphere_type, plain
+    return sphere_conv_bn_act(x, packed, sphere_type=sphere_type, plain=plain)
 
   @staticmethod
   def backward(ctx, g):
     x, packed = ctx.saved_tensors
     g = g.to(x.dtype).contiguous()
+    kw = {"sphere_type": ctx.sphere_type, "plain": ctx.plain}
     dx = dw = None
     if ctx.needs_input_grad[0]:
-      dx = sphere_conv_bwd_input(g, packed, plain=ctx.plain)
+      dx = sphere_conv_bwd_input(g, packed, **kw)
     if ctx.needs_input_grad[1]:
-      dw = _torch_layout(sphere_conv_bwd_weight(x, g, plain=ctx.plain))
-    return dx, dw, None
+      dw = _torch_layout(sphere_conv_bwd_weight(x, g, **kw))
+    return dx, dw, None, None
 
 
 def sphere_conv_train(x: torch.Tensor, weight: torch.Tensor, *,
+                      sphere_type: str = "Cassini",
                       plain: bool = False) -> torch.Tensor:
   """The bare sphere conv with its kernels' gradients: ``x`` ``(N, H, W,
-  Cin)``, ``weight`` torch ``(Cout, Cin, 3, 3)`` (a ``Parameter``);
-  returns ``(N, H, W, Cout)`` in ``x.dtype``."""
-  return _SphereConv.apply(x, weight, plain)
+  Cin)`` in the layout of ``sphere_type``, ``weight`` torch ``(Cout, Cin,
+  3, 3)`` (a ``Parameter``); returns ``(N, H, W, Cout)`` in ``x.dtype``."""
+  return _SphereConv.apply(x, weight, sphere_type, plain)

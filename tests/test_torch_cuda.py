@@ -2,10 +2,11 @@
 at small and ragged shapes that the production shapes of ``chip_smoke.py``
 do not reach: Cin not a multiple of the 16-channel K step, Cout not a
 multiple of the output tile, odd extents for the stride-2 conv, batch 2,
-dilation 2, Cassini maps whose tables have a drop row; the stage-1 model at
-batch 2 against its plain path; the sphere conv's two backward kernels; and
-one training step at 512x256, where every kernel family trains, against
-the same step through the plain versions.
+dilation 2, Cassini maps whose tables have a drop row and ERP maps whose
+tables have a drop column; the stage-1 model (Cassini and ERP) at batch 2
+against its plain path; the sphere conv's two backward kernels in both
+layouts; and one training step at 512x256, where every kernel family
+trains, against the same step through the plain versions.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -224,6 +225,104 @@ def test_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout, dtype):
   _close(dx, want_dx, dtype)
   _close(dw, want_dw, torch.float32)
   assert torch.equal(again, S.pack_weight(dw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,res,relu", [
+    ((1, 128, 256, 64), 128, False, True),    # layer 4's first conv
+    ((1, 128, 256, 128), 128, True, True),    # a block's conv2: shortcut, ReLU
+    ((1, 128, 256, 128), 128, False, False),
+    ((2, 32, 64, 24), 40, True, False),       # drop column; Cin, Cout ragged
+])
+def test_erp_sphere_conv_kernel_matches_plain(gen, x_shape, cout, res, relu,
+                                              dtype):
+  """K10's kernel at the ERP layer-4 shapes of a 512x1024 pair, against the
+  plain gather version."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+       * 0.2).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((*x_shape[:3], cout), generator=gen, device="cuda")
+       .to(dtype) if res else None)
+  kernels.reset_launches()
+  got = S.sphere_conv_bn_act(x, w, scale, bias, r, relu, sphere_type="ERP")
+  want = S.sphere_conv_bn_act(x, w, scale, bias, r, relu, sphere_type="ERP",
+                              plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"sphere_conv_erp_bn_act": 1}
+  _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout", [
+    ((2, 128, 256, 64), 128),   # the first layer-4 conv of a batch-2 step
+    ((2, 128, 256, 128), 128),
+    ((2, 32, 64, 24), 40),      # drop column; Cin, Cout off the tiles
+])
+def test_erp_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout,
+                                                      dtype):
+  """K10b's two kernels against the plain scatter and contraction; dw is
+  the same bit for bit on a second run."""
+  n, h, w, cin = x_shape
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  g = torch.randn((n, h, w, cout), generator=gen, device="cuda").to(dtype)
+  wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+        * 0.2).to(dtype)
+  kernels.reset_launches()
+  dx, dw = S.sphere_conv_backward(x, wt, g, sphere_type="ERP")
+  again = S.sphere_conv_bwd_weight(x, g, sphere_type="ERP")
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"sphere_conv_erp_bwd_input": 1,
+                                    "sphere_conv_erp_bwd_weight": 2}
+  want_dx, want_dw = S.sphere_conv_backward(x, wt, g, sphere_type="ERP",
+                                            plain=True)
+  assert dx.dtype == dtype and dw.dtype == torch.float32
+  assert dw.shape == wt.shape
+  _close(dx, want_dx, dtype)
+  _close(dw, want_dw, torch.float32)
+  assert torch.equal(again, S.pack_weight(dw))
+
+
+def test_sphere_kernels_refuse_the_other_layout(gen):
+  """Each layout's wrappers refuse a map of the other layout on the card."""
+  cassini = torch.randn((1, 32, 16, 8), generator=gen, device="cuda")
+  erp = cassini.transpose(1, 2).contiguous()
+  w = torch.randn((8, 8, 3, 3), generator=gen, device="cuda")
+  with pytest.raises(ValueError, match="Cassini"):
+    S.sphere_conv_bn_act(erp, w)
+  with pytest.raises(ValueError, match="ERP"):
+    S.sphere_conv_bn_act(cassini, w, sphere_type="ERP")
+  with pytest.raises(ValueError, match="ERP"):
+    S.sphere_conv_bwd_input(cassini, w, sphere_type="ERP")
+  with pytest.raises(ValueError, match="ERP"):
+    S.sphere_conv_bwd_weight(cassini, cassini, sphere_type="ERP")
+  with pytest.raises(ValueError, match="Cassini"):
+    S.sphere_conv_bwd_weight(erp, erp)
+
+
+def test_erp_slice_at_batch_two_runs_the_kernels(gen):
+  """The ERP model at batch 2: 16 ERP sphere convs and 32 2-D convs per view
+  on the kernels, none on the Cassini sphere kernel, features as the plain
+  path's (relative to their largest value, as random weights grow them)."""
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  model = ModeDisparity(16, "Sphere", "ERP", out_conf=True, device="cuda")
+  left = torch.randn((2, 64, 128, 3), generator=gen, device="cuda")
+  with torch.no_grad():
+    feat = model.feature_extraction(left)
+    ref = model.feature_extraction(left, plain=True)
+  torch.cuda.synchronize()
+  assert float((feat - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+  kernels.reset_launches()
+  with torch.no_grad():
+    pred, conf = model(left, torch.roll(left, 4, dims=2))
+  torch.cuda.synchronize()
+  assert kernels.LAUNCHES["sphere_conv_erp_bn_act"] == 32
+  assert kernels.LAUNCHES["conv2d_s1_bn_act"] == 64
+  assert kernels.LAUNCHES["sphere_conv_bn_act"] == 0
+  assert pred.shape == conf.shape == (2, 64, 128)
+  assert bool(torch.isfinite(pred).all() and torch.isfinite(conf).all())
 
 
 def test_train_step_kernels_match_plain(gen):

@@ -69,11 +69,19 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu(monkeypatch):
 
 
 def test_sphere_feature_extractor_is_the_next_slice():
-  """The Cassini sphere feature extractor is ported; the ERP one comes with
-  a later slice and raises until then."""
+  """Both sphere feature extractors are ported, Cassini (the default) and
+  ERP, with the same parameters; an unknown layout raises. Without a card
+  the ERP model, like the others, builds only on an explicit CPU."""
   from mode_tpu_torch.models.disparity import (ModeDisparity,
                                                SphereFeatureExtraction)
   model = ModeDisparity(32, device="cpu")
   assert isinstance(model.feature_extraction, SphereFeatureExtraction)
-  with pytest.raises(NotImplementedError, match="ERP slice"):
-    ModeDisparity(32, "Sphere", "ERP", device="cpu")
+  erp = ModeDisparity(32, "Sphere", "ERP", device="cpu")
+  assert isinstance(erp.feature_extraction, SphereFeatureExtraction)
+  assert {k: v.shape for k, v in erp.state_dict().items()} == {
+      k: v.shape for k, v in model.state_dict().items()}
+  with pytest.raises(ValueError, match="unknown sphere_type"):
+    ModeDisparity(32, "Sphere", "Fisheye", device="cpu")
+  if not torch.cuda.is_available():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+      ModeDisparity(32, "Sphere", "ERP")

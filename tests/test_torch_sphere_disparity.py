@@ -140,21 +140,22 @@ def test_feature_extractors_dispatch_as_the_jax_package(monkeypatch, conv,
   assert calls == want
 
 
-def _trained_case(case, batch, disps):
+def _trained_case(case, batch, disps, sphere_type="Cassini"):
   npz, state_dict, h, w, maxdisp = case
   rng = np.random.default_rng(5)
   left, right, _ = _make_batch(rng, batch=batch, disps=disps, h=h, w=w)
   left = left.permute(0, 2, 3, 1).contiguous().numpy()
   right = right.permute(0, 2, 3, 1).contiguous().numpy()
-  jmodel = jdisp.ModeDisparity(maxdisp=maxdisp, out_conf=True)
+  jmodel = jdisp.ModeDisparity(maxdisp=maxdisp, sphere_type=sphere_type,
+                               out_conf=True)
   variables = jax.eval_shape(lambda: jmodel.init(
       jax.random.PRNGKey(0), jnp.asarray(left), jnp.asarray(right),
       train=False))
   variables = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
                                      variables)
   variables = convert_state_dict(state_dict(), variables)
-  port = load_npz(tdisp.ModeDisparity(maxdisp, out_conf=True, device="cpu"),
-                  npz)
+  port = load_npz(tdisp.ModeDisparity(maxdisp, "Sphere", sphere_type,
+                                      out_conf=True, device="cpu"), npz)
   return jmodel, variables, port, left, right
 
 

@@ -23,6 +23,7 @@ own step by more than 1e-4 of their norm, while the median leaf moves by
 far less.
 """
 
+import functools
 import importlib
 
 import jax
@@ -51,28 +52,28 @@ NPZ = "tests/data/trained_mirror.npz"
 H, W, MAXDISP, BATCH = 64, 32, 16, 2
 
 
-def _batch(seed=0):
+def _batch(seed=0, h=H, w=W):
   """A uint8 pair (the right view is the left rolled by 4 or 8 columns)
   and the ground truth, with a NaN patch where there is none."""
   rng = np.random.default_rng(seed)
-  fine = rng.normal(size=(BATCH, H // 2, W // 2, 3))
-  coarse = rng.normal(size=(BATCH, H // 8, W // 8, 3))
+  fine = rng.normal(size=(BATCH, h // 2, w // 2, 3))
+  coarse = rng.normal(size=(BATCH, h // 8, w // 8, 3))
   tex = (np.repeat(np.repeat(fine, 2, 1), 2, 2)
          + 0.5 * np.repeat(np.repeat(coarse, 8, 1), 8, 2))
   left = np.clip(128 + 40 * tex, 0, 255).astype(np.uint8)
   disps = (4, 8)
   right = np.stack([np.roll(left[b], -disps[b], axis=1)
                     for b in range(BATCH)])
-  gt = np.stack([np.full((H, W), float(d)) for d in disps])
+  gt = np.stack([np.full((h, w), float(d)) for d in disps])
   gt = (gt + rng.uniform(-0.5, 0.5, size=gt.shape)).astype(np.float32)
   gt[:, 10:20, 5:12] = np.nan
   return left, right, gt
 
 
-def _jax_state():
+def _jax_state(sphere_type="Cassini", h=H, w=W):
   model = jdisp.ModeDisparity(maxdisp=MAXDISP, conv="Sphere",
-                              sphere_type="Cassini", out_conf=False)
-  left = jnp.zeros((1, H, W, 3), jnp.float32)
+                              sphere_type=sphere_type, out_conf=False)
+  left = jnp.zeros((1, h, w, 3), jnp.float32)
   variables = jax.eval_shape(lambda: model.init(
       jax.random.PRNGKey(0), left, left, train=False))
   variables = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
@@ -90,17 +91,30 @@ def _numpy(tree):
   return jax.tree_util.tree_map(lambda a: np.array(a, copy=True), tree)
 
 
-@pytest.fixture(scope="module")
-def jax_step():
+def _jax_step(sphere_type="Cassini", h=H, w=W, x64=False):
   """The JAX step on the batch: the parameters before and after, its loss,
   its gradients (from optax's first moment, mu = (1 - b1) * g after one
-  step) and its BN statistics after."""
-  model, optimizer, state = _jax_state()
+  step) and its BN statistics after. With ``x64`` the step runs in f64
+  under ``jax.enable_x64``: the parameters and statistics cast up and
+  ``compute_dtype=float64``."""
+  with jax.enable_x64(x64):
+    return _run_jax_step(sphere_type, h, w, jnp.float64 if x64 else None)
+
+
+def _run_jax_step(sphere_type, h, w, compute_dtype):
+  model, optimizer, state = _jax_state(sphere_type, h, w)
+  if compute_dtype is not None:
+    up = functools.partial(jax.tree_util.tree_map,
+                           lambda a: jnp.asarray(a, compute_dtype))
+    state = jtraining.TrainState(
+        params=up(state.params), batch_stats=up(state.batch_stats),
+        opt_state=optimizer.init(up(state.params)), step=state.step)
   before = _numpy(state.params)
-  step = jtraining.make_disparity_train_step(model, optimizer)
-  left, right, gt = _batch()
+  step = jtraining.make_disparity_train_step(model, optimizer,
+                                             compute_dtype=compute_dtype)
+  left, right, gt = _batch(0, h, w)
   state, loss = step(state, jnp.asarray(left), jnp.asarray(right),
-                     jnp.asarray(gt))
+                     jnp.asarray(gt, compute_dtype or jnp.float32))
   mu = state.opt_state.inner_state[0].mu
   return {"before": before, "after": _numpy(state.params),
           "loss": float(loss),
@@ -108,11 +122,17 @@ def jax_step():
           "stats": _numpy(state.batch_stats)}
 
 
-def _port_run():
-  model = load_npz(tdisp.ModeDisparity(MAXDISP, device="cpu"), NPZ)
+@pytest.fixture(scope="module")
+def jax_step():
+  return _jax_step()
+
+
+def _port_run(sphere_type="Cassini", h=H, w=W):
+  model = load_npz(tdisp.ModeDisparity(MAXDISP, "Sphere", sphere_type,
+                                       device="cpu"), NPZ)
   optimizer = ttraining.make_optimizer(model.parameters())
   step = ttraining.make_disparity_train_step(model, optimizer)
-  left, right, gt = _batch()
+  left, right, gt = _batch(0, h, w)
   loss = step(torch.from_numpy(left), torch.from_numpy(right),
               torch.from_numpy(gt))
   return model, float(loss)
@@ -123,8 +143,7 @@ def port_step():
   return _port_run()
 
 
-@pytest.fixture(scope="module")
-def port_spread(port_step):
+def _port_spread(port_step, *geometry):
   """Per leaf, the largest distance of the port's gradient at 1 and 3 CPU
   threads from the one at 2 (the other fixtures' count)."""
   model, _ = port_step
@@ -132,7 +151,7 @@ def port_spread(port_step):
   try:
     for threads in (1, 3):
       torch.set_num_threads(threads)
-      other, _ = _port_run()
+      other, _ = _port_run(*geometry)
       for (name, p), (_, q) in zip(model.named_parameters(),
                                    other.named_parameters()):
         spread[name] = max(spread[name],
@@ -142,14 +161,23 @@ def port_spread(port_step):
   return spread
 
 
-def test_loss_matches_jax(jax_step, port_step):
+@pytest.fixture(scope="module")
+def port_spread(port_step):
+  return _port_spread(port_step)
+
+
+def _assert_loss_matches(jax_step, port_step):
   _, loss = port_step
   assert np.isfinite(loss) and loss > 0
   assert abs(loss - jax_step["loss"]) <= 1e-5 * abs(jax_step["loss"]), (
       loss, jax_step["loss"])
 
 
-def test_gradients_match_jax(jax_step, port_step, port_spread):
+def test_loss_matches_jax(jax_step, port_step):
+  _assert_loss_matches(jax_step, port_step)
+
+
+def _assert_gradients_match(jax_step, port_step, port_spread):
   model, _ = port_step
   want = grads_from_jax(jax_step["grads"])
   got = {name: p.grad for name, p in model.named_parameters()}
@@ -170,7 +198,11 @@ def test_gradients_match_jax(jax_step, port_step, port_spread):
   assert max(rel) > 0                # the two sides computed independently
 
 
-def test_bn_statistics_match_jax(jax_step, port_step):
+def test_gradients_match_jax(jax_step, port_step, port_spread):
+  _assert_gradients_match(jax_step, port_step, port_spread)
+
+
+def _assert_bn_statistics_match(jax_step, port_step):
   model, _ = port_step
   state = model.state_dict()
   with np.load(NPZ) as z:
@@ -188,6 +220,10 @@ def test_bn_statistics_match_jax(jax_step, port_step):
     assert int(state[key]) == tracked[key] + passes, key
     n += 1
   assert n == 2 * sum(1 for k in state if k.endswith("running_mean"))
+
+
+def test_bn_statistics_match_jax(jax_step, port_step):
+  _assert_bn_statistics_match(jax_step, port_step)
 
 
 def test_adam_update_matches_optax(jax_step):
@@ -233,11 +269,16 @@ def test_normalize_matches_jax():
 FAMILIES = ("conv3d_s1", "conv3d_s2", "deconv3d", "conv2d", "sphere")
 
 
-def _count_jax(monkeypatch, batch, h, w, maxdisp):
+def _count_jax(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
   """Trace the JAX model's training forward (``jax.eval_shape``) with its
   Pallas gates on, and count the calls of its Pallas custom VJPs; stubs
-  return zeros of the right shape, so no kernel is traced."""
-  model = jdisp.ModeDisparity(maxdisp=maxdisp, remat=False)
+  return zeros of the right shape, so no kernel is traced. The strided
+  gates are asked at the bf16 itemsize, at which the stride-1 gate always
+  sizes its blocks (``band_pallas_ok``'s default): so no VMEM budget that
+  only f32 exceeds enters, as the port leaves the TPU's memory budgets
+  out."""
+  model = jdisp.ModeDisparity(maxdisp=maxdisp, sphere_type=sphere_type,
+                              remat=False)
   left = jnp.zeros((batch, h, w, 3), jnp.float32)
   variables = jax.eval_shape(lambda: model.init(
       jax.random.PRNGKey(0), left, left, train=False))
@@ -251,6 +292,9 @@ def _count_jax(monkeypatch, batch, h, w, maxdisp):
 
   monkeypatch.setattr(c3k, "_CONV3D_MODE", "on")
   monkeypatch.setattr(jsc, "_PALLAS_MODE", "on")
+  for name in ("train_s2_eligible", "train_deconv_eligible"):
+    monkeypatch.setattr(c3k, name, lambda x, c, itemsize=2, gate=getattr(
+        c3k, name): gate(x, c, 2))
   monkeypatch.setattr(c3k, "conv3d_ndhwc_fast", stub(
       "conv3d_s1", lambda x, k: (*x.shape[:4], k.shape[-1])))
   monkeypatch.setattr(c3k, "conv3d_s2_fast", stub(
@@ -268,7 +312,7 @@ def _count_jax(monkeypatch, batch, h, w, maxdisp):
   return calls
 
 
-def _count_port(monkeypatch, batch, h, w, maxdisp):
+def _count_port(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
   calls = dict.fromkeys(FAMILIES, 0)
 
   def counted(family, fn):
@@ -287,7 +331,8 @@ def _count_port(monkeypatch, batch, h, w, maxdisp):
       "conv2d", conv2d_ops.conv2d_train))
   monkeypatch.setattr(sphere_ops, "sphere_conv_train", counted(
       "sphere", sphere_ops.sphere_conv_train))
-  model = tdisp.ModeDisparity(maxdisp, device="cpu").train()
+  model = tdisp.ModeDisparity(maxdisp, "Sphere", sphere_type,
+                              device="cpu").train()
   left = torch.zeros((batch, h, w, 3))
   with torch.no_grad():
     model(left, left)
