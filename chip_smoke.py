@@ -74,15 +74,20 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
-# peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
+# peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): memory; the
+# products of a conv, f32 at what the card does at f32 accuracy (3xTF32 on
+# the tensor cores, 495 / 3 TFLOP/s), bf16 on the tensor cores; and the FP32
+# pipes, for the work that cannot go to the tensor cores (the sphere convs'
+# bilinear blends, the regression head)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PIPE_OPS_PER_S = 67e12
 CONV_PY = "mode_tpu/ops/pallas/conv3d_kernel.py"
 CONV2D_PY = "mode_tpu/ops/pallas/conv2d_kernel.py"
 SPHERE_PY = "mode_tpu/ops/pallas/sphere_conv_kernel.py"
 # kernel: (source, the TPU kernels it replaces as file:line)
 KERNELS = {
-    "conv3d_s1_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d.cu",
+    "conv3d_s1_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d_s1.cu",
                          (f"{CONV_PY}:269", f"{CONV_PY}:866")),
     "conv3d_s2_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d.cu",
                          (f"{CONV_PY}:480",)),
@@ -184,9 +189,10 @@ LOSS_RTOL, GRAD_RTOL, INPUT_JITTER = 1e-4, 1e-3, 1e-6
 # for a softmax that is neither flat nor one-hot
 LOGIT_STD = 4.0
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. f32: both sides sum
-# up to 27 * 64 (3-D) or 9 * 320 (2-D, sphere) f32 products in different
-# orders. bf16: both sides compute in f32 from the same bf16 inputs and
-# round once, so they may land one bf16 step (2^-8 relative) apart.
+# up to 27 * 64 (3-D) or 9 * 320 (2-D, sphere) products in different orders,
+# the stride-1 kernels as 3xTF32 (each product to ~2^-22). bf16: both sides
+# compute in f32 from the same bf16 inputs and round once, so they may land
+# one bf16 step (2^-8 relative) apart.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # A served path on the card against its plain path, f32: the bars of
 # tests/test_trained_parity_midres.py.
@@ -252,8 +258,10 @@ def _close(got, want, dtype):
   return float(diff.max()), rel, ok
 
 
-def _bound(ops_n, nbytes, dtype):
-  t_ops = ops_n / PEAK_OPS_PER_S[dtype] * 1e3
+def _bound(ops_n, nbytes, dtype, pipe_ops=0):
+  """The least time for ``ops_n`` conv products at the ``dtype`` rate plus
+  ``pipe_ops`` on the FP32 pipes, or for ``nbytes``, whichever is longer."""
+  t_ops = (ops_n / PEAK_OPS_PER_S[dtype] + pipe_ops / PIPE_OPS_PER_S) * 1e3
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
   return {"bound_ms": max(t_ops, t_bytes),
           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -291,11 +299,13 @@ def _conv_case(case, dtype, gen):
     kw["residual"] = r
   if name == "conv2d_s1_bn_act":
     kw["dilation"] = dil
-    fn, packed = conv2d.conv2d_s1_bn_act, conv2d.pack_weight(w)
+    fn, packed = conv2d.conv2d_s1_bn_act, conv2d.pack_weight_tc(w)
   elif name in SPHERE_FWD:
     fn = functools.partial(sphere_conv.sphere_conv_bn_act,
                            sphere_type=_layout(name))
     packed = conv2d.pack_weight(w)
+  elif name == "conv3d_s1_bn_act":
+    fn, packed = conv3d.conv3d_s1_bn_act, conv3d.pack_weight_tc(w)
   else:
     fn, packed = getattr(conv3d, name), conv3d.pack_weight(w, deconv)
 
@@ -329,7 +339,7 @@ def _conv_case(case, dtype, gen):
   kernel_ms, plain_ms = times[:2]
   grid = xs[:4] if deconv else oshape[:-1]
   m = torch.Size(grid).numel()
-  ops_n = 2 * m * taps * cin * cout
+  ops_n, pipe_ops = 2 * m * taps * cin * cout, 0
   isz = x.element_size()
   nbytes = (x.numel() + w.numel() + (r.numel() if res else 0)
             + torch.Size(oshape).numel()) * isz + 2 * cout * 4
@@ -337,7 +347,7 @@ def _conv_case(case, dtype, gen):
     # the bilinear blend: 4 products and 3 sums per (pixel, tap, channel);
     # the shift tables: an int4 and a float4 per (band index, tap), the
     # band being the Cassini map's columns and the ERP map's rows
-    ops_n += 7 * m * taps * cin
+    pipe_ops = 7 * m * taps * cin
     nbytes += xs[1 if _layout(name) == "ERP" else 2] * taps * 32
   return {"name": name, "dtype": str(dtype).split(".")[1],
           "shape": f"{xs}->{cout}" + (" +res" if res else "")
@@ -346,8 +356,8 @@ def _conv_case(case, dtype, gen):
           "max_abs_err": abs_err, "max_rel_err": rel_err, "pass": ok,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "library_ms": times[2] if lib else None,
-          **_bound(ops_n, nbytes, dtype),
-          "tflops": ops_n / kernel_ms / 1e9}
+          **_bound(ops_n, nbytes, dtype, pipe_ops),
+          "tflops": (ops_n + pipe_ops) / kernel_ms / 1e9}
 
 
 def _regression_case(case, dtype, gen):
@@ -379,7 +389,7 @@ def _regression_case(case, dtype, gen):
           "conf_max_abs_err": conf_err, "conf_ties_left_out": int(tie.sum()),
           "max_rel_err": pred_rel, "pass": pred_ok and conf_ok,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-          **_bound(ops_n, nbytes, torch.float32)}
+          **_bound(0, nbytes, torch.float32, ops_n)}
 
 
 def _randomize_for_serving(model, seed: int) -> None:
@@ -740,8 +750,9 @@ def _profile_step(step, batch):
                                            "bwd_weight_kernel",
                                            "reduce_splits_kernel")),
            ("port: sphere conv forward", ("sphere_conv_kernel",)),
-           ("port: 3-D convs", ("conv3d_bn_act_kernel",)),
-           ("port: 2-D convs", ("conv2d_kernel",)),
+           ("port: 3-D convs", ("conv3d_bn_act_kernel", "conv3d_s1_tc_kernel",
+                                "conv3d_head_kernel")),
+           ("port: 2-D convs", ("conv2d_tc_kernel",)),
            ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                           "welford")),
            ("library convs (cuDNN: grad-weight, other convs)",
@@ -891,13 +902,13 @@ def _sphere_bwd_case(case, dtype, gen):
       return sphere_conv.sphere_conv_bwd_input(
           g, wt if plain else packed, sphere_type=sphere_type, plain=plain)
     # the blend of g's channels: 4 products and 3 sums per sample
-    ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cout
+    ops_n, pipe_ops = 2 * m * 9 * cin * cout, 7 * m * 9 * cout
     nbytes = (g.numel() + wt.numel() + x.numel()) * x.element_size()
   else:
     def run(plain):
       return sphere_conv.sphere_conv_bwd_weight(
           x, g, sphere_type=sphere_type, plain=plain)
-    ops_n = 2 * m * 9 * cin * cout + 7 * m * 9 * cin
+    ops_n, pipe_ops = 2 * m * 9 * cin * cout, 7 * m * 9 * cin
     nbytes = (x.numel() + g.numel()) * x.element_size() + wt.numel() * 4
   # the shift tables: 32 bytes per (band index, tap)
   nbytes += (h if sphere_type == "ERP" else w) * 9 * 32
@@ -916,7 +927,8 @@ def _sphere_bwd_case(case, dtype, gen):
           "shape": f"{xs}->{cout}", "max_abs_err": abs_err,
           "max_rel_err": rel_err, "pass": ok, "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "library_ms": None,
-          **_bound(ops_n, nbytes, dtype), "tflops": ops_n / kernel_ms / 1e9}
+          **_bound(ops_n, nbytes, dtype, pipe_ops),
+          "tflops": (ops_n + pipe_ops) / kernel_ms / 1e9}
 
 
 def _make_anchor_batch(seed: int, disp: int, h: int, w: int):

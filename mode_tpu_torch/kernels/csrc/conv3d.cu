@@ -1,37 +1,36 @@
-// Cost-volume 3-D convolutions of MODE stage 1 on NDHWC volumes, with the
-// folded eval-BatchNorm affine, an optional residual and an optional ReLU in
-// the epilogue:  out = act(conv(x, w) * scale + bias (+ residual)).
+// Strided and transposed cost-volume 3-D convolutions of MODE stage 1 on
+// NDHWC volumes, with the folded eval-BatchNorm affine, an optional residual
+// and an optional ReLU in the epilogue:
+//   out = act(conv(x, w) * scale + bias (+ residual)).
 //
 // Replaces the TPU kernels of mode_tpu/ops/pallas/conv3d_kernel.py:
-//   MODE_S1      stride-1 pad-1 3x3x3 conv, any Cout >= 1
-//                  <- conv3d_band_pallas (K1) and conv3d_fold_pallas (K6)
 //   MODE_S2      stride-2 pad-1 3x3x3 conv
 //                  <- conv3d_band_s2_pallas (K4)
 //   MODE_DECONV  ConvTranspose3d k3 s2 p1 output_padding 1, torch (I, O, k)
 //                weight  <- conv3d_band_deconv_pallas (K5) and
 //                conv3d_fold_deconv_pallas (K7)
-// The lane-major layouts, lane rolls, 0/1 selection matmuls and the M*L lane
-// fold of those kernels answered the TPU's 128-lane tiles. Here every volume
-// stays NDHWC with the channels innermost, and one kernel serves every level
-// of the hourglass.
+// (the stride-1 conv, K1 and K6, has its own tensor-core kernel in
+// conv3d_s1.cu). The lane-major layouts, lane rolls, 0/1 selection matmuls
+// and the M*L lane fold of those kernels answered the TPU's 128-lane tiles.
+// Here every volume stays NDHWC with the channels innermost, and one kernel
+// serves every level of the hourglass.
 //
 // What bounds it on the card: at the stage-1 shapes (Cin, Cout <= 64) each
-// output voxel costs 2*27*Cin*Cout flops (110 kflop at 64 -> 32) against
-// (Cin + Cout) values of compulsory traffic, far above the H100's ridge
-// point, so the kernel is bound by arithmetic. The design is an implicit
-// GEMM with M = output voxels, N = Cout, K = taps x Cin, on the tile
-// machinery of igemm.cuh: each K step gathers a BM x 16 slice of the input
-// at one tap's offset, zero outside the volume. The transposed conv does no
-// zero-stuffing: blockIdx.z picks one of the eight output parity phases,
-// and a phase visits only the 1, 2, 4 or 8 taps that land on it. This first
-// version runs on the FP32 pipes; tensor cores (wgmma) and TMA loads are
-// later work.
+// output voxel costs 2*27*Cin*Cout flops (2*8*Cin*Cout per input voxel for
+// the deconv) against (Cin + Cout) values of compulsory traffic, far above
+// the H100's ridge point, so the kernel is bound by arithmetic. The design
+// is an implicit GEMM with M = output voxels, N = Cout, K = taps x Cin, on
+// the tile machinery of igemm.cuh: each K step gathers a BM x 16 slice of
+// the input at one tap's offset, zero outside the volume. The transposed
+// conv does no zero-stuffing: blockIdx.z picks one of the eight output
+// parity phases, and a phase visits only the 1, 2, 4 or 8 taps that land on
+// it. This first version runs on the FP32 pipes; tensor cores (wgmma) and
+// TMA loads are later work.
 
 #include "igemm.cuh"
 
 namespace {
 
-constexpr int MODE_S1 = 0;
 constexpr int MODE_S2 = 1;
 constexpr int MODE_DECONV = 2;
 using igemm::BK;
@@ -156,8 +155,8 @@ void launch_tile(const void* x, const void* w, const float* scale,
       dout, hout, wout, cout, relu);
 }
 
-// The output-channel tile follows Cout, so the 1-channel classifier head
-// does not pay for 63 idle columns.
+// The output-channel tile follows Cout, so a narrow output does not pay for
+// idle columns.
 template <typename T, int MODE>
 void launch_mode(const void* x, const void* w, const float* scale,
                  const float* bias, const void* res, void* out, int nb,
@@ -183,10 +182,7 @@ void launch_dtype(int mode, const void* x, const void* w, const float* scale,
                   const float* bias, const void* res, void* out, int nb,
                   int di, int hi, int wi, int cin, int dout, int hout,
                   int wout, int cout, int relu, cudaStream_t stream) {
-  if (mode == MODE_S1) {
-    launch_mode<T, MODE_S1>(x, w, scale, bias, res, out, nb, di, hi, wi, cin,
-                            dout, hout, wout, cout, relu, stream);
-  } else if (mode == MODE_S2) {
+  if (mode == MODE_S2) {
     launch_mode<T, MODE_S2>(x, w, scale, bias, res, out, nb, di, hi, wi, cin,
                             dout, hout, wout, cout, relu, stream);
   } else {
@@ -197,16 +193,16 @@ void launch_dtype(int mode, const void* x, const void* w, const float* scale,
 
 }  // namespace
 
-// x: (nb, di, hi, wi, cin); w: (27, cin, cout) with tap (kd*3 + kh)*3 + kw;
-// scale, bias: (cout,) f32; res (may be null) and out: (nb, dout, hout, wout,
-// cout). x, w, res and out are f32 (bf16 == 0) or bf16 (bf16 == 1).
+// mode: MODE_S2 or MODE_DECONV; x: (nb, di, hi, wi, cin); w: (27, cin,
+// cout) with tap (kd*3 + kh)*3 + kw; scale, bias: (cout,) f32; res (may be
+// null) and out: (nb, dout, hout, wout, cout). x, w, res and out are f32 (bf16 == 0) or bf16 (bf16 == 1).
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3d_bn_act(int mode, int bf16, const void* x, const void* w,
                              const void* scale, const void* bias,
                              const void* res, void* out, int nb, int di,
                              int hi, int wi, int cin, int dout, int hout,
                              int wout, int cout, int relu, void* stream) {
-  if (mode < MODE_S1 || mode > MODE_DECONV) return (int)cudaErrorInvalidValue;
+  if (mode != MODE_S2 && mode != MODE_DECONV) return (int)cudaErrorInvalidValue;
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

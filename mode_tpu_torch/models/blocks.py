@@ -14,8 +14,9 @@ package's 2-D band kernels), the fused kernel of ``ops/conv2d.py``. The
 sphere convs run the fused kernel of ``ops/sphere_conv.py`` and the 3-D
 blocks, on NDHWC volumes, those of ``ops/conv3d.py``, each with the BatchNorm
 folded into the epilogue. A fused layer keeps its weight in the kernel's
-layout and its folded BN between calls, and remakes them only after one of
-its parameters or buffers changes.
+layout (the stride-1 convs: the K-major, in f32 split, layout of the
+tensor-core kernels) and its folded BN between calls, and remakes them only
+after one of its parameters or buffers changes.
 
 In training (``module.train()``) each conv + BN layer runs in the JAX
 package's order: the bare conv, BN with batch statistics, the residual, the
@@ -41,7 +42,8 @@ from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.ops import conv3d as conv3d_ops
 from mode_tpu_torch.ops import sphere_conv as sphere_ops
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
-                                       deconv3d_bn_act, pack_weight)
+                                       deconv3d_bn_act, pack_weight,
+                                       pack_weight_tc)
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
 
 
@@ -179,7 +181,7 @@ class ConvBn2d(nn.Sequential):
         or conv.padding != conv.dilation):
       raise ValueError("the fused 2-D conv is 3x3, stride 1, padding = "
                        f"dilation; this layer is {conv}")
-    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
+    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight_tc)
     y = conv2d_ops.conv2d_s1_bn_act(
         _nhwc(x), weight, scale, bias,
         None if residual is None else _nhwc(residual), relu,
@@ -319,8 +321,8 @@ class Conv3dWeight(nn.Module):
     if self.training:
       return _conv3d_train(x, self.weight, self.stride, plain)
     conv = conv3d_s1_bn_act if self.stride == 1 else conv3d_s2_bn_act
-    packed = self._operands.get((self.weight,),
-                                lambda: pack_weight(self.weight))
+    pack = pack_weight_tc if self.stride == 1 else pack_weight
+    packed = self._operands.get((self.weight,), lambda: pack(self.weight))
     return conv(x, packed, plain=plain)
 
 
@@ -346,7 +348,8 @@ class ConvBn3d(nn.Sequential):
     if self.training:
       y = _conv3d_train(x, self[0].weight, self[0].stride, plain)
       return _bn_act(self[1], y, residual, relu, channels_last=True)
-    weight, scale, bias = _fused_operands(self, pack_weight)
+    weight, scale, bias = _fused_operands(
+        self, pack_weight_tc if self[0].stride == 1 else pack_weight)
     if self[0].stride == 1:
       return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
                               plain=plain)

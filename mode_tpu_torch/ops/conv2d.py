@@ -7,15 +7,17 @@ returns ``x.dtype``. It replaces ``mode_tpu/ops/pallas/conv2d_kernel.py:
 conv2d_band_pallas`` (K8) and ``conv2d_band_bpack`` (K9): on the card the
 batch is part of the GEMM's M, so one kernel takes both.
 
-On a CUDA tensor it launches the kernel of ``kernels/csrc/conv2d.cu`` (its
-source note says what bounds it and how it is built), or raises on an input
-the kernel does not take. On a CPU tensor, or when the caller passes
-``plain=True``, it runs the plain PyTorch version: ``F.conv2d`` in f32 and
-the same epilogue.
+On a CUDA tensor it launches the tensor-core kernel of
+``kernels/csrc/conv2d.cu`` (its source note says what bounds it and how it
+is built), or raises on an input the kernel does not take. On a CPU tensor,
+or when the caller passes ``plain=True``, it runs the plain PyTorch version:
+``F.conv2d`` in f32 and the same epilogue.
 
-The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's ``(9, Cin,
-Cout)`` layout from :func:`pack_weight`, which saves the per-call repack
-where a layer keeps it (``models/blocks.py`` does).
+The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's K-major
+:class:`~mode_tpu_torch.ops.kmajor.TcWeight` from :func:`pack_weight_tc`,
+which saves the per-call repack where a layer keeps it (``models/blocks.py``
+does). :func:`pack_weight`'s ``(9, Cin, Cout)`` layout is the sphere conv's
+(``ops/sphere_conv.py``); this op takes it too.
 
 For training, :func:`conv2d_train` is the bare conv as an autograd Function
 whose forward and grad-input run the kernel, as ``conv2d_3x3_fast_train``
@@ -32,7 +34,9 @@ import torch.nn.functional as F
 
 from mode_tpu_torch.kernels import LAUNCHES
 from mode_tpu_torch.kernels import build
+from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
+from mode_tpu_torch.ops.kmajor import TcWeight
 
 _NAME = "conv2d_s1_bn_act"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -41,7 +45,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _conv2d_lib():
   lib = build.load("conv2d")
-  lib.conv2d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+  lib.conv2d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
   lib.conv2d_s1_bn_act.restype = ctypes.c_int
   return lib
@@ -57,9 +61,29 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
                                             weight.shape[0]).contiguous()
 
 
-def _plain(x, weight, scale, bias, residual, relu, dilation):
+def pack_weight_tc(weight: torch.Tensor) -> TcWeight:
+  """The kernel's K-major weight ``(P, 9, Cout, Cin)``, taps row-major over
+  (kh, kw), from a torch ``(Cout, Cin, 3, 3)`` weight; in f32 split into
+  ``big`` and ``small`` for 3xTF32."""
+  if weight.dim() != 4 or weight.shape[2:] != (3, 3):
+    raise ValueError(f"expected a 3x3 torch weight, got "
+                     f"{tuple(weight.shape)}")
+  cout, cin = weight.shape[:2]
+  wk = weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+  return kmajor.pack(wk, weight, split=True)
+
+
+def _torch_weight(weight):
+  """``weight`` in torch layout, unpacking a packed one."""
+  if isinstance(weight, TcWeight):
+    return weight.weight
   if weight.dim() == 3:            # (9, Cin, Cout) -> (Cout, Cin, 3, 3)
-    weight = weight.reshape(3, 3, *weight.shape[1:]).permute(3, 2, 0, 1)
+    return weight.reshape(3, 3, *weight.shape[1:]).permute(3, 2, 0, 1)
+  return weight
+
+
+def _plain(x, weight, scale, bias, residual, relu, dilation):
+  weight = _torch_weight(weight)
   y = F.conv2d(x.float().permute(0, 3, 1, 2), weight.float(),
                padding=dilation, dilation=dilation)
   return epilogue(y.permute(0, 2, 3, 1), scale, bias, residual, relu,
@@ -71,12 +95,20 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
     raise ValueError(f"{_NAME}: x must be a contiguous f32 or bf16 NHWC "
                      f"map, got {tuple(x.shape)} {x.dtype}")
   n, h, w, cin = x.shape
-  wk = weight if weight.dim() == 3 else pack_weight(weight)
-  if (wk.shape[:2] != (9, cin) or wk.dtype != x.dtype
-      or wk.device != x.device or not wk.is_contiguous()):
-    raise ValueError(f"{_NAME}: weight {tuple(weight.shape)} {weight.dtype} "
+  if cin % 8 or x.data_ptr() % 16:
+    raise ValueError(f"{_NAME}: Cin must be a multiple of 8 and x 16-byte "
+                     f"aligned, got Cin {cin}")
+  tw = weight if isinstance(weight, TcWeight) else pack_weight_tc(
+      _torch_weight(weight))
+  parts, cout = tw.parts, tw.cout
+  split = x.dtype == torch.float32
+  wcin = -(-cin // kmajor.STAGE_CHANNELS) * kmajor.STAGE_CHANNELS
+  nparts = 2 if split else 1
+  if (parts.shape != (nparts, 9, cout, wcin if split else cin)
+      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
+      or parts.device != x.device or not parts.is_contiguous()):
+    raise ValueError(f"{_NAME}: weight {tuple(parts.shape)} {parts.dtype} "
                      f"does not match x {tuple(x.shape)} {x.dtype}")
-  cout = wk.shape[2]
   shape = (n, h, w, cout)
   if residual is not None and (tuple(residual.shape) != shape
                                or residual.dtype != x.dtype
@@ -86,8 +118,9 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
                      f"tensor of shape {shape}")
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
   err = _conv2d_lib().conv2d_s1_bn_act(
-      int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
-      scale.data_ptr(), bias.data_ptr(),
+      int(x.dtype == torch.bfloat16), x.data_ptr(), parts[0].data_ptr(),
+      parts[1].data_ptr() if nparts == 2 else None, scale.data_ptr(),
+      bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
       n, h, w, cin, cout, dilation, int(relu),
       torch.cuda.current_stream(x.device).cuda_stream)
@@ -106,9 +139,11 @@ def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
   """Stride-1 3x3 conv, padding = dilation, + affine (+ residual) (+ ReLU).
 
   Args:
-    x: ``(N, H, W, Cin)`` f32 or bf16, contiguous.
-    weight: torch ``(Cout, Cin, 3, 3)``, or its :func:`pack_weight` layout
-      ``(9, Cin, Cout)``; same dtype as ``x``.
+    x: ``(N, H, W, Cin)`` f32 or bf16, contiguous; on the card Cin a
+      multiple of 8.
+    weight: torch ``(Cout, Cin, 3, 3)``, its :func:`pack_weight_tc` layout
+      or its :func:`pack_weight` layout ``(9, Cin, Cout)``; same dtype as
+      ``x``.
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(N, H, W, Cout)`` added before the ReLU.
     dilation: 1 or 2; the padding equals it, so the map keeps its size.
@@ -118,8 +153,8 @@ def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
   """
   if dilation not in (1, 2):
     raise ValueError(f"{_NAME}: dilation must be 1 or 2, got {dilation}")
-  cout = weight.shape[2] if weight.dim() == 3 else weight.shape[0]
-  scale, bias = affine(scale, bias, cout, x.device)
+  scale, bias = affine(scale, bias, _torch_weight(weight).shape[0],
+                       x.device)
   if plain or x.device.type == "cpu":
     return _plain(x, weight, scale, bias, residual, relu, dilation)
   if x.device.type != "cuda":

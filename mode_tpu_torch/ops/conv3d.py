@@ -14,15 +14,19 @@ an optional ReLU, and returns ``x.dtype``:
     ``conv3d_band_deconv_pallas`` (K5) and ``conv3d_fold_deconv_pallas``
     (K7).
 
-On a CUDA tensor each function launches the kernel of
-``kernels/csrc/conv3d.cu`` (its source note says what bounds it and how it is
-built), or raises on an input the kernel does not take. On a CPU tensor, or
-when the caller passes ``plain=True``, it runs the plain PyTorch version
-below: ``F.conv3d``/``F.conv_transpose3d`` in f32 and the same epilogue.
+On a CUDA tensor each function launches its kernel (the stride-1 conv:
+``kernels/csrc/conv3d_s1.cu``, on the tensor cores, with a kernel of its own
+for Cout 1; the others: ``kernels/csrc/conv3d.cu``; each source's note
+says what bounds it and how it is built), or raises on an input the kernel
+does not take. On a CPU tensor, or when the caller passes ``plain=True``, it
+runs the plain PyTorch version below: ``F.conv3d``/``F.conv_transpose3d`` in
+f32 and the same epilogue.
 
-The weight is the torch layout, or the kernel's own ``(27, Cin, Cout)``
-layout from :func:`pack_weight`, which saves the per-call repack where a
-layer keeps it (``models/blocks.py`` does).
+The weight is the torch layout, or the kernel's own layout, which saves the
+per-call repack where a layer keeps it (``models/blocks.py`` does): for the
+stride-1 conv the K-major :class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
+:func:`pack_weight_tc`, for the others ``(27, Cin, Cout)`` from
+:func:`pack_weight`.
 
 For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
 convs as autograd Functions whose forward and grad-input run these kernels
@@ -40,7 +44,9 @@ import torch.nn.functional as F
 
 from mode_tpu_torch.kernels import LAUNCHES
 from mode_tpu_torch.kernels import build
+from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
+from mode_tpu_torch.ops.kmajor import TcWeight
 
 _S1, _S2, _DECONV = 0, 1, 2
 _NAMES = {_S1: "conv3d_s1_bn_act", _S2: "conv3d_s2_bn_act",
@@ -57,6 +63,15 @@ def _conv3d_lib():
   return lib
 
 
+@functools.cache
+def _conv3d_s1_lib():
+  lib = build.load("conv3d_s1")
+  lib.conv3d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+  lib.conv3d_s1_bn_act.restype = ctypes.c_int
+  return lib
+
+
 def pack_weight(weight: torch.Tensor, transpose: bool = False
                 ) -> torch.Tensor:
   """The kernel's weight layout ``(27, Cin, Cout)``, taps in (kd, kh, kw)
@@ -70,8 +85,24 @@ def pack_weight(weight: torch.Tensor, transpose: bool = False
   return wk.reshape(27, *wk.shape[3:]).contiguous()
 
 
+def pack_weight_tc(weight: torch.Tensor) -> TcWeight:
+  """The stride-1 kernel's K-major weight ``(P, 27, Cout, Cin)``, taps in
+  (kd, kh, kw) order, from a torch conv weight ``(Cout, Cin, 3, 3, 3)``; in
+  f32 split into ``big`` and ``small`` for 3xTF32, except for Cout 1 (the
+  head kernel, f32 FMAs)."""
+  if weight.dim() != 5 or weight.shape[2:] != (3, 3, 3):
+    raise ValueError(f"expected a 3x3x3 torch weight, got "
+                     f"{tuple(weight.shape)}")
+  cout, cin = weight.shape[:2]
+  wk = weight.permute(2, 3, 4, 0, 1).reshape(27, cout, cin)
+  return kmajor.pack(wk, weight, split=cout > 1)
+
+
 def _torch_weight(mode, weight):
-  """``weight`` in torch layout, unpacking a ``pack_weight`` result."""
+  """``weight`` in torch layout, unpacking a ``pack_weight`` or
+  ``pack_weight_tc`` result."""
+  if isinstance(weight, TcWeight):
+    return weight.weight
   if weight.dim() == 5:
     return weight
   wk = weight.reshape(3, 3, 3, *weight.shape[1:])
@@ -102,11 +133,56 @@ def _plain(mode, x, weight, scale, bias, residual, relu):
                   x.dtype)
 
 
+def _check_residual(name, x, residual, shape):
+  if residual is not None and (tuple(residual.shape) != shape
+                               or residual.dtype != x.dtype
+                               or residual.device != x.device
+                               or not residual.is_contiguous()):
+    raise ValueError(f"{name}: residual must be a contiguous {x.dtype} "
+                     f"tensor of shape {shape}")
+
+
+def _launch_s1(x, weight, scale, bias, residual, relu):
+  """The stride-1 conv on ``conv3d_s1.cu``: the tensor-core kernel, or the
+  head kernel for Cout 1."""
+  name = _NAMES[_S1]
+  cin = x.shape[-1]
+  if cin % 8 or x.data_ptr() % 16:
+    raise ValueError(f"{name}: Cin must be a multiple of 8 and x 16-byte "
+                     f"aligned, got Cin {cin}")
+  tw = weight if isinstance(weight, TcWeight) else pack_weight_tc(
+      _torch_weight(_S1, weight))
+  parts, cout = tw.parts, tw.cout
+  split = x.dtype == torch.float32 and cout > 1
+  wcin = -(-cin // kmajor.STAGE_CHANNELS) * kmajor.STAGE_CHANNELS
+  nparts = 2 if split else 1
+  if (parts.shape != (nparts, 27, cout, wcin if split else cin)
+      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
+      or parts.device != x.device or not parts.is_contiguous()):
+    raise ValueError(f"{name}: weight {tuple(parts.shape)} {parts.dtype} "
+                     f"does not match x {tuple(x.shape)} {x.dtype}")
+  shape = (*x.shape[:4], cout)
+  _check_residual(name, x, residual, shape)
+  out = torch.empty(shape, dtype=x.dtype, device=x.device)
+  err = _conv3d_s1_lib().conv3d_s1_bn_act(
+      int(x.dtype == torch.bfloat16), x.data_ptr(), parts[0].data_ptr(),
+      parts[1].data_ptr() if nparts == 2 else None, scale.data_ptr(),
+      bias.data_ptr(), None if residual is None else residual.data_ptr(),
+      out.data_ptr(), *x.shape[:4], cin, cout, int(relu),
+      torch.cuda.current_stream(x.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+  LAUNCHES[name] += 1
+  return out
+
+
 def _launch(mode, x, weight, scale, bias, residual, relu):
   cin = x.shape[-1]
   if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f"{_NAMES[mode]}: x must be a contiguous f32 or bf16 "
                      f"NDHWC volume, got {tuple(x.shape)} {x.dtype}")
+  if mode == _S1:
+    return _launch_s1(x, weight, scale, bias, residual, relu)
   wk = (weight if weight.dim() == 3
         else pack_weight(weight, transpose=mode == _DECONV))
   if (wk.shape[:2] != (27, cin) or wk.dtype != x.dtype
@@ -116,12 +192,7 @@ def _launch(mode, x, weight, scale, bias, residual, relu):
                      f"{x.dtype}")
   cout = wk.shape[2]
   shape = _out_shape(mode, x.shape, cout)
-  if residual is not None and (tuple(residual.shape) != shape
-                               or residual.dtype != x.dtype
-                               or residual.device != x.device
-                               or not residual.is_contiguous()):
-    raise ValueError(f"{_NAMES[mode]}: residual must be a contiguous "
-                     f"{x.dtype} tensor of shape {shape}")
+  _check_residual(_NAMES[mode], x, residual, shape)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
   err = _conv3d_lib().conv3d_bn_act(
       mode, int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
@@ -137,10 +208,7 @@ def _launch(mode, x, weight, scale, bias, residual, relu):
 
 
 def _run(mode, x, weight, scale, bias, residual, relu, plain):
-  if weight.dim() == 3:
-    cout = weight.shape[2]
-  else:
-    cout = weight.shape[1] if mode == _DECONV else weight.shape[0]
+  cout = _torch_weight(mode, weight).shape[1 if mode == _DECONV else 0]
   scale, bias = affine(scale, bias, cout, x.device)
   if plain or x.device.type == "cpu":
     return _plain(mode, x, weight, scale, bias, residual, relu)
@@ -158,9 +226,11 @@ def conv3d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
   """Stride-1 SAME 3x3x3 conv + affine (+ residual) (+ ReLU).
 
   Args:
-    x: ``(B, D, H, W, Cin)`` f32 or bf16, contiguous.
-    weight: torch ``(Cout, Cin, 3, 3, 3)``, or its :func:`pack_weight`
-      layout ``(27, Cin, Cout)``; same dtype as ``x``.
+    x: ``(B, D, H, W, Cin)`` f32 or bf16, contiguous; on the card Cin a
+      multiple of 8.
+    weight: torch ``(Cout, Cin, 3, 3, 3)``, its :func:`pack_weight_tc`
+      layout (the kernel's) or its :func:`pack_weight` layout ``(27, Cin,
+      Cout)``; same dtype as ``x``.
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(B, D, H, W, Cout)`` added before the ReLU.
     plain: run the plain PyTorch version even on a CUDA tensor.

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes that the production shapes of ``chip_smoke.py``
-do not reach: Cin not a multiple of the 16-channel K step, Cout not a
+do not reach: Cin not a multiple of the 32-channel K stage, Cout not a
 multiple of the output tile, odd extents for the stride-2 conv, batch 2,
 dilation 2, Cassini maps whose tables have a drop row and ERP maps whose
 tables have a drop column; the stage-1 model (Cassini and ERP) at batch 2
@@ -47,7 +47,7 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("fn,x_shape,cout,res,relu", [
-    (C.conv3d_s1_bn_act, (1, 3, 5, 6, 20), 24, True, True),
+    (C.conv3d_s1_bn_act, (1, 3, 5, 6, 24), 24, True, True),
     (C.conv3d_s1_bn_act, (2, 2, 4, 5, 16), 40, False, True),
     (C.conv3d_s1_bn_act, (1, 3, 4, 5, 32), 1, False, False),
     (C.conv3d_s1_bn_act, (1, 2, 3, 4, 8), 70, True, False),
@@ -121,9 +121,29 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     C2.conv2d_s1_bn_act(x[0].transpose(1, 2), w[..., 0])
 
 
+def test_tensor_core_convs_refuse_what_they_do_not_take(gen):
+  """The stride-1 3-D and 2-D kernels take Cin in multiples of 8 (whole
+  16-byte chunks in bf16) and contiguous, 16-byte aligned inputs."""
+  x = torch.randn((1, 2, 3, 4, 12), generator=gen, device="cuda")
+  w = torch.randn((16, 12, 3, 3, 3), generator=gen, device="cuda")
+  with pytest.raises(ValueError, match="multiple of 8"):
+    C.conv3d_s1_bn_act(x, w)
+  with pytest.raises(ValueError, match="multiple of 8"):
+    C2.conv2d_s1_bn_act(x[0], w[..., 0])
+  x = torch.randn((1, 2, 3, 4, 16), generator=gen, device="cuda")
+  w = torch.randn((16, 16, 3, 3, 3), generator=gen, device="cuda")
+  with pytest.raises(ValueError, match="contiguous"):
+    C.conv3d_s1_bn_act(x.transpose(1, 2), w)
+  with pytest.raises(ValueError, match="contiguous"):
+    C2.conv2d_s1_bn_act(x[0].transpose(0, 1), w[..., 0])
+  offset = torch.randn(x.numel() + 1, generator=gen, device="cuda")
+  with pytest.raises(ValueError, match="aligned"):
+    C.conv3d_s1_bn_act(offset[1:].view(x.shape), w)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("x_shape,cout,dil,res,relu", [
-    ((1, 9, 13, 20), 24, 1, True, True),
+    ((1, 9, 13, 24), 24, 1, True, True),
     ((2, 8, 16, 32), 64, 2, False, True),
     ((3, 5, 7, 64), 128, 1, True, False),
     ((2, 6, 6, 40), 70, 2, True, True),
@@ -171,6 +191,104 @@ def test_sphere_conv_kernel_matches_plain(gen, x_shape, cout, res, relu,
   torch.cuda.synchronize()
   assert kernels.LAUNCHES["sphere_conv_bn_act"] == 1
   _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,res,relu", [
+    ((1, 12, 32, 16, 64), 32, False, True),   # dres0 at 1/16 the size
+    ((1, 12, 32, 16, 32), 32, True, True),    # dres1: residual, ReLU
+    ((2, 6, 16, 8, 64), 64, True, False),     # hourglass conv2, batch 2
+    ((1, 3, 8, 4, 64), 64, False, True),      # the 1/16 level (K6)
+    ((6, 3, 8, 4, 32), 32, False, False),     # batch 6
+    ((1, 12, 32, 16, 32), 1, False, False),   # a classifier head
+    ((2, 5, 9, 40, 32), 1, True, True),       # head: ragged tiles, epilogue
+    ((1, 4, 10, 7, 16), 8, False, True),      # Cout 8: a 32-wide N tile
+    ((1, 3, 5, 7, 16), 24, True, True),       # ragged M, Cin < the stage
+    ((2, 1, 2, 5, 40), 128, False, True),     # D = 1, H = 2; Cin 32 + 8
+    ((1, 2, 1, 3, 8), 130, True, False),      # H = 1; two N tiles, odd part
+])
+def test_conv3d_s1_tensor_core_kernels_match_plain(gen, x_shape, cout, res,
+                                                   relu, dtype):
+  """K1/K6's tensor-core kernel (Cout > 1) and the head kernel (Cout 1)
+  against the plain version, the weight packed once as the layers keep it;
+  the scaled weights give outputs of order 1, where a single TF32 pass
+  would miss the f32 bar by ~10x."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((*x_shape[:4], cout), generator=gen, device="cuda")
+       .to(dtype) if res else None)
+  packed = C.pack_weight_tc(w)
+  kernels.reset_launches()
+  got = C.conv3d_s1_bn_act(x, packed, scale, bias, r, relu)
+  want = C.conv3d_s1_bn_act(x, w, scale, bias, r, relu, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape
+  _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,dil,res,relu", [
+    ((1, 64, 32, 32), 32, 1, False, True),    # the stem at batch 1 (K8)
+    ((2, 32, 16, 64), 64, 2, True, True),     # layer 3, dilated (K9)
+    ((6, 16, 8, 128), 128, 1, True, False),   # batch 6, Cout 128
+    ((2, 16, 8, 32), 1, 1, False, False),     # Cout 1
+    ((1, 9, 13, 24), 8, 2, True, True),       # Cout 8, ragged M
+    ((1, 9, 13, 40), 40, 2, False, True),     # Cin 32 + 8
+    ((2, 1, 2, 8), 32, 2, True, False),       # H = 1, W = 2
+])
+def test_conv2d_tensor_core_kernel_matches_plain(gen, x_shape, cout, dil, res,
+                                                 relu, dtype):
+  """K8/K9's tensor-core kernel against the plain version."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((*x_shape[:3], cout), generator=gen, device="cuda")
+       .to(dtype) if res else None)
+  packed = C2.pack_weight_tc(w)
+  kernels.reset_launches()
+  got = C2.conv2d_s1_bn_act(x, packed, scale, bias, r, relu, dil)
+  want = C2.conv2d_s1_bn_act(x, w, scale, bias, r, relu, dil, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv2d_s1_bn_act": 1}
+  _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("two_d,x_shape,cout,dil", [
+    (False, (2, 6, 16, 8, 32), 64, 1),
+    (False, (2, 3, 8, 4, 64), 32, 1),
+    (True, (2, 32, 16, 64), 32, 2),
+    (True, (3, 16, 8, 128), 128, 1),
+])
+def test_tensor_core_grad_input_matches_plain(gen, two_d, x_shape, cout, dil):
+  """The training Functions' grad-input (the flipped, io-swapped weight
+  packed per call) on the kernels against the plain Function's, f32."""
+  cin = x_shape[-1]
+  wshape = (cout, cin, 3, 3) if two_d else (cout, cin, 3, 3, 3)
+  w = torch.randn(wshape, generator=gen, device="cuda") * 0.05
+  x = torch.randn(x_shape, generator=gen, device="cuda")
+  g = torch.randn((*x_shape[:-1], cout), generator=gen, device="cuda")
+
+  def dx(plain):
+    xr = x.clone().requires_grad_(True)
+    y = (C2.conv2d_train(xr, w, dil, plain=plain) if two_d
+         else C.conv3d_train(xr, w, 1, plain=plain))
+    y.backward(g)
+    return xr.grad
+
+  kernels.reset_launches()
+  got = dx(False)
+  torch.cuda.synchronize()
+  key = "conv2d_s1_bn_act" if two_d else "conv3d_s1_bn_act"
+  assert dict(kernels.LAUNCHES) == {key: 2}
+  _close(got, dx(True), torch.float32)
 
 
 @pytest.mark.parametrize("conv,shape", [("Sphere", (64, 32)),

@@ -1,0 +1,350 @@
+"""Numpy models of the tensor-core conv kernels (``igemm_tc.cuh``, used by
+``conv3d_s1.cu`` and ``conv2d.cu``) and of the K-major weight packing, on
+the CPU: no card runs here, so the arithmetic and the address walk of the
+kernels are held here and the kernels themselves on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+1. The f32 arithmetic: TF32 rounding (``cvt.rna.tf32.f32``) and the 3xTF32
+   split, summed in the kernel's K order (per stage of 32 channels, K steps
+   of 8, each step small*B_big, big*B_small, big*B_big into a stage fragment
+   added to the f32 sum), holds a conv at the main path's K (27 x 64, 9 x
+   128) within chip_smoke.py's f32 bar; one TF32 pass misses it.
+2. The operand walk: which voxel and tap each thread's 16-byte copies read,
+   the zero-fill predicate, the swizzled address each chunk lands at and the
+   address wgmma's descriptor (or the f32 A fragment) reads back, and the
+   accumulator fragment's rows and columns in the epilogue rebuild the plain
+   conv exactly at ragged shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mode_tpu_torch.ops import conv2d as C2
+from mode_tpu_torch.ops import conv3d as C
+from mode_tpu_torch.ops.kmajor import tf32_round
+
+# chip_smoke.py's elementwise f32 bar: |got - want| <= ATOL + RTOL * |want|
+ATOL, RTOL = 1e-4, 1e-4
+BK = 32          # input channels per K stage
+SMS = 132        # streaming multiprocessors of an H100 SXM
+
+
+def _tf32(a):
+  """``cvt.rna.tf32.f32``: the magnitude rounded to 10 mantissa bits, ties
+  away from zero."""
+  a = np.asarray(a, np.float32)
+  mag = np.abs(a).view(np.uint32)
+  rounded = ((mag + np.uint32(0x1000)) & np.uint32(0xFFFFE000))
+  return np.copysign(rounded.view(np.float32), a)
+
+
+def _tf32_channel_order(cin):
+  """The input channel at each K position of the f32 pack
+  (``ops/kmajor.py:pack``): per stage of 32, position q + 4 j holds
+  channel 8 q + j; padding past Cin."""
+  within = [8 * (p % 4) + p // 4 for p in range(BK)]
+  return np.array([s * BK + c for s in range(-(-cin // BK)) for c in within])
+
+
+def _im2col(x, taps):
+  """Rows of the implicit GEMM's A, K in the kernel's (tap, channel) order:
+  ``x`` (N, D, H, W, C) zero-padded, taps as (od, oh, ow) offsets."""
+  n, d, h, w, c = x.shape
+  p = max(max(abs(o) for o in t) for t in taps)
+  xp = np.pad(x, ((0, 0), (p, p), (p, p), (p, p), (0, 0)))
+  cols = [xp[:, p + od:p + od + d, p + oh:p + oh + h, p + ow:p + ow + w]
+          for od, oh, ow in taps]
+  return np.concatenate(cols, axis=-1).reshape(n * d * h * w, len(taps) * c)
+
+
+def _taps(kd, dil):
+  return [((jd - 1) * dil if kd == 3 else 0, (jh - 1) * dil, (jw - 1) * dil)
+          for jd in range(kd) for jh in range(3) for jw in range(3)]
+
+
+def _sum_3xtf32(a, b, terms):
+  """The kernel's f32 sum of A (M, K) times B (K, N): per stage of BK
+  channels a fresh fragment takes, per K step of 8, each term's products in
+  order (``terms``: pairs of (A part, B part)); the FP32 pipes add it to
+  the sum."""
+  m, k = a.shape
+  acc = np.zeros((m, b.shape[1]), np.float32)
+  for s0 in range(0, k, BK):
+    part = np.zeros_like(acc)
+    for k0 in range(s0, s0 + BK, 8):
+      for ta, tb in terms:
+        for kk in range(k0, k0 + 8):
+          part = (part + np.outer(ta[:, kk], tb[kk]).astype(np.float32)
+                  ).astype(np.float32)
+    acc = (acc + part).astype(np.float32)
+  return acc
+
+
+def test_tf32_round_matches_cvt_rna():
+  rng = np.random.default_rng(0)
+  vals = (rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 6, 4096)
+          ).astype(np.float32)
+  # ties: the dropped 13 bits exactly half an ulp of the kept ones
+  ties = ((vals.view(np.uint32) & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+          ).view(np.float32)
+  for v in (vals, ties, -ties):
+    want = _tf32(v)
+    got = tf32_round(torch.from_numpy(v)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not (want.view(np.uint32) & np.uint32(0x1FFF)).any()
+  # a tie rounds away from zero
+  assert _tf32(np.float32(1 + 2.0 ** -11)) == np.float32(1 + 2.0 ** -10)
+
+
+@pytest.mark.parametrize("kd,cin,cout", [(3, 64, 32), (1, 128, 64)])
+def test_3xtf32_holds_the_f32_bar_where_one_pass_does_not(kd, cin, cout):
+  """At K = 27 x 64 (the 3-D dres0 conv) and 9 x 128 (a 2-D FE conv), with
+  chip_smoke.py's inputs (x * 0.5, He-scaled weights): the 3xTF32 sum is
+  within the f32 bar of the f64 conv with a wide margin; one TF32 pass is
+  not, which is why the kernel splits both operands."""
+  rng = np.random.default_rng(1)
+  shape = (1, 2, 4, 4, cin) if kd == 3 else (1, 1, 6, 8, cin)
+  x = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+  taps = _taps(kd, 1)
+  w = (rng.standard_normal((len(taps) * cin, cout))
+       * np.sqrt(2.0 / (len(taps) * cout))).astype(np.float32)
+  a = _im2col(x, taps)
+  exact = a.astype(np.float64) @ w.astype(np.float64)
+  a_big, w_big = _tf32(a), _tf32(w)
+  a_small, w_small = _tf32(a - a_big), _tf32(w - w_big)
+  three = _sum_3xtf32(a, w, [(a_small, w_big), (a_big, w_small),
+                             (a_big, w_big)])
+  one = _sum_3xtf32(a, w, [(a_big, w_big)])
+  bar = ATOL + RTOL * np.abs(exact)
+  assert (np.abs(three - exact) / bar).max() < 0.05
+  assert (np.abs(one - exact) / bar).max() > 2
+
+
+# --- the operand walk -------------------------------------------------------
+# Per input type: element bytes, stage row bytes (the swizzle width: 128
+# bytes XORs the chunk with r & 7, 64 bytes with (r >> 1) & 3), weight parts.
+CFG = {"f32": dict(esize=4, rb=128, parts=2),
+       "bf16": dict(esize=2, rb=64, parts=1)}
+
+
+def _swizzle(r, c, rb):
+  """``igemm_tc.cuh:swizzle``: the byte offset of 16-byte chunk c of row r."""
+  return r * rb + ((c ^ (r & 7 if rb == 128 else (r >> 1) & 3)) << 4)
+
+
+def _desc_read(base, r, kbyte, rb):
+  """The byte that wgmma reads for row r, byte kbyte of its K-major row,
+  through a descriptor at ``base`` (1024-aligned, SBO = 8 rows): the
+  linear address with the swizzle applied to its bits."""
+  lin = base + (r // 8) * (8 * rb) + (r % 8) * rb + kbyte
+  mask = 7 if rb == 128 else 3
+  return lin ^ (((lin >> 7) & mask) << 4)
+
+
+def _tile(mtot, cout):
+  """``igemm_tc.cuh:dispatch``: (BM, BN) of a call."""
+  tall = (mtot + 127) // 128 >= 2 * SMS
+  bn = 128 if cout > 64 else 64 if cout > 32 else 32
+  return (128 if tall else 64), bn
+
+
+def test_descriptor_reads_back_what_the_copies_wrote():
+  """Every (row, byte) of a K-major tile: the descriptor's swizzled read
+  lands on the chunk the writer put there (128- and 64-byte swizzle)."""
+  for rb in (128, 64):
+    for base in (0, 1024, 5 * 1024):
+      for r in range(128):
+        for kbyte in range(rb):
+          want = base + _swizzle(r, kbyte // 16, rb) + kbyte % 16
+          assert _desc_read(base, r, kbyte, rb) == want
+
+
+def _walk_conv(x, wk, kd, dil, dtype, bm, bn):
+  """The kernel's walk over one call, in f64: the copies of each stage
+  into shared memory, the reads of A (f32: each thread's tf32 fragment;
+  bf16: the descriptor) and B (the descriptor), the products, and the
+  epilogue's scatter of the accumulator fragments. x (N, D, H, W, Cin),
+  wk the K-major weight (taps, Cout, Cin), which the f32 kernel gets padded
+  and permuted as the host packs it."""
+  cfg = CFG[dtype]
+  esize, rb = cfg["esize"], cfg["rb"]
+  ch, cpr = 16 // esize, rb // 16          # channels per chunk, chunks/row
+  nt = 2 * bm
+  n, d, h, w, cin = x.shape
+  cout = wk.shape[1]
+  mtot = n * d * h * w
+  taps = _taps(kd, dil)
+  nkc = -(-cin // BK)
+  a_bytes, b_bytes = bm * rb, bn * rb
+  assert (a_bytes + cfg["parts"] * b_bytes) % 1024 == 0 and b_bytes % 1024 == 0
+  wcin = cin
+  if dtype == "f32":
+    order = _tf32_channel_order(cin)
+    wcin = len(order)
+    wk = np.pad(wk, ((0, 0), (0, 0), (0, wcin - cin)))[..., order]
+  xf, wf = x.reshape(-1), wk.reshape(-1)
+  out = np.full((mtot, cout), np.nan)
+  for m0 in range(0, mtot, bm):
+    for n0 in range(0, cout, bn):
+      acc = np.zeros((bm, bn))
+      for step in range(len(taps) * nkc):
+        tap, kc = divmod(step, nkc)
+        od, oh, ow = taps[tap]
+        smem = np.full((a_bytes + b_bytes) // esize, np.nan)
+        # A: thread tid copies chunk tid % cpr of rows tid // cpr + i nt/cpr
+        for tid in range(nt):
+          ac = tid % cpr
+          for i in range(bm * cpr // nt):
+            r = tid // cpr + i * (nt // cpr)
+            m = m0 + r
+            c0 = kc * BK + ac * ch
+            bb, rem = divmod(m, d * h * w)
+            z, rem = divmod(rem, h * w)
+            y, xx = divmod(rem, w)
+            ok = (m < mtot and c0 < cin and 0 <= z + od < d
+                  and 0 <= y + oh < h and 0 <= xx + ow < w)
+            src = ((m + (od * h + oh) * w + ow) * cin + c0) if ok else None
+            dst = _swizzle(r, ac, rb) // esize
+            smem[dst:dst + ch] = xf[src:src + ch] if ok else 0.0
+        # B: row n (output channel n0 + n), chunk c of the tap's channels
+        for idx in range(bn * cpr):
+          nn, c = divmod(idx, cpr)
+          co, c0 = n0 + nn, kc * BK + c * ch
+          ok = co < cout and c0 < wcin
+          src = (tap * cout + co) * wcin + c0
+          dst = (a_bytes + _swizzle(nn, c, rb)) // esize
+          smem[dst:dst + ch] = wf[src:src + ch] if ok else 0.0
+        # B through the descriptor, every (n, k) of the stage
+        kb = np.arange(BK) * esize
+        b_tile = np.stack([smem[[_desc_read(a_bytes, nn, int(k), rb) // esize
+                                 for k in kb]] for nn in range(bn)])
+        a_tile = np.full((bm, BK), np.nan)
+        for wg in range(bm // 64):
+          if dtype == "f32":
+            # each thread's m64k8 tf32 fragment of K step kk: K positions
+            # 8 kk + q (+ 4) are channels 8 q + 2 kk (+ 1) of the stage
+            seen = np.zeros((64, BK), int)
+            for warp in range(4):
+              for lane in range(32):
+                r0, q = wg * 64 + warp * 16 + lane // 4, lane % 4
+                for kk in range(BK // 8):
+                  for e in range(4):
+                    r, k = r0 + (e & 1) * 8, kk * 8 + q + (e >> 1) * 4
+                    j = 2 * kk + (e >> 1)
+                    off = _swizzle(r, 2 * q + j // 4, rb) + (j % 4) * 4
+                    a_tile[r, k] = smem[off // esize]
+                    seen[r - wg * 64, k] += 1
+            assert (seen == 1).all()
+          else:
+            for r in range(64):
+              a_tile[wg * 64 + r] = [
+                  smem[_desc_read(wg * 64 * rb, r, int(k), rb) // esize]
+                  for k in kb]
+        assert not np.isnan(a_tile).any() and not np.isnan(b_tile).any()
+        acc += a_tile @ b_tile.T
+      # the epilogue: fragment element 4j + 2hh + e of (wg, warp, lane)
+      for wg in range(bm // 64):
+        for warp in range(4):
+          for lane in range(32):
+            for j in range(bn // 8):
+              for hh in range(2):
+                for e in range(2):
+                  r = wg * 64 + warp * 16 + lane // 4 + 8 * hh
+                  co = n0 + 8 * j + 2 * (lane % 4) + e
+                  if m0 + r < mtot and co < cout:
+                    assert np.isnan(out[m0 + r, co])
+                    out[m0 + r, co] = acc[r, co - n0]
+  return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("x_shape,cout,kd,dil,bm", [
+    ((1, 2, 3, 5, 16), 40, 3, 1, 64),     # Cin < a stage, Cout off the tile
+    ((2, 1, 2, 5, 40), 24, 3, 1, 128),    # D = 1, H = 2; Cin 32 + 8
+    ((1, 1, 5, 7, 24), 72, 1, 2, 64),     # 2-D, dilation 2, N tile 128
+    ((2, 1, 3, 2, 8), 8, 1, 1, 64),       # 2-D, W = 2, Cout 8
+    ((1, 1, 1, 9, 32), 33, 1, 2, 128),    # 2-D, H = 1, BM 128 over 9 rows
+])
+def test_operand_walk_rebuilds_the_conv(x_shape, cout, kd, dil, bm, dtype):
+  """Integer-valued inputs, so the walk must rebuild the f64 conv exactly:
+  any wrong voxel, tap, zero-fill, swizzle or fragment index shows."""
+  rng = np.random.default_rng(2)
+  cin = x_shape[-1]
+  taps = _taps(kd, dil)
+  x = rng.integers(-4, 5, x_shape).astype(np.float64)
+  wk = rng.integers(-4, 5, (len(taps), cout, cin)).astype(np.float64)
+  mtot = int(np.prod(x_shape[:4]))
+  bn = _tile(mtot, cout)[1]
+  got = _walk_conv(x, wk, kd, dil, dtype, bm, bn)
+  want = _im2col(x, taps) @ wk.transpose(0, 2, 1).reshape(-1, cout)
+  assert np.array_equal(got, want)
+
+
+def test_tile_choice():
+  """BM = 64 where 128-row tiles would not give every SM two (the 1/16
+  level, M = 24,576 at batch 1); BN follows Cout."""
+  assert _tile(48 * 256 * 128, 32) == (128, 32)
+  assert _tile(12 * 64 * 32, 64) == (64, 64)
+  assert _tile(2 * 256 * 128, 128) == (128, 128)
+  assert _tile(100, 130) == (64, 128)
+
+
+def test_head_plane_walk_rebuilds_the_conv():
+  """The Cout-1 head kernel's walk along D: input plane p (zero outside
+  the volume) adds its kd = 2, 1, 0 taps to output planes p - 1, p, p + 1,
+  and output plane p - 1 is complete and stored after plane p, over a
+  block's planes [z0, z1)."""
+  rng = np.random.default_rng(3)
+  d, h, w, cin, hz = 5, 3, 4, 8, 2
+  x = rng.integers(-4, 5, (1, d, h, w, cin)).astype(np.float64)
+  wt = rng.integers(-4, 5, (27, cin)).astype(np.float64)
+  xp = np.pad(x[0], ((0, 0), (1, 1), (1, 1), (0, 0)))
+  out = np.full((d, h, w), np.nan)
+  for z0 in range(0, d, hz):
+    z1 = min(z0 + hz, d)
+    acc = [np.zeros((h, w)) for _ in range(3)]
+    for p in range(z0 - 1, z1 + 1):
+      plane = xp[p] if 0 <= p < d else np.zeros_like(xp[0])
+      for kd in range(3):
+        for t9 in range(9):
+          kh, kw = divmod(t9, 3)
+          acc[2 - kd] += plane[kh:kh + h, kw:kw + w] @ wt[kd * 9 + t9]
+      if p - 1 >= z0:
+        out[p - 1] = acc[0]
+      acc = [acc[1], acc[2], np.zeros((h, w))]
+  want = (_im2col(x, _taps(3, 1)) @ wt.reshape(-1)).reshape(d, h, w)
+  assert np.array_equal(out, want)
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+def test_kmajor_split_packing(two_d):
+  """pack_weight_tc: the K-major layout of pack_weight's (taps, Cin, Cout),
+  in f32 padded to whole stages, permuted and split into tf32 parts whose
+  sum is the weight to f32 rounding; bf16 and the 3-D Cout-1 head's weight
+  whole."""
+  gen = torch.Generator().manual_seed(4)
+  for cout in (1, 40):
+    shape = (cout, 24, 3, 3) if two_d else (cout, 24, 3, 3, 3)
+    w = torch.randn(shape, generator=gen)
+    mod = C2 if two_d else C
+    packed = mod.pack_weight_tc(w)
+    ref = mod.pack_weight(w).transpose(1, 2)          # (taps, Cout, Cin)
+    assert packed.weight is not w and torch.equal(packed.weight, w)
+    if cout == 1 and not two_d:
+      assert packed.parts.shape == (1, *ref.shape)
+      assert torch.equal(packed.parts[0], ref)
+    else:
+      # Cin 24 padded to one stage of 32, in the fragment's channel order
+      order = torch.from_numpy(_tf32_channel_order(24))
+      assert sorted(order.tolist()) == list(range(32))
+      assert order[:8].tolist() == [0, 8, 16, 24, 1, 9, 17, 25]
+      refp = torch.nn.functional.pad(ref, (0, 8))[..., order]
+      big, small = packed.parts
+      assert torch.equal(big, tf32_round(refp))
+      assert torch.equal(small, tf32_round(refp - big))
+      rel = (big + small - refp).abs() / refp.abs().clamp_min(1e-30)
+      assert float(rel.max()) < 2 ** -21
+    bf = mod.pack_weight_tc(w.bfloat16())
+    assert bf.parts.shape == (1, *ref.shape)
+    assert torch.equal(bf.parts[0], ref.bfloat16())
