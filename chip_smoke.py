@@ -19,7 +19,8 @@
      equirectangular pair per call.
    Each path serves a few calls with every launch count set to 0 just
    before and read just after, checks that every kernel of the path ran, at
-   the recorded count, which must be the JAX path's, and runs one call
+   the recorded count, which must be the JAX path's, profiles one more call
+   (device time by kind of kernel against the host time), and runs one call
    again through the plain versions and compares; the output must not be
    degenerate.
 3. Training paths: the stage-1 training step (``mode_tpu_torch.training``)
@@ -42,7 +43,10 @@
    the sphere conv's two backward kernels) and the regression shapes, in
    f32 and bf16, holds the result against the kernel's plain PyTorch
    version on the same inputs, and times the kernel, the plain version and
-   one PyTorch library call of the same function where there is one.
+   one PyTorch library call of the same function where there is one, the
+   library convs in IEEE f32 as the model runs its own
+   (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
+   precision flag, so the paths run as a caller's process runs them).
 5. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
@@ -89,7 +93,7 @@ SPHERE_PY = "mode_tpu/ops/pallas/sphere_conv_kernel.py"
 KERNELS = {
     "conv3d_s1_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d_s1.cu",
                          (f"{CONV_PY}:269", f"{CONV_PY}:866")),
-    "conv3d_s2_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d.cu",
+    "conv3d_s2_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d_s2.cu",
                          (f"{CONV_PY}:480",)),
     "deconv3d_bn_act": ("mode_tpu_torch/kernels/csrc/conv3d.cu",
                         (f"{CONV_PY}:677", f"{CONV_PY}:1042")),
@@ -190,9 +194,11 @@ LOSS_RTOL, GRAD_RTOL, INPUT_JITTER = 1e-4, 1e-3, 1e-6
 LOGIT_STD = 4.0
 # |kernel - plain| <= ATOL + RTOL * |plain| elementwise. f32: both sides sum
 # up to 27 * 64 (3-D) or 9 * 320 (2-D, sphere) products in different orders,
-# the stride-1 kernels as 3xTF32 (each product to ~2^-22). bf16: both sides
-# compute in f32 from the same bf16 inputs and round once, so they may land
-# one bf16 step (2^-8 relative) apart.
+# the tensor-core kernels as 3xTF32 (each product to ~2^-22). bf16: both
+# sides compute in f32 from the same bf16 inputs and round once, so they
+# may land one bf16 step (2^-8 relative) apart; the sphere kernel also
+# rounds its blended A values to bf16 (as the Pallas kernel does), which
+# adds ~2^-9 relative per product, summed over 9 * 128 of them.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 # A served path on the card against its plain path, f32: the bars of
 # tests/test_trained_parity_midres.py.
@@ -303,11 +309,13 @@ def _conv_case(case, dtype, gen):
   elif name in SPHERE_FWD:
     fn = functools.partial(sphere_conv.sphere_conv_bn_act,
                            sphere_type=_layout(name))
-    packed = conv2d.pack_weight(w)
+    packed = conv2d.pack_weight_tc(w)
   elif name == "conv3d_s1_bn_act":
     fn, packed = conv3d.conv3d_s1_bn_act, conv3d.pack_weight_tc(w)
+  elif name == "conv3d_s2_bn_act":
+    fn, packed = conv3d.conv3d_s2_bn_act, conv3d.pack_weight_tc(w, 2)
   else:
-    fn, packed = getattr(conv3d, name), conv3d.pack_weight(w, deconv)
+    fn, packed = conv3d.deconv3d_bn_act, conv3d.pack_weight(w, True)
 
   def run(plain):
     return fn(x, w if plain else packed, scale, bias, plain=plain, **kw)
@@ -486,7 +494,8 @@ def _calibrate(model, left) -> float:
   """Scale the served model's features to unit std. With random weights
   nothing calibrates the BN statistics, and the feature extractor's
   residual blocks grow the activations to ~1e6."""
-  with torch.no_grad():
+  from mode_tpu_torch.device import ieee_f32_convs
+  with torch.no_grad(), ieee_f32_convs():
     feat_std = float(model.feature_extraction(left).std())
   _scale_features(model, 1.0 / feat_std)
   return feat_std
@@ -572,7 +581,8 @@ def _serve_path(label, model, gen, seed_shift):
   expect["fused_disparity_regression"] = 1
   expect = {k: v for k, v in expect.items() if v}
 
-  with torch.no_grad():
+  from mode_tpu_torch.device import ieee_f32_convs
+  with torch.no_grad(), ieee_f32_convs():
     model(*inputs[0])                                 # warm-up
     torch.cuda.synchronize()
     fe_ms = _time_ms(lambda: model.feature_extraction(inputs[0][0]), 3) * 2
@@ -608,6 +618,13 @@ def _serve_path(label, model, gen, seed_shift):
     _fail(f"{label}: the layers called these kernels per call {wrong}, "
           f"not as the JAX path: {jax_counts}")
 
+  with torch.no_grad():
+    prof = _profile(model, inputs[1])
+  print(f"{label} profiled call: host {prof['host_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.2f} ms; by kind (ms): "
+        + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
+        + "; top kernels (ms, launches): " + json.dumps(prof["top_kernels_ms"]),
+        flush=True)
   pred, conf = outputs[0]
   with torch.no_grad():
     ref_pred, ref_conf = model(*inputs[1], plain=True)
@@ -616,7 +633,7 @@ def _serve_path(label, model, gen, seed_shift):
                         (batch, h, w))
   return {"calls": calls, "batch": batch, "ncalls": ncalls,
           "launches": launches, "call_ms": call_ms, "fe_ms": fe_ms,
-          "peak_gib": peak_gib, "check": check}
+          "peak_gib": peak_gib, "profile": prof, "check": check}
 
 
 @contextlib.contextmanager
@@ -742,16 +759,16 @@ def _grad_check(label, twin, batch, kernel_loss, kernel_grads):
   return check
 
 
-def _profile_step(step, batch):
-  """One step under torch.profiler: device time by kind of kernel (ms) and
-  the host time of the step."""
+def _profile(fn, args):
+  """One call ``fn(*args)`` under torch.profiler: device time by kind of
+  kernel (ms) and the host time of the call."""
   from torch.profiler import ProfilerActivity, profile
   kinds = (("port: sphere conv backward", ("bwd_input_kernel",
                                            "bwd_weight_kernel",
                                            "reduce_splits_kernel")),
-           ("port: sphere conv forward", ("sphere_conv_kernel",)),
-           ("port: 3-D convs", ("conv3d_bn_act_kernel", "conv3d_s1_tc_kernel",
-                                "conv3d_head_kernel")),
+           ("port: sphere conv forward", ("sphere_conv_tc_kernel",)),
+           ("port: 3-D convs", ("deconv3d_kernel", "conv3d_s1_tc_kernel",
+                                "conv3d_s2_tc_kernel", "conv3d_head_kernel")),
            ("port: 2-D convs", ("conv2d_tc_kernel",)),
            ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                           "welford")),
@@ -762,7 +779,7 @@ def _profile_step(step, batch):
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t = time.perf_counter()
-    step(*batch)
+    fn(*args)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
   other = "other (elementwise, copies, reductions)"
@@ -843,7 +860,7 @@ def _train_path(gen, label):
             f"{want} per step")
   if not losses[-1] < losses[0]:
     _fail(f"{label}: the loss did not fall over {TRAIN_STEPS + 1} steps")
-  prof = _profile_step(step, batch)
+  prof = _profile(step, batch)
   print(f"{label} profiled step: host {prof['host_ms']:.2f} ms, device "
         f"{prof['device_ms']:.2f} ms; by kind (ms): "
         + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
@@ -977,10 +994,33 @@ def _anchor():
           "conf_mae": conf_mae}
 
 
+def _kernel_phase(cases, reg_cases, gen):
+  """Every recorded kernel shape once, f32 and bf16: the rows it prints."""
+  rows = []
+  for dtype in (torch.float32, torch.bfloat16):
+    for case, (per_call, layers, batch) in cases.items():
+      if case[0] in SPHERE_BWD:
+        row = _sphere_bwd_case(case, dtype, gen)
+      else:
+        row = _conv_case(case, dtype, gen)
+      row.update(per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
+                 layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
+                                                else ""))
+      rows.append(row)
+      print("kernel " + json.dumps(row), flush=True)
+    for case, per_call in reg_cases.items():
+      row = _regression_case(case, dtype, gen)
+      row.update(per_call=per_call, tpu="K2")
+      rows.append(row)
+      print("kernel " + json.dumps(row), flush=True)
+  return rows
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device is available", file=sys.stderr)
     return 1
+  from mode_tpu_torch.device import ieee_f32_convs
   from mode_tpu_torch.kernels import build
 
   t_start = time.time()
@@ -991,8 +1031,6 @@ def main() -> int:
   print(card, flush=True)
   print(f"card: {card} (nvidia-smi name, power.limit); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-  torch.backends.cudnn.allow_tf32 = False
-  torch.backends.cuda.matmul.allow_tf32 = False
 
   # ---- build
   t0 = time.time()
@@ -1044,23 +1082,10 @@ def main() -> int:
     case = ((seen[label]["batch"], MAXDISP // 4, h // 4, w // 4), MAXDISP, h,
             w)
     reg_cases.setdefault(case, {})[label] = 1
-  rows = []
-  for dtype in (torch.float32, torch.bfloat16):
-    for case, (per_call, layers, batch) in cases.items():
-      if case[0] in SPHERE_BWD:
-        row = _sphere_bwd_case(case, dtype, gen)
-      else:
-        row = _conv_case(case, dtype, gen)
-      row.update(per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
-                 layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
-                                                else ""))
-      rows.append(row)
-      print("kernel " + json.dumps(row), flush=True)
-    for case, per_call in reg_cases.items():
-      row = _regression_case(case, dtype, gen)
-      row.update(per_call=per_call, tpu="K2")
-      rows.append(row)
-      print("kernel " + json.dumps(row), flush=True)
+  # the plain versions and the library calls in IEEE f32, as the model's
+  # forward and training step run their library convs
+  with ieee_f32_convs():
+    rows = _kernel_phase(cases, reg_cases, gen)
   bad = [r for r in rows if not r["pass"]]
   if bad:
     _fail(f"{len(bad)} kernel comparisons out of tolerance: "
@@ -1119,7 +1144,7 @@ def main() -> int:
   print("paths: " + json.dumps({label: {
       "median_ms_per_call": statistics.median(s["call_ms"]),
       "pairs_per_call": s["batch"], "fe_ms": s["fe_ms"],
-      "peak_gib": s["peak_gib"], **s["check"]}
+      "peak_gib": s["peak_gib"], "profile": s["profile"], **s["check"]}
       for label, s in seen.items() if label in PATHS} | {
           label: {"ms_per_step": statistics.median(s["call_ms"][-2:]),
                   "step_ms": s["call_ms"], "first_step_ms": s["first_ms"],

@@ -1,6 +1,9 @@
-"""Where the port runs: CUDA by default, the CPU only when asked for."""
+"""Where the port runs: CUDA by default, the CPU only when asked for; and
+the precision of the library convs it runs."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -27,3 +30,26 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
   if device.type == "cuda" and device.index is None:
     device = torch.device("cuda", torch.cuda.current_device())
   return device
+
+
+@contextlib.contextmanager
+def ieee_f32_convs():
+  """Run cuDNN's f32 convolutions in IEEE f32 while the block runs.
+
+  PyTorch's default lets cuDNN run an f32 convolution as one TF32 pass
+  (``torch.backends.cudnn.allow_tf32``), about three decimal digits. The
+  JAX package runs f32 at ``Precision.HIGHEST`` and the port's own kernels
+  at f32 level (3xTF32), so the port's eval forward and training step run
+  their library convs (the ones the kernels do not take, and every
+  grad-weight) under this. The flag is set and restored by itself, not
+  through ``torch.backends.cudnn.flags()``, whose other arguments would
+  reset cuDNN's other flags (it defaults to ``enabled=False``). The flag
+  is process-wide, so it also holds in autograd's backward threads while
+  the block runs.
+  """
+  before = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32 = before

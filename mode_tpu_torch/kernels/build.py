@@ -18,8 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("conv3d", "conv3d_s1", "regression", "sphere_conv", "conv2d",
-           "sphere_conv_bwd")
+SOURCES = ("conv3d", "conv3d_s1", "conv3d_s2", "regression", "sphere_conv",
+           "conv2d", "sphere_conv_bwd")
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -74,6 +74,8 @@ template <typename T>
 int head_smem(int cin) {
   return 2 * HALO * (cin * (int)sizeof(T) + 16) + 27 * cin * 4;
 }
+// Within the card's tc::SMEM_MAX: f32 Cin up to 72 and bf16 Cin up to 144
+// (ops/conv3d.py refuses the others).
 
 template <typename T>
 __global__ void __launch_bounds__(HNT)
@@ -171,6 +173,7 @@ cudaError_t launch_head(const void* x, const void* wk, const float* scale,
                         int d, int h, int w, int cin, int relu,
                         cudaStream_t stream) {
   const int smem = head_smem<T>(cin);
+  if (smem > tc::SMEM_MAX) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       conv3d_head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -193,7 +196,7 @@ cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
     return launch_head<T>(x, wbig, scale, bias, res, out, nb, d, h, w, cin,
                           relu, stream);
   }
-  const tc::Shape s{nb, d, h, w, cin, cout, 3, 1};
+  const tc::Shape s{nb, d, h, w, cin, cout, 3, 1, d, h, w};
   return tc::dispatch<Kernels, T>(x, wbig, wsmall, scale, bias, res, out, s,
                                   relu, stream);
 }
@@ -206,7 +209,8 @@ cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
 // wbig as the whole weight); scale, bias: (cout,) f32; res (may be
 // null) and out: (nb, d, h, w, cout). x, w*, res and out are f32
 // (bf16 == 0) or bf16 (bf16 == 1), 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
+// launching where the head kernel's Cin does not fit in shared memory.
 extern "C" int conv3d_s1_bn_act(int bf16, const void* x, const void* wbig,
                                 const void* wsmall, const void* scale,
                                 const void* bias, const void* res, void* out,

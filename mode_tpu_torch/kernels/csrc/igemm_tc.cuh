@@ -1,11 +1,14 @@
-// The tensor-core implicit GEMM of the port's stride-1 convolutions
-// (conv3d_s1.cu, conv2d.cu), for sm_90a.
+// The tensor-core implicit GEMM of the port's convolutions (conv3d_s1.cu,
+// conv3d_s2.cu, conv2d.cu; the sphere conv of sphere_conv.cu builds its A
+// operand itself and shares the rest), for sm_90a.
 //
 // A block computes a BM x BN tile of out[M, N]: M the output voxels (or
 // pixels, a 2-D map being a volume of depth 1) in NDHW order, N the output
 // channels, K = taps x Cin in the order (tap, channel), the taps at
-// (k - 1) * dil on each tapped axis. One warpgroup (128 threads) owns 64
-// rows of the tile; BM = 128 runs two of them.
+// (k - 1) * dil on each tapped axis. At stride S (a template parameter, 1
+// or 2; stride 2 only with dilation 1) output voxel (z, y, x) reads input
+// voxel (S z + kd - 1, S y + kh - 1, S x + kw - 1). One warpgroup (128
+// threads) owns 64 rows of the tile; BM = 128 runs two of them.
 //
 // A K stage is one tap x BK = 32 input channels: one row of RB bytes per
 // output row (128 in f32, 64 in bf16), which every thread copies 16 bytes
@@ -43,10 +46,12 @@
 
 namespace tc {
 // Internal linkage: each source that includes this header keeps its own
-// copy (and its own launch_tile statics) in its own library.
+// copy in its own library (a template static shared by two ctypes-loaded
+// libraries would be one GNU unique symbol across them).
 namespace {
 
 constexpr int BK = 32;  // input channels per K stage
+constexpr int SMEM_MAX = 232448;  // shared memory a block can take (227 KB)
 
 // Per input type: bytes of a stage row (the swizzle width), the
 // descriptor's layout code, stages in flight, wgmma K steps per stage,
@@ -73,13 +78,15 @@ __host__ __device__ constexpr uint32_t swizzle(int r, int c) {
                         : r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-// The extents of a call: output = input extents (stride 1, padding =
-// dilation), d = 1 and kd = 1 for a 2-D map.
+// The extents of a call, d = 1 and kd = 1 for a 2-D map. At stride 1 the
+// input extents equal the output extents (padding = dilation); at stride 2
+// (padding 1) the output extent is ceil(input / 2) on every axis.
 struct Shape {
-  int nb, d, h, w;
+  int nb, d, h, w;  // output extents
   int cin, cout;
-  int kd;   // taps along D: 3 or 1
-  int dil;  // dilation (and padding) of every tapped axis
+  int kd;           // taps along D: 3 or 1
+  int dil;          // dilation (and padding) of every tapped axis
+  int di, hi, wi;   // input extents
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -153,6 +160,13 @@ __device__ __forceinline__ void mma_tf32(float (&d)[N / 2],
 template <int N>
 __device__ __forceinline__ void mma_bf16(float (&d)[N / 2], uint64_t da,
                                          uint64_t db);
+// d += A * B over one K step of 16, A a bf16 register fragment: register
+// e of the thread holds the bf16 pair of row lane / 4 + 8 (e & 1) of its
+// warp's 16 at K positions 2 (lane % 4) + 8 (e >> 1) and the next.
+template <int N>
+__device__ __forceinline__ void mma_bf16_ra(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db);
 
 template <>
 __device__ __forceinline__ void mma_tf32<32>(float (&d)[16],
@@ -287,6 +301,58 @@ __device__ __forceinline__ void mma_bf16<128>(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void mma_bf16_ra<64>(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_ra<128>(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -307,13 +373,103 @@ constexpr int smem_bytes() {
   return Cfg<T>::STAGES * (BM + Cfg<T>::PARTS * BN) * Cfg<T>::RB + 1024;
 }
 
-// The body of a conv kernel launched with 2 * BM threads and
+// acc += the products of one f32 K stage: v[hh][j] is the thread's A value
+// of row r0 + 8 hh (r0 = its fragment row) at channel 8 q + j of the stage
+// (q = lane % 4), which the f32 weight holds at K position q + 4 j (see
+// conv_body); db, ds the descriptors of the stage's big and small B parts.
+// The m64k8 tf32 A fragment of K step kk holds rows r0 and r0 + 8 at K
+// positions kk * 8 + q and kk * 8 + q + 4: channels 8 q + 2 kk (+ 1).
+template <int BN>
+__device__ __forceinline__ void mma_stage_f32(float (&acc)[BN / 2],
+                                              const float (&v)[2][8],
+                                              uint64_t db, uint64_t ds) {
+  constexpr int KSTEPS = Cfg<float>::KSTEPS;
+  uint32_t big[KSTEPS][4], small[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = v[e & 1][2 * kk + (e >> 1)];
+      big[kk][e] = tf32_rna(a);
+      small[kk][e] = tf32_rna(a - __uint_as_float(big[kk][e]));
+    }
+  }
+  // The stage's products go to a fresh fragment, added to acc on the
+  // FP32 pipes (round to nearest): the tensor cores' own accumulation
+  // does not round to nearest, and over the thousands of products of a
+  // whole K it drifts past f32 level.
+  float part[BN / 2];
+  pin(part);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    mma_tf32<BN>(part, small[kk], db + 2 * kk, kk > 0);
+    mma_tf32<BN>(part, big[kk], ds + 2 * kk, 1);
+    mma_tf32<BN>(part, big[kk], db + 2 * kk, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(part);
+  pin(big);
+  pin(small);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+}
+
+// The epilogue: writes act(acc * scale + bias (+ residual)) in T, two
+// channels per store, row m of the tile at element out_row(m) of out (and
+// of res, which may be null). Fragment element 4j + 2hh + e: row lane / 4
+// + 8 hh of the warp's 16, column 8j + 2 (lane % 4) + e.
+template <typename T, int BN, typename OutRow>
+__device__ __forceinline__ void epilogue(
+    const float (&acc)[BN / 2], long long m0, long long mtot, int n0,
+    int cout, const float* __restrict__ scale, const float* __restrict__ bias,
+    const T* __restrict__ res, T* __restrict__ out, int relu,
+    OutRow out_row) {
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const long long mr = m0 + wg * 64 + warp * 16 + lane / 4;
+  const bool pairs = cout % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int co = n0 + 8 * j + 2 * (lane % 4);
+    if (co >= cout) continue;
+    const bool two = co + 1 < cout;
+    const float s0 = scale[co], b0 = bias[co];
+    const float s1 = two ? scale[co + 1] : 0.f;
+    const float b1 = two ? bias[co + 1] : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = mr + 8 * hh;
+      if (m >= mtot) continue;
+      const long long o = out_row(m) + co;
+      float v0 = acc[4 * j + 2 * hh] * s0 + b0;
+      float v1 = acc[4 * j + 2 * hh + 1] * s1 + b1;
+      if (res != nullptr) {
+        v0 += to_f32(res[o]);
+        if (two) v1 += to_f32(res[o + 1]);
+      }
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      if (two && pairs) {
+        store2(out + o, v0, v1);
+      } else {
+        store1(out + o, v0);
+        if (two) store1(out + o + 1, v1);
+      }
+    }
+  }
+}
+
+// The body of a conv kernel of stride S launched with 2 * BM threads and
 // smem_bytes<T, BM, BN>() of dynamic shared memory. wbig, wsmall: the
 // K-major weight, bf16 (taps, Cout, Cin) (wsmall unused), f32 split in two
 // parts of (taps, Cout, ceil(Cin / 32) * 32) whose K position p of each
 // 32-channel stage holds channel 8 (p % 4) + p / 4 (zero past Cin); res
 // may be null.
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, int S = 1>
 __device__ __forceinline__ void conv_body(
     const T* __restrict__ x, const T* __restrict__ wbig,
     const T* __restrict__ wsmall, const float* __restrict__ scale,
@@ -359,26 +515,40 @@ __device__ __forceinline__ void conv_body(
     rx[i] = (int)(t % s.w);
     t /= s.w;
     ry[i] = (int)(t % s.h);
-    rz[i] = (int)(t / s.h % s.d);
+    if constexpr (S == 1) {
+      rz[i] = (int)(t / s.h % s.d);
+    } else {
+      // the input voxel (S z, S y, S x) that the centre tap reads
+      t /= s.h;
+      rz[i] = S * (int)(t % s.d);
+      ry[i] *= S;
+      rx[i] *= S;
+      rm[i] = ((t / s.d * s.di + rz[i]) * s.hi + ry[i]) * s.wi + rx[i];
+    }
   }
   // The f32 weight's Cin is padded to whole stages (host-side pack).
   const int wcin = C::PARTS == 2 ? nkc * BK : s.cin;
 
+  // the input extents (the output's at stride 1)
+  const int din = S == 1 ? s.d : s.di;
+  const int hin = S == 1 ? s.h : s.hi;
+  const int win = S == 1 ? s.w : s.wi;
+  const long long ihw = S == 1 ? hw : (long long)hin * win;
   auto load = [&](int step, int slot) {
     const int tap = step / nkc, kc = step - tap * nkc;
     const int od = s.kd == 3 ? (tap / 9 - 1) * s.dil : 0;
     const int oh = (tap / 3 % 3 - 1) * s.dil;
     const int ow = (tap % 3 - 1) * s.dil;
-    const long long shift = od * hw + (long long)oh * s.w + ow;
+    const long long shift = od * ihw + (long long)oh * win + ow;
     const uint32_t sa = base + slot * STAGE;
     const int ch = kc * BK + ac * CH;
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int r = tid / CPR + i * (NT / CPR);
       const bool ok = rv[i] && ch < s.cin &&
-                      (unsigned)(rz[i] + od) < (unsigned)s.d &&
-                      (unsigned)(ry[i] + oh) < (unsigned)s.h &&
-                      (unsigned)(rx[i] + ow) < (unsigned)s.w;
+                      (unsigned)(rz[i] + od) < (unsigned)din &&
+                      (unsigned)(ry[i] + oh) < (unsigned)hin &&
+                      (unsigned)(rx[i] + ow) < (unsigned)win;
       cp_async16(sa + swizzle<T>(r, ac),
                  ok ? x + (rm[i] + shift) * s.cin + ch : x, ok);
     }
@@ -422,11 +592,10 @@ __device__ __forceinline__ void conv_body(
     const uint32_t sa = base + slot * STAGE;
     const uint32_t sb = sa + A_BYTES;
     if constexpr (sizeof(T) == 4) {
-      // The m64k8 tf32 A fragment of K step kk holds rows r0 and r0 + 8 at
-      // K positions kk * 8 + q and kk * 8 + q + 4. The f32 weight holds, at
-      // K position p of a stage, channel 8 (p % 4) + p / 4, so those
-      // positions over the stage are channels 8q .. 8q + 7 of each row:
-      // chunks 2q and 2q + 1, two 16-byte reads a row.
+      // The f32 weight holds, at K position p of a stage, channel
+      // 8 (p % 4) + p / 4, so the thread's A fragment values over the stage
+      // are channels 8q .. 8q + 7 of each of its rows: chunks 2q and
+      // 2q + 1, two 16-byte reads a row.
       const uint8_t* ta = smem + slot * STAGE;
       const int r0 = wg * 64 + warp * 16 + lane / 4, q = lane % 4;
       float v[2][8];
@@ -439,38 +608,8 @@ __device__ __forceinline__ void conv_body(
         v[hh][0] = lo.x, v[hh][1] = lo.y, v[hh][2] = lo.z, v[hh][3] = lo.w;
         v[hh][4] = hi.x, v[hh][5] = hi.y, v[hh][6] = hi.z, v[hh][7] = hi.w;
       }
-      uint32_t big[C::KSTEPS][4], small[C::KSTEPS][4];
-#pragma unroll
-      for (int kk = 0; kk < C::KSTEPS; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float a = v[e & 1][2 * kk + (e >> 1)];
-          big[kk][e] = tf32_rna(a);
-          small[kk][e] = tf32_rna(a - __uint_as_float(big[kk][e]));
-        }
-      }
-      // The stage's products go to a fresh fragment, added to acc on the
-      // FP32 pipes (round to nearest): the tensor cores' own accumulation
-      // does not round to nearest, and over the thousands of products of a
-      // whole K it drifts past f32 level.
-      const uint64_t db = make_desc<T>(sb);
-      const uint64_t ds = make_desc<T>(sb + B_BYTES);
-      float part[BN / 2];
-      pin(part);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < C::KSTEPS; ++kk) {
-        mma_tf32<BN>(part, small[kk], db + 2 * kk, kk > 0);
-        mma_tf32<BN>(part, big[kk], ds + 2 * kk, 1);
-        mma_tf32<BN>(part, big[kk], db + 2 * kk, 1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(part);
-      pin(big);
-      pin(small);
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      mma_stage_f32<BN>(acc, v, make_desc<T>(sb),
+                        make_desc<T>(sb + B_BYTES));
     } else {
       const uint64_t da = make_desc<T>(sa + wg * 64 * C::RB);
       const uint64_t db = make_desc<T>(sb);
@@ -486,59 +625,43 @@ __device__ __forceinline__ void conv_body(
     }
   }
   cp_async_wait<0>();
-
-  // Fragment element 4j + 2hh + e: row lane / 4 + 8 hh of the warp's 16,
-  // column 8j + 2 (lane % 4) + e.
-  const long long mr = m0 + wg * 64 + warp * 16 + lane / 4;
-  const bool pairs = s.cout % 2 == 0;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int co = n0 + 8 * j + 2 * (lane % 4);
-    if (co >= s.cout) continue;
-    const bool two = co + 1 < s.cout;
-    const float s0 = scale[co], b0 = bias[co];
-    const float s1 = two ? scale[co + 1] : 0.f;
-    const float b1 = two ? bias[co + 1] : 0.f;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long m = mr + 8 * hh;
-      if (m >= mtot) continue;
-      const long long o = m * s.cout + co;
-      float v0 = acc[4 * j + 2 * hh] * s0 + b0;
-      float v1 = acc[4 * j + 2 * hh + 1] * s1 + b1;
-      if (res != nullptr) {
-        v0 += to_f32(res[o]);
-        if (two) v1 += to_f32(res[o + 1]);
-      }
-      if (relu) {
-        v0 = fmaxf(v0, 0.f);
-        v1 = fmaxf(v1, 0.f);
-      }
-      if (two && pairs) {
-        store2(out + o, v0, v1);
-      } else {
-        store1(out + o, v0);
-        if (two) store1(out + o + 1, v1);
-      }
-    }
-  }
+  epilogue<T, BN>(acc, m0, mtot, n0, s.cout, scale, bias, res, out, relu,
+                  [&](long long m) { return m * s.cout; });
 }
 
-// Launches kernel (a __global__ wrapper of conv_body<T, BM, BN>) over the
-// call's tiles; returns cudaGetLastError().
+constexpr int MAX_DEVICES = 64;
+
+// Sets kernel's dynamic shared-memory size to smem on the current device,
+// once per device: the attribute belongs to the device that is current
+// when it is set (the wrappers make the input's device current), and a
+// process may launch on more than one. sized: the caller's flags, one
+// static array per kernel.
+template <typename Kernel>
+cudaError_t size_smem(Kernel kernel, int smem, bool (&sized)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!sized[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    sized[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// Launches kernel (a __global__ wrapper of conv_body<T, BM, BN, S>) over
+// the call's tiles; returns cudaGetLastError().
 template <typename T, int BM, int BN, typename Kernel>
 cudaError_t launch_tile(Kernel kernel, const void* x, const void* wbig,
                         const void* wsmall, const float* scale,
                         const float* bias, const void* res, void* out,
                         const Shape& s, int relu, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, BM, BN>();
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    sized = true;
-  }
+  static bool sized[MAX_DEVICES] = {};
+  const cudaError_t e = size_smem(kernel, smem, sized);
+  if (e != cudaSuccess) return e;
   const long long mtot = (long long)s.nb * s.d * s.h * s.w;
   const dim3 grid((unsigned)((mtot + BM - 1) / BM), (s.cout + BN - 1) / BN);
   kernel<<<grid, 2 * BM, smem, stream>>>(

@@ -14,9 +14,9 @@ package's 2-D band kernels), the fused kernel of ``ops/conv2d.py``. The
 sphere convs run the fused kernel of ``ops/sphere_conv.py`` and the 3-D
 blocks, on NDHWC volumes, those of ``ops/conv3d.py``, each with the BatchNorm
 folded into the epilogue. A fused layer keeps its weight in the kernel's
-layout (the stride-1 convs: the K-major, in f32 split, layout of the
-tensor-core kernels) and its folded BN between calls, and remakes them only
-after one of its parameters or buffers changes.
+layout (every conv but the deconv: the K-major, in f32 split, layout of
+the tensor-core kernels) and its folded BN between calls, and remakes them
+only after one of its parameters or buffers changes.
 
 In training (``module.train()``) each conv + BN layer runs in the JAX
 package's order: the bare conv, BN with batch statistics, the residual, the
@@ -279,7 +279,7 @@ class SphereConvBn(nn.Sequential):
       else:
         y = sphere_ops.sphere_conv(xn, self[0].weight, kind)
       return _bn_act(self[1], y.permute(0, 3, 1, 2), residual, relu)
-    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight)
+    weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight_tc)
     y = sphere_conv_bn_act(_nhwc(x), weight, scale, bias,
                            None if residual is None else _nhwc(residual),
                            relu, sphere_type=kind, plain=plain)
@@ -321,8 +321,8 @@ class Conv3dWeight(nn.Module):
     if self.training:
       return _conv3d_train(x, self.weight, self.stride, plain)
     conv = conv3d_s1_bn_act if self.stride == 1 else conv3d_s2_bn_act
-    pack = pack_weight_tc if self.stride == 1 else pack_weight
-    packed = self._operands.get((self.weight,), lambda: pack(self.weight))
+    packed = self._operands.get(
+        (self.weight,), lambda: pack_weight_tc(self.weight, self.stride))
     return conv(x, packed, plain=plain)
 
 
@@ -349,7 +349,7 @@ class ConvBn3d(nn.Sequential):
       y = _conv3d_train(x, self[0].weight, self[0].stride, plain)
       return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
-        self, pack_weight_tc if self[0].stride == 1 else pack_weight)
+        self, functools.partial(pack_weight_tc, stride=self[0].stride))
     if self[0].stride == 1:
       return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
                               plain=plain)

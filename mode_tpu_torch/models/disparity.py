@@ -34,7 +34,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import ieee_f32_convs, resolve_device
 from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
                                           ConvBn3d, DeconvBn3d,
                                           RegularBasicBlock, SphereBasicBlock,
@@ -229,19 +229,21 @@ class ModeDisparity(nn.Module):
               plain: bool = False):
     """``left``/``right``: ``(B, H, W, 3)`` on the model's device.
     ``plain=True`` runs the kernels' plain PyTorch versions instead (a
-    reference for the kernels on the card)."""
+    reference for the kernels on the card). The library convs run in IEEE
+    f32 (``device.ieee_f32_convs``), whatever cuDNN's TF32 flag says."""
     if left.device != self.device or right.device != self.device:
       raise ValueError(f"inputs on {left.device}/{right.device}, model on "
                        f"{self.device}")
     h, w = left.shape[1:3]
-    if self.training:
-      return tuple(torch.utils.checkpoint.checkpoint(
-          _regress, cost, self.maxdisp, h, w, use_reentrant=False)
-                   for cost in self._costs(left, right, plain))
-    with torch.no_grad():
-      cost3 = self._costs(left, right, plain)[2]
-      pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
-                                              plain=plain)
+    with ieee_f32_convs():
+      if self.training:
+        return tuple(torch.utils.checkpoint.checkpoint(
+            _regress, cost, self.maxdisp, h, w, use_reentrant=False)
+                     for cost in self._costs(left, right, plain))
+      with torch.no_grad():
+        cost3 = self._costs(left, right, plain)[2]
+        pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
+                                                plain=plain)
     return (pred, conf) if self.out_conf else pred
 
   def _costs(self, left, right, plain):

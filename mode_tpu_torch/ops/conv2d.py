@@ -16,8 +16,9 @@ or when the caller passes ``plain=True``, it runs the plain PyTorch version:
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's K-major
 :class:`~mode_tpu_torch.ops.kmajor.TcWeight` from :func:`pack_weight_tc`,
 which saves the per-call repack where a layer keeps it (``models/blocks.py``
-does). :func:`pack_weight`'s ``(9, Cin, Cout)`` layout is the sphere conv's
-(``ops/sphere_conv.py``); this op takes it too.
+does; so does the sphere conv's, ``ops/sphere_conv.py``).
+:func:`pack_weight`'s ``(9, Cin, Cout)`` layout, that of the sphere conv's
+backward, is taken too.
 
 For training, :func:`conv2d_train` is the bare conv as an autograd Function
 whose forward and grad-input run the kernel, as ``conv2d_3x3_fast_train``
@@ -32,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mode_tpu_torch.kernels import LAUNCHES
+from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
@@ -95,20 +96,10 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
     raise ValueError(f"{_NAME}: x must be a contiguous f32 or bf16 NHWC "
                      f"map, got {tuple(x.shape)} {x.dtype}")
   n, h, w, cin = x.shape
-  if cin % 8 or x.data_ptr() % 16:
-    raise ValueError(f"{_NAME}: Cin must be a multiple of 8 and x 16-byte "
-                     f"aligned, got Cin {cin}")
   tw = weight if isinstance(weight, TcWeight) else pack_weight_tc(
       _torch_weight(weight))
-  parts, cout = tw.parts, tw.cout
-  split = x.dtype == torch.float32
-  wcin = -(-cin // kmajor.STAGE_CHANNELS) * kmajor.STAGE_CHANNELS
-  nparts = 2 if split else 1
-  if (parts.shape != (nparts, 9, cout, wcin if split else cin)
-      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
-      or parts.device != x.device or not parts.is_contiguous()):
-    raise ValueError(f"{_NAME}: weight {tuple(parts.shape)} {parts.dtype} "
-                     f"does not match x {tuple(x.shape)} {x.dtype}")
+  cout = tw.cout
+  wbig, wsmall = kmajor.operands(_NAME, x, tw, 9, x.dtype == torch.float32)
   shape = (n, h, w, cout)
   if residual is not None and (tuple(residual.shape) != shape
                                or residual.dtype != x.dtype
@@ -117,16 +108,12 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
     raise ValueError(f"{_NAME}: residual must be a contiguous {x.dtype} "
                      f"tensor of shape {shape}")
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  err = _conv2d_lib().conv2d_s1_bn_act(
-      int(x.dtype == torch.bfloat16), x.data_ptr(), parts[0].data_ptr(),
-      parts[1].data_ptr() if nparts == 2 else None, scale.data_ptr(),
-      bias.data_ptr(),
+  kernels.launch(
+      _NAME, _conv2d_lib().conv2d_s1_bn_act, x.device,
+      int(x.dtype == torch.bfloat16), x.data_ptr(), wbig, wsmall,
+      scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      n, h, w, cin, cout, dilation, int(relu),
-      torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{_NAME}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[_NAME] += 1
+      n, h, w, cin, cout, dilation, int(relu))
   return out
 
 

@@ -16,17 +16,19 @@ an optional ReLU, and returns ``x.dtype``:
 
 On a CUDA tensor each function launches its kernel (the stride-1 conv:
 ``kernels/csrc/conv3d_s1.cu``, on the tensor cores, with a kernel of its own
-for Cout 1; the others: ``kernels/csrc/conv3d.cu``; each source's note
-says what bounds it and how it is built), or raises on an input the kernel
-does not take. On a CPU tensor, or when the caller passes ``plain=True``, it
-runs the plain PyTorch version below: ``F.conv3d``/``F.conv_transpose3d`` in
-f32 and the same epilogue.
+for Cout 1; the stride-2 conv: ``conv3d_s2.cu``, the same tensor-core
+machinery at stride 2; the deconv: ``conv3d.cu``; each source's note says
+what bounds it and how it is built), or raises on an input the kernel does
+not take. On a CPU tensor, or when the caller passes ``plain=True``, it
+runs the plain PyTorch version below: ``F.conv3d``/``F.conv_transpose3d``
+in f32 and the same epilogue.
 
 The weight is the torch layout, or the kernel's own layout, which saves the
 per-call repack where a layer keeps it (``models/blocks.py`` does): for the
-stride-1 conv the K-major :class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
-:func:`pack_weight_tc`, for the others ``(27, Cin, Cout)`` from
-:func:`pack_weight`.
+stride-1 and stride-2 convs the K-major
+:class:`~mode_tpu_torch.ops.kmajor.TcWeight` of :func:`pack_weight_tc`, for
+the deconv ``(27, Cin, Cout)`` from :func:`pack_weight`, which the convs
+take too.
 
 For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
 convs as autograd Functions whose forward and grad-input run these kernels
@@ -42,7 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mode_tpu_torch.kernels import LAUNCHES
+from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
@@ -55,11 +57,11 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
-def _conv3d_lib():
+def _deconv3d_lib():
   lib = build.load("conv3d")
-  lib.conv3d_bn_act.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                                + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-  lib.conv3d_bn_act.restype = ctypes.c_int
+  lib.deconv3d_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+  lib.deconv3d_bn_act.restype = ctypes.c_int
   return lib
 
 
@@ -70,6 +72,26 @@ def _conv3d_s1_lib():
                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
   lib.conv3d_s1_bn_act.restype = ctypes.c_int
   return lib
+
+
+@functools.cache
+def _conv3d_s2_lib():
+  lib = build.load("conv3d_s2")
+  lib.conv3d_s2_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+  lib.conv3d_s2_bn_act.restype = ctypes.c_int
+  return lib
+
+
+# The most shared memory a block can take on the card (227 KB), and what
+# the Cout-1 head kernel needs for Cin channels of `itemsize` bytes
+# (conv3d_s1.cu:head_smem): two halo planes of 34 x 10 voxels, each padded
+# by 16 bytes, and the f32 weights.
+SMEM_MAX = 232448
+
+
+def head_smem(cin: int, itemsize: int) -> int:
+  return 2 * 340 * (cin * itemsize + 16) + 27 * cin * 4
 
 
 def pack_weight(weight: torch.Tensor, transpose: bool = False
@@ -85,17 +107,17 @@ def pack_weight(weight: torch.Tensor, transpose: bool = False
   return wk.reshape(27, *wk.shape[3:]).contiguous()
 
 
-def pack_weight_tc(weight: torch.Tensor) -> TcWeight:
-  """The stride-1 kernel's K-major weight ``(P, 27, Cout, Cin)``, taps in
-  (kd, kh, kw) order, from a torch conv weight ``(Cout, Cin, 3, 3, 3)``; in
-  f32 split into ``big`` and ``small`` for 3xTF32, except for Cout 1 (the
-  head kernel, f32 FMAs)."""
+def pack_weight_tc(weight: torch.Tensor, stride: int = 1) -> TcWeight:
+  """The tensor-core kernels' K-major weight ``(P, 27, Cout, Cin)``, taps
+  in (kd, kh, kw) order, from a torch conv weight ``(Cout, Cin, 3, 3, 3)``;
+  in f32 split into ``big`` and ``small`` for 3xTF32, except for the
+  stride-1 conv's Cout 1 (the head kernel, f32 FMAs)."""
   if weight.dim() != 5 or weight.shape[2:] != (3, 3, 3):
     raise ValueError(f"expected a 3x3x3 torch weight, got "
                      f"{tuple(weight.shape)}")
   cout, cin = weight.shape[:2]
   wk = weight.permute(2, 3, 4, 0, 1).reshape(27, cout, cin)
-  return kmajor.pack(wk, weight, split=cout > 1)
+  return kmajor.pack(wk, weight, split=cout > 1 or stride == 2)
 
 
 def _torch_weight(mode, weight):
@@ -142,37 +164,36 @@ def _check_residual(name, x, residual, shape):
                      f"tensor of shape {shape}")
 
 
-def _launch_s1(x, weight, scale, bias, residual, relu):
-  """The stride-1 conv on ``conv3d_s1.cu``: the tensor-core kernel, or the
-  head kernel for Cout 1."""
-  name = _NAMES[_S1]
+def _launch_tc(mode, x, weight, scale, bias, residual, relu):
+  """The stride-1 conv on ``conv3d_s1.cu`` (the tensor-core kernel, or the
+  head kernel for Cout 1) or the stride-2 conv on ``conv3d_s2.cu``."""
+  name = _NAMES[mode]
   cin = x.shape[-1]
-  if cin % 8 or x.data_ptr() % 16:
-    raise ValueError(f"{name}: Cin must be a multiple of 8 and x 16-byte "
-                     f"aligned, got Cin {cin}")
   tw = weight if isinstance(weight, TcWeight) else pack_weight_tc(
-      _torch_weight(_S1, weight))
-  parts, cout = tw.parts, tw.cout
-  split = x.dtype == torch.float32 and cout > 1
-  wcin = -(-cin // kmajor.STAGE_CHANNELS) * kmajor.STAGE_CHANNELS
-  nparts = 2 if split else 1
-  if (parts.shape != (nparts, 27, cout, wcin if split else cin)
-      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
-      or parts.device != x.device or not parts.is_contiguous()):
-    raise ValueError(f"{name}: weight {tuple(parts.shape)} {parts.dtype} "
-                     f"does not match x {tuple(x.shape)} {x.dtype}")
-  shape = (*x.shape[:4], cout)
+      _torch_weight(mode, weight), 1 if mode == _S1 else 2)
+  cout = tw.cout
+  head = mode == _S1 and cout == 1
+  wbig, wsmall = kmajor.operands(name, x, tw, 27,
+                                 x.dtype == torch.float32 and not head)
+  if head and head_smem(cin, x.element_size()) > SMEM_MAX:
+    raise ValueError(f"{name}: the Cout-1 head kernel takes Cin up to "
+                     f"{72 if x.dtype == torch.float32 else 144} "
+                     f"in {x.dtype}, got Cin {cin}")
+  shape = _out_shape(mode, x.shape, cout)
   _check_residual(name, x, residual, shape)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  err = _conv3d_s1_lib().conv3d_s1_bn_act(
-      int(x.dtype == torch.bfloat16), x.data_ptr(), parts[0].data_ptr(),
-      parts[1].data_ptr() if nparts == 2 else None, scale.data_ptr(),
-      bias.data_ptr(), None if residual is None else residual.data_ptr(),
-      out.data_ptr(), *x.shape[:4], cin, cout, int(relu),
-      torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[name] += 1
+  flag = int(x.dtype == torch.bfloat16)
+  if mode == _S1:
+    kernels.launch(
+        name, _conv3d_s1_lib().conv3d_s1_bn_act, x.device, flag,
+        x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        *x.shape[:4], cin, cout, int(relu))
+  else:
+    kernels.launch(
+        name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
+        x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
   return out
 
 
@@ -181,29 +202,25 @@ def _launch(mode, x, weight, scale, bias, residual, relu):
   if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f"{_NAMES[mode]}: x must be a contiguous f32 or bf16 "
                      f"NDHWC volume, got {tuple(x.shape)} {x.dtype}")
-  if mode == _S1:
-    return _launch_s1(x, weight, scale, bias, residual, relu)
-  wk = (weight if weight.dim() == 3
-        else pack_weight(weight, transpose=mode == _DECONV))
+  if mode != _DECONV:
+    return _launch_tc(mode, x, weight, scale, bias, residual, relu)
+  name = _NAMES[mode]
+  wk = weight if weight.dim() == 3 else pack_weight(weight, transpose=True)
   if (wk.shape[:2] != (27, cin) or wk.dtype != x.dtype
       or wk.device != x.device or not wk.is_contiguous()):
-    raise ValueError(f"{_NAMES[mode]}: weight {tuple(weight.shape)} "
+    raise ValueError(f"{name}: weight {tuple(weight.shape)} "
                      f"{weight.dtype} does not match x {tuple(x.shape)} "
                      f"{x.dtype}")
   cout = wk.shape[2]
   shape = _out_shape(mode, x.shape, cout)
-  _check_residual(_NAMES[mode], x, residual, shape)
+  _check_residual(name, x, residual, shape)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  err = _conv3d_lib().conv3d_bn_act(
-      mode, int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
+  kernels.launch(
+      name, _deconv3d_lib().deconv3d_bn_act, x.device,
+      int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
       scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      *x.shape[:4], cin, *shape[1:4], cout, int(relu),
-      torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{_NAMES[mode]}: kernel launch failed with CUDA "
-                       f"error {err}")
-  LAUNCHES[_NAMES[mode]] += 1
+      *x.shape[:4], cin, cout, int(relu))
   return out
 
 
@@ -247,7 +264,8 @@ def conv3d_s2_bn_act(x: torch.Tensor, weight: torch.Tensor,
                      ) -> torch.Tensor:
   """Stride-2 pad-1 3x3x3 conv + affine (+ ReLU): ``(B, D, H, W, Cin)`` ->
   ``(B, ceil(D/2), ceil(H/2), ceil(W/2), Cout)``; arguments as for
-  :func:`conv3d_s1_bn_act`."""
+  :func:`conv3d_s1_bn_act` (the kernel's layout:
+  ``pack_weight_tc(weight, stride=2)``)."""
   return _run(_S2, x, weight, scale, bias, None, relu, plain)
 
 

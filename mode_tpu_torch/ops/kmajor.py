@@ -1,13 +1,14 @@
 """The K-major weight of the port's tensor-core convolutions.
 
-The stride-1 3-D and 2-D conv kernels (``kernels/csrc/igemm_tc.cuh``) take
-their weight as ``(taps, Cout, Cin)``: ``wgmma`` reads B K-major, and with
-``.tf32`` it takes no transposed operand. In f32 the kernels run 3xTF32, so
-the weight comes in two parts made once on the host: ``big =
-tf32_round(w)`` and ``small = tf32_round(w - big)``, with Cin padded to
-whole K stages of 32 channels and each stage's channels permuted (see
-:func:`pack`). A layer keeps the :class:`TcWeight` between calls as it kept
-the ``pack_weight`` layout.
+The 3-D and 2-D conv kernels and the sphere conv's forward
+(``kernels/csrc/igemm_tc.cuh`` and the sources on it) take their weight as
+``(taps, Cout, Cin)``: ``wgmma`` reads B K-major, and with ``.tf32`` it
+takes no transposed operand. In f32 the kernels run 3xTF32, so the weight
+comes in two parts, made on the weight's device: ``big = tf32_round(w)``
+and ``small = tf32_round(w - big)``, with Cin padded to whole K stages of
+32 channels and each stage's channels permuted (see :func:`pack`). A layer
+keeps the :class:`TcWeight` between calls as it kept the ``pack_weight``
+layout; a training Function packs in each call.
 """
 
 from __future__ import annotations
@@ -70,3 +71,25 @@ def pack(wk: torch.Tensor, weight: torch.Tensor, split: bool) -> TcWeight:
   else:
     parts = wk[None]
   return TcWeight(parts.contiguous(), weight.detach())
+
+
+def operands(name: str, x: torch.Tensor, tw: TcWeight, taps: int,
+             split: bool) -> tuple[int, int | None]:
+  """The ``(big, small)`` data pointers of ``tw`` for a tensor-core
+  kernel's launch on ``x`` (``small`` None unless ``split``), after the
+  checks the kernels need: ``x``'s Cin a multiple of 8 and ``x`` 16-byte
+  aligned (whole 16-byte copies), and ``tw`` the layout :func:`pack` makes
+  for ``taps`` taps, ``x``'s Cin, dtype and device. Raises ``ValueError``
+  naming kernel ``name`` otherwise."""
+  cin = x.shape[-1]
+  if cin % 8 or x.data_ptr() % 16:
+    raise ValueError(f"{name}: Cin must be a multiple of 8 and x 16-byte "
+                     f"aligned, got Cin {cin}")
+  parts = tw.parts
+  wcin = -(-cin // STAGE_CHANNELS) * STAGE_CHANNELS if split else cin
+  if (parts.shape != (2 if split else 1, taps, tw.cout, wcin)
+      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
+      or parts.device != x.device or not parts.is_contiguous()):
+    raise ValueError(f"{name}: weight {tuple(parts.shape)} {parts.dtype} "
+                     f"does not match x {tuple(x.shape)} {x.dtype}")
+  return parts[0].data_ptr(), parts[1].data_ptr() if split else None

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from mode_tpu_torch.kernels import LAUNCHES
+from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops.resize import linear_taps, upsample_trilinear
 
@@ -85,13 +85,11 @@ def _launch(cost_q, maxdisp, h, w):
   idx, wgt = _tap_tables(d, hq, wq, maxdisp, h, w, cost_q.device)
   pred = torch.empty((n, h, w), dtype=torch.float32, device=cost_q.device)
   conf = torch.empty_like(pred)
-  err = _regression_lib().fused_disparity_regression(
+  kernels.launch(
+      _NAME, _regression_lib().fused_disparity_regression, cost_q.device,
       int(cost_q.dtype == torch.bfloat16), cost_q.data_ptr(), idx.data_ptr(),
       wgt.data_ptr(), pred.data_ptr(), conf.data_ptr(), n, d, hq, wq,
-      maxdisp, h, w, torch.cuda.current_stream(cost_q.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{_NAME}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[_NAME] += 1
+      maxdisp, h, w)
   return pred, conf
 
 

@@ -49,7 +49,10 @@ ones.
 
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the ``(9, Cin, Cout)``
 layout of ``ops/conv2d.py:pack_weight``, the taps row-major over (kh, kw)
-as ``weight.reshape(kh * kw, cin, cout)`` orders them in the JAX package.
+as ``weight.reshape(kh * kw, cin, cout)`` orders them in the JAX package;
+the forward kernel's own layout is the K-major
+:class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
+``ops/conv2d.py:pack_weight_tc``, which a layer keeps between calls.
 """
 
 from __future__ import annotations
@@ -60,14 +63,16 @@ import functools
 import numpy as np
 import torch
 
-from mode_tpu_torch.kernels import LAUNCHES
+from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
+from mode_tpu_torch.ops import conv2d, kmajor
 from mode_tpu_torch.ops.conv2d import pack_weight
 from mode_tpu_torch.ops.epilogue import affine, epilogue
+from mode_tpu_torch.ops.kmajor import TcWeight
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TAPS = 9
-# the kernel of each pass, by layout: its C entry point and LAUNCHES key
+# the kernel of each pass, by layout: its C entry point and launch key
 FORWARD = {"Cassini": "sphere_conv_bn_act", "ERP": "sphere_conv_erp_bn_act"}
 BWD_INPUT = {"Cassini": "sphere_conv_bwd_input",
              "ERP": "sphere_conv_erp_bwd_input"}
@@ -311,13 +316,16 @@ def _sphere_lib():
   lib = build.load("sphere_conv")
   for name in FORWARD.values():
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
   return lib
 
 
-def _packed(weight: torch.Tensor) -> torch.Tensor:
+def _packed(weight) -> torch.Tensor:
+  """The ``(9, Cin, Cout)`` layout of any weight this module takes."""
+  if isinstance(weight, TcWeight):
+    weight = weight.weight
   return weight if weight.dim() == 3 else pack_weight(weight)
 
 
@@ -388,12 +396,11 @@ def _launch(x, weight, scale, bias, residual, relu, sphere_type):
   name = FORWARD[sphere_type]
   _check_map(name, x, "x", sphere_type)
   n, h, w, cin = x.shape
-  wk = _packed(weight)
-  if (wk.shape[:2] != (_TAPS, cin) or wk.dtype != x.dtype
-      or wk.device != x.device or not wk.is_contiguous()):
-    raise ValueError(f"{name}: weight {tuple(weight.shape)} {weight.dtype} "
-                     f"does not match x {tuple(x.shape)} {x.dtype}")
-  cout = wk.shape[2]
+  tw = weight if isinstance(weight, TcWeight) else conv2d.pack_weight_tc(
+      conv2d._torch_weight(weight))
+  cout = tw.cout
+  wbig, wsmall = kmajor.operands(name, x, tw, _TAPS,
+                                 x.dtype == torch.float32)
   shape = (n, h, w, cout)
   if residual is not None and (tuple(residual.shape) != shape
                                or residual.dtype != x.dtype
@@ -403,15 +410,12 @@ def _launch(x, weight, scale, bias, residual, relu, sphere_type):
                      f"tensor of shape {shape}")
   itab, ftab = _device_tables("shift", h, w, sphere_type, x.device)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  err = getattr(_sphere_lib(), name)(
-      int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
+  kernels.launch(
+      name, getattr(_sphere_lib(), name), x.device,
+      int(x.dtype == torch.bfloat16), x.data_ptr(), wbig, wsmall,
       itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      n, h, w, cin, cout, int(relu),
-      torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[name] += 1
+      n, h, w, cin, cout, int(relu))
   return out
 
 
@@ -426,8 +430,9 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
   Args:
     x: ``(N, H, W, Cin)``, H = 2W for ``sphere_type="Cassini"`` and W = 2H
       for ``"ERP"``; f32 or bf16, contiguous.
-    weight: torch ``(Cout, Cin, 3, 3)``, or its ``pack_weight`` layout
-      ``(9, Cin, Cout)``; same dtype as ``x``.
+    weight: torch ``(Cout, Cin, 3, 3)``, its ``conv2d.pack_weight_tc``
+      layout (the kernel's) or its ``pack_weight`` layout ``(9, Cin,
+      Cout)``; same dtype as ``x``.
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(N, H, W, Cout)`` added before the ReLU.
     sphere_type: the map's layout; the kernel is ``FORWARD[sphere_type]``.
@@ -435,7 +440,10 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
   Returns:
     ``(N, H, W, Cout)`` in ``x.dtype``.
   """
-  cout = weight.shape[2] if weight.dim() == 3 else weight.shape[0]
+  if isinstance(weight, TcWeight):
+    cout = weight.cout
+  else:
+    cout = weight.shape[2] if weight.dim() == 3 else weight.shape[0]
   scale, bias = affine(scale, bias, cout, x.device)
   if plain or x.device.type == "cpu":
     return epilogue(sphere_conv(x, weight, sphere_type), scale, bias,
@@ -537,14 +545,11 @@ def _launch_bwd_input(g, weight, sphere_type):
   itab, ftab = _device_tables("shift", h, w, sphere_type, g.device)
   scale, bias = affine(None, None, cin, g.device)
   dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
-  err = getattr(_bwd_lib(), name)(
+  kernels.launch(
+      name, getattr(_bwd_lib(), name), g.device,
       int(g.dtype == torch.bfloat16), g.data_ptr(), wt.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-      dx.data_ptr(), n, h, w, cin, cout, reach,
-      torch.cuda.current_stream(g.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[name] += 1
+      dx.data_ptr(), n, h, w, cin, cout, reach)
   return dx
 
 
@@ -572,14 +577,11 @@ def _launch_bwd_weight(x, g, sphere_type):
   itab, ftab = _device_tables("shift", h, w, sphere_type, x.device)
   part = torch.empty((nsplit, _TAPS * cin, cout), device=x.device)
   dw = torch.empty((_TAPS, cin, cout), device=x.device)
-  err = getattr(_bwd_lib(), name)(
+  kernels.launch(
+      name, getattr(_bwd_lib(), name), x.device,
       int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), part.data_ptr(), dw.data_ptr(),
-      n, h, w, cin, cout, nsplit, chunk,
-      torch.cuda.current_stream(x.device).cuda_stream)
-  if err != 0:
-    raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-  LAUNCHES[name] += 1
+      n, h, w, cin, cout, nsplit, chunk)
   return dw
 
 
@@ -662,8 +664,10 @@ def train_kernel_eligible(x_shape, sphere_type: str = "Cassini") -> bool:
 class _SphereConv(torch.autograd.Function):
   """The bare conv: forward K3/K10 (scale 1, bias 0, no residual, no ReLU),
   backward the two K3b/K10b kernels; their plain versions on the CPU or
-  with ``plain``. The weight enters in torch layout and is packed here, so
-  its gradient reaches the ``Parameter``."""
+  with ``plain``. The weight enters in torch layout, so its gradient
+  reaches the ``Parameter``, and is packed in each call, on the device:
+  K-major by the forward's wrapper, ``(9, Cin, Cout)`` here, saved for the
+  backward."""
 
   @staticmethod
   def forward(ctx, x, weight, sphere_type, plain):
@@ -671,7 +675,8 @@ class _SphereConv(torch.autograd.Function):
     packed = _checked_packed(weight, x.shape[-1], x.shape).to(x.dtype)
     ctx.save_for_backward(x, packed)
     ctx.sphere_type, ctx.plain = sphere_type, plain
-    return sphere_conv_bn_act(x, packed, sphere_type=sphere_type, plain=plain)
+    return sphere_conv_bn_act(x, weight.to(x.dtype), sphere_type=sphere_type,
+                              plain=plain)
 
   @staticmethod
   def backward(ctx, g):

@@ -14,6 +14,7 @@ from typing import Callable, Iterable
 
 import torch
 
+from mode_tpu_torch.device import ieee_f32_convs
 from mode_tpu_torch.utils.losses import disparity_deep_supervision
 
 # ImageNet statistics (the JAX package's data/preprocess.py)
@@ -65,7 +66,8 @@ def make_disparity_train_step(model: torch.nn.Module,
   on the model's device. The loss is the deep-supervision smooth-L1 over
   ``~isnan(disp_gt)``. After the step each parameter's ``.grad`` holds this
   step's gradient. ``plain=True`` runs the kernels' plain versions (a
-  reference for the kernels on the card).
+  reference for the kernels on the card). The forward and the backward run
+  their library convs in IEEE f32 (``device.ieee_f32_convs``).
   """
 
   def step(left: torch.Tensor, right: torch.Tensor,
@@ -74,10 +76,11 @@ def make_disparity_train_step(model: torch.nn.Module,
     gt = torch.where(mask, disp_gt, torch.zeros_like(disp_gt))
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    preds = model(normalize_rgb_on_device(left),
-                  normalize_rgb_on_device(right), plain=plain)
-    loss = disparity_deep_supervision(preds, gt, mask)
-    loss.backward()
+    with ieee_f32_convs():
+      preds = model(normalize_rgb_on_device(left),
+                    normalize_rgb_on_device(right), plain=plain)
+      loss = disparity_deep_supervision(preds, gt, mask)
+      loss.backward()
     optimizer.step()
     return loss.detach()
 

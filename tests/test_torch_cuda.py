@@ -3,7 +3,10 @@ at small and ragged shapes that the production shapes of ``chip_smoke.py``
 do not reach: Cin not a multiple of the 32-channel K stage, Cout not a
 multiple of the output tile, odd extents for the stride-2 conv, batch 2,
 dilation 2, Cassini maps whose tables have a drop row and ERP maps whose
-tables have a drop column; the stage-1 model (Cassini and ERP) at batch 2
+tables have a drop column; the tensor-core kernels at the production
+shapes of the stride-2 conv and the sphere convs, and the strided
+training grad-inputs; the head kernel's refusal of a Cin past shared
+memory; the stage-1 model (Cassini and ERP) at batch 2
 against its plain path; the sphere conv's two backward kernels in both
 layouts; and one training step at 512x256, where every kernel family
 trains, against the same step through the plain versions.
@@ -52,7 +55,7 @@ def _close(got, want, dtype):
     (C.conv3d_s1_bn_act, (1, 3, 4, 5, 32), 1, False, False),
     (C.conv3d_s1_bn_act, (1, 2, 3, 4, 8), 70, True, False),
     (C.conv3d_s2_bn_act, (1, 5, 7, 6, 16), 24, False, True),
-    (C.conv3d_s2_bn_act, (2, 4, 4, 8, 20), 64, False, False),
+    (C.conv3d_s2_bn_act, (2, 4, 4, 8, 24), 64, False, False),
     (C.deconv3d_bn_act, (1, 2, 3, 4, 12), 10, True, True),
     (C.deconv3d_bn_act, (2, 3, 2, 5, 32), 64, False, False),
     (C.deconv3d_bn_act, (1, 2, 2, 3, 16), 33, False, True),
@@ -122,14 +125,20 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 
 
 def test_tensor_core_convs_refuse_what_they_do_not_take(gen):
-  """The stride-1 3-D and 2-D kernels take Cin in multiples of 8 (whole
-  16-byte chunks in bf16) and contiguous, 16-byte aligned inputs."""
+  """The tensor-core kernels (the stride-1 and stride-2 3-D convs, the 2-D
+  and the sphere conv) take Cin in multiples of 8 (whole 16-byte chunks in
+  bf16) and contiguous, 16-byte aligned inputs."""
   x = torch.randn((1, 2, 3, 4, 12), generator=gen, device="cuda")
   w = torch.randn((16, 12, 3, 3, 3), generator=gen, device="cuda")
   with pytest.raises(ValueError, match="multiple of 8"):
     C.conv3d_s1_bn_act(x, w)
   with pytest.raises(ValueError, match="multiple of 8"):
+    C.conv3d_s2_bn_act(x, w)
+  with pytest.raises(ValueError, match="multiple of 8"):
     C2.conv2d_s1_bn_act(x[0], w[..., 0])
+  with pytest.raises(ValueError, match="multiple of 8"):
+    S.sphere_conv_bn_act(torch.randn((1, 32, 16, 12), generator=gen,
+                                     device="cuda"), w[..., 0])
   x = torch.randn((1, 2, 3, 4, 16), generator=gen, device="cuda")
   w = torch.randn((16, 16, 3, 3, 3), generator=gen, device="cuda")
   with pytest.raises(ValueError, match="contiguous"):
@@ -227,6 +236,136 @@ def test_conv3d_s1_tensor_core_kernels_match_plain(gen, x_shape, cout, res,
   want = C.conv3d_s1_bn_act(x, w, scale, bias, r, relu, plain=True)
   torch.cuda.synchronize()
   assert dict(kernels.LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape
+  _close(got, want, dtype)
+
+
+def test_head_kernel_refuses_a_cin_past_shared_memory(gen):
+  """The Cout-1 head kernel needs 2 x 340 x (Cin itemsize + 16) + 108 Cin
+  bytes of shared memory: past 227 KB (f32 Cin >= 80, bf16 Cin >= 152)
+  the wrapper refuses and the C entry returns cudaErrorInvalidValue (1)
+  without launching; the largest Cin that fits runs and matches plain."""
+  for dtype, fits, past in ((torch.float32, 72, 80),
+                            (torch.bfloat16, 144, 152)):
+    for cin in (fits, past):
+      x = torch.randn((1, 3, 4, 5, cin), generator=gen,
+                      device="cuda").to(dtype)
+      w = (torch.randn((1, cin, 3, 3, 3), generator=gen, device="cuda")
+           * 0.05).to(dtype)
+      if cin == past:
+        with pytest.raises(ValueError, match="Cout-1 head kernel"):
+          C.conv3d_s1_bn_act(x, w)
+        continue
+      got = C.conv3d_s1_bn_act(x, w)
+      _close(got, C.conv3d_s1_bn_act(x, w, plain=True), dtype)
+    tw = C.pack_weight_tc(w)
+    one = torch.ones(1, device="cuda")
+    out = torch.empty((1, 3, 4, 5, 1), dtype=dtype, device="cuda")
+    err = C._conv3d_s1_lib().conv3d_s1_bn_act(
+        int(dtype == torch.bfloat16), x.data_ptr(), tw.parts[0].data_ptr(),
+        None, one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(),
+        1, 3, 4, 5, past, 1, 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 1                                    # cudaErrorInvalidValue
+  torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,relu", [
+    ((1, 48, 256, 128, 32), 64, True),     # hourglass conv1 (M = 196,608)
+    ((1, 24, 128, 64, 64), 64, True),      # hourglass conv3 (M = 24,576)
+    ((2, 48, 128, 256, 32), 64, False),    # ERP conv1 at batch 2
+    ((1, 5, 7, 9, 16), 24, True),          # odd extents, Cin < the stage
+    ((2, 3, 4, 6, 40), 72, False),         # Cin 32 + 8, two N tiles of 64
+    ((1, 1, 1, 7, 8), 130, True),          # D = H = 1; three N tiles
+])
+def test_conv3d_s2_tensor_core_kernel_matches_plain(gen, x_shape, cout, relu,
+                                                    dtype):
+  """K4's tensor-core kernel (conv_body at stride 2) against the plain
+  version, the weight packed once as the layers keep it, He-scaled so the
+  outputs are of order 1 (where one TF32 pass would miss the f32 bar)."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  packed = C.pack_weight_tc(w, stride=2)
+  kernels.reset_launches()
+  got = C.conv3d_s2_bn_act(x, packed, scale, bias, relu)
+  want = C.conv3d_s2_bn_act(x, w, scale, bias, relu, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv3d_s2_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape
+  _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("deconv,x_shape,cout", [
+    (True, (2, 12, 32, 16, 64), 32),     # conv6's grad-input: K4 64 <- 32
+    (True, (2, 3, 8, 4, 64), 64),        # conv5 (1/16 -> 1/8)
+    (False, (2, 24, 64, 32, 32), 64),    # conv1: K4 forward, deconv dx
+])
+def test_strided_grad_input_matches_plain(gen, deconv, x_shape, cout):
+  """The training Function of the deconv runs K4 as its grad-input (the
+  torch (I, O, 3, 3, 3) weight read as the stride-2 conv's (Cout, Cin),
+  packed K-major per call on the device), and that of the stride-2 conv
+  runs K4 forward; against the plain Function's, f32."""
+  cin = x_shape[-1]
+  wshape = (cin, cout, 3, 3, 3) if deconv else (cout, cin, 3, 3, 3)
+  w = torch.randn(wshape, generator=gen, device="cuda") * 0.05
+  x = torch.randn(x_shape, generator=gen, device="cuda")
+
+  def run(plain):
+    xr = x.clone().requires_grad_(True)
+    y = (C.deconv3d_train(xr, w, plain=plain) if deconv
+         else C.conv3d_train(xr, w, 2, plain=plain))
+    g = torch.randn(y.shape, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    y.backward(g)
+    return y.detach(), xr.grad
+
+  kernels.reset_launches()
+  y, dx = run(False)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv3d_s2_bn_act": 1,
+                                    "deconv3d_bn_act": 1}
+  want_y, want_dx = run(True)
+  _close(y, want_y, torch.float32)
+  _close(dx, want_dx, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sphere_type,x_shape,cout,res,relu", [
+    ("Cassini", (1, 256, 128, 128), 128, True, True),  # layer 4, one view
+    ("Cassini", (1, 256, 128, 64), 128, False, True),  # layer 4's first conv
+    ("Cassini", (2, 256, 128, 128), 128, False, False),
+    ("ERP", (1, 128, 256, 128), 128, True, True),
+    ("ERP", (6, 128, 256, 128), 128, True, True),      # a frame's six pairs
+    ("Cassini", (1, 64, 32, 40), 72, True, False),     # drop row; tiles of
+    ("ERP", (1, 32, 64, 40), 72, False, True),         # 64 span two bands
+])
+def test_sphere_conv_tensor_core_kernel_matches_plain(gen, sphere_type,
+                                                      x_shape, cout, res,
+                                                      relu, dtype):
+  """K3/K10's tensor-core kernel against the plain gather version (which
+  encodes the edge rules apart from the kernel's shift tables), the weight
+  packed K-major once as the layers keep it, He-scaled; bf16 blends in f32
+  and rounds the sample to bf16 as the Pallas kernel does."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((*x_shape[:3], cout), generator=gen, device="cuda")
+       .to(dtype) if res else None)
+  packed = C2.pack_weight_tc(w)
+  kernels.reset_launches()
+  got = S.sphere_conv_bn_act(x, packed, scale, bias, r, relu,
+                             sphere_type=sphere_type)
+  want = S.sphere_conv_bn_act(x, w, scale, bias, r, relu,
+                              sphere_type=sphere_type, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {S.FORWARD[sphere_type]: 1}
   assert got.dtype == dtype and got.shape == want.shape
   _close(got, want, dtype)
 

@@ -1,0 +1,221 @@
+"""The port's launch discipline, on the CPU with the CUDA runtime mocked:
+
+1. Precision: the eval forward and the training step run their library
+   convs (``F.conv2d``/``F.conv3d``, forward and backward) with cuDNN's
+   TF32 off, scoped to the call, whatever the caller set.
+2. Device guard: every kernel wrapper calls its C entry with the input's
+   device as the current CUDA device and that device's stream, and counts
+   the launch only after a launch that returned 0.
+3. Refusal: the Cout-1 head kernel's wrapper refuses a Cin whose shared
+   memory (``conv3d_s1.cu:head_smem``) exceeds the card's 227 KB, before
+   any launch.
+"""
+
+import contextlib
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from mode_tpu_torch import kernels, training
+from mode_tpu_torch.models.disparity import ModeDisparity
+from mode_tpu_torch.ops import conv2d as C2
+from mode_tpu_torch.ops import conv3d as C
+from mode_tpu_torch.ops import regression as R
+from mode_tpu_torch.ops import sphere_conv as S
+
+torch.set_num_threads(2)
+
+
+# --- 1. precision -----------------------------------------------------------
+
+@pytest.fixture
+def conv_flags(monkeypatch):
+  """Records cuDNN's TF32 flag in every F.conv2d / F.conv3d call and in its
+  backward; the caller's setting is TF32 on."""
+  seen = []
+
+  class Probe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+      return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+      seen.append(("backward", torch.backends.cudnn.allow_tf32))
+      return g
+
+  def probed(orig):
+    def conv(*args, **kw):
+      seen.append(("forward", torch.backends.cudnn.allow_tf32))
+      return Probe.apply(orig(*args, **kw))
+    return conv
+
+  monkeypatch.setattr(F, "conv2d", probed(F.conv2d))
+  monkeypatch.setattr(F, "conv3d", probed(F.conv3d))
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+  return seen
+
+
+def _pair(batch=1):
+  gen = torch.Generator().manual_seed(0)
+  left = torch.randn((batch, 64, 32, 3), generator=gen)
+  return left, torch.roll(left, 2, dims=2)
+
+
+def test_eval_forward_runs_its_convs_without_tf32(conv_flags):
+  model = ModeDisparity(16, device="cpu")
+  pred = model(*_pair())
+  assert pred.shape == (1, 64, 32)
+  assert conv_flags and all(not flag for _, flag in conv_flags)
+  assert torch.backends.cudnn.allow_tf32           # restored
+
+
+def test_train_step_runs_its_convs_without_tf32(conv_flags):
+  model = ModeDisparity(16, device="cpu")
+  step = training.make_disparity_train_step(
+      model, training.make_optimizer(model.parameters()))
+  left, right = _pair(2)
+  loss = step(left, right, torch.full((2, 64, 32), 3.0))
+  assert torch.isfinite(loss)
+  kinds = {kind for kind, _ in conv_flags}
+  assert kinds == {"forward", "backward"}
+  assert all(not flag for _, flag in conv_flags)
+  assert torch.backends.cudnn.allow_tf32           # restored
+
+
+# --- 2. device guard --------------------------------------------------------
+
+class _Guard:
+  """Stands in for the CUDA runtime: ``torch.cuda.device(d)`` makes ``d``
+  current while its block runs; ``current_stream(d)`` is d's stream."""
+
+  def __init__(self):
+    self.current = None
+    self.calls = []
+
+  @contextlib.contextmanager
+  def device(self, d):
+    before, self.current = self.current, torch.device(d)
+    try:
+      yield
+    finally:
+      self.current = before
+
+  def current_stream(self, d):
+    return type("Stream", (), {"cuda_stream": 1000 + (torch.device(d).index
+                                                       or 0)})()
+
+  def entry(self, name, err=0):
+    def fn(*args):
+      self.calls.append((name, self.current, args[-1]))
+      return err
+    return fn
+
+
+class _Lib:
+  def __init__(self, guard, *names, err=0):
+    for name in names:
+      setattr(self, name, guard.entry(name, err))
+
+
+@pytest.fixture
+def guard(monkeypatch):
+  g = _Guard()
+  monkeypatch.setattr(torch.cuda, "device", g.device)
+  monkeypatch.setattr(torch.cuda, "current_stream", g.current_stream)
+  monkeypatch.setattr(C, "_conv3d_s1_lib",
+                      lambda: _Lib(g, "conv3d_s1_bn_act"))
+  monkeypatch.setattr(C, "_conv3d_s2_lib",
+                      lambda: _Lib(g, "conv3d_s2_bn_act"))
+  monkeypatch.setattr(C, "_deconv3d_lib", lambda: _Lib(g, "deconv3d_bn_act"))
+  monkeypatch.setattr(C2, "_conv2d_lib", lambda: _Lib(g, "conv2d_s1_bn_act"))
+  monkeypatch.setattr(R, "_regression_lib",
+                      lambda: _Lib(g, "fused_disparity_regression"))
+  monkeypatch.setattr(S, "_sphere_lib",
+                      lambda: _Lib(g, *S.FORWARD.values()))
+  monkeypatch.setattr(S, "_bwd_lib", lambda: _Lib(
+      g, *S.BWD_INPUT.values(), *S.BWD_WEIGHT.values()))
+  monkeypatch.setattr(S, "_weight_splits", lambda *a: (1, 64 * 32))
+  kernels.reset_launches()
+  return g
+
+
+def _launches(guard):
+  """Each wrapper's launch of its kernel, on CPU tensors."""
+  one = torch.ones(16)
+  x3 = torch.randn((1, 2, 4, 4, 16))
+  w3 = torch.randn((16, 16, 3, 3, 3))
+  x2 = torch.randn((1, 64, 32, 16))
+  w2 = torch.randn((16, 16, 3, 3))
+  return {
+      "conv3d_s1_bn_act": lambda: C._launch(C._S1, x3, w3, one, 0 * one,
+                                            None, True),
+      "conv3d_s2_bn_act": lambda: C._launch(C._S2, x3, w3, one, 0 * one,
+                                            None, False),
+      "deconv3d_bn_act": lambda: C._launch(C._DECONV, x3, w3, one, 0 * one,
+                                           None, False),
+      "conv2d_s1_bn_act": lambda: C2._launch(x2, w2, one, 0 * one, None,
+                                             True, 1),
+      "fused_disparity_regression": lambda: R._launch(
+          torch.randn((1, 4, 8, 4)), 16, 32, 16),
+      "sphere_conv_bn_act": lambda: S._launch(x2, w2, one, 0 * one, None,
+                                              True, "Cassini"),
+      "sphere_conv_erp_bn_act": lambda: S._launch(
+          x2.transpose(1, 2).contiguous(), w2, one, 0 * one, None, False,
+          "ERP"),
+      "sphere_conv_bwd_input": lambda: S._launch_bwd_input(x2, w2,
+                                                           "Cassini"),
+      "sphere_conv_bwd_weight": lambda: S._launch_bwd_weight(x2, x2,
+                                                             "Cassini"),
+  }
+
+
+@pytest.mark.parametrize("name", [
+    "conv3d_s1_bn_act", "conv3d_s2_bn_act", "deconv3d_bn_act",
+    "conv2d_s1_bn_act", "fused_disparity_regression", "sphere_conv_bn_act",
+    "sphere_conv_erp_bn_act", "sphere_conv_bwd_input",
+    "sphere_conv_bwd_weight"])
+def test_every_launch_runs_under_its_device_guard(guard, name):
+  """The C entry runs with the input's device made current and gets that
+  device's stream (the mock names each device's stream by its index); the
+  guard is left after it, and the launch is counted once."""
+  _launches(guard)[name]()
+  assert guard.calls == [(name, torch.device("cpu"), 1000)]
+  assert guard.current is None
+  assert dict(kernels.LAUNCHES) == {name: 1}
+
+
+def test_a_failed_launch_raises_and_is_not_counted(guard, monkeypatch):
+  monkeypatch.setattr(C, "_conv3d_s2_lib",
+                      lambda: _Lib(guard, "conv3d_s2_bn_act", err=700))
+  with pytest.raises(RuntimeError, match="CUDA error 700"):
+    _launches(guard)["conv3d_s2_bn_act"]()
+  assert not kernels.LAUNCHES
+
+
+# --- 3. the head kernel's shared memory ---------------------------------------
+
+@pytest.mark.parametrize("dtype,cin,fits", [
+    (torch.float32, 72, True), (torch.float32, 80, False),
+    (torch.bfloat16, 144, True), (torch.bfloat16, 152, False)])
+def test_head_kernel_refuses_a_cin_past_shared_memory(guard, dtype, cin,
+                                                      fits):
+  """f32 Cin >= 80 and bf16 Cin >= 152 need more than 227 KB: refused with
+  a ValueError, the library never called; the Cin below each is launched."""
+  assert (C.head_smem(cin, dtype.itemsize) <= C.SMEM_MAX) == fits
+  x = torch.randn((1, 2, 3, 4, cin)).to(dtype)
+  w = torch.randn((1, cin, 3, 3, 3)).to(dtype)
+  one = torch.ones(1)
+
+  def run():
+    return C._launch(C._S1, x, C.pack_weight_tc(w), one, 0 * one, None,
+                     False)
+
+  if fits:
+    assert run().shape == (1, 2, 3, 4, 1)
+    assert [c[0] for c in guard.calls] == ["conv3d_s1_bn_act"]
+  else:
+    with pytest.raises(ValueError, match="Cout-1 head kernel"):
+      run()
+    assert not guard.calls

@@ -1,19 +1,27 @@
 """Numpy models of the tensor-core conv kernels (``igemm_tc.cuh``, used by
-``conv3d_s1.cu`` and ``conv2d.cu``) and of the K-major weight packing, on
-the CPU: no card runs here, so the arithmetic and the address walk of the
-kernels are held here and the kernels themselves on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+``conv3d_s1.cu``, ``conv3d_s2.cu`` and ``conv2d.cu``; ``sphere_conv.cu``)
+and of the K-major weight packing, on the CPU: no card runs here, so the
+arithmetic and the address walk of the kernels are held here and the
+kernels themselves on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 
 1. The f32 arithmetic: TF32 rounding (``cvt.rna.tf32.f32``) and the 3xTF32
    split, summed in the kernel's K order (per stage of 32 channels, K steps
    of 8, each step small*B_big, big*B_small, big*B_big into a stage fragment
    added to the f32 sum), holds a conv at the main path's K (27 x 64, 9 x
    128) within chip_smoke.py's f32 bar; one TF32 pass misses it.
-2. The operand walk: which voxel and tap each thread's 16-byte copies read,
-   the zero-fill predicate, the swizzled address each chunk lands at and the
-   address wgmma's descriptor (or the f32 A fragment) reads back, and the
-   accumulator fragment's rows and columns in the epilogue rebuild the plain
-   conv exactly at ragged shapes.
+2. The operand walk: which voxel and tap each thread's 16-byte copies read
+   (at stride 1 and 2), the zero-fill predicate, the swizzled address each
+   chunk lands at and the address wgmma's descriptor (or the f32 A
+   fragment) reads back, and the accumulator fragment's rows and columns in
+   the epilogue rebuild the plain conv exactly at ragged shapes.
+3. The sphere conv's walk: each row's four corner copies from the shift
+   tables (zero-filled at the seam, on the drop lane, past Cin and past M),
+   its corner weights copied beside them, each thread's blend of its
+   fragment rows from the four swizzled tiles (f32, and bf16 rounded as the
+   kernel rounds it) and the epilogue's scatter in the Cassini and ERP
+   output orders rebuild the port's plain ``sphere_conv``, with tiles that
+   end at a band edge and tiles that span two bands.
 """
 
 import numpy as np
@@ -22,6 +30,7 @@ import torch
 
 from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
+from mode_tpu_torch.ops import sphere_conv as S
 from mode_tpu_torch.ops.kmajor import tf32_round
 
 # chip_smoke.py's elementwise f32 bar: |got - want| <= ATOL + RTOL * |want|
@@ -47,15 +56,21 @@ def _tf32_channel_order(cin):
   return np.array([s * BK + c for s in range(-(-cin // BK)) for c in within])
 
 
-def _im2col(x, taps):
+def _im2col(x, taps, stride=1):
   """Rows of the implicit GEMM's A, K in the kernel's (tap, channel) order:
-  ``x`` (N, D, H, W, C) zero-padded, taps as (od, oh, ow) offsets."""
+  ``x`` (N, D, H, W, C) zero-padded, taps as (od, oh, ow) offsets from the
+  input voxel (stride z, stride y, stride x) of output voxel (z, y, x)."""
   n, d, h, w, c = x.shape
+  do, ho, wo = (-(-e // stride) for e in (d, h, w))
   p = max(max(abs(o) for o in t) for t in taps)
-  xp = np.pad(x, ((0, 0), (p, p), (p, p), (p, p), (0, 0)))
-  cols = [xp[:, p + od:p + od + d, p + oh:p + oh + h, p + ow:p + ow + w]
+  xp = np.pad(x, ((0, 0), (p, p + stride), (p, p + stride),
+                  (p, p + stride), (0, 0)))
+  cols = [xp[:, p + od:p + od + stride * do:stride,
+             p + oh:p + oh + stride * ho:stride,
+             p + ow:p + ow + stride * wo:stride]
           for od, oh, ow in taps]
-  return np.concatenate(cols, axis=-1).reshape(n * d * h * w, len(taps) * c)
+  return np.concatenate(cols, axis=-1).reshape(n * do * ho * wo,
+                                                len(taps) * c)
 
 
 def _taps(kd, dil):
@@ -160,20 +175,22 @@ def test_descriptor_reads_back_what_the_copies_wrote():
           assert _desc_read(base, r, kbyte, rb) == want
 
 
-def _walk_conv(x, wk, kd, dil, dtype, bm, bn):
+def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1):
   """The kernel's walk over one call, in f64: the copies of each stage
   into shared memory, the reads of A (f32: each thread's tf32 fragment;
   bf16: the descriptor) and B (the descriptor), the products, and the
   epilogue's scatter of the accumulator fragments. x (N, D, H, W, Cin),
   wk the K-major weight (taps, Cout, Cin), which the f32 kernel gets padded
-  and permuted as the host packs it."""
+  and permuted as the host packs it; the output extents are the input's
+  over ``stride``, rounded up."""
   cfg = CFG[dtype]
   esize, rb = cfg["esize"], cfg["rb"]
   ch, cpr = 16 // esize, rb // 16          # channels per chunk, chunks/row
   nt = 2 * bm
   n, d, h, w, cin = x.shape
+  do, ho, wo = (-(-e // stride) for e in (d, h, w))
   cout = wk.shape[1]
-  mtot = n * d * h * w
+  mtot = n * do * ho * wo
   taps = _taps(kd, dil)
   nkc = -(-cin // BK)
   a_bytes, b_bytes = bm * rb, bn * rb
@@ -199,12 +216,15 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn):
             r = tid // cpr + i * (nt // cpr)
             m = m0 + r
             c0 = kc * BK + ac * ch
-            bb, rem = divmod(m, d * h * w)
-            z, rem = divmod(rem, h * w)
-            y, xx = divmod(rem, w)
+            bb, rem = divmod(m, do * ho * wo)
+            z, rem = divmod(rem, ho * wo)
+            y, xx = divmod(rem, wo)
+            # the input voxel the centre tap reads
+            z, y, xx = stride * z, stride * y, stride * xx
+            base = ((bb * d + z) * h + y) * w + xx
             ok = (m < mtot and c0 < cin and 0 <= z + od < d
                   and 0 <= y + oh < h and 0 <= xx + ow < w)
-            src = ((m + (od * h + oh) * w + ow) * cin + c0) if ok else None
+            src = ((base + (od * h + oh) * w + ow) * cin + c0) if ok else None
             dst = _swizzle(r, ac, rb) // esize
             smem[dst:dst + ch] = xf[src:src + ch] if ok else 0.0
         # B: row n (output channel n0 + n), chunk c of the tap's channels
@@ -281,6 +301,33 @@ def test_operand_walk_rebuilds_the_conv(x_shape, cout, kd, dil, bm, dtype):
   assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("x_shape,cout,bm", [
+    ((1, 5, 7, 9, 16), 24, 64),     # odd extents, Cin < a stage
+    ((2, 4, 3, 6, 40), 72, 128),    # even and odd, Cin 32 + 8, N tile 128
+    ((1, 2, 6, 5, 32), 64, 64),     # D = 2: one output plane
+    ((1, 1, 1, 7, 8), 8, 64),       # D = H = 1
+])
+def test_stride2_walk_rebuilds_the_conv(x_shape, cout, bm, dtype):
+  """The stride-2 walk (conv3d_s2.cu: conv_body at S = 2): output voxel
+  (z, y, x) copies input voxel (2z + kd - 1, 2y + kh - 1, 2x + kw - 1),
+  zero outside the input volume, at ragged and odd extents; exact on
+  integer-valued inputs."""
+  rng = np.random.default_rng(5)
+  cin = x_shape[-1]
+  taps = _taps(3, 1)
+  x = rng.integers(-4, 5, x_shape).astype(np.float64)
+  wk = rng.integers(-4, 5, (27, cout, cin)).astype(np.float64)
+  bn = _tile(1, cout)[1]
+  got = _walk_conv(x, wk, 3, 1, dtype, bm, bn, stride=2)
+  want = _im2col(x, taps, 2) @ wk.transpose(0, 2, 1).reshape(-1, cout)
+  assert np.array_equal(got, want)
+  # and the plain stride-2 conv of the port agrees with the im2col
+  plain = C.conv3d_s2_bn_act(torch.from_numpy(x).float(), torch.from_numpy(
+      wk.reshape(3, 3, 3, cout, cin).transpose(3, 4, 0, 1, 2).copy()).float())
+  assert np.allclose(plain.reshape(-1, cout).numpy(), want, atol=1e-3)
+
+
 def test_tile_choice():
   """BM = 64 where 128-row tiles would not give every SM two (the 1/16
   level, M = 24,576 at batch 1); BN follows Cout."""
@@ -348,3 +395,209 @@ def test_kmajor_split_packing(two_d):
     bf = mod.pack_weight_tc(w.bfloat16())
     assert bf.parts.shape == (1, *ref.shape)
     assert torch.equal(bf.parts[0], ref.bfloat16())
+
+
+# --- the sphere conv (sphere_conv.cu) ----------------------------------------
+SMEM_MAX = 232448     # shared memory a block can take (227 KB)
+
+
+def _bf16(a):
+  """f32 values rounded to bf16 (to nearest even), as __floats2bfloat162_rn."""
+  u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+  u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+  return u.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def _sphere_stage(dtype, bm, bn):
+  """(stage bytes, stages in flight) of sphere_conv.cu: four corner tiles,
+  the weight parts and a float4 of corner weights per row."""
+  cfg = CFG[dtype]
+  stage = 4 * bm * cfg["rb"] + cfg["parts"] * bn * cfg["rb"] + bm * 16
+  return stage, min(4, (SMEM_MAX - 1024) // stage)
+
+
+def _sphere_tile(mtot, cout):
+  """sphere_conv.cu:launch: BN 128 past Cout 64, else 64; BM 128 where
+  that still gives every SM a block."""
+  return (128 if (mtot + 127) // 128 >= SMS else 64), (128 if cout > 64
+                                                         else 64)
+
+
+def _shift_tables(h, w, sphere_type):
+  """The int4 (sigma, b0, b1, drop) and float4 tables by (band, tap), as
+  ops/sphere_conv.py:_device_tables packs them."""
+  sigma, pairint, quad, drop = S.shift_tables(h, w, sphere_type)
+  itab = np.stack([sigma, pairint[..., 0].astype(np.int32),
+                   pairint[..., 1].astype(np.int32), drop], axis=-1)
+  return itab.astype(np.int64), quad.astype(np.float64)
+
+
+def _walk_sphere(x, wk, sphere_type, dtype, bm, bn):
+  """sphere_conv.cu's walk over one call, vectorised over the threads of a
+  block: per stage (tap, 32 channels) each thread's corner copies of its
+  rows into four swizzled tiles (zero-filled at the seam, on the drop lane,
+  past Cin and past M) and, for the thread with chunk 0, the row's corner
+  weights; each thread's blend of its fragment rows from the tiles; B
+  through the descriptor; the epilogue's scatter in the layout's output
+  order. x (N, H, W, Cin) f64, wk (9, Cout, Cin); returns (N, H, W, Cout)
+  and whether any read met a byte no copy wrote."""
+  cfg = CFG[dtype]
+  esize, rb = cfg["esize"], cfg["rb"]
+  ch, cpr, nt = 16 // esize, rb // 16, 2 * bm
+  n, h, w, cin = x.shape
+  cout = wk.shape[1]
+  erp = sphere_type == "ERP"
+  nband, nlane = (h, w) if erp else (w, h)
+  band_step, lane_step = (w, 1) if erp else (1, w)
+  itab, ftab = _shift_tables(h, w, sphere_type)
+  mtot, nkc = n * h * w, -(-cin // BK)
+  wcin = cin
+  if dtype == "f32":
+    order = _tf32_channel_order(cin)
+    wcin = len(order)
+    wk = np.pad(wk, ((0, 0), (0, 0), (0, wcin - cin)))[..., order]
+  xf, wf = x.reshape(-1), wk.reshape(-1)
+  a_bytes, b_bytes = bm * rb, bn * rb
+  assert a_bytes % 1024 == 0 and b_bytes % 1024 == 0
+  out = np.full((mtot, cout), np.nan)
+  stale = False
+  tid = np.arange(nt)
+  ac = tid % cpr
+  lanes = np.arange(ch)
+  for m0 in range(0, mtot, bm):
+    for n0 in range(0, cout, bn):
+      acc = np.zeros((bm, bn))
+      for step in range(9 * nkc):
+        tap, kc = divmod(step, nkc)
+        smem = np.full((4 * a_bytes + b_bytes) // esize, np.nan)
+        qs = np.full((bm, 4), np.nan)
+        chn = kc * BK + ac * ch
+        for i in range(bm * cpr // nt):
+          r = tid // cpr + i * (nt // cpr)
+          m = m0 + r
+          rv = m < mtot
+          t = np.where(rv, m, 0)
+          rl, t = t % nlane, t // nlane
+          band, img = t % nband, t // nband * h * w
+          it = itab[band, tap]
+          sl = rl + it[:, 0]
+          sl = np.where(sl >= nlane, sl - nlane, sl)
+          ok = rv & (chn < cin) & (rl != it[:, 3])
+          okn = ok & (sl != nlane - 1)
+          p = img + sl * lane_step
+          p0 = (p + it[:, 1] * band_step) * cin + chn
+          p1 = (p + it[:, 2] * band_step) * cin + chn
+          nx = lane_step * cin
+          dst = _swizzle(r, ac, rb) // esize
+          for corner, (src, good) in enumerate(
+              ((p0, ok), (p0 + nx, okn), (p1, ok), (p1 + nx, okn))):
+            idx = np.where(good, src, 0)[:, None] + lanes
+            vals = np.where(good[:, None], xf[np.minimum(idx, xf.size - 1)],
+                            0.0)
+            smem[corner * a_bytes // esize + dst[:, None] + lanes] = vals
+          first = ac == 0
+          qs[r[first]] = np.where(rv[first, None], ftab[band[first], tap],
+                                  0.0)
+        # B: row nn (output channel n0 + nn), chunk c of the tap's channels
+        nn, c = np.divmod(np.arange(bn * cpr), cpr)
+        co, cb = n0 + nn, kc * BK + c * ch
+        okb = (co < cout) & (cb < wcin)
+        src = ((tap * cout + co) * wcin + cb)[:, None] + lanes
+        bdst = (4 * a_bytes + _swizzle(nn, c, rb))[:, None] // esize
+        smem[bdst + lanes] = np.where(okb[:, None],
+                                      wf[np.where(okb[:, None], src, 0)], 0)
+        kb = np.arange(BK) * esize
+        b_tile = smem[_desc_read(4 * a_bytes, np.arange(bn)[:, None],
+                                 kb[None], rb) // esize]
+        # each thread's fragment: rows r0 and r0 + 8, quad q
+        a_tile = np.full((bm, BK), np.nan)
+        thr = np.arange(nt)
+        wg, warp, lane = thr // 128, thr % 128 // 32, thr % 32
+        r0, q = wg * 64 + warp * 16 + lane // 4, lane % 4
+        for hh in range(2):
+          rows = r0 + 8 * hh
+          wq = qs[rows]                                  # (nt, 4)
+          if dtype == "f32":
+            for j in range(8):
+              off = _swizzle(rows, 2 * q + j // 4, rb) + (j % 4) * 4
+              v = sum(wq[:, cc] * smem[(cc * a_bytes + off) // esize]
+                      for cc in range(4))
+              # channel 8q + j sits at K position q + 4j of the f32 pack
+              a_tile[rows, q + 4 * j] = v
+          else:
+            for chunk in range(4):
+              off = _swizzle(rows, chunk, rb) + 4 * q
+              for e in range(2):
+                v = sum(wq[:, cc] * smem[(cc * a_bytes + off) // esize + e]
+                        for cc in range(4))
+                # K position 8 chunk + 2q + e: channel 8 chunk + 2q + e
+                a_tile[rows, 8 * chunk + 2 * q + e] = _bf16(v)
+        stale |= bool(np.isnan(a_tile).any() or np.isnan(b_tile).any())
+        acc += np.nan_to_num(a_tile) @ np.nan_to_num(b_tile).T
+      # the epilogue: row m of the tile to the layout's output pixel
+      for r in range(bm):
+        m = m0 + r
+        if m >= mtot:
+          continue
+        if erp:
+          o = m
+        else:
+          i, t = m % h, m // h
+          o = (t // w * h + i) * w + t % w
+        cols = slice(n0, min(n0 + bn, cout))
+        assert np.isnan(out[o, cols]).all()
+        out[o, cols] = acc[r, :cols.stop - n0]
+  return out.reshape(n, h, w, cout), stale
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sphere_type,h,w,cin,cout,bm", [
+    ("Cassini", 64, 32, 8, 8, 64),       # tiles end at band edges
+    ("Cassini", 64, 32, 40, 72, 128),    # tiles span two bands; Cin 32 + 8
+    ("ERP", 32, 64, 8, 8, 64),
+    ("ERP", 32, 64, 40, 72, 128),
+])
+def test_sphere_walk_rebuilds_the_plain_conv(sphere_type, h, w, cin, cout,
+                                             bm, dtype):
+  """At the smallest grids with a drop lane (64x32 Cassini: column 0, tap
+  5; 32x64 ERP: row 0, tap 5), whose seam corners carry weight: the
+  modelled kernel equals the port's plain sphere_conv (held against the
+  Pallas kernel by tests/test_torch_sphere_conv.py), every byte it reads
+  was copied, and a 128-row tile spans two bands of 64 lanes. bf16 blends
+  in f32 and rounds the sample to bf16, as the Pallas kernel does: held
+  against the plain conv of the rounded samples."""
+  _, _, quad, drop = S.shift_tables(h, w, sphere_type)
+  assert (drop >= 0).any() and ((quad[..., 1] + quad[..., 3]) > 0).any()
+  assert bm == 64 or bm > max(h, w)      # the band is the 64 lanes long
+  rng = np.random.default_rng(6)
+  x = rng.normal(size=(1, h, w, cin)).astype(np.float32)
+  wt = (rng.normal(size=(cout, cin, 3, 3)) * 0.2).astype(np.float32)
+  wk = wt.transpose(2, 3, 0, 1).reshape(9, cout, cin).astype(np.float64)
+  bn = _sphere_tile(1, cout)[1]
+  got, stale = _walk_sphere(x.astype(np.float64), wk, sphere_type, dtype,
+                            bm, bn)
+  assert not stale
+  xt, wtt = torch.from_numpy(x), torch.from_numpy(wt)
+  if dtype == "f32":
+    want = S.sphere_conv(xt, wtt, sphere_type).numpy()
+    tol = 1e-5
+  else:
+    col = _bf16(S._im2col(xt, sphere_type).numpy())    # (N, 9, H, W, Cin)
+    want = np.einsum("nkhwc,kco->nhwo", col,
+                     S.pack_weight(wtt).double().numpy())
+    tol = 1e-2      # a sample whose f32 blend lands on a bf16 tie may round
+  err = np.abs(got - want).max() / np.abs(want).max()
+  assert err < tol, err
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bm,bn", [(64, 64), (64, 128), (128, 64),
+                                   (128, 128)])
+def test_sphere_stages_fit_shared_memory(dtype, bm, bn):
+  """Every tile's stages are 1024-byte aligned and two or more fit in the
+  227 KB a block can take (f32 at BM 128, BN 128: two stages of 98 KB)."""
+  stage, stages = _sphere_stage(dtype, bm, bn)
+  assert stage % 1024 == 0 and stages >= 2
+  assert stages * stage + 1024 <= SMEM_MAX
+  assert _sphere_tile(256 * 128, 128) == (128, 128)    # one view, layer 4
+  assert _sphere_tile(64 * 32, 40) == (64, 64)
