@@ -34,10 +34,14 @@
    are timed with the launch counts set to 0 before and read after; they
    must launch every kernel of the path at the counts of the JAX package's
    training gates traced at the path's shape (``TRAIN_TRACED``) and lower
-   the loss. One more step runs under ``torch.profiler`` for the time
-   breakdown. After ``train_b2`` the trained weights take one step through
-   the kernels and one through the plain versions on the anchor's textured
-   pair, held the same way (``train_anchor``).
+   the loss; each prints the host clock at which the step returned beside
+   its end. One more step runs under ``torch.profiler`` for the time
+   breakdown: the device time by kind of kernel and, on the host, the
+   operations with the most self CPU time and the CUDA runtime calls
+   (kernel launches, synchronisations, copies). After ``train_b2`` the
+   trained weights take one step through the kernels and one through the
+   plain versions on the anchor's textured pair, held the same way
+   (``train_anchor``).
 4. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training step adds the grad-input shapes and
    the sphere conv's two backward kernels) and the regression shapes, in
@@ -761,9 +765,13 @@ def _grad_check(label, twin, batch, kernel_loss, kernel_grads):
 
 def _profile(fn, args):
   """One call ``fn(*args)`` under torch.profiler: device time by kind of
-  kernel (ms) and the host time of the call."""
+  kernel (ms) and the host time of the call; on the host, the operations
+  with the most self CPU time (the autograd engine's backward thread
+  included, so their sum may exceed the call's wall time) and the counts
+  of the CUDA runtime and driver calls (``cuda*``, ``cu*``): kernel
+  launches, synchronisations, copies."""
   from torch.profiler import ProfilerActivity, profile
-  kinds = (("port: sphere conv backward", ("bwd_input_kernel",
+  kinds = (("port: sphere conv backward", ("bwd_input_tc_kernel",
                                            "bwd_weight_kernel",
                                            "reduce_splits_kernel")),
            ("port: sphere conv forward", ("sphere_conv_tc_kernel",)),
@@ -785,9 +793,13 @@ def _profile(fn, args):
   other = "other (elementwise, copies, reductions)"
   by_kind = {name: 0.0 for name, _ in kinds}
   by_kind[other] = 0.0
-  by_name = {}
+  by_name, host_ops, runtime = {}, {}, {}
   for e in prof.key_averages():
     if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+      self_ms = e.self_cpu_time_total / 1e3
+      host_ops[e.key[:90]] = (self_ms, e.count)
+      if re.match(r"cu(da)?[A-Z]", e.key):
+        runtime[e.key] = (e.count, self_ms)
       continue
     ms = getattr(e, "self_device_time_total",
                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3
@@ -799,10 +811,22 @@ def _profile(fn, args):
                            e.count)
   device_ms = sum(by_kind.values())
   top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+  top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][0])[:16]
+
+  def calls(*subs):
+    return sum(n for k, (n, _) in runtime.items() if any(t in k for t in subs))
+
   return {"host_ms": host_ms, "device_ms": device_ms,
           "idle_share": (1 - device_ms / host_ms) if device_ms else None,
           "by_kind_ms": by_kind,
-          "top_kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top}}
+          "top_kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top},
+          "host_self_cpu_ms": sum(v[0] for v in host_ops.values()),
+          "top_host_ops_ms": {k: [round(v[0], 3), v[1]] for k, v in top_host},
+          "runtime_calls": {"launch_kernel": calls("LaunchKernel"),
+                            "synchronize": calls("Synchronize"),
+                            "memcpy": calls("Memcpy"),
+                            "by_name": {k: [n, round(ms, 3)] for k, (n, ms)
+                                        in sorted(runtime.items())}}}
 
 
 def _train_path(gen, label):
@@ -831,10 +855,14 @@ def _train_path(gen, label):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   kernels.reset_launches()
-  step_ms = []
+  step_ms, enqueue_ms = [], []
   for _ in range(TRAIN_STEPS):
     t = time.perf_counter()
-    losses.append(float(step(*batch)))
+    loss = step(*batch)
+    # the step has returned: its work is enqueued (or run, where a call in
+    # it waited for the device)
+    enqueue_ms.append((time.perf_counter() - t) * 1e3)
+    losses.append(float(loss))
     torch.cuda.synchronize()
     step_ms.append((time.perf_counter() - t) * 1e3)
   launches = dict(kernels.LAUNCHES)
@@ -847,7 +875,9 @@ def _train_path(gen, label):
         + ", ".join(f"{t:.2f}" for t in step_ms)
         + f" ms: {ms:.2f} ms/step (median of the last two), "
         f"{ms / batch_size:.2f} ms/example, peak memory {peak_gib:.2f} GiB; "
-        "loss " + " -> ".join(f"{x:.5g}" for x in losses), flush=True)
+        "host clock until the step returned " + ", ".join(
+            f"{t:.2f}" for t in enqueue_ms) + " ms; loss "
+        + " -> ".join(f"{x:.5g}" for x in losses), flush=True)
   expect = train_expect(label)
   print(f"{label} launches per step: " + json.dumps(per_step)
         + " (the JAX gates traced at this shape, per forward: "
@@ -866,8 +896,18 @@ def _train_path(gen, label):
         + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
         + "; top kernels (ms, launches): " + json.dumps(prof["top_kernels_ms"]),
         flush=True)
+  rt = prof["runtime_calls"]
+  print(f"{label} profiled step, host side: self CPU time of all host "
+        f"operations {prof['host_self_cpu_ms']:.2f} ms; CUDA runtime calls: "
+        f"{rt['launch_kernel']} kernel launches, {rt['synchronize']} "
+        f"synchronisations, {rt['memcpy']} copies", flush=True)
+  print(f"{label} profiled step, top host operations by self CPU time (ms, "
+        "calls): " + json.dumps(prof["top_host_ops_ms"]), flush=True)
+  print(f"{label} profiled step, CUDA runtime and driver calls (calls, self "
+        "CPU ms): " + json.dumps(rt["by_name"]), flush=True)
   return {"calls": calls, "batch": batch_size, "ncalls": TRAIN_STEPS,
           "launches": launches, "call_ms": step_ms, "first_ms": first_ms,
+          "enqueue_ms": enqueue_ms,
           "peak_gib": peak_gib, "losses": losses, "profile": prof,
           "check": check}
 
@@ -1148,6 +1188,7 @@ def main() -> int:
       for label, s in seen.items() if label in PATHS} | {
           label: {"ms_per_step": statistics.median(s["call_ms"][-2:]),
                   "step_ms": s["call_ms"], "first_step_ms": s["first_ms"],
+                  "enqueue_ms": s["enqueue_ms"],
                   "batch": s["batch"], "peak_gib": s["peak_gib"],
                   "losses": s["losses"], "profile": s["profile"],
                   **s["check"]}

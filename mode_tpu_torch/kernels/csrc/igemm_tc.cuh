@@ -1,6 +1,7 @@
 // The tensor-core implicit GEMM of the port's convolutions (conv3d_s1.cu,
-// conv3d_s2.cu, conv2d.cu; the sphere conv of sphere_conv.cu builds its A
-// operand itself and shares the rest), for sm_90a.
+// conv3d_s2.cu, conv2d.cu; the sphere conv's forward and grad-input,
+// sphere_conv.cu and sphere_conv_bwd.cu, build their A operand themselves,
+// in sphere_tc.cuh, and share the rest), for sm_90a.
 //
 // A block computes a BM x BN tile of out[M, N]: M the output voxels (or
 // pixels, a 2-D map being a volume of depth 1) in NDHW order, N the output
@@ -418,8 +419,9 @@ __device__ __forceinline__ void mma_stage_f32(float (&acc)[BN / 2],
 
 // The epilogue: writes act(acc * scale + bias (+ residual)) in T, two
 // channels per store, row m of the tile at element out_row(m) of out (and
-// of res, which may be null). Fragment element 4j + 2hh + e: row lane / 4
-// + 8 hh of the warp's 16, column 8j + 2 (lane % 4) + e.
+// of res, which may be null; scale and bias null: acc as it is). Fragment
+// element 4j + 2hh + e: row lane / 4 + 8 hh of the warp's 16, column
+// 8j + 2 (lane % 4) + e.
 template <typename T, int BN, typename OutRow>
 __device__ __forceinline__ void epilogue(
     const float (&acc)[BN / 2], long long m0, long long mtot, int n0,
@@ -435,9 +437,10 @@ __device__ __forceinline__ void epilogue(
     const int co = n0 + 8 * j + 2 * (lane % 4);
     if (co >= cout) continue;
     const bool two = co + 1 < cout;
-    const float s0 = scale[co], b0 = bias[co];
-    const float s1 = two ? scale[co + 1] : 0.f;
-    const float b1 = two ? bias[co + 1] : 0.f;
+    const bool aff = scale != nullptr;
+    const float s0 = aff ? scale[co] : 1.f, b0 = aff ? bias[co] : 0.f;
+    const float s1 = aff && two ? scale[co + 1] : 1.f;
+    const float b1 = aff && two ? bias[co + 1] : 0.f;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const long long m = mr + 8 * hh;

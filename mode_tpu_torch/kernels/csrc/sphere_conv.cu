@@ -46,14 +46,15 @@
 // Cin or of a row past M is zero-filled, so no stale shared memory meets a
 // zero weight. Each thread then reads its A fragment's values from the four
 // tiles (conflict-free through the swizzle), blends them with its rows'
-// weights on the FP32 pipes, and issues wgmma with A from registers: f32 as
+// weights on the FP32 pipes, and issues wgmma with A from registers
+// (sphere_tc.cuh, shared with the grad-input of sphere_conv_bwd.cu): f32 as
 // 3xTF32 exactly as igemm_tc.cuh's conv_body does after its fragment load
 // (a fresh fragment per stage), bf16 blended in f32 and rounded to bf16, as
 // the Pallas kernel rounds its premixed sample. B, the K-major weight (9,
 // Cout, Cin) of ops/kmajor.py, is copied as in conv_body. With BN = Cout =
 // 128 each blended value feeds every output channel.
 
-#include "igemm_tc.cuh"
+#include "sphere_tc.cuh"
 
 namespace {
 
@@ -221,71 +222,17 @@ sphere_conv_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
           *reinterpret_cast<const float4*>(ta + Q_OFF + (r0 + 8 * hh) * 16);
       wq[hh][0] = f.x, wq[hh][1] = f.y, wq[hh][2] = f.z, wq[hh][3] = f.w;
     }
-    if constexpr (sizeof(T) == 4) {
-      // The f32 weight holds, at K position p of a stage, channel
-      // 8 (p % 4) + p / 4, so the thread's fragment values are channels
-      // 8q .. 8q + 7 of each of its rows: chunks 2q and 2q + 1 of each
-      // corner tile.
-      float v[2][8];
+    // the blend of the four corner tiles (sphere_tc.cuh)
+    sph::Blend<T> a;
+    a.zero();
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[hh][j] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint8_t* tile = ta + c * A_BYTES;
-          const float4 lo = *reinterpret_cast<const float4*>(
-              tile + tc::swizzle<T>(r0 + 8 * hh, 2 * q));
-          const float4 hi = *reinterpret_cast<const float4*>(
-              tile + tc::swizzle<T>(r0 + 8 * hh, 2 * q + 1));
-          const float wc = wq[hh][c];
-          v[hh][0] = fmaf(wc, lo.x, v[hh][0]);
-          v[hh][1] = fmaf(wc, lo.y, v[hh][1]);
-          v[hh][2] = fmaf(wc, lo.z, v[hh][2]);
-          v[hh][3] = fmaf(wc, lo.w, v[hh][3]);
-          v[hh][4] = fmaf(wc, hi.x, v[hh][4]);
-          v[hh][5] = fmaf(wc, hi.y, v[hh][5]);
-          v[hh][6] = fmaf(wc, hi.z, v[hh][6]);
-          v[hh][7] = fmaf(wc, hi.w, v[hh][7]);
-        }
+      for (int c = 0; c < 4; ++c) {
+        a.add(hh, ta + c * A_BYTES, r0 + 8 * hh, q, wq[hh][c]);
       }
-      tc::mma_stage_f32<BN>(acc, v, tc::make_desc<T>(sb),
-                            tc::make_desc<T>(sb + B_BYTES));
-    } else {
-      // The bf16 m64k16 A fragment of K step kk: register e holds row
-      // r0 + 8 (e & 1) at channels 16 kk + 8 (e >> 1) + 2q and the next,
-      // bytes 4q of chunk 2 kk + (e >> 1) of each corner tile.
-      uint32_t a[C::KSTEPS][4];
-#pragma unroll
-      for (int kk = 0; kk < C::KSTEPS; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hh = e & 1, chunk = 2 * kk + (e >> 1);
-          float2 f = make_float2(0.f, 0.f);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(
-                ta + c * A_BYTES + tc::swizzle<T>(r0 + 8 * hh, chunk) + 4 * q);
-            const float2 g = __bfloat1622float2(pair);
-            f.x = fmaf(wq[hh][c], g.x, f.x);
-            f.y = fmaf(wq[hh][c], g.y, f.y);
-          }
-          const __nv_bfloat162 rounded = __floats2bfloat162_rn(f.x, f.y);
-          a[kk][e] = *reinterpret_cast<const uint32_t*>(&rounded);
-        }
-      }
-      const uint64_t db = tc::make_desc<T>(sb);
-      tc::pin(acc);
-      tc::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < C::KSTEPS; ++kk) {
-        tc::mma_bf16_ra<BN>(acc, a[kk], db + 2 * kk);
-      }
-      tc::wgmma_commit();
-      tc::wgmma_wait_all();
-      tc::pin(acc);
-      tc::pin(a);
     }
+    a.template mma<BN>(acc, sb);
   }
   tc::cp_async_wait<0>();
   tc::epilogue<T, BN>(acc, m0, mtot, n0, cout, scale, bias, res, out, relu,

@@ -8,7 +8,10 @@ comes in two parts, made on the weight's device: ``big = tf32_round(w)``
 and ``small = tf32_round(w - big)``, with Cin padded to whole K stages of
 32 channels and each stage's channels permuted (see :func:`pack`). A layer
 keeps the :class:`TcWeight` between calls as it kept the ``pack_weight``
-layout; a training Function packs in each call.
+layout; a training Function packs in each call. The sphere conv's
+grad-input packs the forward's ``(9, Cin, Cout)`` weight the same way, as
+``(taps, rows, K)`` with rows Cin and K Cout, and checks it with
+:func:`pointers`.
 """
 
 from __future__ import annotations
@@ -85,11 +88,24 @@ def operands(name: str, x: torch.Tensor, tw: TcWeight, taps: int,
   if cin % 8 or x.data_ptr() % 16:
     raise ValueError(f"{name}: Cin must be a multiple of 8 and x 16-byte "
                      f"aligned, got Cin {cin}")
-  parts = tw.parts
-  wcin = -(-cin // STAGE_CHANNELS) * STAGE_CHANNELS if split else cin
-  if (parts.shape != (2 if split else 1, taps, tw.cout, wcin)
-      or tw.weight.shape[1] != cin or parts.dtype != x.dtype
-      or parts.device != x.device or not parts.is_contiguous()):
+  if tw.weight.shape[1] != cin:
+    raise ValueError(f"{name}: weight {tuple(tw.weight.shape)} does not "
+                     f"match the input {tuple(x.shape)} {x.dtype}")
+  return pointers(name, x, tw.parts, taps, tw.cout, split)
+
+
+def pointers(name: str, x: torch.Tensor, parts: torch.Tensor, taps: int,
+             rows: int, split: bool) -> tuple[int, int | None]:
+  """The ``(big, small)`` data pointers of ``parts`` (``small`` None unless
+  ``split``) after checking that they are the layout :func:`pack` makes for
+  ``taps`` taps of ``rows`` B rows whose K channels are ``x``'s last axis,
+  in ``x``'s dtype and on its device. Raises ``ValueError`` naming kernel
+  ``name`` otherwise."""
+  k = x.shape[-1]
+  wk = -(-k // STAGE_CHANNELS) * STAGE_CHANNELS if split else k
+  if (parts.shape != (2 if split else 1, taps, rows, wk)
+      or parts.dtype != x.dtype or parts.device != x.device
+      or not parts.is_contiguous()):
     raise ValueError(f"{name}: weight {tuple(parts.shape)} {parts.dtype} "
-                     f"does not match x {tuple(x.shape)} {x.dtype}")
+                     f"does not match the input {tuple(x.shape)} {x.dtype}")
   return parts[0].data_ptr(), parts[1].data_ptr() if split else None

@@ -32,9 +32,11 @@ runs the plain version: the 4-corner gather and GEMM of :func:`sphere_conv`
 The backward, :func:`sphere_conv_backward`, replaces
 ``sphere_conv_cassini_pallas_bwd`` (K3b) and ``sphere_conv_erp_pallas_bwd``
 (K10b) with the two kernels of ``kernels/csrc/sphere_conv_bwd.cu``, each
-built for both layouts: :func:`sphere_conv_bwd_input` (dx, a gather over the
-same shift tables, no atomics) and :func:`sphere_conv_bwd_weight` (dw in
-f32, per-block partial sums added in a fixed order). Their plain versions
+built for both layouts: :func:`sphere_conv_bwd_input` (dx on the tensor
+cores: each dx row gathers the output samples that read it, listed per
+(band index, tap) by :func:`transpose_table`; no atomics) and
+:func:`sphere_conv_bwd_weight` (dw in f32, per-block partial sums added in a
+fixed order). Their plain versions
 are the explicit transpose of the gather version: ``g @ W^T`` scattered back
 through the 4 corners with ``index_add_``, and the gathered samples
 contracted with ``g``. :func:`sphere_conv_train` is the bare conv as an
@@ -52,7 +54,9 @@ layout of ``ops/conv2d.py:pack_weight``, the taps row-major over (kh, kw)
 as ``weight.reshape(kh * kw, cin, cout)`` orders them in the JAX package;
 the forward kernel's own layout is the K-major
 :class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
-``ops/conv2d.py:pack_weight_tc``, which a layer keeps between calls.
+``ops/conv2d.py:pack_weight_tc``, which a layer keeps between calls. The
+grad-input kernel reads the ``(9, Cin, Cout)`` layout K-major over Cout,
+packed on the device in each call by ``ops/kmajor.py:pack``.
 """
 
 from __future__ import annotations
@@ -332,13 +336,17 @@ def _packed(weight) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def _device_tables(kind: str, h: int, w: int, sphere_type: str,
                    device: torch.device):
-  """The tables of :func:`build_gather_tables` (``"gather"``) or
+  """The tables of :func:`build_gather_tables` (``"gather"``),
   :func:`shift_tables` (``"shift"``, packed as ``sphere_conv.cu`` reads
-  them) of a map's layout, as tensors on ``device``."""
+  them) or :func:`transpose_table` (``"transpose"``) of a map's layout, as
+  tensors on ``device``."""
   if kind == "gather":
     idx, wgt = build_gather_tables(h, w, 3, 3, sphere_type, 1, 1, 1)
     return (torch.from_numpy(idx.astype(np.int64)).to(device),
             torch.from_numpy(wgt).to(device))
+  if kind == "transpose":
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in transpose_table(h, w, sphere_type))
   sigma, pairint, quad, drop = shift_tables(h, w, sphere_type)
   # per (band index, tap): int4 (sigma, first, second source band index,
   # drop), float4 quad
@@ -456,7 +464,7 @@ def sphere_conv_bn_act(x: torch.Tensor, weight: torch.Tensor,
 
 # --- backward (K3b, K10b) ---------------------------------------------------
 
-# the most samples of one tap that read one input band index
+# the most output band indices whose tap reads one input band index
 # (sphere_conv_bwd.cu:MAXE)
 _MAX_CONTRIB = 4
 
@@ -466,8 +474,8 @@ def _bwd_lib():
   lib = build.load("sphere_conv_bwd")
   for name in BWD_INPUT.values():
     fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
   for name in BWD_WEIGHT.values():
     fn = getattr(lib, name)
@@ -483,10 +491,10 @@ def transpose_bounds(h: int, w: int,
   """``(reach, most)`` of the shift tables' transpose: the largest
   distance between an input band index ``c`` and an output band index
   ``j`` whose tap reads it with a nonzero corner weight, and the most such
-  output band indices for one (input band index, tap). The dx kernel scans
-  ``reach`` band indices to each side and keeps ``most`` <= 4 samples (2
-  and 4 on the Cassini grids of 32x16 to 1024x512 and on the ERP grids of
-  16x32 to 512x1024)."""
+  output band indices for one (input band index, tap). The dx kernel's
+  table (:func:`transpose_table`) holds ``most`` <= 4 of them (2 and 4 on
+  the Cassini grids of 32x16 to 1024x512 and on the ERP grids of 16x32 to
+  512x1024)."""
   _, pairint, quad, _ = shift_tables(h, w, sphere_type)
   band = pairint.shape[0]
   c = np.arange(band)[:, None, None]                   # input band index
@@ -497,6 +505,50 @@ def transpose_bounds(h: int, w: int,
   dist = np.abs(np.arange(band)[None, :, None] - c)
   reach = int(np.where(hit, dist, 0).max())
   return reach, int(hit.sum(axis=1).max())
+
+
+@functools.lru_cache(maxsize=32)
+def transpose_table(h: int, w: int, sphere_type: str = "Cassini"
+                    ) -> tuple[np.ndarray, np.ndarray]:
+  """The shift tables transposed, as the dx kernel reads them: for each
+  input band index ``c`` and tap ``k``, the output band indices ``j``
+  (ascending, at most 4) whose tap ``k`` reads ``c`` with a nonzero corner
+  weight.
+
+  Returns ``(entries, weights)``, ``(band, 9, 4, 4)`` int32 and
+  ``(band, 9, 4, 2)`` float32: entry ``e`` of ``(c, k)`` is ``(j,
+  sigma[j, k], drop[j, k], count)`` and ``(a_s, a_n)``, the summed weights
+  of its corners at lane s (``quad`` 0 and 2 where ``c`` is ``b0`` and
+  ``b1``) and at lane s + 1 (``quad`` 1 and 3); ``count`` is the number of
+  such ``j`` in every entry of ``(c, k)``, and the slots past it hold ``j =
+  c`` with zero weights. Output lane ``(l - sigma) mod L`` reads input
+  pixel ``(c, l)`` through the lane-s corners and ``(l - 1 - sigma) mod
+  L`` through the lane-s + 1 ones."""
+  sigma, pairint, quad, drop = shift_tables(h, w, sphere_type)
+  band = pairint.shape[0]
+  c = np.arange(band)[:, None, None]                   # input band index
+  on0 = pairint[None, ..., 0] == c                     # (band_c, band_j, 9)
+  on1 = pairint[None, ..., 1] == c
+  zero = np.float32(0)
+  a_s = (np.where(on0, quad[None, ..., 0], zero)
+         + np.where(on1, quad[None, ..., 2], zero))
+  a_n = (np.where(on0, quad[None, ..., 1], zero)
+         + np.where(on1, quad[None, ..., 3], zero))
+  live = (a_s != 0) | (a_n != 0)
+  count = live.sum(axis=1)                             # (band_c, 9)
+  if count.max() > _MAX_CONTRIB:
+    raise ValueError(f"a {h}x{w} {sphere_type} map reads one band index "
+                     f"from {count.max()} others, more than "
+                     f"{_MAX_CONTRIB}")
+  entries = np.zeros((band, _TAPS, _MAX_CONTRIB, 4), np.int32)
+  weights = np.zeros((band, _TAPS, _MAX_CONTRIB, 2), np.float32)
+  entries[..., 0] = np.arange(band)[:, None, None]
+  entries[..., 3] = count[..., None]
+  for ci, j, k in zip(*np.nonzero(live)):              # j ascending per c
+    e = int((live[ci, :j, k]).sum())
+    entries[ci, k, e, :3] = (j, sigma[j, k], drop[j, k])
+    weights[ci, k, e] = (a_s[ci, j, k], a_n[ci, j, k])
+  return entries, weights
 
 
 def _torch_layout(dw: torch.Tensor) -> torch.Tensor:
@@ -537,19 +589,24 @@ def _launch_bwd_input(g, weight, sphere_type):
     raise ValueError(f"{name}: weight {tuple(weight.shape)} {weight.dtype} "
                      f"does not match g {tuple(g.shape)} {g.dtype}")
   cin = wk.shape[1]
-  reach, most = transpose_bounds(h, w, sphere_type)
+  _, most = transpose_bounds(h, w, sphere_type)
   if most > _MAX_CONTRIB or h * w * max(cin, cout) >= 2**31:
     raise ValueError(f"{name}: a {h}x{w} map with {cin}/{cout} channels "
                      "exceeds the kernel's table or offset bounds")
-  wt = wk.transpose(1, 2).contiguous()                   # (9, Cout, Cin)
-  itab, ftab = _device_tables("shift", h, w, sphere_type, g.device)
-  scale, bias = affine(None, None, cin, g.device)
+  if cout % 8 or g.data_ptr() % 16:
+    raise ValueError(f"{name}: Cout must be a multiple of 8 and g 16-byte "
+                     f"aligned, got Cout {cout}")
+  # B: the (9, Cin, Cout) weight K-major over Cout, packed on the device
+  split = g.dtype == torch.float32
+  parts = kmajor.pack(wk, wk, split).parts
+  wbig, wsmall = kmajor.pointers(name, g, parts, _TAPS, cin, split)
+  entries, weights = _device_tables("transpose", h, w, sphere_type, g.device)
   dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
   kernels.launch(
       name, getattr(_bwd_lib(), name), g.device,
-      int(g.dtype == torch.bfloat16), g.data_ptr(), wt.data_ptr(),
-      itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-      dx.data_ptr(), n, h, w, cin, cout, reach)
+      int(g.dtype == torch.bfloat16), g.data_ptr(), wbig, wsmall,
+      entries.data_ptr(), weights.data_ptr(), dx.data_ptr(), n, h, w, cin,
+      cout)
   return dx
 
 

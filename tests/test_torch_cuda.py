@@ -8,8 +8,9 @@ shapes of the stride-2 conv and the sphere convs, and the strided
 training grad-inputs; the head kernel's refusal of a Cin past shared
 memory; the stage-1 model (Cassini and ERP) at batch 2
 against its plain path; the sphere conv's two backward kernels in both
-layouts; and one training step at 512x256, where every kernel family
-trains, against the same step through the plain versions.
+layouts, the layer-4 shapes of a batch-2 step included, and the grad-input
+kernel's refusals; and one training step at 512x256, where every kernel
+family trains, against the same step through the plain versions.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -22,6 +23,7 @@ import torch
 from mode_tpu_torch import kernels
 from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
+from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops import regression as R
 from mode_tpu_torch.ops import sphere_conv as S
 
@@ -460,6 +462,8 @@ def test_slice_at_batch_two_runs_the_kernels(gen, conv, shape):
     ((1, 32, 16, 8), 128),
     ((2, 128, 64, 64), 128),    # the first layer-4 conv, at half size
     ((1, 64, 32, 128), 64),
+    ((2, 256, 128, 64), 128),   # the first layer-4 conv of a batch-2 step
+    ((2, 256, 128, 128), 128),  # its other layer-4 convs
 ])
 def test_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout, dtype):
   """dx against the plain scatter (index_add_), dw (f32, split over pixel
@@ -540,6 +544,42 @@ def test_erp_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout,
   _close(dx, want_dx, dtype)
   _close(dw, want_dw, torch.float32)
   assert torch.equal(again, S.pack_weight(dw))
+
+
+@pytest.mark.parametrize("sphere_type,shape", [("Cassini", (1, 64, 32)),
+                                              ("ERP", (1, 32, 64))])
+def test_dx_kernel_refuses_what_it_does_not_take(gen, sphere_type, shape):
+  """The tensor-core dx kernel copies g 16 bytes at a time: its wrapper
+  refuses a Cout that is no multiple of 8 and a g that is not 16-byte
+  aligned, its packed-weight check a weight packed for another Cout, dtype
+  or device, each with a ValueError naming the kernel, and its C entry
+  returns cudaErrorInvalidValue (1) for Cout 12 without launching."""
+  name = S.BWD_INPUT[sphere_type]
+  g = torch.randn((*shape, 12), generator=gen, device="cuda")
+  w = torch.randn((12, 8, 3, 3), generator=gen, device="cuda")
+  with pytest.raises(ValueError, match=f"{name}: Cout must be a multiple"):
+    S.sphere_conv_bwd_input(g, w, sphere_type=sphere_type)
+  offset = torch.randn(g.numel() // 12 * 16 + 1, generator=gen, device="cuda")
+  g16 = offset[1:].view(*shape, 16)
+  w16 = torch.randn((16, 8, 3, 3), generator=gen, device="cuda")
+  with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+    S.sphere_conv_bwd_input(g16, w16, sphere_type=sphere_type)
+  g16 = g16.clone()
+  wk = S.pack_weight(w16)
+  for parts in (kmajor.pack(wk[:, :4], wk, True).parts,
+                kmajor.pack(wk.bfloat16(), wk, False).parts,
+                kmajor.pack(wk.cpu(), wk, True).parts):
+    with pytest.raises(ValueError, match=f"{name}: weight .* does not match"):
+      kmajor.pointers(name, g16, parts, 9, 8, True)
+  parts = kmajor.pack(wk, wk, True).parts
+  table = S._device_tables("transpose", *shape[1:], sphere_type, g.device)
+  dx = torch.empty((*shape, 8), device="cuda")
+  err = getattr(S._bwd_lib(), name)(
+      0, g.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+      table[0].data_ptr(), table[1].data_ptr(), dx.data_ptr(), *shape, 8,
+      12, torch.cuda.current_stream().cuda_stream)
+  assert err == 1                                      # cudaErrorInvalidValue
+  torch.cuda.synchronize()
 
 
 def test_sphere_kernels_refuse_the_other_layout(gen):

@@ -164,14 +164,16 @@ def _sample_like_the_kernel(x, sphere_type, seam=True, drop=True):
   return col.transpose(0, 1, 3, 2, 4) if sphere_type == "Cassini" else col
 
 
-def _dx_like_the_kernel(g, wk, sphere_type, seam=True, drop=True):
-  """dx as ``sphere_conv_bwd.cu:bwd_input_kernel`` forms it for either
-  layout: each input pixel (band c, lane l) gathers, for each tap k, from
-  the output bands j within ``reach`` of c whose source band b0 or b1 is c;
-  from output lane (l - sigma) mod L through the (., s) corners and
-  (l - 1 - sigma) mod L through the successor corners; nothing through a
-  successor corner at l = 0 (``seam``) or from the output lane ``drop``
-  (``drop``)."""
+def _dx_like_the_kernel(g, wk, sphere_type, seam=True, drop=True,
+                        found=None):
+  """dx as the gather that ``sphere_conv_bwd.cu:bwd_input_tc_kernel`` runs
+  for either layout: each input pixel (band c, lane l) gathers, for each
+  tap k, from the output bands j within ``reach`` of c whose source band b0
+  or b1 is c (the kernel reads them from ``transpose_table``); from output
+  lane (l - sigma) mod L through the (., s) corners and (l - 1 - sigma) mod
+  L through the successor corners; nothing through a successor corner at
+  l = 0 (``seam``) or from the output lane ``drop`` (``drop``). ``found``,
+  a dict, collects the (j, a_s, a_n) of each (c, k) in the order met."""
   h, w = g.shape[1:3]
   sigma, pairint, quad, drop_at = tsc.shift_tables(h, w, sphere_type)
   reach, most = tsc.transpose_bounds(h, w, sphere_type)
@@ -190,6 +192,8 @@ def _dx_like_the_kernel(g, wk, sphere_type, seam=True, drop=True):
         if a_s == 0 and a_n == 0:
           continue
         used += 1
+        if found is not None:
+          found.setdefault((c, k), []).append((j, a_s, a_n))
         i_s = (l - sigma[j, k]) % lanes
         i_n = (i_s - 1) % lanes
         ws = np.full(lanes, a_s)
@@ -235,8 +239,9 @@ def test_kernel_sample_keeps_the_edge_rules(sphere_type, h, w):
 
 @pytest.mark.parametrize("sphere_type,h,w", LAYOUTS)
 def test_dx_gather_keeps_the_edge_rules(sphere_type, h, w):
-  """The dx kernel's gather equals the plain scatter (``index_add_``), and
-  without the seam or the drop rule the two part."""
+  """The gather of the dx kernel (``bwd_input_tc_kernel``, whose CPU
+  model is in ``tests/test_torch_tc_conv.py``) equals the plain scatter
+  (``index_add_``), and without the seam or the drop rule the two part."""
   _, wgt, g = _case(h, w, 4, 6, 4)
   wk = wgt.reshape(9, 4, 6)
   want = tsc.sphere_conv_bwd_input(torch.from_numpy(g), torch.from_numpy(wk),
@@ -246,6 +251,27 @@ def test_dx_gather_keeps_the_edge_rules(sphere_type, h, w):
   for rule in ("seam", "drop"):
     wrong = _dx_like_the_kernel(g, wk, sphere_type, **{rule: False})
     assert np.abs(wrong - want).max() > 0.1, rule
+
+
+@pytest.mark.parametrize("h,w", [(16, 32), (32, 64), (64, 128), (128, 256)])
+def test_erp_transpose_table_lists_the_gathers_entries(h, w):
+  """The ERP dx kernel's table holds, for each (input row, tap), exactly
+  the output rows the gather above finds, in its order, with their summed
+  corner weights, shift and drop column, and their count."""
+  found = {}
+  _dx_like_the_kernel(np.ones((1, h, w, 1)), np.ones((9, 1, 1)), "ERP",
+                      found=found)
+  sigma, _, _, drop_at = tsc.shift_tables(h, w, "ERP")
+  entries, weights = tsc.transpose_table(h, w, "ERP")
+  assert entries.shape == (h, 9, 4, 4) and weights.shape == (h, 9, 4, 2)
+  for c in range(h):
+    for k in range(9):
+      want = found.get((c, k), [])
+      assert (entries[c, k, :, 3] == len(want)).all()
+      for e, (j, a_s, a_n) in enumerate(want):
+        assert tuple(entries[c, k, e, :3]) == (j, sigma[j, k], drop_at[j, k])
+        assert tuple(weights[c, k, e]) == (np.float32(a_s), np.float32(a_n))
+      assert not weights[c, k, len(want):].any()
 
 
 @pytest.mark.parametrize("sphere_type,h,w", LAYOUTS)

@@ -5,7 +5,8 @@
    TF32 off, scoped to the call, whatever the caller set.
 2. Device guard: every kernel wrapper calls its C entry with the input's
    device as the current CUDA device and that device's stream, and counts
-   the launch only after a launch that returned 0.
+   the launch only after a launch that returned 0; the sphere conv's
+   grad-input refuses a g it cannot copy 16 bytes at a time before that.
 3. Refusal: the Cout-1 head kernel's wrapper refuses a Cin whose shared
    memory (``conv3d_s1.cu:head_smem``) exceeds the card's 227 KB, before
    any launch.
@@ -166,6 +167,8 @@ def _launches(guard):
           "ERP"),
       "sphere_conv_bwd_input": lambda: S._launch_bwd_input(x2, w2,
                                                            "Cassini"),
+      "sphere_conv_erp_bwd_input": lambda: S._launch_bwd_input(
+          x2.transpose(1, 2).contiguous(), w2, "ERP"),
       "sphere_conv_bwd_weight": lambda: S._launch_bwd_weight(x2, x2,
                                                              "Cassini"),
   }
@@ -175,7 +178,7 @@ def _launches(guard):
     "conv3d_s1_bn_act", "conv3d_s2_bn_act", "deconv3d_bn_act",
     "conv2d_s1_bn_act", "fused_disparity_regression", "sphere_conv_bn_act",
     "sphere_conv_erp_bn_act", "sphere_conv_bwd_input",
-    "sphere_conv_bwd_weight"])
+    "sphere_conv_erp_bwd_input", "sphere_conv_bwd_weight"])
 def test_every_launch_runs_under_its_device_guard(guard, name):
   """The C entry runs with the input's device made current and gets that
   device's stream (the mock names each device's stream by its index); the
@@ -192,6 +195,27 @@ def test_a_failed_launch_raises_and_is_not_counted(guard, monkeypatch):
   with pytest.raises(RuntimeError, match="CUDA error 700"):
     _launches(guard)["conv3d_s2_bn_act"]()
   assert not kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("sphere_type,hw", [("Cassini", (64, 32)),
+                                           ("ERP", (32, 64))])
+def test_dx_wrapper_refuses_a_cout_off_its_copies(guard, sphere_type, hw):
+  """The tensor-core dx kernel copies g 16 bytes at a time: its wrapper
+  refuses Cout 12 and a g off 16 bytes with a ValueError naming the
+  kernel, before any launch; Cout 8 launches once, under the device
+  guard."""
+  name = S.BWD_INPUT[sphere_type]
+  w = torch.randn((12, 16, 3, 3))
+  with pytest.raises(ValueError, match=f"{name}: Cout must be a multiple"):
+    S._launch_bwd_input(torch.randn((1, *hw, 12)), w, sphere_type)
+  g = torch.randn(1 * hw[0] * hw[1] * 8 + 1)[1:].view(1, *hw, 8)
+  with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+    S._launch_bwd_input(g, w[:8], sphere_type)
+  assert not guard.calls and not kernels.LAUNCHES
+  dx = S._launch_bwd_input(g.clone(), w[:8], sphere_type)
+  assert dx.shape == (1, *hw, 16)
+  assert guard.calls == [(name, torch.device("cpu"), 1000)]
+  assert dict(kernels.LAUNCHES) == {name: 1}
 
 
 # --- 3. the head kernel's shared memory ---------------------------------------

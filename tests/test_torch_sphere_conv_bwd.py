@@ -88,13 +88,15 @@ def test_bf16_backward_keeps_dx_type_and_dw_in_f32():
   assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
 
 
-def _dx_like_the_kernel(g, wk, h, w, seam=True, drop=True):
-  """dx as ``sphere_conv_bwd.cu:bwd_input_kernel`` forms it: each input
-  pixel (r, c) gathers, for each tap k, from the output columns j within
-  ``reach`` of c whose corner c0 or c1 is c; from output row (r - sigma)
-  mod H through the (s, .) corners and (r - 1 - sigma) mod H through the
+def _dx_like_the_kernel(g, wk, h, w, seam=True, drop=True, found=None):
+  """dx as the gather that ``sphere_conv_bwd.cu:bwd_input_tc_kernel``
+  runs: each input pixel (r, c) gathers, for each tap k, from the output
+  columns j within ``reach`` of c whose corner c0 or c1 is c (the kernel
+  reads them from ``transpose_table``); from output row (r - sigma) mod H
+  through the (s, .) corners and (r - 1 - sigma) mod H through the
   successor corners; nothing through a successor corner at r = 0
-  (``seam``) or from the output row drop_row (``drop``)."""
+  (``seam``) or from the output row drop_row (``drop``). ``found``, a dict,
+  collects the (j, a_s, a_n) of each (c, k) in the order met."""
   sigma, colint, quad, drop_row = tsc.build_shift_tables(h, w, 3)
   reach, most = tsc.transpose_bounds(h, w)
   dcol = np.einsum("nhwo,kco->nhwkc", g, wk)          # (N, H, W, 9, Cin)
@@ -111,6 +113,8 @@ def _dx_like_the_kernel(g, wk, h, w, seam=True, drop=True):
         if a_s == 0 and a_n == 0:
           continue
         used += 1
+        if found is not None:
+          found.setdefault((c, k), []).append((j, a_s, a_n))
         i_s = (r - sigma[j, k]) % h
         i_n = (i_s - 1) % h
         ws = np.full(h, a_s)
@@ -135,11 +139,36 @@ def test_transpose_bounds_fit_the_kernel():
     assert reach == 2 and 2 <= most <= tsc._MAX_CONTRIB, (h, w, reach, most)
 
 
+@pytest.mark.parametrize("h,w", [(32, 16), (64, 32), (128, 64), (256, 128)])
+def test_transpose_table_lists_the_gathers_entries(h, w):
+  """The dx kernel's table (``transpose_table``) holds, for each (input
+  column, tap), exactly the output columns the gather above finds, in its
+  order, with their summed corner weights, shift and drop row, and their
+  count; the slots past the count carry no weight."""
+  found = {}
+  g = np.ones((1, h, w, 1))
+  _dx_like_the_kernel(g, np.ones((9, 1, 1)), h, w, found=found)
+  sigma, _, _, drop_row = tsc.build_shift_tables(h, w, 3)
+  entries, weights = tsc.transpose_table(h, w)
+  assert entries.shape == (w, 9, 4, 4) and weights.shape == (w, 9, 4, 2)
+  for c in range(w):
+    for k in range(9):
+      want = found.get((c, k), [])
+      assert (entries[c, k, :, 3] == len(want)).all()
+      for e, (j, a_s, a_n) in enumerate(want):
+        assert tuple(entries[c, k, e, :3]) == (j, sigma[j, k],
+                                               drop_row[j, k])
+        assert tuple(weights[c, k, e]) == (np.float32(a_s), np.float32(a_n))
+      assert not weights[c, k, len(want):].any()
+
+
 def test_dx_gather_keeps_the_edge_rules():
   """At 64x32 the tables have a drop row (column 0, tap 5) and the
-  successor corners reach the seam. The kernel's gather equals the plain
-  scatter there, and each of the two rules is needed for that: without
-  the seam or the drop rule the two part."""
+  successor corners reach the seam. The gather of the dx kernel
+  (``bwd_input_tc_kernel``, whose CPU model is in
+  ``tests/test_torch_tc_conv.py``) equals the plain scatter there, and each
+  of the two rules is needed for that: without the seam or the drop rule
+  the two part."""
   h, w = 64, 32
   _, _, _, drop_row = tsc.build_shift_tables(h, w, 3)
   assert (drop_row >= 0).sum() >= 1

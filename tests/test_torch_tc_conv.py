@@ -30,11 +30,13 @@ import torch
 
 from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
+from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops import sphere_conv as S
 from mode_tpu_torch.ops.kmajor import tf32_round
 
 # chip_smoke.py's elementwise f32 bar: |got - want| <= ATOL + RTOL * |want|
 ATOL, RTOL = 1e-4, 1e-4
+BF16_ATOL, BF16_RTOL = 1e-2, 1e-2      # its bf16 bar
 BK = 32          # input channels per K stage
 SMS = 132        # streaming multiprocessors of an H100 SXM
 
@@ -601,3 +603,287 @@ def test_sphere_stages_fit_shared_memory(dtype, bm, bn):
   assert stages * stage + 1024 <= SMEM_MAX
   assert _sphere_tile(256 * 128, 128) == (128, 128)    # one view, layer 4
   assert _sphere_tile(64 * 32, 40) == (64, 64)
+
+
+# --- the sphere conv's grad-input (sphere_conv_bwd.cu) ------------------------
+MAXE = 4         # output band indices per (input band index, tap)
+MAXT = 2         # halo tiles per stage: a tap's entries in passes of 2
+# static shared memory: the band's table rows and the (tap, pass) list
+DX_TABLE_BYTES = 9 * MAXE * (16 + 8) + 9 * MAXE + 4
+
+
+def _dx_stage(dtype, bm, bn):
+  """(halo tile bytes, stage bytes, stages in flight) of sphere_conv_bwd.cu's
+  dx kernel: the weight parts (1024-byte aligned), then two halo tiles of
+  BM + 1 rows, each in whole 128-byte lines; as many stages as fit beside
+  the 1024 bytes of alignment slack and the table's static shared memory."""
+  cfg = CFG[dtype]
+  tile = -(-(bm + 1) * cfg["rb"] // 128) * 128
+  stage = -(-(cfg["parts"] * bn * cfg["rb"] + MAXT * tile) // 1024) * 1024
+  return tile, stage, min(4, (SMEM_MAX - 1024 - DX_TABLE_BYTES) // stage)
+
+
+def _dx_tile(nb, band, lanes, cin):
+  """sphere_conv_bwd.cu:launch_dx: (BM, BN) of a call; a block owns BM
+  lanes of one band index."""
+  tall = nb * band * -(-lanes // 128) >= SMS
+  return (128 if tall else 64), (128 if cin > 64 else 64)
+
+
+def _fmaf(w, x, v):
+  """fmaf on f32 values: the exact product and sum, rounded once to f32
+  (through f64, whose 53 bits hold the product of two f32 values)."""
+  return (w.astype(np.float64) * x + v).astype(np.float32)
+
+
+def _walk_dx(g, wk, sphere_type, dtype, bm, bn):
+  """sphere_conv_bwd.cu's dx walk over one call, vectorised over the
+  threads of a block. Per block (image, band index c, BM lanes from l0),
+  live tap of c (transpose_table) and pass over its entries (two at a
+  time), per stage of 32 channels of g: B, the
+  (9, Cin, Cout) weight packed K-major over Cout by ops/kmajor.py (f32:
+  padded, permuted, split), copied into its swizzled tiles and read back
+  through the descriptor; for each entry (j, sigma, drop) of (c, tap) a halo
+  tile of BM + 1 rows of band j, tile row t the output lane (l0 - sigma - 1
+  + t) mod L, zero-filled past the band's rows and past Cout; each
+  thread's blend (fmaf in the kernel's order) of its fragment rows r0 and
+  r0 + 8 from tile rows r + 1 (weight a_s, 0 on the drop lane) and r
+  (a_n, 0 at lane 0 or on the drop lane); f32 split into tf32 parts, three
+  products per stage into a fresh fragment added in f32; bf16 rounded
+  once; a tap's second pass adds its products to the same sum. The
+  epilogue stores rows inside the band at the layout's pixel.
+  g (N, H, W, Cout) and wk (9, Cin, Cout) hold values of the dtype; returns
+  dx (N, H, W, Cin) in f32 before the store's rounding, and whether any
+  read met a byte no copy wrote."""
+  cfg = CFG[dtype]
+  esize, rb, parts = cfg["esize"], cfg["rb"], cfg["parts"]
+  ch, cpr, nt = 16 // esize, rb // 16, 2 * bm
+  n, h, w, cout = g.shape
+  cin = wk.shape[1]
+  erp = sphere_type == "ERP"
+  nband, nlane = (h, w) if erp else (w, h)
+  entries, weights = S.transpose_table(h, w, sphere_type)
+  split = dtype == "f32"
+  # (P, 9, Cin, Cout'), as the wrapper packs it
+  wt = torch.from_numpy(wk)
+  packed = kmajor.pack(wt, wt, split).parts.double().numpy()
+  wcout = packed.shape[-1]
+  nkc = -(-cout // BK)
+  b_bytes = bn * rb
+  a_off = parts * b_bytes
+  tile, stage, _ = _dx_stage(dtype, bm, bn)
+  gf = g.reshape(-1).astype(np.float64)
+  tiles = -(-nlane // bm)
+  lanes = np.arange(ch)
+  # the B copies and descriptor reads, and the halo chunks, of every stage
+  bn_, bcc = np.divmod(np.arange(bn * cpr), cpr)
+  bdst = np.stack([(p * b_bytes + _swizzle(bn_, bcc, rb)) // esize
+                   for p in range(parts)])
+  kb = np.arange(BK) * esize
+  bread = np.stack([_desc_read(p * b_bytes, np.arange(bn)[:, None], kb[None],
+                               rb) // esize for p in range(parts)])
+  ht, hcc = np.divmod(np.arange((bm + 1) * cpr), cpr)
+  hdst = _swizzle(ht, hcc, rb) // esize
+  # each thread's fragment rows and quad, and the elements of a tile that
+  # its blend reads from tile row r0 + 8 hh + d, in fragment order: f32
+  # channels 8q .. 8q + 7 (chunks 2q, 2q + 1), bf16 bytes 4q (+ 2) of
+  # chunks 0 .. 3
+  thr = np.arange(nt)
+  r0 = thr // 128 * 64 + thr % 128 // 32 * 16 + thr % 32 // 4
+  q = thr % 4
+  jj = np.arange(8)
+  frag = {}
+  for hh in range(2):
+    for d in range(2):
+      row = (r0 + 8 * hh + d)[:, None]
+      if dtype == "f32":
+        off = _swizzle(row, 2 * q[:, None] + jj // 4, rb) + (jj % 4) * 4
+      else:
+        off = _swizzle(row, jj // 2, rb) + 4 * q[:, None] + 2 * (jj % 2)
+      frag[hh, d] = off // esize
+  out = np.full((n * h * w, cin), np.nan)
+  stale = False
+  for blk in range(n * nband * tiles):
+    l0 = blk % tiles * bm
+    c = blk // tiles % nband
+    img = blk // tiles // nband * h * w
+    rows = min(bm, nlane - l0)
+
+    def pixel(b, l, img=img):
+      return img + (b * w + l if erp else l * w + b)
+
+    # (tap, first entry) of each pass, in K order
+    work = [(k, e0) for k in range(9) for e0 in range(0, entries[c, k, 0, 3],
+                                                     MAXT)]
+    for n0 in range(0, cin, bn):
+      acc = np.zeros((bm, bn), np.float32)
+      for step in range(len(work) * nkc):
+        (tap, e0), kc = work[step // nkc], step % nkc
+        ent = entries[c, tap, e0:e0 + MAXT]
+        cnt = min(MAXT, entries[c, tap, 0, 3] - e0)
+        smem = np.full(stage // esize, np.nan)
+        ci, chb = n0 + bn_, kc * BK + bcc * ch
+        okb = (ci < cin) & (chb < wcout)
+        for p in range(parts):
+          vals = packed[p, tap, np.where(okb, ci, 0)[:, None],
+                        np.where(okb, chb, 0)[:, None] + lanes]
+          smem[bdst[p][:, None] + lanes] = np.where(okb[:, None], vals, 0.0)
+        for e in range(cnt):
+          j, sigma = ent[e, :2]
+          chn = kc * BK + hcc * ch
+          l = l0 - sigma - 1 + ht
+          l = np.where(l < 0, l + nlane, l)
+          ok = (ht <= rows) & (chn < cout)
+          assert (l[ok] < nlane).all()
+          src = np.where(ok, pixel(j, l) * cout + chn, 0)
+          smem[(a_off + e * tile) // esize + hdst[:, None] + lanes] = np.where(
+              ok[:, None], gf[src[:, None] + lanes], 0.0)
+        # each thread's blend, in the stage's K order
+        a_tile = np.full((bm, BK), np.nan)
+        blend = np.zeros((2, nt, 8), np.float32)
+        for e in range(cnt):
+          _, sigma, drop, _ = ent[e]
+          a_s, a_n = weights[c, tap, e0 + e]
+          base = (a_off + e * tile) // esize
+          for hh in range(2):
+            r = r0 + 8 * hh
+            l = l0 + r
+            ls = l - sigma
+            ls = np.where(ls < 0, ls + nlane, ls)
+            ln = np.where(ls == 0, nlane - 1, ls - 1)
+            ws = np.where(ls == drop, np.float32(0), a_s)
+            wn = np.where((l == 0) | (ln == drop), np.float32(0), a_n)
+            for d, wt in ((1, ws), (0, wn)):     # tile rows r + 1, r
+              blend[hh] = _fmaf(wt[:, None], smem[base + frag[hh, d]],
+                                blend[hh])
+        for hh in range(2):
+          for jj in range(8):
+            if dtype == "f32":         # channel 8q + jj at K position q + 4jj
+              a_tile[r0 + 8 * hh, q + 4 * jj] = blend[hh, :, jj]
+            else:                      # K position 8 chunk + 2q + e
+              a_tile[r0 + 8 * hh, 8 * (jj // 2) + 2 * q + jj % 2] = _bf16(
+                  blend[hh, :, jj])
+        b_tiles = smem[bread]                               # (P, BN, BK)
+        stale |= bool(np.isnan(a_tile).any() or np.isnan(b_tiles).any())
+        if dtype == "f32":
+          big = _tf32(a_tile)
+          small = _tf32(a_tile - big)
+          part = (small @ b_tiles[0].T + big @ b_tiles[1].T
+                  + big @ b_tiles[0].T)
+        else:
+          part = a_tile @ b_tiles[0].T
+        acc = (acc + part.astype(np.float32)).astype(np.float32)
+      # the epilogue: rows inside the band, at pixel (c, l0 + r)
+      cols = slice(n0, min(n0 + bn, cin))
+      for r in range(rows):
+        o = pixel(c, l0 + r)
+        assert np.isnan(out[o, cols]).all()
+        out[o, cols] = acc[r, :cols.stop - n0]
+  assert not np.isnan(out).any()
+  return out.reshape(n, h, w, cin), stale
+
+
+def _dx_operand_by_pass(g, sphere_type):
+  """The dx GEMM's A by tap and pass, (9, 2, H*W, Cout) f64, for a batch-1
+  g: each output band's samples of the tap scattered back through the plain
+  gather's four corners (build_gather_tables, independent of the shift
+  tables), and added into the pass that the transposed table gives that
+  output band at each input band (its first two entries, then the rest)."""
+  _, h, w, cout = g.shape
+  idx, wgt = S.build_gather_tables(h, w, 3, 3, sphere_type, 1, 1, 1)
+  entries, _ = S.transpose_table(h, w, sphere_type)
+  erp = sphere_type == "ERP"
+  pix = np.arange(h * w)
+  band_of = pix // w if erp else pix % w
+  gf = g.reshape(h * w, cout).astype(np.float64)
+  a = np.zeros((9, 2, h * w, cout))
+  for k in range(9):
+    for j in range(entries.shape[0]):
+      out = pix[band_of == j]                    # output pixels of band j
+      part = np.zeros((h * w, cout))
+      for corner in range(4):
+        np.add.at(part, idx[corner, k].reshape(-1)[out],
+                  wgt[corner, k].reshape(-1, 1)[out].astype(np.float64)
+                  * gf[out])
+      for c in np.unique(band_of[np.any(part != 0, axis=1)]):
+        listed = list(entries[c, k, :entries[c, k, 0, 3], 0])
+        into = band_of == c
+        a[k, listed.index(j) // MAXT, into] += part[into]
+  return a
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sphere_type,h,w,cin,cout,bm", [
+    ("Cassini", 32, 16, 8, 8, 64),       # L = 32 < BM: half the rows masked
+    ("ERP", 16, 32, 8, 8, 64),
+    ("Cassini", 64, 32, 72, 40, 64),     # drop lane; Cout 32 + 8; Cin 72
+    ("ERP", 32, 64, 72, 40, 64),
+    ("Cassini", 64, 32, 8, 16, 128),     # BM 128 over 64 lanes
+    ("ERP", 32, 64, 8, 16, 128),
+])
+def test_dx_walk_rebuilds_the_plain_grad_input(sphere_type, h, w, cin, cout,
+                                               bm, dtype):
+  """The modelled dx kernel against the port's plain grad-input
+  (``_plain_bwd_input``, held against the Pallas backward by
+  tests/test_torch_sphere_conv_bwd.py): every band index of these maps
+  has taps with 1 to 4 entries in the transposed table, the 64-lane maps a
+  drop lane, and no read meets a byte no copy wrote. f32 as 3xTF32 within
+  1e-5 of the largest value; bf16 blends in f32 and rounds each pass's A
+  once: held to 1e-3 against A rounded pass by pass from the plain
+  gather's own scatter (a blend on a bf16 tie may round the other way),
+  and after the store's rounding to
+  chip_smoke.py's bf16 bar against the plain version, on chip_smoke.py's
+  inputs (the rounding of A is ~2^-9 of each product, so the bar's
+  absolute part holds only at the scale of those inputs)."""
+  entries, _ = S.transpose_table(h, w, sphere_type)
+  assert set(np.unique(entries[..., 0, 3])) >= {1, 2, 3, 4}
+  _, _, _, drop = S.shift_tables(h, w, sphere_type)
+  assert (drop >= 0).any() == (max(h, w) >= 64)
+  # chip_smoke.py's inputs: g * 0.5, He-scaled weights
+  rng = np.random.default_rng(8)
+  g = (rng.normal(size=(1, h, w, cout)) * 0.5).astype(np.float32)
+  wt = (rng.normal(size=(cout, cin, 3, 3))
+        * np.sqrt(2.0 / (9 * cout))).astype(np.float32)
+  if dtype == "bf16":
+    g, wt = _bf16(g).astype(np.float32), _bf16(wt).astype(np.float32)
+  wk = S.pack_weight(torch.from_numpy(wt)).numpy()      # (9, Cin, Cout)
+  bn = _dx_tile(1, min(h, w), max(h, w), cin)[1]
+  got, stale = _walk_dx(g, wk, sphere_type, dtype, bm, bn)
+  assert not stale
+  want = S._plain_bwd_input(torch.from_numpy(g), torch.from_numpy(wt),
+                            sphere_type).double().numpy()
+  scale = np.abs(want).max()
+  if dtype == "f32":
+    assert np.abs(got - want).max() / scale < 1e-5
+  else:
+    a = _bf16(_dx_operand_by_pass(g, sphere_type).astype(np.float32))
+    rounded = np.einsum("kqpo,kco->pc", a, wk.astype(np.float64))
+    assert np.abs(got.reshape(rounded.shape) - rounded).max() / scale < 1e-3
+    stored = _bf16(got)
+    assert (np.abs(stored - want) <= BF16_ATOL + BF16_RTOL * np.abs(want)
+            ).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bm,bn", [(64, 64), (64, 128), (128, 64),
+                                   (128, 128)])
+def test_dx_stages_fit_shared_memory(dtype, bm, bn):
+  """Every dx tile's stages fit the 227 KB a block can take, two or more,
+  with the weight tiles 1024-byte aligned for their descriptors and the
+  two halo tiles on whole 128-byte lines, so the fragment reads stay
+  conflict-free: f32 at BM 128, BN 128 holds three stages of 65 KB, and
+  bf16 two blocks an SM."""
+  tile, stage, stages = _dx_stage(dtype, bm, bn)
+  cfg = CFG[dtype]
+  assert tile % 128 == 0 and tile >= (bm + 1) * cfg["rb"]
+  assert stage % 1024 == 0 and (cfg["parts"] * bn * cfg["rb"]) % 1024 == 0
+  assert stages >= 2
+  assert stages * stage + 1024 + DX_TABLE_BYTES <= SMEM_MAX
+  if (dtype, bm, bn) == ("f32", 128, 128):
+    assert (stage, stages) == (66560, 3)
+  if dtype == "bf16":
+    assert 2 * (stages * stage + 1024 + DX_TABLE_BYTES) <= SMEM_MAX
+  # the layer-4 grad-inputs of a batch-2 step: 128 bands of 256 lanes
+  assert _dx_tile(2, 128, 256, 64) == (128, 64)
+  assert _dx_tile(2, 128, 256, 128) == (128, 128)
+  assert _dx_tile(1, 16, 32, 8) == (64, 64)
