@@ -319,7 +319,8 @@ def _conv_case(case, dtype, gen):
   elif name == "conv3d_s2_bn_act":
     fn, packed = conv3d.conv3d_s2_bn_act, conv3d.pack_weight_tc(w, 2)
   else:
-    fn, packed = conv3d.deconv3d_bn_act, conv3d.pack_weight(w, True)
+    fn = conv3d.deconv3d_bn_act
+    packed = conv3d.pack_weight_tc(w, transpose=True)
 
   def run(plain):
     return fn(x, w if plain else packed, scale, bias, plain=plain, **kw)
@@ -775,8 +776,9 @@ def _profile(fn, args):
                                            "bwd_weight_kernel",
                                            "reduce_splits_kernel")),
            ("port: sphere conv forward", ("sphere_conv_tc_kernel",)),
-           ("port: 3-D convs", ("deconv3d_kernel", "conv3d_s1_tc_kernel",
-                                "conv3d_s2_tc_kernel", "conv3d_head_kernel")),
+           ("port: 3-D convs", ("deconv3d_tc_kernel",
+                                "conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel",
+                                "conv3d_head_kernel")),
            ("port: 2-D convs", ("conv2d_tc_kernel",)),
            ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                           "welford")),

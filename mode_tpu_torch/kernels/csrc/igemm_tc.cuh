@@ -1,5 +1,5 @@
 // The tensor-core implicit GEMM of the port's convolutions (conv3d_s1.cu,
-// conv3d_s2.cu, conv2d.cu; the sphere conv's forward and grad-input,
+// conv3d_s2.cu, conv3d.cu, conv2d.cu; the sphere conv's forward and grad-input,
 // sphere_conv.cu and sphere_conv_bwd.cu, build their A operand themselves,
 // in sphere_tc.cuh, and share the rest), for sm_90a.
 //
@@ -8,7 +8,10 @@
 // channels, K = taps x Cin in the order (tap, channel), the taps at
 // (k - 1) * dil on each tapped axis. At stride S (a template parameter, 1
 // or 2; stride 2 only with dilation 1) output voxel (z, y, x) reads input
-// voxel (S z + kd - 1, S y + kh - 1, S x + kw - 1). One warpgroup (128
+// voxel (S z + kd - 1, S y + kh - 1, S x + kw - 1). S = DECONV walks the
+// transposed conv of stride 2 instead (conv3d.cu): M the input voxels,
+// each writing one output voxel of each of the eight output parity phases,
+// the phases' taps one after another (see deconv_tap). One warpgroup (128
 // threads) owns 64 rows of the tile; BM = 128 runs two of them.
 //
 // A K stage is one tap x BK = 32 input channels: one row of RB bytes per
@@ -466,12 +469,79 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
-// The body of a conv kernel of stride S launched with 2 * BM threads and
-// smem_bytes<T, BM, BN>() of dynamic shared memory. wbig, wsmall: the
-// K-major weight, bf16 (taps, Cout, Cin) (wsmall unused), f32 split in two
-// parts of (taps, Cout, ceil(Cin / 32) * 32) whose K position p of each
-// 32-channel stage holds channel 8 (p % 4) + p / 4 (zero past Cin); res
-// may be null.
+// conv_body's S for the transposed conv k3 s2 p1 output_padding 1: the
+// output extents are twice the input's, and grid row (z, y, x) of the
+// input-sized M writes output voxel (2z + pd, 2y + ph, 2x + pw) of each
+// output parity phase p = 4 pd + 2 ph + pw. Per axis, output o = 2i - 1 + k
+// for input i and kernel index k, so an even output 2z reads index 1 at
+// input z, and an odd output 2z + 1 reads index 0 at input z + 1 and index
+// 2 at input z: phase p has (1 + pd)(1 + ph)(1 + pw) taps, at input offsets
+// 0 or +1 on each axis, 27 over the eight phases and no zero-stuffed one.
+constexpr int DECONV = 0;
+
+__host__ __device__ constexpr int phase_taps(int p) {
+  return (1 + (p >> 2)) * (1 + (p >> 1 & 1)) * (1 + (p & 1));
+}
+// The first of phase p's taps in the walk: 0, 1, 3, 5, 9, 11, 15, 19.
+__host__ __device__ constexpr int phase_start(int p) {
+  int start = 0;
+  for (int q = 0; q < p; ++q) start += phase_taps(q);
+  return start;
+}
+
+// Tap t (< 27) of the transposed conv's walk, which takes the phases in
+// the order of p and each phase's taps in (jd, jh, jw) order, jw fastest;
+// on an odd axis tap j reads kernel index 2 j at input offset 1 - j. In a
+// byte: bits 0-4 the weight tap (kd * 3 + kh) * 3 + kw, bits 5, 6, 7 the
+// input offsets ow, oh, od.
+__host__ __device__ constexpr int deconv_tap(int t) {
+  int p = 0, start = 0;
+  for (int q = 1; q < 8; ++q) {
+    if (t >= phase_start(q)) p = q, start = phase_start(q);
+  }
+  const int pd = p >> 2, ph = p >> 1 & 1, pw = p & 1;
+  int j = t - start;
+  const int jw = pw ? j & 1 : 0;
+  j >>= pw;
+  const int jh = ph ? j & 1 : 0;
+  const int jd = pd ? j >> ph : 0;
+  const int wtap =
+      ((pd ? 2 * jd : 1) * 3 + (ph ? 2 * jh : 1)) * 3 + (pw ? 2 * jw : 1);
+  return wtap | (pw ? 1 - jw : 0) << 5 | (ph ? 1 - jh : 0) << 6 |
+         (pd ? 1 - jd : 0) << 7;
+}
+
+// The walk as compile-time data: taps 8 w .. 8 w + 7 packed in a word,
+// and the taps that end a phase (bit t for tap t).
+__host__ __device__ constexpr uint64_t deconv_word(int w) {
+  uint64_t r = 0;
+  for (int i = 0; i < 8 && 8 * w + i < 27; ++i) {
+    r |= static_cast<uint64_t>(deconv_tap(8 * w + i)) << (8 * i);
+  }
+  return r;
+}
+__host__ __device__ constexpr uint32_t phase_ends() {
+  uint32_t r = 0;
+  for (int p = 0; p < 8; ++p) r |= 1u << (phase_start(p + 1) - 1);
+  return r;
+}
+
+// deconv_tap(t) at run time, read from the constant words.
+__device__ __forceinline__ int deconv_tap_at(int t) {
+  constexpr uint64_t w0 = deconv_word(0), w1 = deconv_word(1),
+                     w2 = deconv_word(2), w3 = deconv_word(3);
+  const uint64_t w = t < 16 ? (t < 8 ? w0 : w1) : (t < 24 ? w2 : w3);
+  return static_cast<int>(w >> (8 * (t & 7))) & 0xFF;
+}
+
+// The body of a conv kernel of stride S (or S = DECONV, above) launched
+// with 2 * BM threads and smem_bytes<T, BM, BN>() of dynamic shared memory.
+// wbig, wsmall: the K-major weight, bf16 (taps, Cout, Cin) (wsmall unused),
+// f32 split in two parts of (taps, Cout, ceil(Cin / 32) * 32) whose K
+// position p of each 32-channel stage holds channel 8 (p % 4) + p / 4 (zero
+// past Cin); res may be null. For DECONV, s's output extents d, h, w are
+// the input's (the M grid) and the weight's taps are the torch transpose
+// weight's (kd, kh, kw).
 template <typename T, int BM, int BN, int S = 1>
 __device__ __forceinline__ void conv_body(
     const T* __restrict__ x, const T* __restrict__ wbig,
@@ -518,7 +588,7 @@ __device__ __forceinline__ void conv_body(
     rx[i] = (int)(t % s.w);
     t /= s.w;
     ry[i] = (int)(t % s.h);
-    if constexpr (S == 1) {
+    if constexpr (S != 2) {
       rz[i] = (int)(t / s.h % s.d);
     } else {
       // the input voxel (S z, S y, S x) that the centre tap reads
@@ -532,16 +602,22 @@ __device__ __forceinline__ void conv_body(
   // The f32 weight's Cin is padded to whole stages (host-side pack).
   const int wcin = C::PARTS == 2 ? nkc * BK : s.cin;
 
-  // the input extents (the output's at stride 1)
-  const int din = S == 1 ? s.d : s.di;
-  const int hin = S == 1 ? s.h : s.hi;
-  const int win = S == 1 ? s.w : s.wi;
-  const long long ihw = S == 1 ? hw : (long long)hin * win;
+  // the input extents (the M grid's but at stride 2)
+  const int din = S == 2 ? s.di : s.d;
+  const int hin = S == 2 ? s.hi : s.h;
+  const int win = S == 2 ? s.wi : s.w;
+  const long long ihw = S == 2 ? (long long)hin * win : hw;
   auto load = [&](int step, int slot) {
     const int tap = step / nkc, kc = step - tap * nkc;
-    const int od = s.kd == 3 ? (tap / 9 - 1) * s.dil : 0;
-    const int oh = (tap / 3 % 3 - 1) * s.dil;
-    const int ow = (tap % 3 - 1) * s.dil;
+    int od, oh, ow, wtap = tap;
+    if constexpr (S == DECONV) {
+      const int b = deconv_tap_at(tap);
+      od = b >> 7, oh = b >> 6 & 1, ow = b >> 5 & 1, wtap = b & 31;
+    } else {
+      od = s.kd == 3 ? (tap / 9 - 1) * s.dil : 0;
+      oh = (tap / 3 % 3 - 1) * s.dil;
+      ow = (tap % 3 - 1) * s.dil;
+    }
     const long long shift = od * ihw + (long long)oh * win + ow;
     const uint32_t sa = base + slot * STAGE;
     const int ch = kc * BK + ac * CH;
@@ -560,7 +636,7 @@ __device__ __forceinline__ void conv_body(
       const int n = idx / CPR, c = idx % CPR;
       const int co = n0 + n, chb = kc * BK + c * CH;
       const bool ok = co < s.cout && chb < wcin;
-      const long long off = ((long long)tap * s.cout + co) * wcin + chb;
+      const long long off = ((long long)wtap * s.cout + co) * wcin + chb;
       const uint32_t dst = sa + A_BYTES + swizzle<T>(n, c);
       cp_async16(dst, ok ? wbig + off : wbig, ok);
       if constexpr (C::PARTS == 2) {
@@ -575,6 +651,29 @@ __device__ __forceinline__ void conv_body(
   const int wg = tid / 128;
   const int warp = tid % 128 / 32;
   const int lane = tid % 32;
+
+  // DECONV: the output voxel (2z, 2y, 2x) x Cout of this thread's two
+  // epilogue rows (grid rows er and er + 8, the fragment's rows), to which
+  // phase p adds ((pd * 2 h) + ph) * 2 w + pw voxels (phase_off). Grid row
+  // m = (b d + z) h w + y w + x writes (((2 (b d + z)) * 2 h + 2 y) * 2 w +
+  // 2 x). The walk's stage counters: K chunk, tap and phase.
+  [[maybe_unused]] const long long er = m0 + wg * 64 + warp * 16 + lane / 4;
+  [[maybe_unused]] long long eo[2] = {0, 0};
+  [[maybe_unused]] int ckc = 0, ctap = 0, cphase = 0;
+  [[maybe_unused]] constexpr uint32_t ENDS = phase_ends();
+  [[maybe_unused]] auto phase_off = [&](int p) {
+    return (((p >> 2) * 2LL * s.h + (p >> 1 & 1)) * 2 * s.w + (p & 1)) *
+           s.cout;
+  };
+  if constexpr (S == DECONV) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = er + 8 * hh;
+      const long long q = m / s.w, bz = q / s.h;
+      eo[hh] = ((2 * bz * 2 * s.h + 2 * (q - bz * s.h)) * 2 * s.w +
+                2 * (m - q * s.w)) * s.cout;
+    }
+  }
 
 #pragma unroll
   for (int st = 0; st < C::STAGES - 1; ++st) {
@@ -626,10 +725,31 @@ __device__ __forceinline__ void conv_body(
       wgmma_wait_all();
       pin(acc);
     }
+    if constexpr (S == DECONV) {
+      // After a phase's last stage its sums are complete: store them at
+      // that phase's output voxels and start the next phase from zero,
+      // while the next phase's copies are in flight.
+      if (++ckc == nkc) {
+        ckc = 0;
+        if (ENDS >> ctap & 1) {
+          const long long po = phase_off(cphase);
+          epilogue<T, BN>(acc, m0, mtot, n0, s.cout, scale, bias, res, out,
+                          relu, [&](long long m) {
+                            return (m == er ? eo[0] : eo[1]) + po;
+                          });
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+          ++cphase;
+        }
+        ++ctap;
+      }
+    }
   }
   cp_async_wait<0>();
-  epilogue<T, BN>(acc, m0, mtot, n0, s.cout, scale, bias, res, out, relu,
-                  [&](long long m) { return m * s.cout; });
+  if constexpr (S != DECONV) {
+    epilogue<T, BN>(acc, m0, mtot, n0, s.cout, scale, bias, res, out, relu,
+                    [&](long long m) { return m * s.cout; });
+  }
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -42,8 +42,7 @@ from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.ops import conv3d as conv3d_ops
 from mode_tpu_torch.ops import sphere_conv as sphere_ops
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
-                                       deconv3d_bn_act, pack_weight,
-                                       pack_weight_tc)
+                                       deconv3d_bn_act, pack_weight_tc)
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
 
 
@@ -378,7 +377,7 @@ class DeconvBn3d(nn.Sequential):
                                    0, 2, 3, 4, 1)
       return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
-        self, functools.partial(pack_weight, transpose=True))
+        self, functools.partial(pack_weight_tc, transpose=True))
     return deconv3d_bn_act(x, weight, scale, bias, residual, relu,
                            plain=plain)
 

@@ -14,21 +14,22 @@ an optional ReLU, and returns ``x.dtype``:
     ``conv3d_band_deconv_pallas`` (K5) and ``conv3d_fold_deconv_pallas``
     (K7).
 
-On a CUDA tensor each function launches its kernel (the stride-1 conv:
-``kernels/csrc/conv3d_s1.cu``, on the tensor cores, with a kernel of its own
-for Cout 1; the stride-2 conv: ``conv3d_s2.cu``, the same tensor-core
-machinery at stride 2; the deconv: ``conv3d.cu``; each source's note says
-what bounds it and how it is built), or raises on an input the kernel does
-not take. On a CPU tensor, or when the caller passes ``plain=True``, it
-runs the plain PyTorch version below: ``F.conv3d``/``F.conv_transpose3d``
-in f32 and the same epilogue.
+On a CUDA tensor each function launches its kernel, all three on the
+tensor-core machinery of ``kernels/csrc/igemm_tc.cuh`` (the stride-1 conv:
+``conv3d_s1.cu``, with a kernel of its own for Cout 1; the stride-2 conv:
+``conv3d_s2.cu``; the deconv: ``conv3d.cu``, its eight output parity
+phases walked one after another; each source's note says what bounds it
+and how it is built), or raises on an input the kernel does not take. On a
+CPU tensor, or when the caller passes ``plain=True``, it runs the plain
+PyTorch version below: ``F.conv3d``/``F.conv_transpose3d`` in f32 and the
+same epilogue.
 
 The weight is the torch layout, or the kernel's own layout, which saves the
-per-call repack where a layer keeps it (``models/blocks.py`` does): for the
-stride-1 and stride-2 convs the K-major
-:class:`~mode_tpu_torch.ops.kmajor.TcWeight` of :func:`pack_weight_tc`, for
-the deconv ``(27, Cin, Cout)`` from :func:`pack_weight`, which the convs
-take too.
+per-call repack where a layer keeps it (``models/blocks.py`` does): the
+K-major :class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
+:func:`pack_weight_tc` (the deconv's with ``transpose=True``). Each also
+takes the ``(27, Cin, Cout)`` layout of :func:`pack_weight`, repacked per
+call.
 
 For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
 convs as autograd Functions whose forward and grad-input run these kernels
@@ -59,7 +60,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _deconv3d_lib():
   lib = build.load("conv3d")
-  lib.deconv3d_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+  lib.deconv3d_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
   lib.deconv3d_bn_act.restype = ctypes.c_int
   return lib
@@ -107,17 +108,25 @@ def pack_weight(weight: torch.Tensor, transpose: bool = False
   return wk.reshape(27, *wk.shape[3:]).contiguous()
 
 
-def pack_weight_tc(weight: torch.Tensor, stride: int = 1) -> TcWeight:
+def pack_weight_tc(weight: torch.Tensor, stride: int = 1,
+                   transpose: bool = False) -> TcWeight:
   """The tensor-core kernels' K-major weight ``(P, 27, Cout, Cin)``, taps
-  in (kd, kh, kw) order, from a torch conv weight ``(Cout, Cin, 3, 3, 3)``;
-  in f32 split into ``big`` and ``small`` for 3xTF32, except for the
-  stride-1 conv's Cout 1 (the head kernel, f32 FMAs)."""
+  in (kd, kh, kw) order, from a torch conv weight ``(Cout, Cin, 3, 3, 3)``
+  or, with ``transpose``, the deconv's transpose-conv weight ``(Cin, Cout,
+  3, 3, 3)``; in f32 split into ``big`` and ``small`` for 3xTF32, except
+  for the stride-1 conv's Cout 1 (the head kernel, f32 FMAs)."""
   if weight.dim() != 5 or weight.shape[2:] != (3, 3, 3):
     raise ValueError(f"expected a 3x3x3 torch weight, got "
                      f"{tuple(weight.shape)}")
-  cout, cin = weight.shape[:2]
-  wk = weight.permute(2, 3, 4, 0, 1).reshape(27, cout, cin)
-  return kmajor.pack(wk, weight, split=cout > 1 or stride == 2)
+  if transpose:
+    cin, cout = weight.shape[:2]
+    wk = weight.permute(2, 3, 4, 1, 0)
+  else:
+    cout, cin = weight.shape[:2]
+    wk = weight.permute(2, 3, 4, 0, 1)
+  return kmajor.pack(wk.reshape(27, cout, cin), weight,
+                     split=cout > 1 or stride == 2 or transpose,
+                     transposed=transpose)
 
 
 def _torch_weight(mode, weight):
@@ -164,17 +173,23 @@ def _check_residual(name, x, residual, shape):
                      f"tensor of shape {shape}")
 
 
-def _launch_tc(mode, x, weight, scale, bias, residual, relu):
+def _launch(mode, x, weight, scale, bias, residual, relu):
   """The stride-1 conv on ``conv3d_s1.cu`` (the tensor-core kernel, or the
-  head kernel for Cout 1) or the stride-2 conv on ``conv3d_s2.cu``."""
+  head kernel for Cout 1), the stride-2 conv on ``conv3d_s2.cu``, the
+  deconv on ``conv3d.cu``."""
   name = _NAMES[mode]
+  if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
+    raise ValueError(f"{name}: x must be a contiguous f32 or bf16 NDHWC "
+                     f"volume, got {tuple(x.shape)} {x.dtype}")
   cin = x.shape[-1]
+  deconv = mode == _DECONV
   tw = weight if isinstance(weight, TcWeight) else pack_weight_tc(
-      _torch_weight(mode, weight), 1 if mode == _S1 else 2)
+      _torch_weight(mode, weight), 1 if mode == _S1 else 2, deconv)
   cout = tw.cout
   head = mode == _S1 and cout == 1
   wbig, wsmall = kmajor.operands(name, x, tw, 27,
-                                 x.dtype == torch.float32 and not head)
+                                 x.dtype == torch.float32 and not head,
+                                 deconv)
   if head and head_smem(cin, x.element_size()) > SMEM_MAX:
     raise ValueError(f"{name}: the Cout-1 head kernel takes Cin up to "
                      f"{72 if x.dtype == torch.float32 else 144} "
@@ -183,44 +198,16 @@ def _launch_tc(mode, x, weight, scale, bias, residual, relu):
   _check_residual(name, x, residual, shape)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
   flag = int(x.dtype == torch.bfloat16)
-  if mode == _S1:
-    kernels.launch(
-        name, _conv3d_s1_lib().conv3d_s1_bn_act, x.device, flag,
-        x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(),
-        *x.shape[:4], cin, cout, int(relu))
+  ptrs = (x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr())
+  if mode == _S2:
+    kernels.launch(name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
+                   *ptrs, out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
   else:
-    kernels.launch(
-        name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
-        x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
-  return out
-
-
-def _launch(mode, x, weight, scale, bias, residual, relu):
-  cin = x.shape[-1]
-  if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
-    raise ValueError(f"{_NAMES[mode]}: x must be a contiguous f32 or bf16 "
-                     f"NDHWC volume, got {tuple(x.shape)} {x.dtype}")
-  if mode != _DECONV:
-    return _launch_tc(mode, x, weight, scale, bias, residual, relu)
-  name = _NAMES[mode]
-  wk = weight if weight.dim() == 3 else pack_weight(weight, transpose=True)
-  if (wk.shape[:2] != (27, cin) or wk.dtype != x.dtype
-      or wk.device != x.device or not wk.is_contiguous()):
-    raise ValueError(f"{name}: weight {tuple(weight.shape)} "
-                     f"{weight.dtype} does not match x {tuple(x.shape)} "
-                     f"{x.dtype}")
-  cout = wk.shape[2]
-  shape = _out_shape(mode, x.shape, cout)
-  _check_residual(name, x, residual, shape)
-  out = torch.empty(shape, dtype=x.dtype, device=x.device)
-  kernels.launch(
-      name, _deconv3d_lib().deconv3d_bn_act, x.device,
-      int(x.dtype == torch.bfloat16), x.data_ptr(), wk.data_ptr(),
-      scale.data_ptr(), bias.data_ptr(),
-      None if residual is None else residual.data_ptr(), out.data_ptr(),
-      *x.shape[:4], cin, cout, int(relu))
+    fn = (_deconv3d_lib().deconv3d_bn_act if deconv
+          else _conv3d_s1_lib().conv3d_s1_bn_act)
+    kernels.launch(name, fn, x.device, flag, *ptrs,
+                   None if residual is None else residual.data_ptr(),
+                   out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
   return out
 
 
@@ -279,7 +266,9 @@ def deconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
   (+ ReLU): ``(B, D, H, W, Cin)`` -> ``(B, 2D, 2H, 2W, Cout)``.
 
   ``weight`` is the torch transpose-conv layout ``(Cin, Cout, 3, 3, 3)``,
-  or its ``pack_weight(weight, transpose=True)`` layout; the other arguments are as for :func:`conv3d_s1_bn_act`.
+  its ``pack_weight_tc(weight, transpose=True)`` layout (the kernel's) or
+  its ``pack_weight(weight, transpose=True)`` layout; on the card Cin a
+  multiple of 8. The other arguments are as for :func:`conv3d_s1_bn_act`.
   """
   return _run(_DECONV, x, weight, scale, bias, residual, relu, plain)
 

@@ -11,7 +11,8 @@ keeps the :class:`TcWeight` between calls as it kept the ``pack_weight``
 layout; a training Function packs in each call. The sphere conv's
 grad-input packs the forward's ``(9, Cin, Cout)`` weight the same way, as
 ``(taps, rows, K)`` with rows Cin and K Cout, and checks it with
-:func:`pointers`.
+:func:`pointers`; the transposed 3-D conv packs its ``(I, O, k)`` weight as
+``(taps, O, I)`` and marks it ``transposed``.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ class TcWeight(NamedTuple):
   the tensor cores, Cin' = Cin padded to whole stages and the channels
   permuted as :func:`pack` says; else P = 1, the weight whole, Cin' = Cin.
   ``weight``: the torch-layout weight it was made from, which the plain
-  versions take."""
+  versions take. ``transposed``: ``weight`` is a transpose conv's ``(I, O,
+  k)``, its Cin on axis 0 (a conv's ``(O, I, k)`` has it on axis 1)."""
   parts: torch.Tensor
   weight: torch.Tensor
+  transposed: bool = False
 
   @property
   def cout(self) -> int:
@@ -51,10 +54,12 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
 STAGE_CHANNELS = 32  # input channels per K stage of the kernels
 
 
-def pack(wk: torch.Tensor, weight: torch.Tensor, split: bool) -> TcWeight:
-  """A :class:`TcWeight` from ``wk`` ``(taps, Cout, Cin)``: where
-  ``split`` and ``wk`` is f32, padded, permuted and split into ``big`` and
-  ``small``; else whole.
+def pack(wk: torch.Tensor, weight: torch.Tensor, split: bool,
+         transposed: bool = False) -> TcWeight:
+  """A :class:`TcWeight` from ``wk`` ``(taps, Cout, Cin)`` and the torch
+  ``weight`` it was taken from (a transpose conv's where ``transposed``):
+  where ``split`` and ``wk`` is f32, padded, permuted and split into
+  ``big`` and ``small``; else whole.
 
   The f32 permutation: within each stage, K position ``p = q + 4 j`` holds
   channel ``8 q + j`` (q < 4, j < 8). The kernel's m64k8 tf32 A fragment
@@ -73,22 +78,25 @@ def pack(wk: torch.Tensor, weight: torch.Tensor, split: bool) -> TcWeight:
     parts = torch.stack((big, tf32_round(wk - big)))
   else:
     parts = wk[None]
-  return TcWeight(parts.contiguous(), weight.detach())
+  return TcWeight(parts.contiguous(), weight.detach(), transposed)
 
 
 def operands(name: str, x: torch.Tensor, tw: TcWeight, taps: int,
-             split: bool) -> tuple[int, int | None]:
+             split: bool, transposed: bool = False
+             ) -> tuple[int, int | None]:
   """The ``(big, small)`` data pointers of ``tw`` for a tensor-core
   kernel's launch on ``x`` (``small`` None unless ``split``), after the
   checks the kernels need: ``x``'s Cin a multiple of 8 and ``x`` 16-byte
   aligned (whole 16-byte copies), and ``tw`` the layout :func:`pack` makes
-  for ``taps`` taps, ``x``'s Cin, dtype and device. Raises ``ValueError``
-  naming kernel ``name`` otherwise."""
+  for ``taps`` taps, ``x``'s Cin, dtype and device, from a transpose
+  conv's weight exactly where ``transposed``. Raises ``ValueError`` naming
+  kernel ``name`` otherwise."""
   cin = x.shape[-1]
   if cin % 8 or x.data_ptr() % 16:
     raise ValueError(f"{name}: Cin must be a multiple of 8 and x 16-byte "
                      f"aligned, got Cin {cin}")
-  if tw.weight.shape[1] != cin:
+  if (tw.transposed != transposed
+      or tw.weight.shape[0 if transposed else 1] != cin):
     raise ValueError(f"{name}: weight {tuple(tw.weight.shape)} does not "
                      f"match the input {tuple(x.shape)} {x.dtype}")
   return pointers(name, x, tw.parts, taps, tw.cout, split)

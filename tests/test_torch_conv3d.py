@@ -18,7 +18,8 @@ from jax.experimental import pallas as pl
 
 from mode_tpu.ops.pallas import conv3d_kernel as ck
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
-                                       deconv3d_bn_act, pack_weight)
+                                       deconv3d_bn_act, pack_weight,
+                                       pack_weight_tc)
 
 torch.set_num_threads(2)
 
@@ -163,7 +164,8 @@ def test_deconv3d_residual_epilogue():
     (deconv3d_bn_act, True),
 ])
 def test_packed_weight_gives_the_same_conv(fn, transpose):
-  """A weight in the kernel's (27, Cin, Cout) layout is the same conv as
+  """A weight in the (27, Cin, Cout) layout, or in the tensor-core kernels'
+  K-major TcWeight (the deconv's with ``transpose``), is the same conv as
   the torch layout it was packed from; tap t is (kd, kh, kw) = divmod."""
   rng = np.random.default_rng(8)
   x = torch.from_numpy(rng.normal(size=(1, 3, 4, 5, 6)).astype(np.float32))
@@ -177,4 +179,8 @@ def test_packed_weight_gives_the_same_conv(fn, transpose):
   torch.testing.assert_close(packed[9 * kd + 3 * kh + kw], want_tap,
                              rtol=0, atol=0)
   torch.testing.assert_close(fn(x, packed, s, relu=True),
+                             fn(x, w, s, relu=True), rtol=0, atol=0)
+  tc = pack_weight_tc(w, 2 if fn is conv3d_s2_bn_act else 1, transpose)
+  assert tc.transposed == transpose and tc.cout == 5
+  torch.testing.assert_close(fn(x, tc, s, relu=True),
                              fn(x, w, s, relu=True), rtol=0, atol=0)

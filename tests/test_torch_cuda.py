@@ -5,9 +5,10 @@ multiple of the output tile, odd extents for the stride-2 conv, batch 2,
 dilation 2, Cassini maps whose tables have a drop row and ERP maps whose
 tables have a drop column; the tensor-core kernels at the production
 shapes of the stride-2 conv and the sphere convs, and the strided
-training grad-inputs; the head kernel's refusal of a Cin past shared
-memory; the stage-1 model (Cassini and ERP) at batch 2
-against its plain path; the sphere conv's two backward kernels in both
+training grad-inputs; the deconv's tensor-core kernel at the K5 and K7
+shapes and its C entry's refusal of a Cin off its 16-byte copies; the
+head kernel's refusal of a Cin past shared memory; the stage-1 model
+(Cassini and ERP) at batch 2 against its plain path; the sphere conv's two backward kernels in both
 layouts, the layer-4 shapes of a batch-2 step included, and the grad-input
 kernel's refusals; and one training step at 512x256, where every kernel
 family trains, against the same step through the plain versions.
@@ -58,7 +59,7 @@ def _close(got, want, dtype):
     (C.conv3d_s1_bn_act, (1, 2, 3, 4, 8), 70, True, False),
     (C.conv3d_s2_bn_act, (1, 5, 7, 6, 16), 24, False, True),
     (C.conv3d_s2_bn_act, (2, 4, 4, 8, 24), 64, False, False),
-    (C.deconv3d_bn_act, (1, 2, 3, 4, 12), 10, True, True),
+    (C.deconv3d_bn_act, (1, 2, 3, 4, 16), 10, True, True),
     (C.deconv3d_bn_act, (2, 3, 2, 5, 32), 64, False, False),
     (C.deconv3d_bn_act, (1, 2, 2, 3, 16), 33, False, True),
 ])
@@ -136,6 +137,8 @@ def test_tensor_core_convs_refuse_what_they_do_not_take(gen):
     C.conv3d_s1_bn_act(x, w)
   with pytest.raises(ValueError, match="multiple of 8"):
     C.conv3d_s2_bn_act(x, w)
+  with pytest.raises(ValueError, match="deconv3d_bn_act: Cin must be"):
+    C.deconv3d_bn_act(x, w.transpose(0, 1))
   with pytest.raises(ValueError, match="multiple of 8"):
     C2.conv2d_s1_bn_act(x[0], w[..., 0])
   with pytest.raises(ValueError, match="multiple of 8"):
@@ -150,6 +153,8 @@ def test_tensor_core_convs_refuse_what_they_do_not_take(gen):
   offset = torch.randn(x.numel() + 1, generator=gen, device="cuda")
   with pytest.raises(ValueError, match="aligned"):
     C.conv3d_s1_bn_act(offset[1:].view(x.shape), w)
+  with pytest.raises(ValueError, match="deconv3d_bn_act: .*aligned"):
+    C.deconv3d_bn_act(offset[1:].view(x.shape), w)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -299,6 +304,58 @@ def test_conv3d_s2_tensor_core_kernel_matches_plain(gen, x_shape, cout, relu,
   assert dict(kernels.LAUNCHES) == {"conv3d_s2_bn_act": 1}
   assert got.dtype == dtype and got.shape == want.shape
   _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,res,relu", [
+    ((1, 24, 128, 64, 64), 32, False, False),   # K5: hourglass conv6
+    ((2, 24, 128, 64, 64), 32, False, False),   # K5 at batch 2
+    ((1, 12, 64, 32, 64), 64, True, True),      # K7: conv5, + residual
+    ((1, 3, 5, 7, 16), 24, True, True),         # odd extents, Cin < stage
+    ((2, 1, 3, 2, 40), 72, False, True),        # D = 1; Cin 32 + 8; BN 128
+    ((1, 1, 1, 7, 8), 130, True, False),        # D = H = 1; three N tiles
+])
+def test_deconv_tensor_core_kernel_matches_plain(gen, x_shape, cout, res,
+                                                 relu, dtype):
+  """K5/K7's tensor-core kernel (conv_body at S = DECONV: the eight output
+  parity phases walked in one pipeline) against the plain version, the
+  weight packed once as DeconvBn3d keeps it, He-scaled so the outputs are
+  of order 1 (where one TF32 pass would miss the f32 bar)."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cin, cout, 3, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  oshape = (x_shape[0], *[2 * n for n in x_shape[1:4]], cout)
+  r = (torch.randn(oshape, generator=gen, device="cuda").to(dtype)
+       if res else None)
+  packed = C.pack_weight_tc(w, transpose=True)
+  kernels.reset_launches()
+  got = C.deconv3d_bn_act(x, packed, scale, bias, r, relu)
+  want = C.deconv3d_bn_act(x, w, scale, bias, r, relu, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"deconv3d_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape == oshape
+  _close(got, want, dtype)
+
+
+def test_deconv_entry_refuses_a_cin_off_its_copies(gen):
+  """The deconv's C entry returns cudaErrorInvalidValue (1) without
+  launching on Cin 12, which its 16-byte copies cannot take (the wrapper
+  refuses it before that)."""
+  x = torch.randn((1, 2, 3, 4, 16), generator=gen, device="cuda")
+  tw = C.pack_weight_tc(torch.randn((16, 8, 3, 3, 3), generator=gen,
+                                    device="cuda"), transpose=True)
+  one = torch.ones(8, device="cuda")
+  out = torch.full((1, 4, 6, 8, 8), 7.0, device="cuda")
+  err = C._deconv3d_lib().deconv3d_bn_act(
+      0, x.data_ptr(), tw.parts[0].data_ptr(), tw.parts[1].data_ptr(),
+      one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(), 1, 2, 3,
+      4, 12, 8, 0, torch.cuda.current_stream().cuda_stream)
+  torch.cuda.synchronize()
+  assert err == 1                                      # cudaErrorInvalidValue
+  assert bool((out == 7.0).all())                      # nothing launched
 
 
 @pytest.mark.parametrize("deconv,x_shape,cout", [

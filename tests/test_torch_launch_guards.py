@@ -9,7 +9,9 @@
    grad-input refuses a g it cannot copy 16 bytes at a time before that.
 3. Refusal: the Cout-1 head kernel's wrapper refuses a Cin whose shared
    memory (``conv3d_s1.cu:head_smem``) exceeds the card's 227 KB, before
-   any launch.
+   any launch; the tensor-core deconv's wrapper refuses what its 16-byte
+   copies and its K-major weight cannot take, and raises, uncounted, when
+   its C entry refuses a launch.
 """
 
 import contextlib
@@ -243,3 +245,46 @@ def test_head_kernel_refuses_a_cin_past_shared_memory(guard, dtype, cin,
     with pytest.raises(ValueError, match="Cout-1 head kernel"):
       run()
     assert not guard.calls
+
+
+# --- 4. the tensor-core deconv --------------------------------------------------
+
+def test_deconv_wrapper_refuses_what_its_copies_cannot_take(guard):
+  """The deconv copies x 16 bytes at a time and reads the K-major TcWeight
+  of the transpose conv's (I, O, k) weight: its wrapper refuses Cin 12,
+  an x off 16 bytes, a pack of another Cin and a pack made as a conv's
+  (whose plain version would read the tensor the other way round), each
+  with a ValueError naming the kernel, before any launch; Cin 16 launches
+  once, under the device guard."""
+  name = "deconv3d_bn_act"
+  one = torch.ones(8)
+
+  def run(x, w):
+    return C._launch(C._DECONV, x, w, one, 0 * one, None, False)
+
+  with pytest.raises(ValueError, match=f"{name}: Cin must be a multiple"):
+    run(torch.randn((1, 2, 3, 4, 12)), torch.randn((12, 8, 3, 3, 3)))
+  w = torch.randn((16, 8, 3, 3, 3))
+  x = torch.randn(2 * 3 * 4 * 16 + 1)[1:].view(1, 2, 3, 4, 16)
+  with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+    run(x, w)
+  x = x.clone()
+  with pytest.raises(ValueError, match=f"{name}: weight"):
+    run(x, C.pack_weight_tc(torch.randn((24, 8, 3, 3, 3)), transpose=True))
+  with pytest.raises(ValueError, match=f"{name}: weight"):
+    run(x, C.pack_weight_tc(w.transpose(0, 1).contiguous(), 2))
+  assert not guard.calls and not kernels.LAUNCHES
+  assert run(x, C.pack_weight_tc(w, transpose=True)).shape == (1, 4, 6, 8, 8)
+  assert guard.calls == [(name, torch.device("cpu"), 1000)]
+  assert dict(kernels.LAUNCHES) == {name: 1}
+
+
+def test_deconv_entry_refusal_raises_and_is_not_counted(guard, monkeypatch):
+  """The C entry returns cudaErrorInvalidValue (1) without launching on a
+  Cin that is not a multiple of 8 (a card test calls it directly); the
+  wrapper raises on that return and counts nothing."""
+  monkeypatch.setattr(C, "_deconv3d_lib",
+                      lambda: _Lib(guard, "deconv3d_bn_act", err=1))
+  with pytest.raises(RuntimeError, match="deconv3d_bn_act: .*CUDA error 1"):
+    _launches(guard)["deconv3d_bn_act"]()
+  assert not kernels.LAUNCHES

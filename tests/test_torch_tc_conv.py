@@ -177,23 +177,76 @@ def test_descriptor_reads_back_what_the_copies_wrote():
           assert _desc_read(base, r, kbyte, rb) == want
 
 
-def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1):
+def _phase_taps(p):
+  """igemm_tc.cuh:phase_taps: the taps of output parity phase p = 4 pd +
+  2 ph + pw of the transposed conv."""
+  return (1 + (p >> 2)) * (1 + (p >> 1 & 1)) * (1 + (p & 1))
+
+
+def _deconv_tap(t):
+  """igemm_tc.cuh:deconv_tap, the integer arithmetic of the kernel: tap t
+  of the deconv's walk (phases in order, each phase's taps in (jd, jh, jw)
+  order) as a byte: bits 0-4 the weight tap (kd * 3 + kh) * 3 + kw, bits
+  5, 6, 7 the input offsets ow, oh, od."""
+  starts = [sum(_phase_taps(q) for q in range(p)) for p in range(8)]
+  p, start = 0, 0
+  for q in range(1, 8):
+    if t >= starts[q]:
+      p, start = q, starts[q]
+  pd, ph, pw = p >> 2, p >> 1 & 1, p & 1
+  j = t - start
+  jw = j & 1 if pw else 0
+  j >>= pw
+  jh = j & 1 if ph else 0
+  jd = j >> ph if pd else 0
+  wtap = (((2 * jd if pd else 1) * 3 + (2 * jh if ph else 1)) * 3
+          + (2 * jw if pw else 1))
+  return (wtap | (1 - jw if pw else 0) << 5 | (1 - jh if ph else 0) << 6
+          | (1 - jd if pd else 0) << 7)
+
+
+# igemm_tc.cuh:deconv_word(0..3), the 27 bytes eight to a 64-bit word, and
+# phase_ends(), bit t set where tap t ends its phase
+DECONV_WORDS = [sum(_deconv_tap(t) << (8 * (t - 8 * w))
+                    for t in range(8 * w, min(8 * w + 8, 27)))
+                for w in range(4)]
+PHASE_ENDS = sum(1 << (sum(_phase_taps(q) for q in range(p + 1)) - 1)
+                 for p in range(8))
+
+
+def _deconv_tap_at(t):
+  """igemm_tc.cuh:deconv_tap_at: (od, oh, ow), weight tap of tap t, read
+  from the words as the kernel reads them."""
+  w = DECONV_WORDS[0 if t < 8 else 1 if t < 16 else 2 if t < 24 else 3]
+  b = (w >> (8 * (t & 7))) & 0xFF
+  return (b >> 7, b >> 6 & 1, b >> 5 & 1), b & 31
+
+
+def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1, deconv=False):
   """The kernel's walk over one call, in f64: the copies of each stage
   into shared memory, the reads of A (f32: each thread's tf32 fragment;
   bf16: the descriptor) and B (the descriptor), the products, and the
   epilogue's scatter of the accumulator fragments. x (N, D, H, W, Cin),
   wk the K-major weight (taps, Cout, Cin), which the f32 kernel gets padded
   and permuted as the host packs it; the output extents are the input's
-  over ``stride``, rounded up."""
+  over ``stride``, rounded up. With ``deconv`` the walk of the transposed
+  conv (S = DECONV): M the input grid, the taps of ``_deconv_tap``, and
+  after each phase's last stage the epilogue into that phase's output
+  voxels, returned as (N * 2D * 2H * 2W, Cout) rows."""
   cfg = CFG[dtype]
   esize, rb = cfg["esize"], cfg["rb"]
   ch, cpr = 16 // esize, rb // 16          # channels per chunk, chunks/row
   nt = 2 * bm
   n, d, h, w, cin = x.shape
-  do, ho, wo = (-(-e // stride) for e in (d, h, w))
+  do, ho, wo = (d, h, w) if deconv else (-(-e // stride) for e in (d, h, w))
   cout = wk.shape[1]
   mtot = n * do * ho * wo
-  taps = _taps(kd, dil)
+  if deconv:
+    walk = [_deconv_tap_at(t) for t in range(27)]
+    taps = [off for off, _ in walk]
+    ckc = ctap = cphase = 0       # the kernel's stage counters
+  else:
+    taps = _taps(kd, dil)
   nkc = -(-cin // BK)
   a_bytes, b_bytes = bm * rb, bn * rb
   assert (a_bytes + cfg["parts"] * b_bytes) % 1024 == 0 and b_bytes % 1024 == 0
@@ -203,13 +256,44 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1):
     wcin = len(order)
     wk = np.pad(wk, ((0, 0), (0, 0), (0, wcin - cin)))[..., order]
   xf, wf = x.reshape(-1), wk.reshape(-1)
-  out = np.full((mtot, cout), np.nan)
+  out = np.full((8 * mtot if deconv else mtot, cout), np.nan)
+
+  def scatter(acc, m0, n0, out_row):
+    # the epilogue: fragment element 4j + 2hh + e of (wg, warp, lane)
+    for wg in range(bm // 64):
+      for warp in range(4):
+        for lane in range(32):
+          er = m0 + wg * 64 + warp * 16 + lane // 4
+          for j in range(bn // 8):
+            for hh in range(2):
+              for e in range(2):
+                r = wg * 64 + warp * 16 + lane // 4 + 8 * hh
+                co = n0 + 8 * j + 2 * (lane % 4) + e
+                if m0 + r < mtot and co < cout:
+                  o = out_row(er, m0 + r)
+                  assert o % cout == 0 and np.isnan(out[o // cout, co])
+                  out[o // cout, co] = acc[r, co - n0]
+
+  def deconv_row(phase):
+    # the kernel's eo of the thread's rows er and er + 8, plus the phase's
+    # voxel offset, in elements
+    pd, ph, pw = phase >> 2, phase >> 1 & 1, phase & 1
+    po = ((pd * 2 * ho + ph) * 2 * wo + pw) * cout
+
+    def eo(m):
+      q = m // wo
+      bz = q // ho
+      return ((2 * bz * 2 * ho + 2 * (q - bz * ho)) * 2 * wo
+              + 2 * (m - q * wo)) * cout
+    return lambda er, m: (eo(er) if m == er else eo(er + 8)) + po
+
   for m0 in range(0, mtot, bm):
     for n0 in range(0, cout, bn):
       acc = np.zeros((bm, bn))
       for step in range(len(taps) * nkc):
         tap, kc = divmod(step, nkc)
         od, oh, ow = taps[tap]
+        wtap = walk[tap][1] if deconv else tap
         smem = np.full((a_bytes + b_bytes) // esize, np.nan)
         # A: thread tid copies chunk tid % cpr of rows tid // cpr + i nt/cpr
         for tid in range(nt):
@@ -234,7 +318,7 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1):
           nn, c = divmod(idx, cpr)
           co, c0 = n0 + nn, kc * BK + c * ch
           ok = co < cout and c0 < wcin
-          src = (tap * cout + co) * wcin + c0
+          src = (wtap * cout + co) * wcin + c0
           dst = (a_bytes + _swizzle(nn, c, rb)) // esize
           smem[dst:dst + ch] = wf[src:src + ch] if ok else 0.0
         # B through the descriptor, every (n, k) of the stage
@@ -265,18 +349,20 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1):
                   for k in kb]
         assert not np.isnan(a_tile).any() and not np.isnan(b_tile).any()
         acc += a_tile @ b_tile.T
-      # the epilogue: fragment element 4j + 2hh + e of (wg, warp, lane)
-      for wg in range(bm // 64):
-        for warp in range(4):
-          for lane in range(32):
-            for j in range(bn // 8):
-              for hh in range(2):
-                for e in range(2):
-                  r = wg * 64 + warp * 16 + lane // 4 + 8 * hh
-                  co = n0 + 8 * j + 2 * (lane % 4) + e
-                  if m0 + r < mtot and co < cout:
-                    assert np.isnan(out[m0 + r, co])
-                    out[m0 + r, co] = acc[r, co - n0]
+        if deconv:
+          ckc += 1
+          if ckc == nkc:
+            ckc = 0
+            if PHASE_ENDS >> ctap & 1:
+              scatter(acc, m0, n0, deconv_row(cphase))
+              acc = np.zeros((bm, bn))
+              cphase += 1
+            ctap += 1
+      if deconv:
+        assert (ckc, ctap, cphase) == (0, 27, 8)
+        ckc = ctap = cphase = 0
+      else:
+        scatter(acc, m0, n0, lambda er, m: m * cout)
   return out
 
 
@@ -327,6 +413,74 @@ def test_stride2_walk_rebuilds_the_conv(x_shape, cout, bm, dtype):
   # and the plain stride-2 conv of the port agrees with the im2col
   plain = C.conv3d_s2_bn_act(torch.from_numpy(x).float(), torch.from_numpy(
       wk.reshape(3, 3, 3, cout, cin).transpose(3, 4, 0, 1, 2).copy()).float())
+  assert np.allclose(plain.reshape(-1, cout).numpy(), want, atol=1e-3)
+
+
+def test_deconv_taps_cover_the_kernel_once():
+  """The 27 taps of the deconv's walk: phase p's (1 + pd)(1 + ph)(1 + pw)
+  in a row, ending at taps 0, 2, 4, 8, 10, 14, 18, 26; every weight tap
+  once; each tap's input offset and kernel index satisfy o = 2 i - 1 + k
+  for the phase's output o = 2 z + parity, input i = z + offset; and the
+  packed words are those the kernel's constexpr functions give (evaluated
+  by a C++17 compiler from igemm_tc.cuh)."""
+  walk = [_deconv_tap_at(t) for t in range(27)]
+  assert sorted(wt for _, wt in walk) == list(range(27))
+  ends = [t for t in range(27) if PHASE_ENDS >> t & 1]
+  assert ends == [0, 2, 4, 8, 10, 14, 18, 26]
+  starts = [0] + [e + 1 for e in ends[:-1]]
+  for p in range(8):
+    assert ends[p] - starts[p] + 1 == _phase_taps(p)
+    for t in range(starts[p], ends[p] + 1):
+      off, wtap = walk[t]
+      ks = (wtap // 9, wtap // 3 % 3, wtap % 3)
+      for parity, o, k in zip((p >> 2, p >> 1 & 1, p & 1), off, ks):
+        assert o <= parity                  # offset +1 only on odd axes
+        z = 5
+        assert 2 * z + parity == 2 * (z + o) - 1 + k
+  assert DECONV_WORDS[0] == 0x2F4B69104A0E2C0D
+  assert DECONV_WORDS[3] == 0x1A3854
+
+
+def _deconv_im2col(x, wt):
+  """The transposed conv k3 s2 p1 op1 as a stride-1 conv: x (N, D, H, W,
+  Cin) stuffed with zeros to (N, 2D, 2H, 2W, Cin), its im2col at the 27
+  taps (offsets kd' - 1, ...) times the flipped torch (I, O, k) weight."""
+  n, d, h, w, cin = x.shape
+  u = np.zeros((n, 2 * d, 2 * h, 2 * w, cin))
+  u[:, ::2, ::2, ::2] = x
+  wf = wt[:, :, ::-1, ::-1, ::-1].transpose(2, 3, 4, 0, 1)
+  return _im2col(u, _taps(3, 1)) @ wf.reshape(27 * cin, -1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("x_shape,cout,bm", [
+    ((1, 3, 5, 7, 16), 24, 64),     # odd extents, Cin < a stage
+    ((2, 1, 3, 2, 40), 72, 128),    # D = 1; Cin 32 + 8, N tile 128
+    ((1, 2, 1, 5, 8), 8, 64),       # H = 1, Cout 8
+    ((1, 2, 4, 9, 32), 24, 128),    # BM 128 over 72 rows: a ragged M tile
+])
+def test_deconv_walk_rebuilds_the_transpose_conv(x_shape, cout, bm, dtype):
+  """conv3d.cu's walk (conv_body at S = DECONV): each phase's taps at input
+  offsets 0 or +1, zero-filled past the far edge and past Cin, the
+  swizzled copies and fragment reads as for the convs, and after each
+  phase's last stage the epilogue's out_row (the thread's two rows' base
+  voxel plus the phase's offset) rebuild the transposed conv exactly on
+  integer-valued inputs: every output voxel written once."""
+  rng = np.random.default_rng(6)
+  cin = x_shape[-1]
+  x = rng.integers(-4, 5, x_shape).astype(np.float64)
+  wt = rng.integers(-4, 5, (cin, cout, 3, 3, 3)).astype(np.float64)
+  packed = C.pack_weight_tc(torch.from_numpy(wt), transpose=True)
+  assert packed.transposed and packed.parts.shape[1:3] == (27, cout)
+  wk = wt.transpose(2, 3, 4, 1, 0).reshape(27, cout, cin)
+  bn = _tile(1, cout)[1]
+  got = _walk_conv(x, wk, 3, 1, dtype, bm, bn, deconv=True)
+  want = _deconv_im2col(x, wt)
+  assert not np.isnan(got).any()
+  assert np.array_equal(got, want)
+  # and the port's plain deconv agrees with the im2col
+  plain = C.deconv3d_bn_act(torch.from_numpy(x).float(),
+                            torch.from_numpy(wt).float())
   assert np.allclose(plain.reshape(-1, cout).numpy(), want, atol=1e-3)
 
 
@@ -397,6 +551,41 @@ def test_kmajor_split_packing(two_d):
     bf = mod.pack_weight_tc(w.bfloat16())
     assert bf.parts.shape == (1, *ref.shape)
     assert torch.equal(bf.parts[0], ref.bfloat16())
+
+
+def test_deconv_kmajor_packing():
+  """pack_weight_tc(transpose=True): the deconv's torch (I, O, 3, 3, 3)
+  weight as K-major (27, O, I), tap (kd * 3 + kh) * 3 + kw, in f32 padded,
+  permuted and split as the convs' (always split: no Cout-1 head kernel
+  here), bf16 whole; the TcWeight keeps the torch weight and is marked
+  transposed, and kmajor.operands takes it for an x of Cin = I only."""
+  gen = torch.Generator().manual_seed(9)
+  cin, cout = 24, 1
+  w = torch.randn((cin, cout, 3, 3, 3), generator=gen)
+  packed = C.pack_weight_tc(w, transpose=True)
+  ref = w.permute(2, 3, 4, 1, 0).reshape(27, cout, cin)
+  assert torch.equal(ref[9 * 2 + 3 * 0 + 1], w[:, :, 2, 0, 1].T)
+  assert torch.equal(ref, C.pack_weight(w, transpose=True).transpose(1, 2))
+  assert packed.transposed and torch.equal(packed.weight, w)
+  assert packed.cout == cout
+  order = torch.from_numpy(_tf32_channel_order(cin))
+  refp = torch.nn.functional.pad(ref, (0, 32 - cin))[..., order]
+  big, small = packed.parts
+  assert torch.equal(big, tf32_round(refp))
+  assert torch.equal(small, tf32_round(refp - big))
+  bf = C.pack_weight_tc(w.bfloat16(), transpose=True)
+  assert bf.parts.shape == (1, 27, cout, cin)
+  assert torch.equal(bf.parts[0], ref.bfloat16())
+  x = torch.randn((1, 2, 2, 2, cin), generator=gen)
+  wbig, wsmall = kmajor.operands("deconv3d_bn_act", x, packed, 27, True,
+                                 transposed=True)
+  assert (wbig, wsmall) == (big.data_ptr(), small.data_ptr())
+  # the same tensor packed as a conv's (Cout = I, Cin = O) is refused
+  with pytest.raises(ValueError, match="deconv3d_bn_act: weight"):
+    kmajor.operands("deconv3d_bn_act", x, C.pack_weight_tc(w, 2), 27, True,
+                    transposed=True)
+  with pytest.raises(ValueError, match="conv3d_s2_bn_act: weight"):
+    kmajor.operands("conv3d_s2_bn_act", x, packed, 27, True)
 
 
 # --- the sphere conv (sphere_conv.cu) ----------------------------------------
