@@ -84,12 +84,15 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 # peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W): memory; the
 # products of a conv, f32 at what the card does at f32 accuracy (3xTF32 on
-# the tensor cores, 495 / 3 TFLOP/s), bf16 on the tensor cores; and the FP32
+# the tensor cores, 495 / 3 TFLOP/s), bf16 on the tensor cores; the FP32
 # pipes, for the work that cannot go to the tensor cores (the sphere convs'
-# bilinear blends, the regression head)
+# bilinear blends, the regression head's lerps and sums); and the special-
+# function units, which take the regression head's exps (MUFU.EX2): 16
+# results a clock per SM, 132 SMs at the data sheet's 1.98 GHz boost clock
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 PIPE_OPS_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 CONV_PY = "mode_tpu/ops/pallas/conv3d_kernel.py"
 CONV2D_PY = "mode_tpu/ops/pallas/conv2d_kernel.py"
 SPHERE_PY = "mode_tpu/ops/pallas/sphere_conv_kernel.py"
@@ -268,10 +271,13 @@ def _close(got, want, dtype):
   return float(diff.max()), rel, ok
 
 
-def _bound(ops_n, nbytes, dtype, pipe_ops=0):
+def _bound(ops_n, nbytes, dtype, pipe_ops=0, sfu_ops=0):
   """The least time for ``ops_n`` conv products at the ``dtype`` rate plus
-  ``pipe_ops`` on the FP32 pipes, or for ``nbytes``, whichever is longer."""
-  t_ops = (ops_n / PEAK_OPS_PER_S[dtype] + pipe_ops / PIPE_OPS_PER_S) * 1e3
+  ``pipe_ops`` on the FP32 pipes, or for ``sfu_ops`` on the special-function
+  units (which run beside the FP32 pipes), or for ``nbytes``, whichever is
+  longest."""
+  t_ops = max(ops_n / PEAK_OPS_PER_S[dtype] + pipe_ops / PIPE_OPS_PER_S,
+              sfu_ops / SFU_OPS_PER_S) * 1e3
   t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
   return {"bound_ms": max(t_ops, t_bytes),
           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -390,10 +396,13 @@ def _regression_case(case, dtype, gen):
   kernel_ms, plain_ms = _time_in_turns(
       [lambda: fn(cost, maxdisp, h, w),
        lambda: fn(cost, maxdisp, h, w, plain=True)], 5)
-  # operations: per output pixel, a bilinear blend of each of the d source
-  # levels (3 lerps, 6 flops) and per disparity level one lerp, one exp and
-  # the three running sums (6 operations)
-  ops_n = n * h * w * (6 * d + 6 * maxdisp)
+  # operations the function needs: per output pixel, a bilinear blend of
+  # each of the d source levels (3 lerps, 6 flops), and per disparity level
+  # one lerp (3 flops), the shift and the two sums (an add and an FMA) on
+  # the FP32 pipes, and one exp on the special-function units; the
+  # confidence's three probabilities are among those levels' terms
+  pipe_ops = n * h * w * (6 * d + 7 * maxdisp)
+  exps = n * h * w * maxdisp
   nbytes = cost.numel() * cost.element_size() + 2 * n * h * w * 4
   return {"name": "fused_disparity_regression",
           "dtype": str(dtype).split(".")[1],
@@ -402,7 +411,7 @@ def _regression_case(case, dtype, gen):
           "conf_max_abs_err": conf_err, "conf_ties_left_out": int(tie.sum()),
           "max_rel_err": pred_rel, "pass": pred_ok and conf_ok,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-          **_bound(0, nbytes, torch.float32, ops_n)}
+          "exps": exps, **_bound(0, nbytes, torch.float32, pipe_ops, exps)}
 
 
 def _randomize_for_serving(model, seed: int) -> None:
@@ -773,7 +782,7 @@ def _profile(fn, args):
   launches, synchronisations, copies."""
   from torch.profiler import ProfilerActivity, profile
   kinds = (("port: sphere conv backward", ("bwd_input_tc_kernel",
-                                           "bwd_weight_kernel",
+                                           "bwd_weight_tc_kernel",
                                            "reduce_splits_kernel")),
            ("port: sphere conv forward", ("sphere_conv_tc_kernel",)),
            ("port: 3-D convs", ("deconv3d_tc_kernel",

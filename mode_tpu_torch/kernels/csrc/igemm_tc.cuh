@@ -1,7 +1,8 @@
 // The tensor-core implicit GEMM of the port's convolutions (conv3d_s1.cu,
 // conv3d_s2.cu, conv3d.cu, conv2d.cu; the sphere conv's forward and grad-input,
 // sphere_conv.cu and sphere_conv_bwd.cu, build their A operand themselves,
-// in sphere_tc.cuh, and share the rest), for sm_90a.
+// in sphere_tc.cuh, and its weight gradient, in sphere_conv_bwd.cu, its A
+// and B; they share the rest), for sm_90a.
 //
 // A block computes a BM x BN tile of out[M, N]: M the output voxels (or
 // pixels, a 2-D map being a volume of depth 1) in NDHW order, N the output

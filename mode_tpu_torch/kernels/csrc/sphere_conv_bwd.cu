@@ -60,33 +60,68 @@
 // bf16 blended in f32 and rounded once. The epilogue writes dx in g's type
 // at (n, band c, lane l): Cassini (row l, column c), ERP (row c, column l).
 //
-// sphere_conv_bwd_weight (dw), on the FP32 pipes. dw[k, ci, co] = sum over
-// the N*H*W pixels of col[p, k, ci] * g[p, co], col being the forward's
-// blended sample, rebuilt from the forward's B x 9 shift tables (int4
-// (sigma, b0, b1, drop), float4 the corner weights) as sphere_conv.cu's A
-// gather builds it. A GEMM of M = 9*Cin, N = Cout and K = pixels:
-// blockIdx.z splits the pixels into `nsplit` ranges, each block writes its
-// f32 partial sums, and a second kernel adds the partials in split order.
-// On the TPU the sequential grid carried the sum across blocks; here blocks
-// run in no order, and the fixed order of the second pass keeps dw
-// deterministic. It accumulates in f32, for bf16 inputs too.
+// sphere_conv_bwd_weight (dw), on the tensor cores. dw[k, ci, co] = sum
+// over the N*H*W pixels p of col[p, k, ci] * g[p, co], col being the
+// forward's blended sample, rebuilt from the forward's B x 9 shift tables
+// (int4 (sigma, b0, b1, drop), float4 the corner weights) with the
+// forward's edge rules. As the Pallas kernel forms g @ col^T, the kernel
+// (bwd_weight_tc_kernel) computes dw^T: a GEMM of M = Cout (128 rows, two
+// warpgroups), N = one tap x up to 128 input channels, K = pixels. A K
+// stage is one run of 32 consecutive lanes of one band index, so the
+// stage's shift-table entry is the same for the whole block: its two
+// source band indices b0, b1 and its lane shift sigma.
+//   wgmma reads a tf32 operand from shared memory only K-major, and K is
+// the pixel axis while x and g are contiguous along channels, so one
+// operand is transposed on chip. The layout taken (the recommended one):
+//   A = g^T from registers. The block copies the run's 32 rows of g (128
+//     channels each) by zero-fill cp.async into a tile whose 16-byte chunks
+//     are XOR-swizzled by row / 8, and each thread reads its fragment's 16
+//     values (output channels r0 and r0 + 8, pixels 8q .. 8q + 7) with no
+//     bank conflict and splits them for 3xTF32, as conv_body splits its A.
+//   B = col, K-major in shared memory, written by the threads. The block
+//     copies the two corner tiles of the stage, 33 rows each (lanes (l0 +
+//     sigma + t) mod L, t = 0 .. 32, of bands b0 and b1: a sample reads its
+//     lane s and s + 1), zero-filled past the run's rows and past Cin. Each
+//     thread blends 4 channels x 4 pixels on the FP32 pipes (four float4
+//     reads a pixel, chunks XOR row & 7: conflict-free) and stores each
+//     channel's four values, split into their TF32 parts, as one 16-byte
+//     chunk of the 128-byte-swizzled B tile: the permutation of
+//     ops/kmajor.py:pack applied to pixels (K position q + 4j holds pixel
+//     8q + j) makes a thread's four pixels one chunk of B and its A
+//     fragment two runs of 8 pixels, and keeps the stores conflict-free.
+// The other orientation (col as A from registers, g^T written K-major)
+// would gather 64 scalar corner values a thread per stage instead of 16
+// float4s. B is double-buffered: the wgmma of stage s is issued, then the
+// threads blend stage s + 1 into the other buffer, then they wait for the
+// products, which go to a fresh fragment added on the FP32 pipes (the f32
+// rule of igemm_tc.cuh; never one TF32 pass). Copies run three stages
+// ahead in f32 (50 KB a stage at BN = 128, beside the two 32 KB B
+// buffers), four in bf16. bf16 inputs are widened to f32 on read and take
+// the same 3xTF32 route, so dw is the f32 sum for both types.
+//   Split-K: blockIdx.z takes a range of `chunk` stages of the walk over
+// (image, band index, run); each block writes its f32 partial sums to
+// `part`, and a second kernel adds them in split order. On the TPU the
+// sequential grid carried the sum across blocks; here blocks run in no
+// order, and the fixed order of the second pass keeps dw deterministic,
+// with no atomics. ops/sphere_conv.py:_weight_splits sizes the splits so
+// the grid fills whole waves of the card's SMs.
 //
 // What bounds them on the card: each costs the forward's 2*9*Cin*Cout flops
 // per pixel (295 kflop at 128 -> 128) against (Cin + Cout) values of
-// traffic, so both are bound by arithmetic. dx runs it on the tensor cores;
-// per stage a 128-row block moves ~1.9 halo tiles of 129 rows (the
-// forward: four corner tiles of 128) plus the stage's B. Two tiles a stage
-// rather than four leave room for three f32 stages in flight (66 KB each
-// at BM = BN = 128) and for two bf16 blocks on an SM. dw still runs on
-// igemm.cuh's FP32-pipe tile machinery, its own tile loop of the same shape.
+// traffic, so both are bound by arithmetic, on the tensor cores. dx: per
+// stage a 128-row block moves ~1.9 halo tiles of 129 rows (the forward:
+// four corner tiles of 128) plus the stage's B. Two tiles a stage rather
+// than four leave room for three f32 stages in flight (66 KB each at BM =
+// BN = 128) and for two bf16 blocks on an SM. dw: per stage of 32 pixels
+// and 128 x 128 products a block copies 66 rows of x and 32 of g, blends
+// 4096 samples and writes them twice (big and small), and both
+// warpgroups read the B tile through wgmma: shared memory traffic about
+// as long as the 3xTF32 products, which the double-buffered B overlaps.
 
-#include "igemm.cuh"
 #include "sphere_tc.cuh"
 
 namespace {
 
-using igemm::BK;  // the dw kernel's channels per K step (dx: tc::BK)
-using igemm::NT;  // the dw kernel's threads per block
 constexpr int TAPS = 9;
 constexpr int MAXE = 4;  // output band indices per (input band index, tap)
 // Halo tiles per dx stage: a tap's entries go through in passes of MAXT.
@@ -364,138 +399,333 @@ int run_input(int bf16, const void* g, const void* wbig, const void* wsmall,
 
 // ---- dw --------------------------------------------------------------------
 
-// dw partial sums: block (x, y, z) sums rows m = k*Cin + ci in
-// [x*BM, x*BM + BM) and channels co in [y*BN, y*BN + BN) over the pixels
-// p = (n*H + i)*W + j in [z*chunk, z*chunk + chunk) into
-// part[z][m][co]. Each thread stages, per step of BK pixels, the A values
-// of one row (fixed tap and channel, so the warp's loads are channel-
-// contiguous) at BK*BM/NT pixels, and BK*BN/NT values of g.
-template <typename T, int BM, int BN, int TM, int TN, bool ERP>
-__global__ void __launch_bounds__(NT)
-bwd_weight_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                  const int4* __restrict__ itab,
-                  const float4* __restrict__ ftab, float* __restrict__ part,
-                  int nb, int h, int wd, int cin, int cout, int chunk) {
-  static_assert((BM / TM) * (BN / TN) == NT, "one thread per TM x TN tile");
-  static_assert(NT % BM == 0 && (BK * BM) % NT == 0, "whole A columns");
-  constexpr int RA = BK * BM / NT;             // A values staged per thread
-  constexpr int PS = NT / BM;                  // pixel stride of those
-  constexpr int RB = (BK * BN + NT - 1) / NT;  // g values staged per thread
-  constexpr int AP = BM + 4;
-  __shared__ __align__(16) float As[2][BK][AP];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+// The dw tile: DW_BM = 128 output channels (two warpgroups of 64 rows), a
+// K stage one run of DW_BK = 32 consecutive lanes of one band index, and
+// its corner tiles DW_BK + 1 rows (a sample reads its lane s and s + 1).
+constexpr int DW_BM = 128;
+constexpr int DW_THREADS = 2 * DW_BM;
+constexpr int DW_BK = 32;
+constexpr int DW_HALO = DW_BK + 1;
+
+// Bytes of one part of a B buffer (BN rows of the 32 K positions, f32), of
+// a corner tile (DW_HALO rows of BN channels of x, whole 128-byte lines),
+// of the g tile (DW_BK pixels of DW_BM channels), of a copy stage (two
+// corner tiles and the g tile), the copy stages in flight (as many as fit
+// beside the four B parts, at most four) and the block's dynamic shared
+// memory.
+template <int BN>
+__host__ __device__ constexpr int dw_b_bytes() {
+  return BN * tc::Cfg<float>::RB;
+}
+template <typename T, int BN>
+__host__ __device__ constexpr int dw_corner_bytes() {
+  return (DW_HALO * BN * (int)sizeof(T) + 127) / 128 * 128;
+}
+template <typename T>
+__host__ __device__ constexpr int dw_g_bytes() {
+  return DW_BK * DW_BM * (int)sizeof(T);
+}
+template <typename T, int BN>
+__host__ __device__ constexpr int dw_stage_bytes() {
+  return 2 * dw_corner_bytes<T, BN>() + dw_g_bytes<T>();
+}
+template <typename T, int BN>
+__host__ __device__ constexpr int dw_stages() {
+  const int fit =
+      (tc::SMEM_MAX - 1024 - 4 * dw_b_bytes<BN>()) / dw_stage_bytes<T, BN>();
+  return fit < 4 ? fit : 4;
+}
+template <typename T, int BN>
+__host__ __device__ constexpr int dw_smem_bytes() {
+  return 4 * dw_b_bytes<BN>() + dw_stages<T, BN>() * dw_stage_bytes<T, BN>() +
+         1024;
+}
+
+// The byte offset of 16-byte chunk c of row t of a corner tile (rows of
+// BN * sizeof(T) bytes, at least 128): the chunk XOR t & 7, so the eight
+// threads that read one chunk column of eight consecutive rows hit eight
+// different bank groups.
+template <typename T, int BN>
+__device__ __forceinline__ uint32_t dw_corner_at(int t, int c) {
+  return t * BN * (int)sizeof(T) + ((c ^ (t & 7)) << 4);
+}
+// The byte offset of 16-byte chunk c of pixel row i of the g tile: the
+// chunk XOR a function of i >> 3, so the four rows 8q + j (q = 0..3) that
+// one A fragment load reads at once land in different bank groups.
+template <typename T>
+__device__ __forceinline__ uint32_t dw_g_at(int i, int c) {
+  const int sw = sizeof(T) == 4 ? ((i >> 3) & 3) << 1 : (i >> 3) & 3;
+  return i * DW_BM * (int)sizeof(T) + ((c ^ sw) << 4);
+}
+// Channels 4 cg .. 4 cg + 3 of row t of a corner tile, in f32.
+template <typename T, int BN>
+__device__ __forceinline__ float4 dw_corner4(const uint8_t* tile, int t,
+                                             int cg) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const float4*>(tile +
+                                            dw_corner_at<T, BN>(t, cg));
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        tile + dw_corner_at<T, BN>(t, cg >> 1) + 8 * (cg & 1));
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// dw partial sums, dw^T = g^T col per block: the GEMM M = Cout, N = one
+// tap x BN input channels, K = the pixels of the block's split, one K
+// stage per run of 32 lanes of one band index. Block (x, y, z): tap
+// x / ntile and channels (x % ntile) * BN .., output channels y * DW_BM ..,
+// stages [z * chunk, z * chunk + chunk) of the walk over (image, band
+// index, run); it writes part[z][tap * Cin + ci][co].
+template <typename T, int BN, bool ERP>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+bwd_weight_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     const int4* __restrict__ itab,
+                     const float4* __restrict__ ftab,
+                     float* __restrict__ part, int nb, int h, int wd,
+                     int cin, int cout, int chunk) {
+  constexpr int CH = 16 / sizeof(T);             // channels per chunk
+  constexpr int XCPR = BN / CH;                  // chunks per corner row
+  constexpr int GCPR = DW_BM / CH;               // chunks per g row
+  constexpr int B_BYTES = dw_b_bytes<BN>();
+  constexpr int CORNER = dw_corner_bytes<T, BN>();
+  constexpr int STAGE = dw_stage_bytes<T, BN>();
+  constexpr int STAGES = dw_stages<T, BN>();
+  static_assert(BN * sizeof(T) >= 128, "corner rows of eight chunks or more");
+  static_assert(B_BYTES % 1024 == 0 && STAGE % 128 == 0,
+                "1024-byte aligned B parts, 128-byte aligned copy stages");
+  static_assert(STAGES >= 3, "three copy stages in flight");
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  // B buffer b, part p (big, small) at (2 b + p) * B_BYTES; the copy
+  // stages after them
+  uint8_t* const stages = smem + 4 * B_BYTES;
+  const uint32_t stages_u32 = base + 4 * B_BYTES;
 
   const int tid = threadIdx.x;
-  const int mrows = TAPS * cin;
-  const long long ptot = (long long)nb * h * wd;
-  const long long p_lo = (long long)blockIdx.z * chunk;
-  const long long p_hi = min(p_lo + chunk, ptot);
-  const int n0 = blockIdx.y * BN;
+  const int ntile = (cin + BN - 1) / BN;
+  const int tap = blockIdx.x / ntile;
+  const int c0 = blockIdx.x % ntile * BN;
+  const int m0 = blockIdx.y * DW_BM;
+  const int nband = ERP ? h : wd, nlane = ERP ? wd : h;
+  const int runs = (nlane + DW_BK - 1) / DW_BK;
+  const long long total = (long long)nb * nband * runs;
+  const long long s_lo = (long long)blockIdx.z * chunk;
+  const int nsteps = (int)max(0LL, min((long long)chunk, total - s_lo));
 
-  // this thread's A row: tap k, channel ci
-  const int am = blockIdx.x * BM + tid % BM;
-  const bool arow = am < mrows;
-  const int ak = arow ? am / cin : 0;
-  const int aci = arow ? am % cin : 0;
-  const int apix = tid / BM;
-  const long long img = (long long)h * wd;
-  // the lane extent, and the element steps of one band and one lane
-  const int nlane = ERP ? wd : h;
-  const long long band_step = ERP ? (long long)wd * cin : cin;
-  const long long lane_step = ERP ? cin : (long long)wd * cin;
+  // the stage's image, band index, first lane and lanes (at most DW_BK)
+  struct Run {
+    long long img;
+    int band, l0, rows;
+  };
+  auto run_of = [&](int step) {
+    long long s = s_lo + step;
+    Run r;
+    r.l0 = (int)(s % runs) * DW_BK;
+    s /= runs;
+    r.band = (int)(s % nband);
+    r.img = s / nband * h * wd;
+    r.rows = min(DW_BK, nlane - r.l0);
+    return r;
+  };
+  auto pixel = [&](long long img, int b, int l) {
+    return img + (ERP ? (long long)b * wd + l : (long long)l * wd + b);
+  };
 
-  float ra[RA], rb[RB];
-  auto fetch = [&](long long p0) {
+  // The copies of a stage: the two corner tiles, row t the lane (l0 +
+  // sigma + t) mod L of source band index b0 (tile 0) or b1 (tile 1), live
+  // for t <= rows (the rows a sample of the run reads); the g tile, row i
+  // output lane l0 + i, live for i < rows. Every copy is issued, zero-
+  // filled where it is not live and past Cin or Cout.
+  auto load = [&](int step, int slot) {
+    const Run r = run_of(step);
+    const int4 it = __ldg(itab + r.band * TAPS + tap);
+    int sl = r.l0 + it.x;
+    if (sl >= nlane) sl -= nlane;
+    const uint32_t su = stages_u32 + slot * STAGE;
+    for (int idx = tid; idx < 2 * DW_HALO * XCPR; idx += DW_THREADS) {
+      const int e = idx / (DW_HALO * XCPR);
+      const int t = idx / XCPR % DW_HALO, cc = idx % XCPR;
+      const int ci = c0 + cc * CH;
+      int l = sl + t;
+      if (l >= nlane) l -= nlane;
+      const bool ok = t <= r.rows && ci < cin;
+      tc::cp_async16(
+          su + e * CORNER + dw_corner_at<T, BN>(t, cc),
+          ok ? x + pixel(r.img, e ? it.z : it.y, l) * cin + ci : x, ok);
+    }
+    for (int idx = tid; idx < DW_BK * GCPR; idx += DW_THREADS) {
+      const int i = idx / GCPR, cc = idx % GCPR;
+      const int co = m0 + cc * CH;
+      const bool ok = i < r.rows && co < cout;
+      tc::cp_async16(su + 2 * CORNER + dw_g_at<T>(i, cc),
+                     ok ? g + pixel(r.img, r.band, r.l0 + i) * cout + co : g,
+                     ok);
+    }
+  };
+
+  // The blend of a stage into B buffer `buf`: thread (j = tid % 8, cg =
+  // tid / 8) forms channels 4 cg .. 4 cg + 3 of the stage's pixels j,
+  // j + 8, j + 16 and j + 24, in f32, and stores each channel's four
+  // values, split into their TF32 parts, as chunk j of B row 4 cg + c: K
+  // position q + 4 j holds pixel 8 q + j (ops/kmajor.py:pack's permutation,
+  // on the pixels), so that the A fragment's values are 8 consecutive
+  // pixels. A pixel past the run, or on the drop lane, is zero; the
+  // successor of lane L - 1 weighs zero.
+  const int bj = tid & 7, cg = tid >> 3;
+  auto blend = [&](int step, int slot, int buf) {
+    if (cg >= BN / 4) return;
+    const Run r = run_of(step);
+    const int4 it = __ldg(itab + r.band * TAPS + tap);
+    const float4 f = __ldg(ftab + r.band * TAPS + tap);
+    int sl = r.l0 + it.x;
+    if (sl >= nlane) sl -= nlane;
+    const uint8_t* t0 = stages + slot * STAGE;
+    const uint8_t* t1 = t0 + CORNER;
+    float v[4][4];
 #pragma unroll
-    for (int q = 0; q < RA; ++q) {
-      const long long p = p0 + apix + q * PS;
-      float v = 0.f;
-      if (arow && p < p_hi) {
-        const int j = (int)(p % wd);
-        const long long t = p / wd;
-        const int i = (int)(t % h);
-        const long long base = (t / h) * img * cin + aci;
-        const int b = ERP ? i : j, l = ERP ? j : i;  // band and lane index
-        const int4 it = itab[b * TAPS + ak];
-        const float4 f = ftab[b * TAPS + ak];
-        int s = l + it.x;
+    for (int u = 0; u < 4; ++u) {
+      const int i = bj + 8 * u;
+      if (i < r.rows && r.l0 + i != it.w) {
+        int s = sl + i;
         if (s >= nlane) s -= nlane;
-        if (l != it.w) {
-          const bool seam = s == nlane - 1;
-          const long long lane = base + s * lane_step;
-          const long long nxt = seam ? 0 : lane_step;
-          const T* p0c = x + lane + it.y * band_step;
-          const T* p1c = x + lane + it.z * band_step;
-          v = f.x * igemm::to_f32(p0c[0]) + f.z * igemm::to_f32(p1c[0]);
-          if (!seam) {
-            v += f.y * igemm::to_f32(p0c[nxt]) + f.w * igemm::to_f32(p1c[nxt]);
-          }
+        const bool seam = s == nlane - 1;
+        const float fy = seam ? 0.f : f.y, fw = seam ? 0.f : f.w;
+        const float4 a0 = dw_corner4<T, BN>(t0, i, cg);
+        const float4 a1 = dw_corner4<T, BN>(t0, i + 1, cg);
+        const float4 b0 = dw_corner4<T, BN>(t1, i, cg);
+        const float4 b1 = dw_corner4<T, BN>(t1, i + 1, cg);
+        const float p0[4] = {a0.x, a0.y, a0.z, a0.w};
+        const float p1[4] = {a1.x, a1.y, a1.z, a1.w};
+        const float q0[4] = {b0.x, b0.y, b0.z, b0.w};
+        const float q1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float s4 = f.x * p0[c];
+          s4 = fmaf(fy, p1[c], s4);
+          s4 = fmaf(f.z, q0[c], s4);
+          v[u][c] = fmaf(fw, q1[c], s4);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[u][c] = 0.f;
+      }
+    }
+    uint8_t* bb = smem + 2 * buf * B_BYTES;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = 4 * cg + c;
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        big[u] = tc::tf32_rna(v[u][c]);
+        small[u] = tc::tf32_rna(v[u][c] - __uint_as_float(big[u]));
+      }
+      const uint32_t off = tc::swizzle<float>(n, bj);
+      *reinterpret_cast<uint4*>(bb + off) =
+          make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(bb + B_BYTES + off) =
+          make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  // this thread's A fragment rows (output channels) r0 and r0 + 8 of the
+  // tile, and its quad index: its values are pixels 8q .. 8q + 7
+  const int r0 = wg * 64 + warp * 16 + lane / 4, q = lane % 4;
+
+  if (nsteps > 0) {
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+      if (st < nsteps) load(st, st);
+      tc::cp_async_commit();
+    }
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    blend(0, 0, 0);
+    tc::fence_proxy_async();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    // Stage step + 1 has landed for every thread; every thread has stored
+    // and fenced its blend of stage `step`; every warpgroup has waited out
+    // its products of stage step - 1, so the B buffer and the copy slot
+    // that those read are free.
+    tc::cp_async_wait<STAGES - 3>();
+    __syncthreads();
+    const int next = step + STAGES - 1;
+    if (next < nsteps) load(next, next % STAGES);
+    tc::cp_async_commit();
+
+    // A: g^T at output channels r0 (+ 8), pixels 8q .. 8q + 7
+    const uint8_t* gt = stages + step % STAGES * STAGE + 2 * CORNER;
+    uint32_t big[4][4], small[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * q + 2 * kk + (e >> 1);
+        const int col = r0 + 8 * (e & 1);
+        const T* p = reinterpret_cast<const T*>(gt + dw_g_at<T>(i, col / CH)) +
+                     col % CH;
+        const float a = tc::to_f32(*p);
+        big[kk][e] = tc::tf32_rna(a);
+        small[kk][e] = tc::tf32_rna(a - __uint_as_float(big[kk][e]));
+      }
+    }
+    const uint32_t sb = base + 2 * (step & 1) * B_BYTES;
+    const uint64_t db = tc::make_desc<float>(sb);
+    const uint64_t ds = tc::make_desc<float>(sb + B_BYTES);
+    // The stage's products go to a fresh fragment, added on the FP32 pipes
+    // (igemm_tc.cuh:mma_stage_f32), issued before the blend of the next
+    // stage and waited after it.
+    float prod[BN / 2];
+    tc::pin(prod);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tc::mma_tf32<BN>(prod, small[kk], db + 2 * kk, kk > 0);
+      tc::mma_tf32<BN>(prod, big[kk], ds + 2 * kk, 1);
+      tc::mma_tf32<BN>(prod, big[kk], db + 2 * kk, 1);
+    }
+    tc::wgmma_commit();
+    if (step + 1 < nsteps) {
+      blend(step + 1, (step + 1) % STAGES, (step + 1) & 1);
+      tc::fence_proxy_async();
+    }
+    tc::wgmma_wait_all();
+    tc::pin(prod);
+    tc::pin(big);
+    tc::pin(small);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += prod[i];
+  }
+  tc::cp_async_wait<0>();
+
+  // fragment element 4j + 2hh + e: output channel m0 + r0 + 8hh, input
+  // channel c0 + 8j + 2q + e
+  float* out = part + (long long)blockIdx.z * TAPS * cin * cout;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = m0 + r0 + 8 * hh, ci = c0 + 8 * j + 2 * q + e;
+        if (co < cout && ci < cin) {
+          out[((long long)tap * cin + ci) * cout + co] =
+              acc[4 * j + 2 * hh + e];
         }
       }
-      ra[q] = v;
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int idx = tid + r * NT;
-      const long long p = p0 + idx / BN;
-      const int co = n0 + idx % BN;
-      float v = 0.f;
-      if (idx < BK * BN && p < p_hi && co < cout) {
-        v = igemm::to_f32(g[p * cout + co]);
-      }
-      rb[r] = v;
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < RA; ++q) As[buf][apix + q * PS][tid % BM] = ra[q];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int idx = tid + r * NT;
-      if (idx < BK * BN) Bs[buf][idx / BN][idx % BN] = rb[r];
-    }
-  };
-
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int nsteps = p_hi > p_lo ? (int)((p_hi - p_lo + BK - 1) / BK) : 0;
-  if (nsteps > 0) {
-    fetch(p_lo);
-    stash(0);
-  }
-  __syncthreads();
-  for (int s = 0; s < nsteps; ++s) {
-    const int buf = s & 1;
-    if (s + 1 < nsteps) fetch(p_lo + (long long)(s + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-      igemm::load_row(a, &As[buf][kk][ty * TM]);
-      igemm::load_row(b, &Bs[buf][kk][tx * TN]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (s + 1 < nsteps) stash(buf ^ 1);
-    __syncthreads();
-  }
-
-  float* out = part + (long long)blockIdx.z * mrows * cout;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = blockIdx.x * BM + ty * TM + i;
-    if (m >= mrows) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co < cout) out[(long long)m * cout + co] = acc[i][j];
     }
   }
 }
@@ -512,41 +742,55 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   }
 }
 
+template <typename T, int BN, bool ERP>
+cudaError_t launch_dw_tile(const void* x, const void* g, const int4* itab,
+                           const float4* ftab, float* part, int nb, int h,
+                           int wd, int cin, int cout, int nsplit, int chunk,
+                           cudaStream_t stream) {
+  constexpr int smem = dw_smem_bytes<T, BN>();
+  const auto kernel = bwd_weight_tc_kernel<T, BN, ERP>;
+  static bool sized[tc::MAX_DEVICES] = {};
+  const cudaError_t e = tc::size_smem(kernel, smem, sized);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(TAPS * ((cin + BN - 1) / BN), (cout + DW_BM - 1) / DW_BM,
+                  nsplit);
+  kernel<<<grid, DW_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), itab, ftab, part,
+      nb, h, wd, cin, cout, chunk);
+  return cudaGetLastError();
+}
+
+// BN = 128 input channels a block past Cin 64, else 64.
 template <typename T, bool ERP>
-void launch_weight(const void* x, const void* g, const int4* itab,
-                   const float4* ftab, float* part, int nb, int h, int wd,
-                   int cin, int cout, int nsplit, int chunk,
-                   cudaStream_t stream) {
-  const int mrows = TAPS * cin;
-  if (cout > 64) {
-    dim3 grid((mrows + 63) / 64, (cout + 127) / 128, nsplit);
-    bwd_weight_kernel<T, 64, 128, 4, 8, ERP><<<grid, NT, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), itab, ftab, part,
-        nb, h, wd, cin, cout, chunk);
-  } else {
-    dim3 grid((mrows + 63) / 64, (cout + 63) / 64, nsplit);
-    bwd_weight_kernel<T, 64, 64, 4, 4, ERP><<<grid, NT, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), itab, ftab, part,
-        nb, h, wd, cin, cout, chunk);
+cudaError_t launch_dw(const void* x, const void* g, const int4* itab,
+                      const float4* ftab, float* part, int nb, int h, int wd,
+                      int cin, int cout, int nsplit, int chunk,
+                      cudaStream_t stream) {
+  if (cin > 64) {
+    return launch_dw_tile<T, 128, ERP>(x, g, itab, ftab, part, nb, h, wd, cin,
+                                       cout, nsplit, chunk, stream);
   }
+  return launch_dw_tile<T, 64, ERP>(x, g, itab, ftab, part, nb, h, wd, cin,
+                                    cout, nsplit, chunk, stream);
 }
 
 template <bool ERP>
 int run_weight(int bf16, const void* x, const void* g, const void* itab,
                const void* ftab, void* part, void* dw, int nb, int h, int wd,
                int cin, int cout, int nsplit, int chunk, void* stream) {
+  if (cin % 8 != 0 || cout % 8 != 0 || cin < 1 || cout < 1 || nsplit < 1 ||
+      chunk < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int4* it = static_cast<const int4*>(itab);
   const float4* ft = static_cast<const float4*>(ftab);
   float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch_weight<__nv_bfloat16, ERP>(x, g, it, ft, pt, nb, h, wd, cin, cout,
-                                      nsplit, chunk, st);
-  } else {
-    launch_weight<float, ERP>(x, g, it, ft, pt, nb, h, wd, cin, cout, nsplit,
-                              chunk, st);
-  }
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      bf16 ? launch_dw<__nv_bfloat16, ERP>(x, g, it, ft, pt, nb, h, wd, cin,
+                                           cout, nsplit, chunk, st)
+           : launch_dw<float, ERP>(x, g, it, ft, pt, nb, h, wd, cin, cout,
+                                   nsplit, chunk, st);
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)TAPS * cin * cout;
   const int blocks = (int)min((n + 255) / 256, 4096LL);
@@ -586,11 +830,14 @@ extern "C" int sphere_conv_erp_bwd_input(int bf16, const void* g,
                          cin, cout, stream);
 }
 
-// x: (nb, h, wd, cin) with h = 2*wd; g: (nb, h, wd, cout); itab, ftab: the
-// forward's shift tables; part: (nsplit, 9 * cin, cout) f32 scratch; dw:
-// (9, cin, cout) f32. The pixels are split into nsplit ranges of chunk
-// pixels (nsplit * chunk >= nb * h * wd). x and g are f32 (bf16 == 0) or
-// bf16 (bf16 == 1). Returns cudaGetLastError() after the two launches.
+// x: (nb, h, wd, cin) with h = 2*wd; g: (nb, h, wd, cout); cin and cout
+// multiples of 8, x and g 16-byte aligned; itab, ftab: the forward's shift
+// tables; part: (nsplit, 9 * cin, cout) f32 scratch; dw: (9, cin, cout)
+// f32. The K stages, one per run of 32 lanes of a band index of an image
+// (nb * wd * ceil(h / 32) of them), are split into nsplit ranges of chunk
+// stages (nsplit * chunk >= their count). x and g are f32 (bf16 == 0) or
+// bf16 (bf16 == 1). Returns cudaErrorInvalidValue for a cin or cout off 8,
+// else cudaGetLastError() after the two launches.
 extern "C" int sphere_conv_bwd_weight(int bf16, const void* x, const void* g,
                                       const void* itab, const void* ftab,
                                       void* part, void* dw, int nb, int h,
@@ -600,7 +847,8 @@ extern "C" int sphere_conv_bwd_weight(int bf16, const void* x, const void* g,
                            cout, nsplit, chunk, stream);
 }
 
-// The same on an ERP map (wd = 2*h) with the ERP shift tables.
+// The same on an ERP map (wd = 2*h) with the ERP shift tables; its K
+// stages are runs of 32 lanes of a row: nb * h * ceil(wd / 32) of them.
 extern "C" int sphere_conv_erp_bwd_weight(int bf16, const void* x,
                                           const void* g, const void* itab,
                                           const void* ftab, void* part,

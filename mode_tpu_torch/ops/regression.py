@@ -60,9 +60,17 @@ def confidence_from_prob(prob: torch.Tensor, pred: torch.Tensor,
 def _tap_tables(d: int, hq: int, wq: int, maxdisp: int, h: int, w: int,
                 device: torch.device):
   """The upsample's (index pair, weight pair) per disparity level, row and
-  column, in the layout ``regression.cu`` reads."""
+  column, then each source level's first disparity level (the kernel walks
+  the disparity levels by source interval), in the layout ``regression.cu``
+  reads."""
   taps = [linear_taps(maxdisp, d), linear_taps(h, hq), linear_taps(w, wq)]
-  idx = np.concatenate([np.stack([t[0], t[1]], axis=1) for t in taps])
+  lo, hi = taps[0][:2]
+  # the walk's premise: the lower index never decreases, the upper one is
+  # the next source level (the same one where d is 1)
+  assert (np.diff(lo) >= 0).all() and (hi == np.minimum(lo + 1, d - 1)).all()
+  starts = np.searchsorted(lo, np.arange(d + 1), side="left")
+  idx = np.concatenate([np.stack([t[0], t[1]], axis=1).reshape(-1)
+                        for t in taps] + [starts])
   wgt = np.concatenate([np.stack([t[2], t[3]], axis=1) for t in taps])
   return (torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(device),
           torch.from_numpy(np.ascontiguousarray(wgt, np.float32)).to(device))

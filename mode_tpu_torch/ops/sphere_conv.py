@@ -35,11 +35,11 @@ The backward, :func:`sphere_conv_backward`, replaces
 built for both layouts: :func:`sphere_conv_bwd_input` (dx on the tensor
 cores: each dx row gathers the output samples that read it, listed per
 (band index, tap) by :func:`transpose_table`; no atomics) and
-:func:`sphere_conv_bwd_weight` (dw in f32, per-block partial sums added in a
-fixed order). Their plain versions
-are the explicit transpose of the gather version: ``g @ W^T`` scattered back
-through the 4 corners with ``index_add_``, and the gathered samples
-contracted with ``g``. :func:`sphere_conv_train` is the bare conv as an
+:func:`sphere_conv_bwd_weight` (dw on the tensor cores, K stages of 32
+lanes, per-block f32 partial sums added in a fixed order). Their plain
+versions are the explicit transpose of the gather version: ``g @ W^T``
+scattered back through the 4 corners with ``index_add_``, and the gathered
+samples contracted with ``g``. :func:`sphere_conv_train` is the bare conv as an
 autograd ``Function`` (forward K3/K10, backward K3b/K10b), which the
 training path of ``models/blocks.py`` runs where
 :func:`train_kernel_eligible` says the JAX package runs Pallas.
@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -610,15 +611,29 @@ def _launch_bwd_input(g, weight, sphere_type):
   return dx
 
 
-def _weight_splits(n, h, w, cin, cout, device) -> tuple[int, int]:
-  """``(nsplit, chunk)``: the pixel ranges of the dw kernel, about two
-  blocks for each SM of the card."""
-  pixels = n * h * w
-  tiles = -(-_TAPS * cin // 64) * -(-cout // (128 if cout > 64 else 64))
+# the dw kernel's tile (sphere_conv_bwd.cu): output channels a block, and
+# lanes a K stage
+_DW_ROWS = 128
+_DW_LANES = 32
+
+
+def _weight_splits(n, h, w, cin, cout, sphere_type,
+                   device) -> tuple[int, int]:
+  """``(nsplit, chunk)``: the dw kernel's split of its K stages, one per
+  run of 32 lanes of a band index of an image, into ``nsplit`` ranges of
+  ``chunk`` stages. The grid of (tap x channel tile, output channel tile,
+  split) blocks fills whole waves of the SMs of ``device``'s card, one
+  block an SM: ``nsplit`` is the least count for which tiles x nsplit is a
+  multiple of the SM count (44 at 9 tiles and 132 SMs), or the stage count
+  if that is less."""
   sms = torch.cuda.get_device_properties(device).multi_processor_count
-  nsplit = max(1, min(2 * sms // tiles, -(-pixels // 256)))
-  chunk = -(-pixels // nsplit)
-  return -(-pixels // chunk), chunk
+  band, lanes = (h, w) if sphere_type == "ERP" else (w, h)
+  stages = n * band * -(-lanes // _DW_LANES)
+  tiles = (_TAPS * -(-cin // (128 if cin > 64 else 64))
+           * -(-cout // _DW_ROWS))
+  nsplit = min(sms // math.gcd(tiles, sms), stages)
+  chunk = -(-stages // nsplit)
+  return -(-stages // chunk), chunk
 
 
 def _launch_bwd_weight(x, g, sphere_type):
@@ -630,7 +645,10 @@ def _launch_bwd_weight(x, g, sphere_type):
   if g.shape[:3] != x.shape[:3] or g.dtype != x.dtype or g.device != x.device:
     raise ValueError(f"{name}: g {tuple(g.shape)} {g.dtype} does not match "
                      f"x {tuple(x.shape)} {x.dtype}")
-  nsplit, chunk = _weight_splits(n, h, w, cin, cout, x.device)
+  if cin % 8 or cout % 8 or x.data_ptr() % 16 or g.data_ptr() % 16:
+    raise ValueError(f"{name}: Cin and Cout must be multiples of 8 and x, g "
+                     f"16-byte aligned, got Cin {cin}, Cout {cout}")
+  nsplit, chunk = _weight_splits(n, h, w, cin, cout, sphere_type, x.device)
   itab, ftab = _device_tables("shift", h, w, sphere_type, x.device)
   part = torch.empty((nsplit, _TAPS * cin, cout), device=x.device)
   dw = torch.empty((_TAPS, cin, cout), device=x.device)

@@ -8,10 +8,13 @@ shapes of the stride-2 conv and the sphere convs, and the strided
 training grad-inputs; the deconv's tensor-core kernel at the K5 and K7
 shapes and its C entry's refusal of a Cin off its 16-byte copies; the
 head kernel's refusal of a Cin past shared memory; the stage-1 model
-(Cassini and ERP) at batch 2 against its plain path; the sphere conv's two backward kernels in both
-layouts, the layer-4 shapes of a batch-2 step included, and the grad-input
-kernel's refusals; and one training step at 512x256, where every kernel
-family trains, against the same step through the plain versions.
+(Cassini and ERP) at batch 2 against its plain path; the sphere conv's
+two backward kernels in both layouts, the layer-4 shapes of a batch-2
+step and a 16-lane dw stage included, and the two kernels' refusals; the
+regression head on logits spread over +-60 and its C entry's refusal of a
+shape past 48 KB of shared memory; and one training step at
+512x256, where every kernel family trains, against the same step through
+the plain versions.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -106,6 +109,25 @@ def test_regression_kernel_matches_plain(gen, n, d, hq, wq, maxdisp, h, w,
   # a k + 0.5 tie
   tie = (ref_pred - ref_pred.floor() - 0.5).abs() < 1e-3
   _close(conf[~tie], ref_conf[~tie], torch.float32)
+
+
+def test_regression_kernel_refuses_levels_past_48_kb(gen):
+  """Where the output is as wide as the source, a block stages 128 columns
+  of every source level: d 90 takes 48,748 bytes of shared memory and
+  launches, d 96 takes 51,844, past the 48 KB the launch asks for, and the
+  C entry refuses it; the wrapper raises naming the kernel, uncounted."""
+  kernels.reset_launches()
+  cost = torch.randn((1, 90, 2, 128), generator=gen, device="cuda")
+  pred, _ = R.fused_disparity_regression(cost, 192, 8, 128)
+  ref_pred, _ = R.fused_disparity_regression(cost, 192, 8, 128, plain=True)
+  torch.cuda.synchronize()
+  _close(pred, ref_pred, torch.float32)
+  assert kernels.LAUNCHES["fused_disparity_regression"] == 1
+  cost = torch.randn((1, 96, 2, 128), generator=gen, device="cuda")
+  with pytest.raises(RuntimeError, match="fused_disparity_regression: "
+                     ".*CUDA error 1$"):
+    R.fused_disparity_regression(cost, 192, 8, 128)
+  assert kernels.LAUNCHES["fused_disparity_regression"] == 1
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
@@ -521,6 +543,7 @@ def test_slice_at_batch_two_runs_the_kernels(gen, conv, shape):
     ((1, 64, 32, 128), 64),
     ((2, 256, 128, 64), 128),   # the first layer-4 conv of a batch-2 step
     ((2, 256, 128, 128), 128),  # its other layer-4 convs
+    ((1, 80, 40, 72), 40),      # a 16-lane dw stage; Cin 72
 ])
 def test_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout, dtype):
   """dx against the plain scatter (index_add_), dw (f32, split over pixel
@@ -578,6 +601,7 @@ def test_erp_sphere_conv_kernel_matches_plain(gen, x_shape, cout, res, relu,
     ((2, 128, 256, 64), 128),   # the first layer-4 conv of a batch-2 step
     ((2, 128, 256, 128), 128),
     ((2, 32, 64, 24), 40),      # drop column; Cin, Cout off the tiles
+    ((1, 40, 80, 72), 40),      # a 16-lane dw stage; Cin 72
 ])
 def test_erp_sphere_conv_backward_kernels_match_plain(gen, x_shape, cout,
                                                       dtype):
@@ -637,6 +661,53 @@ def test_dx_kernel_refuses_what_it_does_not_take(gen, sphere_type, shape):
       12, torch.cuda.current_stream().cuda_stream)
   assert err == 1                                      # cudaErrorInvalidValue
   torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("sphere_type,shape", [("Cassini", (1, 64, 32)),
+                                              ("ERP", (1, 32, 64))])
+def test_dw_kernel_refuses_what_it_does_not_take(gen, sphere_type, shape):
+  """The tensor-core dw kernel copies x and g 16 bytes at a time: its
+  wrapper refuses a Cin or Cout that is no multiple of 8 and an x or g
+  that is not 16-byte aligned, with a ValueError naming the kernel, and
+  its C entry returns cudaErrorInvalidValue (1) for Cin 12 without
+  launching."""
+  name = S.BWD_WEIGHT[sphere_type]
+  kernels.reset_launches()
+  x12 = torch.randn((*shape, 12), generator=gen, device="cuda")
+  x8 = torch.randn((*shape, 8), generator=gen, device="cuda")
+  for x, g in ((x12, x8), (x8, x12)):
+    with pytest.raises(ValueError, match=f"{name}: Cin and Cout must be"):
+      S.sphere_conv_bwd_weight(x, g, sphere_type=sphere_type)
+  offset = torch.randn(x8.numel() + 1, generator=gen, device="cuda")
+  with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+    S.sphere_conv_bwd_weight(offset[1:].view(x8.shape), x8,
+                             sphere_type=sphere_type)
+  itab, ftab = S._device_tables("shift", *shape[1:], sphere_type, x8.device)
+  part = torch.empty((1, 9 * 12, 8), device="cuda")
+  dw = torch.empty((9, 12, 8), device="cuda")
+  err = getattr(S._bwd_lib(), name)(
+      0, x12.data_ptr(), x8.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
+      part.data_ptr(), dw.data_ptr(), *shape, 12, 8, 1, 64,
+      torch.cuda.current_stream().cuda_stream)
+  assert err == 1                                      # cudaErrorInvalidValue
+  torch.cuda.synchronize()
+  assert not kernels.LAUNCHES
+
+
+def test_regression_kernel_holds_sharp_logits(gen):
+  """Logits uniform in +-60, a sharp softmax whose top upsampled logit lies
+  well below the max-of-sources shift at some pixels: the kernel stays
+  finite and holds the plain version (the sphere_b1 shape, f32)."""
+  cost = (torch.rand((1, 48, 256, 128), generator=gen, device="cuda") * 120
+          - 60)
+  pred, conf = R.fused_disparity_regression(cost, 192, 1024, 512)
+  ref_pred, ref_conf = R.fused_disparity_regression(cost, 192, 1024, 512,
+                                                    plain=True)
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(pred).all() and torch.isfinite(conf).all())
+  _close(pred, ref_pred, torch.float32)
+  tie = (ref_pred - ref_pred.floor() - 0.5).abs() < 1e-3
+  _close(conf[~tie], ref_conf[~tie], torch.float32)
 
 
 def test_sphere_kernels_refuse_the_other_layout(gen):

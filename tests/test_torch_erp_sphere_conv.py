@@ -276,7 +276,7 @@ def test_erp_transpose_table_lists_the_gathers_entries(h, w):
 
 @pytest.mark.parametrize("sphere_type,h,w", LAYOUTS)
 def test_dw_samples_like_the_kernel(sphere_type, h, w):
-  """dw as ``bwd_weight_kernel`` forms it: the forward's samples rebuilt
+  """dw as ``bwd_weight_tc_kernel`` forms it: the forward's samples rebuilt
   from the shift tables, with both edge rules, against g."""
   x, _, g = _case(h, w, 4, 6, 5)
   want = tsc.sphere_conv_bwd_weight(torch.from_numpy(x), torch.from_numpy(g),

@@ -220,6 +220,54 @@ def test_dx_wrapper_refuses_a_cout_off_its_copies(guard, sphere_type, hw):
   assert dict(kernels.LAUNCHES) == {name: 1}
 
 
+@pytest.mark.parametrize("sphere_type,hw", [("Cassini", (64, 32)),
+                                           ("ERP", (32, 64))])
+def test_dw_wrapper_refuses_what_its_copies_cannot_take(guard, sphere_type,
+                                                        hw):
+  """The tensor-core dw kernel copies x and g 16 bytes at a time: its
+  wrapper refuses Cin 12, Cout 12 and an x off 16 bytes with a ValueError
+  naming the kernel, before any launch; Cin and Cout 8 launch once, under
+  the device guard."""
+  name = S.BWD_WEIGHT[sphere_type]
+  x8, x12 = torch.randn((1, *hw, 8)), torch.randn((1, *hw, 12))
+  for x, g in ((x12, x8), (x8, x12)):
+    with pytest.raises(ValueError, match=f"{name}: Cin and Cout must be"):
+      S._launch_bwd_weight(x, g, sphere_type)
+  off = torch.randn(x8.numel() + 1)[1:].view(x8.shape)
+  with pytest.raises(ValueError, match=f"{name}: .*aligned"):
+    S._launch_bwd_weight(off, x8, sphere_type)
+  assert not guard.calls and not kernels.LAUNCHES
+  assert S._launch_bwd_weight(x8, x8, sphere_type).shape == (9, 8, 8)
+  assert guard.calls == [(name, torch.device("cpu"), 1000)]
+  assert dict(kernels.LAUNCHES) == {name: 1}
+
+
+@pytest.mark.parametrize("err", [0, 1, 701])
+def test_regression_wrapper_refuses_levels_past_shared_memory(guard,
+                                                              monkeypatch,
+                                                              err):
+  """The regression kernel stages d levels of a block's source columns in
+  shared memory; its C entry, not the wrapper, refuses a shape past 48 KB
+  with cudaErrorInvalidValue (1; a card test takes that branch). The
+  wrapper calls the entry once and counts the launch where it returned 0;
+  on 1, or a failed launch (701), it raises naming the kernel and counts
+  nothing."""
+  monkeypatch.setattr(R, "_regression_lib",
+                      lambda: _Lib(guard, "fused_disparity_regression",
+                                   err=err))
+  cost = torch.randn((1, 96, 2, 128))
+  if err == 0:
+    pred, _ = R._launch(cost, 192, 8, 128)
+    assert pred.shape == (1, 8, 128)
+    assert dict(kernels.LAUNCHES) == {"fused_disparity_regression": 1}
+  else:
+    with pytest.raises(RuntimeError, match="fused_disparity_regression: "
+                       f".*CUDA error {err}"):
+      R._launch(cost, 192, 8, 128)
+    assert not kernels.LAUNCHES
+  assert [c[0] for c in guard.calls] == ["fused_disparity_regression"]
+
+
 # --- 3. the head kernel's shared memory ---------------------------------------
 
 @pytest.mark.parametrize("dtype,cin,fits", [

@@ -184,7 +184,7 @@ def test_dx_gather_keeps_the_edge_rules():
 
 
 def test_dw_samples_like_the_kernel():
-  """dw as ``bwd_weight_kernel`` forms it: the forward's samples rebuilt
+  """dw as ``bwd_weight_tc_kernel`` forms it: the forward's samples rebuilt
   from the shift tables (with both edge rules) against g."""
   h, w = 64, 32
   x, wgt, g = _case(h, w, 4, 6, 4)
@@ -193,6 +193,46 @@ def test_dw_samples_like_the_kernel():
                                     torch.from_numpy(g)).numpy()
   np.testing.assert_allclose(np.einsum("nkhwc,nhwo->kco", col, g), want,
                              rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sphere_type,shape,cout", [
+    ("Cassini", (2, 256, 128, 64), 128),    # the layer-4 convs of a step
+    ("Cassini", (2, 256, 128, 128), 128),
+    ("ERP", (2, 128, 256, 64), 128),
+    ("ERP", (2, 128, 256, 128), 128),
+    ("Cassini", (1, 80, 40, 72), 40),       # runs of 32, 32 and 16 lanes
+    ("ERP", (2, 24, 48, 8), 8),             # fewer stages than 44 splits
+])
+def test_weight_splits_cover_every_pixel_once(monkeypatch, sphere_type, shape,
+                                              cout):
+  """The dw kernel's split of its K stages (``_weight_splits`` for an
+  H100's 132 SMs; a stage is a run of 32 lanes of one band index of one
+  image, the last run of a band shorter where L is no multiple of 32)
+  covers every pixel exactly once; at the step's layer-4 shapes 44 splits
+  of 9 blocks fill three whole waves of the SMs."""
+  monkeypatch.setattr(torch.cuda, "get_device_properties",
+                      lambda device: type("P", (), {
+                          "multi_processor_count": 132})())
+  n, h, w, cin = shape
+  nsplit, chunk = tsc._weight_splits(n, h, w, cin, cout, sphere_type, "cuda")
+  erp = sphere_type == "ERP"
+  band, lanes = (h, w) if erp else (w, h)
+  runs = -(-lanes // 32)
+  total = n * band * runs
+  assert (nsplit - 1) * chunk < total <= nsplit * chunk
+  hits = np.zeros(n * h * w, np.int64)
+  for z in range(nsplit):                  # block z's range of stages
+    for s in range(z * chunk, min(z * chunk + chunk, total)):
+      l0, b, img = s % runs * 32, s // runs % band, s // runs // band
+      lane = np.arange(l0, min(l0 + 32, lanes))
+      np.add.at(hits, img * h * w + (b * w + lane if erp else lane * w + b),
+                1)
+  assert (hits == 1).all()
+  tiles = 9 * -(-cin // (128 if cin > 64 else 64)) * -(-cout // 128)
+  if total >= 132:
+    assert tiles * nsplit % 132 == 0
+  if max(h, w) == 256:
+    assert (nsplit, chunk) == (44, 47)
 
 
 @pytest.mark.parametrize("shape,ok", [

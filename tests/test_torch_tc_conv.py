@@ -1076,3 +1076,266 @@ def test_dx_stages_fit_shared_memory(dtype, bm, bn):
   assert _dx_tile(2, 128, 256, 64) == (128, 64)
   assert _dx_tile(2, 128, 256, 128) == (128, 128)
   assert _dx_tile(1, 16, 32, 8) == (64, 64)
+
+
+# --- the sphere conv's weight gradient (sphere_conv_bwd.cu) -------------------
+DW_BM = 128      # output channels of a block (two warpgroups)
+DW_BK = 32       # lanes of a K stage
+DW_HALO = DW_BK + 1
+
+
+def _dw_layout(dtype, bn):
+  """(corner tile bytes, g tile bytes, copy stage bytes, stages in flight,
+  dynamic shared memory) of sphere_conv_bwd.cu's dw kernel: two B buffers
+  of two f32 parts (BN rows of 128 bytes), then the copy stages, each two
+  corner tiles of 33 rows of BN channels (whole 128-byte lines) and the g
+  tile of 32 rows of 128 channels."""
+  esize = CFG[dtype]["esize"]
+  corner = -(-DW_HALO * bn * esize // 128) * 128
+  gbytes = DW_BK * DW_BM * esize
+  stage = 2 * corner + gbytes
+  b_parts = 4 * bn * 128
+  stages = min(4, (SMEM_MAX - 1024 - b_parts) // stage)
+  return corner, gbytes, stage, stages, b_parts + stages * stage + 1024
+
+
+def _dw_corner_at(t, c, bn, esize):
+  """sphere_conv_bwd.cu:dw_corner_at: chunk c of corner row t, XOR t & 7."""
+  return t * bn * esize + ((c ^ (t & 7)) << 4)
+
+
+def _dw_g_at(i, c, esize):
+  """sphere_conv_bwd.cu:dw_g_at: chunk c of g row i, XOR a function of
+  i >> 3."""
+  sw = ((i >> 3) & 3) << 1 if esize == 4 else (i >> 3) & 3
+  return i * DW_BM * esize + ((c ^ sw) << 4)
+
+
+def _walk_dw(x, g, sphere_type, dtype, nsplit, chunk):
+  """sphere_conv_bwd.cu's dw walk over one call, vectorised over the
+  threads of a block: for each block (tap x BN input channels, 128 output
+  channels, split) and K stage of its split (a run of 32 lanes of one band
+  index of one image), the copies into the two corner tiles (33 rows, lane
+  (l0 + sigma + t) mod L of bands b0 and b1, zero-filled past the run and
+  past Cin) and the g tile (the run's pixels, zero-filled past the run and
+  past Cout), in their swizzled layouts; each thread's blend of 4 channels
+  x pixels j, j + 8, j + 16, j + 24 (fmaf in the kernel's order, the
+  drop lane zero, the successor of lane L - 1 weighing zero) stored split
+  as chunk j of the 128-byte-swizzled B rows and read back through the
+  descriptor; each thread's A fragment loaded from the g tile (rows r0,
+  r0 + 8, pixels 8q .. 8q + 7); 3xTF32 products into a fresh fragment per
+  stage, added in f32; the partial sums of each split, then their sum in
+  split order. x (N, H, W, Cin) and g (N, H, W, Cout) hold values of the
+  dtype; returns dw (9, Cin, Cout) f32, whether any read met a byte no
+  copy wrote, and how many samples met the seam, the drop lane and a
+  run shorter than a stage."""
+  esize = CFG[dtype]["esize"]
+  ch = 16 // esize
+  n, h, w, cin = x.shape
+  cout = g.shape[-1]
+  bn = 128 if cin > 64 else 64
+  xcpr, gcpr = bn // ch, DW_BM // ch
+  corner, _, stage, _, _ = _dw_layout(dtype, bn)
+  erp = sphere_type == "ERP"
+  nband, nlane = (h, w) if erp else (w, h)
+  runs = -(-nlane // DW_BK)
+  total = n * nband * runs
+  itab, ftab = _shift_tables(h, w, sphere_type)
+  xf, gf = x.reshape(-1).astype(np.float64), g.reshape(-1).astype(np.float64)
+  lanes = np.arange(ch)
+
+  def pixel(img, b, l):
+    return img * h * w + (b * w + l if erp else l * w + b)
+
+  # the copies of a stage: corner (e, t, cc) and g (i, cc)
+  ce, ct, ccc = np.unravel_index(np.arange(2 * DW_HALO * xcpr),
+                                 (2, DW_HALO, xcpr))
+  cdst = (ce * corner + _dw_corner_at(ct, ccc, bn, esize)) // esize
+  gi, gcc = np.divmod(np.arange(DW_BK * gcpr), gcpr)
+  gdst = (2 * corner + _dw_g_at(gi, gcc, esize)) // esize
+  # the blend's threads (j, cg), active below BN / 4 channel groups
+  tid = np.arange(2 * DW_BM)
+  bj, cg = tid & 7, tid >> 3
+  act = cg < bn // 4
+  bj, cg = bj[act], cg[act]
+  # element offsets of each thread's 4 channels in corner rows 0 .. 32
+  if esize == 4:
+    coff = np.stack([_dw_corner_at(t, cg, bn, esize) // esize
+                     for t in range(DW_HALO)])
+  else:
+    coff = np.stack([(_dw_corner_at(t, cg >> 1, bn, esize) + 8 * (cg & 1))
+                     // esize for t in range(DW_HALO)])
+  thr = np.arange(len(bj))
+  # B read back through the descriptor, (part, BN, 32 K positions)
+  bread = np.stack([_desc_read(p * bn * 128, np.arange(bn)[:, None],
+                               np.arange(DW_BK)[None] * 4, 128) // 4
+                    for p in range(2)])
+  # the A fragment: thread (wg, warp, lane), rows r0 + 8 hh, pixels 8q + j
+  r0 = tid // 128 * 64 + tid % 128 // 32 * 16 + tid % 32 // 4
+  q = tid % 4
+  stats = {"seam": 0, "drop": 0, "short": 0}
+  part = np.full((nsplit, 9 * cin, cout), np.nan, np.float32)
+  stale = False
+  for z in range(nsplit):
+    s_lo = z * chunk
+    nsteps = max(0, min(chunk, total - s_lo))
+    for tap in range(9):
+      for c0 in range(0, cin, bn):
+        for m0 in range(0, cout, DW_BM):
+          acc = np.zeros((DW_BM, bn), np.float32)
+          for step in range(nsteps):
+            s = s_lo + step
+            l0 = s % runs * DW_BK
+            band = s // runs % nband
+            img = s // runs // nband
+            rows = min(DW_BK, nlane - l0)
+            sigma, b0, b1, drop = itab[band, tap]
+            f = ftab[band, tap].astype(np.float32)
+            sl = l0 + sigma
+            sl = sl - nlane if sl >= nlane else sl
+            smem = np.full(stage // esize, np.nan)
+            ci = c0 + ccc * ch
+            lane = sl + ct
+            lane = np.where(lane >= nlane, lane - nlane, lane)
+            ok = (ct <= rows) & (ci < cin)
+            src = np.where(ok, pixel(img, np.where(ce == 1, b1, b0), lane)
+                           * cin + ci, 0)
+            smem[cdst[:, None] + lanes] = np.where(ok[:, None],
+                                                   xf[src[:, None] + lanes],
+                                                   0.0)
+            co = m0 + gcc * ch
+            ok = (gi < rows) & (co < cout)
+            src = np.where(ok, pixel(img, band, l0 + gi) * cout + co, 0)
+            smem[gdst[:, None] + lanes] = np.where(ok[:, None],
+                                                   gf[src[:, None] + lanes],
+                                                   0.0)
+            # the blend, stored split at chunk j of B rows 4 cg + c
+            bmem = np.full(2 * bn * 128 // 4, np.nan)
+            for u in range(4):
+              i = bj + 8 * u
+              live = (i < rows) & (l0 + i != drop)
+              sv = sl + i
+              sv = np.where(sv >= nlane, sv - nlane, sv)
+              seam = sv == nlane - 1
+              stats["seam"] += int((live & seam).sum())
+              stats["drop"] += int(((i < rows) & (l0 + i == drop)).sum())
+              stats["short"] += int(rows < DW_BK and u == 0)
+              fy = np.where(seam, np.float32(0), f[1])
+              fw = np.where(seam, np.float32(0), f[3])
+              ir = np.where(live, i, 0)
+              vals = np.zeros((len(bj), 4), np.float32)
+              for c in range(4):
+                def at(tile, t):
+                  return smem[tile * corner // esize + coff[t, thr] + c]
+                a0, a1 = at(0, ir), at(0, ir + 1)
+                q0, q1 = at(1, ir), at(1, ir + 1)
+                v = (np.float64(f[0]) * a0).astype(np.float32)
+                v = _fmaf(fy, a1, v)
+                v = _fmaf(np.full_like(fy, f[2]), q0, v)
+                v = _fmaf(fw, q1, v)
+                vals[:, c] = np.where(live, v, np.float32(0))
+              for c in range(4):
+                nrow = 4 * cg + c
+                big = _tf32(vals[:, c])
+                small = _tf32(vals[:, c] - big)
+                off = _swizzle(nrow, bj, 128) // 4 + u
+                bmem[off] = big
+                bmem[bn * 128 // 4 + off] = small
+            b_tiles = bmem[bread]                      # (2, BN, 32)
+            # A from the g tile: K position q + 4 j holds pixel 8 q + j
+            a_tile = np.full((DW_BM, DW_BK), np.nan)
+            for hh in range(2):
+              col = r0 + 8 * hh
+              for jj in range(8):
+                ipx = 8 * q + jj
+                a_tile[col, q + 4 * jj] = smem[
+                    (2 * corner + _dw_g_at(ipx, col // ch, esize)) // esize
+                    + col % ch]
+            stale |= bool(np.isnan(a_tile).any() or np.isnan(b_tiles).any())
+            big = _tf32(a_tile)
+            small = _tf32(a_tile - big)
+            prod = (small @ b_tiles[0].T + big @ b_tiles[1].T
+                    + big @ b_tiles[0].T)
+            acc = (acc + prod.astype(np.float32)).astype(np.float32)
+          cis = slice(c0, min(c0 + bn, cin))
+          cos = slice(m0, min(m0 + DW_BM, cout))
+          part[z, tap * cin + cis.start:tap * cin + cis.stop, cos] = acc[
+              :cos.stop - m0, :cis.stop - c0].T
+  assert not np.isnan(part).any()
+  dw = np.zeros((9 * cin, cout), np.float32)
+  for z in range(nsplit):
+    dw = (dw + part[z]).astype(np.float32)
+  return dw.reshape(9, cin, cout), stale, stats
+
+
+def _sms(monkeypatch, sms=SMS):
+  """The SM count that ops/sphere_conv.py:_weight_splits reads, here."""
+  monkeypatch.setattr(torch.cuda, "get_device_properties",
+                      lambda device: type("P", (), {
+                          "multi_processor_count": sms})())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sphere_type,n,h,w,cin,cout", [
+    ("Cassini", 2, 48, 24, 8, 8),     # runs of 32 and 16 lanes; two images
+    ("ERP", 2, 24, 48, 8, 8),
+    ("Cassini", 1, 80, 40, 72, 40),   # drop lane, a 16-lane run; Cin 72
+    ("ERP", 1, 40, 80, 72, 40),
+    ("Cassini", 1, 64, 32, 64, 16),   # drop lane; Cin 64 (BN 64)
+    ("ERP", 1, 32, 64, 64, 16),
+])
+def test_dw_walk_rebuilds_the_plain_grad_weight(monkeypatch, sphere_type, n,
+                                                h, w, cin, cout, dtype):
+  """The modelled dw kernel against the port's plain grad-weight
+  (``_plain_bwd_weight``, held against the Pallas backward by
+  tests/test_torch_sphere_conv_bwd.py), with the splits the wrapper picks
+  for an H100: every sample at the seam, on the drop lane and in a run
+  shorter than a stage is met, and no read meets a byte no copy wrote.
+  f32 as 3xTF32 within 1e-5 of the largest value; bf16 widened on read
+  and summed the same way, so the same bar (chip_smoke.py's)."""
+  _sms(monkeypatch)
+  rng = np.random.default_rng(9)
+  x = (rng.normal(size=(n, h, w, cin)) * 0.5).astype(np.float32)
+  g = (rng.normal(size=(n, h, w, cout)) * 0.5).astype(np.float32)
+  if dtype == "bf16":
+    x, g = _bf16(x).astype(np.float32), _bf16(g).astype(np.float32)
+  nsplit, chunk = S._weight_splits(n, h, w, cin, cout, sphere_type, "cuda")
+  got, stale, stats = _walk_dw(x, g, sphere_type, dtype, nsplit, chunk)
+  assert not stale
+  assert stats["seam"] > 0
+  assert (stats["short"] > 0) == (max(h, w) % DW_BK != 0)
+  assert (stats["drop"] > 0) == (max(h, w) >= 64)
+  want = S._plain_bwd_weight(torch.from_numpy(x), torch.from_numpy(g),
+                             sphere_type).double().numpy()
+  assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bn", [64, 128])
+def test_dw_stages_fit_shared_memory(dtype, bn):
+  """The dw kernel's two B buffers (1024-byte aligned for their
+  descriptors) and three or more copy stages (128-byte aligned, corner rows
+  of eight chunks or more, so the XOR swizzles stay in the row) fit the
+  227 KB a block can take: f32 at BN 128 three stages of 49 KB beside the
+  64 KB of B."""
+  corner, gbytes, stage, stages, smem = _dw_layout(dtype, bn)
+  esize = CFG[dtype]["esize"]
+  assert bn * esize >= 128 and corner >= DW_HALO * bn * esize
+  assert (bn * 128) % 1024 == 0 and stage % 128 == 0 and corner % 128 == 0
+  assert gbytes == DW_BK * DW_BM * esize
+  assert stages >= 3 and smem <= SMEM_MAX
+  if (dtype, bn) == ("f32", 128):
+    assert (stage, stages, smem) == (50176, 3, 217088)
+  # The swizzles spread what 8 threads read at once over distinct 16-byte
+  # bank groups: an A fragment load (rows 8q + j of the g tile, q = 0..3,
+  # at the chunks of 8 consecutive output channels from an even chunk) and
+  # a corner read of the blend (one chunk of 8 consecutive rows).
+  for j in range(8):
+    chunks = (0, 1) if esize == 4 else (0,)
+    groups = {(_dw_g_at(8 * q + j, c, esize) // 16) % 8
+              for q in range(4) for c in chunks}
+    assert len(groups) == 4 * len(chunks)
+  for t0 in range(DW_HALO - 7):
+    groups = {(_dw_corner_at(t, 5, bn, esize) // 16) % 8
+              for t in range(t0, t0 + 8)}
+    assert len(groups) == 8
