@@ -42,7 +42,22 @@
    trained weights take one step through the kernels and one through the
    plain versions on the anchor's textured pair, held the same way
    (``train_anchor``).
-4. Kernel phase: calls each kernel's wrapper at every shape the paths gave
+4. Whole-frame paths (``mode_tpu_torch.pipeline.TwoStagePipeline``, what
+   ``predict --stage all`` runs): six 1024x512 uint8 Cassini pairs made
+   like the anchor's inputs, each with its own disparity, and the four
+   views; stage 1 with the trained mid weights at batch 6, maxdisp 192; the
+   bridge; the fusion net with seeded weights and random BN statistics, its
+   1x1 head scaled to logits of mean 0 and std 1 on the frame; max_depth
+   1000. ``frame`` (f32) records every kernel call of its first frame,
+   serves three more with the launch counts set to 0 before and read after
+   (the JAX path's counts, ``FRAME_JAX``), times one frame's stage 1,
+   bridge and fusion by CUDA events, profiles one (device time by kind of
+   kernel, host time, synchronisations and copies), and checks each stage:
+   stage 1 against its plain path, the bridge on the card against the same
+   function on the CPU, the fusion net against its plain versions, and the
+   fused depths' spread. ``frame_bf16`` serves the same frame with both
+   stages in bf16 and holds its disparities to the f32 frame's.
+5. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training step adds the grad-input shapes and
    the sphere conv's two backward kernels) and the regression shapes, in
    f32 and bf16, holds the result against the kernel's plain PyTorch
@@ -51,11 +66,11 @@
    library convs in IEEE f32 as the model runs its own
    (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
    precision flag, so the paths run as a caller's process runs them).
-5. Full-resolution anchor: the trained reference weights
+6. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
    against the frame's committed (pred, conf).
-6. Prints a ``{"kernels": [...]}`` line, then as the last line
+7. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, when there is no card or when any
@@ -168,6 +183,26 @@ PATHS = {
         **JAX_3D, "sphere_conv_erp_bn_act": ("K10 32", 32),
         "conv2d_s1_bn_act": ("K8 4", 4)}),
 }
+# The whole-frame paths (mode_tpu_torch.pipeline.TwoStagePipeline): six
+# Cassini pairs through stage 1 at batch 6, the bridge, the fusion net. The
+# fusion net's stride-1 3x3 convs that the JAX package runs on its per-image
+# 2-D band kernel at 1024x512, traced with counting stubs under
+# jax.eval_shape (tests/test_torch_fusion.py traces it and holds this
+# number): 16 at W = 512, 10 at 256, 10 at 128.
+FUSION_K8 = 36
+FRAME_JAX = {**JAX_3D, "sphere_conv_bn_act": ("K3 32", 32),
+             "conv2d_s1_bn_act": (f"K9 64 + K8 {FUSION_K8}", 64 + FUSION_K8)}
+# label: (dtype of both stages, frames served after a warm-up)
+FRAMES = {"frame": (torch.float32, 3), "frame_bf16": (torch.bfloat16, 3)}
+MAX_DEPTH = 1000.0
+# the frame's stage-wise checks: the bridge on the card against the same
+# function on the CPU (share of pixels per pair that may differ); the fusion
+# net through the kernels against its plain versions (m); the share of
+# fused pixels strictly inside (1, 999) m
+BRIDGE_DIFFER, FUSED_MAE, FUSED_MAX, FUSED_INSIDE = 1e-3, 1e-3, 5e-2, 0.9
+# the bf16 frame's disparities against the f32 frame's: 0.15% of the 192 px
+# range, the JAX package's bar (docs/ARCHITECTURE.md)
+BF16_DISP_MAE = 0.0015 * MAXDISP
 # the served path whose per-pair numbers the kernels line carries for the
 # kernels that do not train (the regression head)
 MAIN_PATH = "sphere_b1"
@@ -528,7 +563,7 @@ def _tpu_kernel(case, layers, batch):
   step's calls, would run them)."""
   kernel, xs = case[:2]
   if kernel == "conv2d_s1_bn_act":
-    return "K8" if batch == 1 else "K9"
+    return "K8" if xs[0] == 1 else "K9"
   if kernel == "deconv3d_bn_act" and xs[2] % 128 and xs[3] % 128:
     return "K7"                     # no lane axis: the folded deconv
   folded = {TPU_FOLDED.get(seg) for n in layers for seg in n.split(".")}
@@ -548,7 +583,13 @@ def _pairs(gen, batch, count, first_shift, h, w):
   return out
 
 
-def _check_output(label, pred, conf, ref_pred, ref_conf, shape):
+def _check_output(label, pred, conf, ref_pred, ref_conf, shape,
+                  seeded: bool = True,
+                  bars: tuple = (PRED_MAE, PRED_MAX, CONF_MAE)):
+  """A served call against its plain path at ``bars`` (pred MAE and max,
+  conf MAE); with ``seeded`` weights also that the output is not
+  degenerate."""
+  pred_mae, pred_max, conf_bar = bars
   if pred.shape != shape or conf.shape != shape:
     _fail(f"{label}: output shapes {tuple(pred.shape)} {tuple(conf.shape)}")
   if not (torch.isfinite(pred).all() and torch.isfinite(conf).all()):
@@ -562,18 +603,18 @@ def _check_output(label, pred, conf, ref_pred, ref_conf, shape):
   err = (pred - ref_pred).abs()
   conf_mae = float((conf - ref_conf).abs().mean())
   print(f"{label} vs plain path (f32, one call): pred MAE "
-        f"{float(err.mean()):.3g} px (bar {PRED_MAE}), max "
-        f"{float(err.max()):.3g} px (bar {PRED_MAX}), conf MAE {conf_mae:.3g}"
-        f" (bar {CONF_MAE}); pred mean {float(pred.mean()):.3f} std "
+        f"{float(err.mean()):.3g} px (bar {pred_mae}), max "
+        f"{float(err.max()):.3g} px (bar {pred_max}), conf MAE {conf_mae:.3g}"
+        f" (bar {conf_bar}); pred mean {float(pred.mean()):.3f} std "
         f"{float(pred.std()):.3f}, conf mean {float(conf.mean()):.4f}",
         flush=True)
   # as tests/test_torch_disparity.py: disparities spread and the softmax is
   # neither flat nor one-hot, so the comparison can see a wrong kernel
-  if float(pred.std()) <= 0.5 or float(conf.mean()) >= 0.9:
+  if seeded and (float(pred.std()) <= 0.5 or float(conf.mean()) >= 0.9):
     _fail(f"{label}: degenerate output: pred std must exceed 0.5 px and "
           "conf mean stay below 0.9")
-  if (float(err.mean()) > PRED_MAE or float(err.max()) > PRED_MAX
-      or conf_mae > CONF_MAE):
+  if (float(err.mean()) > pred_mae or float(err.max()) > pred_max
+      or conf_mae > conf_bar):
     _fail(f"{label}: the served path disagrees with its plain path")
   return {"pred_mae": float(err.mean()), "pred_max": float(err.max()),
           "conf_mae": conf_mae, "pred_std": float(pred.std()),
@@ -651,16 +692,16 @@ def _serve_path(label, model, gen, seed_shift):
 
 
 @contextlib.contextmanager
-def _recorded_launches():
+def _recorded_launches(tag: str = "step"):
   """Record every kernel launch of the op modules while the block runs:
   ``{(kernel, x shape (NHWC / NDHWC; the sphere conv's backward: the dx
-  shape), Cout, residual, relu, dilation): ["step", ...]}``, one entry per
+  shape), Cout, residual, relu, dilation): [tag, ...]}``, one entry per
   launch, forward and backward alike."""
   from mode_tpu_torch.ops import conv2d, conv3d, sphere_conv
   calls = {}
 
   def note(key):
-    calls.setdefault(key, []).append("step")
+    calls.setdefault(key, []).append(tag)
 
   def conv3d_launch(mode, x, weight, scale, bias, residual, relu):
     out = orig[0](mode, x, weight, scale, bias, residual, relu)
@@ -789,8 +830,12 @@ def _profile(fn, args):
                                 "conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel",
                                 "conv3d_head_kernel")),
            ("port: 2-D convs", ("conv2d_tc_kernel",)),
+           ("port: regression head", ("regression",)),
            ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                           "welford")),
+           ("sort (the bridge's z-buffer)", ("sort",)),
+           ("gathers and scatters (the bridge)", ("scatter", "gather",
+                                                  "index")),
            ("library convs (cuDNN: grad-weight, other convs)",
             ("cudnn", "fprop", "dgrad", "wgrad", "conv", "implicit")),
            ("matmul (the heads' upsample)", ("gemm", "gemv", "cutlass")),
@@ -804,8 +849,11 @@ def _profile(fn, args):
   other = "other (elementwise, copies, reductions)"
   by_kind = {name: 0.0 for name, _ in kinds}
   by_kind[other] = 0.0
-  by_name, host_ops, runtime = {}, {}, {}
+  by_name, host_ops, runtime, copies = {}, {}, {}, {}
   for e in prof.key_averages():
+    for way in ("HtoD", "DtoH", "DtoD"):
+      if way in e.key:
+        copies[way] = copies.get(way, 0) + e.count
     if not str(getattr(e, "device_type", "")).endswith("CUDA"):
       self_ms = e.self_cpu_time_total / 1e3
       host_ops[e.key[:90]] = (self_ms, e.count)
@@ -835,7 +883,9 @@ def _profile(fn, args):
           "top_host_ops_ms": {k: [round(v[0], 3), v[1]] for k, v in top_host},
           "runtime_calls": {"launch_kernel": calls("LaunchKernel"),
                             "synchronize": calls("Synchronize"),
+                            "stream_synchronize": calls("StreamSynchronize"),
                             "memcpy": calls("Memcpy"),
+                            "device_copies": copies,
                             "by_name": {k: [n, round(ms, 3)] for k, (n, ms)
                                         in sorted(runtime.items())}}}
 
@@ -1045,6 +1095,245 @@ def _anchor():
           "conf_mae": conf_mae}
 
 
+# the pairs' disparities in a frame (px): each pair its own, around the
+# anchor's 40
+FRAME_DISPS = (16, 24, 32, 40, 48, 56)
+
+
+def _frame_inputs():
+  """A frame's six uint8 pairs ``(6, H, W, 3)`` on the card, made like the
+  anchor's inputs, each from its own seed and with its own disparity, and
+  the four views (pair 12's left and right, pair 34's left and right). The
+  uint8 values are the texture put through the inverse of the ImageNet
+  normalisation, so the normalised pairs are the texture up to the 8-bit
+  step."""
+  from mode_tpu_torch.training import IMAGENET_MEAN, IMAGENET_STD
+  h, w = GEOMETRY["Cassini"]
+  with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
+    seed = int(z["seed"])
+  mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+  lefts, rights = [], []
+  for k, d in enumerate(FRAME_DISPS):
+    left, right = _make_anchor_batch(seed + 100 + k, d, h, w)
+    for x, out in ((left, lefts), (right, rights)):
+      x = x[0].permute(1, 2, 0) * std + mean
+      out.append(torch.round(x * 255).clamp(0, 255).to(torch.uint8))
+  lefts = torch.stack(lefts).to(DEVICE)
+  rights = torch.stack(rights).to(DEVICE)
+  return lefts, rights, torch.stack([lefts[0], rights[0], lefts[5],
+                                     rights[5]])
+
+
+def _frame_models():
+  """Stage 1 with the trained mid weights; the fusion net with seeded
+  weights and random BN statistics, both f32 on the card."""
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.utils.convert import load_npz
+  disp = load_npz(ModeDisparity(MAXDISP, out_conf=True, device=DEVICE),
+                  ROOT / "tests/data/trained_mirror_mid.npz")
+  fusion = ModeFusion(MAX_DEPTH, device=DEVICE,
+                      generator=torch.Generator().manual_seed(0))
+  _randomize_for_serving(fusion, 2)
+  return disp, fusion
+
+
+def _calibrate_head(pipe, inputs) -> tuple[float, float]:
+  """Scale and shift the fusion net's 1x1 head so its logits have mean 0
+  and std 1 on the frame (the seeded net's logits spread over hundreds,
+  where the sigmoid is flat); returns the raw (mean, std)."""
+  head = pipe.fusion.feature_extraction.depth_layer7[2]
+  logits = []
+  handle = head.register_forward_hook(lambda m, a, out: logits.append(out))
+  with torch.no_grad():
+    pipe(*inputs)
+  handle.remove()
+  mean, std = float(logits[0].mean()), float(logits[0].std())
+  with torch.no_grad():
+    head.weight.div_(std)
+    head.bias.sub_(mean).div_(std)
+  return mean, std
+
+
+def _frame_split(pipe, inputs) -> dict[str, float]:
+  """One frame's stage 1, bridge and fusion, each timed by CUDA events."""
+  from mode_tpu_torch.pipeline import bridge_all_pairs
+  lefts, rights, rgbs = inputs
+  ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+  torch.cuda.synchronize()
+  ev[0].record()
+  disp, conf = pipe.stage1(lefts, rights)
+  ev[1].record()
+  depths, confs = bridge_all_pairs(disp, conf)
+  ev[2].record()
+  pipe.fuse(depths, confs, rgbs)
+  ev[3].record()
+  torch.cuda.synchronize()
+  return {name: ev[i].elapsed_time(ev[i + 1])
+          for i, name in enumerate(("stage1_ms", "bridge_ms", "fusion_ms"))}
+
+
+def _frame_checks(label, pipe, inputs, disp, conf):
+  """The f32 frame's stage-wise checks from one frame's stage-1 outputs:
+  stage 1 against its plain path, the bridge on the card against the CPU,
+  the fusion net against its plain path, and the fused depths' spread."""
+  from mode_tpu_torch.pipeline import bridge_all_pairs, normalize_uint8
+  lefts, rights, rgbs = inputs
+  h, w = GEOMETRY["Cassini"]
+  ln, rn = normalize_uint8(lefts), normalize_uint8(rights)
+  jgen = torch.Generator(device=DEVICE).manual_seed(7)
+  jit = 1 + INPUT_JITTER * torch.randn(ln.shape, generator=jgen,
+                                       device=DEVICE)
+  with torch.no_grad():
+    ref_disp, ref_conf = pipe.stage1(lefts, rights, plain=True)
+    jit_disp = pipe.disp(ln * jit, rn * jit, plain=True)[0]
+  spread = (jit_disp - ref_disp).abs()
+  err = (disp - ref_disp).abs()
+  worst = int(err.argmax())
+  print(f"{label} stage 1: the plain path's own spread under a "
+        f"{INPUT_JITTER} input jitter: pred MAE {float(spread.mean()):.3g} "
+        f"px, max {float(spread.max()):.3g} px; the kernels' largest error "
+        f"per pair " + ", ".join(f"{float(e):.3g}" for e in
+                                 err.amax(dim=(1, 2)))
+        + f" px, the largest at a pixel of conf "
+        f"{float(ref_conf.reshape(-1)[worst]):.3f} (frame mean "
+        f"{float(ref_conf.mean()):.3f})", flush=True)
+  # the trained weights at full resolution: the anchor's bars
+  check = {"stage1": _check_output(
+      f"{label} stage 1 (trained weights)", disp, conf, ref_disp, ref_conf,
+      (6, h, w), seeded=False,
+      bars=(ANCHOR_MAE, ANCHOR_MAX, ANCHOR_CONF_MAE)),
+           "stage1_jitter_spread": {"mae": float(spread.mean()),
+                                    "max": float(spread.max())}}
+  depths, confs = bridge_all_pairs(disp, conf)
+  cpu_d, cpu_c = bridge_all_pairs(disp.cpu(), conf.cpu())
+  depths_h, confs_h = depths.cpu(), confs.cpu()
+  differ = ((confs_h != cpu_c)
+            | ((depths_h - cpu_d).abs() > 4e-7 * cpu_d.abs()))
+  per_pair = differ.sum(dim=(1, 2)).tolist()
+  check["bridge_differing_pixels"] = per_pair
+  print(f"{label} bridge on the card vs the same function on the CPU: "
+        f"pixels that differ per pair {per_pair} of {h * w} (bar "
+        f"{BRIDGE_DIFFER:.1%}); depth range {float(depths.min()):.3f}-"
+        f"{float(depths.max()):.3f} m", flush=True)
+  if max(per_pair) > BRIDGE_DIFFER * h * w:
+    _fail(f"{label}: the bridge on the card disagrees with the CPU")
+  with torch.no_grad():
+    fused = pipe.fuse(depths, confs, rgbs)
+    ref = pipe.fuse(depths, confs, rgbs, plain=True)
+  err = (fused - ref).abs()
+  inside = float(((fused > 1) & (fused < MAX_DEPTH - 1)).float().mean())
+  check["fusion"] = {"mae": float(err.mean()), "max": float(err.max()),
+                     "inside_share": inside, "mean": float(fused.mean()),
+                     "std": float(fused.std())}
+  print(f"{label} fusion vs its plain versions (f32, the same bridged maps): "
+        f"MAE {float(err.mean()):.3g} m (bar {FUSED_MAE}), max "
+        f"{float(err.max()):.3g} m (bar {FUSED_MAX}); fused depth mean "
+        f"{float(fused.mean()):.2f} m, std {float(fused.std()):.2f}, "
+        f"{inside:.1%} strictly inside (1, {MAX_DEPTH - 1:g}) m (bar "
+        f"{FUSED_INSIDE:.0%})", flush=True)
+  if not bool(torch.isfinite(fused).all()) or fused.shape != (h, w):
+    _fail(f"{label}: fused depth not finite or of shape {tuple(fused.shape)}")
+  if float(err.mean()) > FUSED_MAE or float(err.max()) > FUSED_MAX:
+    _fail(f"{label}: the fusion net disagrees with its plain path")
+  if inside < FUSED_INSIDE:
+    _fail(f"{label}: degenerate fused depth")
+  return check
+
+
+def _frame_path(label, disp, fusion, inputs, f32_frame=None):
+  """Serve a path of whole frames: the first recorded (every kernel call),
+  FRAMES[label][1] more timed with the launch counts set to 0 before and
+  read after, one split by stage and one profiled; then the f32 frame's
+  stage-wise checks, or the bf16 frame's drift from the f32 frame."""
+  from mode_tpu_torch import kernels
+  from mode_tpu_torch.pipeline import TwoStagePipeline
+  dtype, nframes = FRAMES[label]
+  h, w = GEOMETRY["Cassini"]
+  pipe = TwoStagePipeline(disp, fusion, MAXDISP, MAX_DEPTH, dtype=dtype,
+                          stage1_chunk=6, uint8_inputs=True,
+                          fusion_dtype=dtype, device=DEVICE)
+  head = None
+  if f32_frame is None:
+    head = _calibrate_head(pipe, inputs)
+    print(f"{label}: fusion head logits (mean, std) {head[0]:.4g}, "
+          f"{head[1]:.4g} on the frame, scaled to 0, 1", flush=True)
+  with torch.no_grad():
+    with _recorded_launches("frame") as calls:
+      pipe(*inputs)                                     # warm-up, recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    frame_ms, outputs = [], []
+    for _ in range(nframes):
+      t = time.perf_counter()
+      outputs.append(pipe(*inputs))
+      torch.cuda.synchronize()
+      frame_ms.append((time.perf_counter() - t) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    split = _frame_split(pipe, inputs)
+    prof = _profile(pipe, inputs)
+  ms = statistics.median(frame_ms)
+  print(f"{label}: TwoStagePipeline {str(dtype).split('.')[1]}, six ({h}, "
+        f"{w}) uint8 Cassini pairs + four views, maxdisp {MAXDISP}, "
+        f"max_depth {MAX_DEPTH:g}, stage1_chunk 6; median {ms:.2f} ms/frame "
+        f"(all: " + ", ".join(f"{t:.2f}" for t in frame_ms) + "); one frame "
+        "by CUDA events: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       split.items())
+        + f"; peak memory {peak_gib:.2f} GiB", flush=True)
+  print(f"{label} launches per frame: " + json.dumps(
+      {k: launches.get(k, 0) / nframes for k in KERNELS}) + " (JAX path: "
+        + ", ".join(t for t, _ in FRAME_JAX.values()) + ")", flush=True)
+  for name in set(KERNELS) | set(launches):
+    want = FRAME_JAX.get(name, ("", 0))[1]
+    if launches.get(name, 0) != want * nframes:
+      _fail(f"{label}: {name} launched {launches.get(name, 0)} times in "
+            f"{nframes} frames, expected {want} a frame")
+  rt = prof["runtime_calls"]
+  print(f"{label} profiled frame: host {prof['host_ms']:.2f} ms, device "
+        f"{prof['device_ms']:.2f} ms; by kind (ms): "
+        + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
+        + f"; CUDA runtime: {rt['launch_kernel']} kernel launches, "
+        f"{rt['stream_synchronize']} cudaStreamSynchronize, "
+        f"{rt['synchronize']} synchronisations in all, device copies "
+        + json.dumps(rt["device_copies"]) + "; top kernels (ms, launches): "
+        + json.dumps(prof["top_kernels_ms"]), flush=True)
+  fused, disp_out, conf_out = outputs[0]
+  if f32_frame is None:
+    check = _frame_checks(label, pipe, inputs, disp_out, conf_out)
+    from mode_tpu_torch.pipeline import bridge_all_pairs
+    bridged = bridge_all_pairs(disp_out, conf_out)
+  else:
+    ref_fused, ref_disp = f32_frame["fused"], f32_frame["disp"]
+    with torch.no_grad():     # the fusion net's own drift, from f32 maps
+      own = (pipe.fuse(*f32_frame["bridged"], inputs[2]) - ref_fused).abs()
+    drift = float((disp_out - ref_disp).abs().mean())
+    fdrift = (fused - ref_fused).abs()
+    check = {"disp_mae_vs_f32": drift,
+             "disp_max_vs_f32": float((disp_out - ref_disp).abs().max()),
+             "fused_mae_vs_f32": float(fdrift.mean()),
+             "fused_max_vs_f32": float(fdrift.max()),
+             "fusion_own_mae_vs_f32": float(own.mean()),
+             "fusion_own_max_vs_f32": float(own.max())}
+    print(f"{label} vs the f32 frame: disparity MAE {drift:.4g} px (bar "
+          f"{BF16_DISP_MAE:.3g}, 0.15% of {MAXDISP}), max "
+          f"{check['disp_max_vs_f32']:.4g} px; fused depth drift MAE "
+          f"{check['fused_mae_vs_f32']:.4g} m, max "
+          f"{check['fused_max_vs_f32']:.4g} m (no bar), of which the bf16 "
+          f"fusion net's own from the f32 frame's bridged maps: MAE "
+          f"{check['fusion_own_mae_vs_f32']:.4g} m, max "
+          f"{check['fusion_own_max_vs_f32']:.4g} m", flush=True)
+    if not bool(torch.isfinite(fused).all()) or drift > BF16_DISP_MAE:
+      _fail(f"{label}: the bf16 frame drifts from the f32 frame")
+  return {"calls": calls if f32_frame is None else {}, "batch": 6,
+          "ncalls": nframes, "launches": launches, "call_ms": frame_ms,
+          "split_ms": split, "peak_gib": peak_gib, "profile": prof,
+          "check": check, "head": head,
+          "outputs": None if f32_frame else {"fused": fused, "disp": disp_out,
+                                             "bridged": bridged}}
+
+
 def _kernel_phase(cases, reg_cases, gen):
   """Every recorded kernel shape once, f32 and bf16: the rows it prints."""
   rows = []
@@ -1117,6 +1406,17 @@ def main() -> int:
   seen["erp_train_b2"] = _train_path(gen, "erp_train_b2")
   torch.cuda.empty_cache()
 
+  # ---- the whole frame, f32 then bf16 (stage 1 and fusion)
+  inputs = _frame_inputs()
+  disp, fusion = _frame_models()
+  seen["frame"] = _frame_path("frame", disp, fusion, inputs)
+  disp, fusion = copy.deepcopy(disp), copy.deepcopy(fusion)
+  torch.cuda.empty_cache()
+  seen["frame_bf16"] = _frame_path("frame_bf16", disp, fusion, inputs,
+                                   seen["frame"]["outputs"])
+  del disp, fusion, inputs
+  torch.cuda.empty_cache()
+
   # ---- kernel phase: every recorded shape once, f32 and bf16
   cases = {}                 # case -> {path: launches per call}, layers
   for label, s in seen.items():
@@ -1162,7 +1462,19 @@ def main() -> int:
           return None
         return sum(r[key] * r["per_call"][label] for r in mine)
 
+      by_tpu = {}
+      for r in mine:
+        t = by_tpu.setdefault(r["tpu"], {"launches": 0, "ms": 0.0,
+                                         "plain_ms": 0.0, "bound_ms": 0.0,
+                                         "library_ms": 0.0})
+        n = r["per_call"][label]
+        t["launches"] += n
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+          value = r["kernel_ms" if key == "ms" else key]
+          t[key] = None if value is None or t[key] is None else (
+              t[key] + value * n)
       per_path[label] = {
+          "by_tpu": by_tpu,
           "launches": s["launches"].get(name, 0),
           "launches_per_call": s["launches"].get(name, 0) / s["ncalls"],
           "pairs_per_call": s["batch"], "ms": total("kernel_ms"),
@@ -1204,6 +1516,11 @@ def main() -> int:
                   "losses": s["losses"], "profile": s["profile"],
                   **s["check"]}
           for label, s in seen.items() if label in TRAINS} | {
+          label: {"median_ms_per_frame": statistics.median(s["call_ms"]),
+                  "frame_ms": s["call_ms"], **s["split_ms"],
+                  "peak_gib": s["peak_gib"], "profile": s["profile"],
+                  "head_logits": s["head"], **s["check"]}
+          for label, s in seen.items() if label in FRAMES} | {
           "train_anchor": train_anchor, "anchor": anchor}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)

@@ -12,9 +12,22 @@ This package never imports ``jax``, ``flax`` or ``mode_tpu``. Its entry points
 run on CUDA unless the caller passes ``device="cpu"``; without a card they
 raise instead of running on the CPU.
 
-Ported so far: the stage-1 eval forward of ``ModeDisparity``, at any
-batch, with the sphere feature extractor (``conv="Sphere"``, Cassini, the
-default) or PSMNet's (``conv="Regular"``).
+Ported so far:
+
+- stage 1, ``models/disparity.py:ModeDisparity``: the eval forward at any
+  batch with the sphere feature extractor (``conv="Sphere"``, Cassini, the
+  default, or ERP) or PSMNet's (``conv="Regular"``), and the Sphere model's
+  training step (``training.py``);
+- the disparity -> depth bridge: ``ops/grid_sample.py`` and ``geometry/``
+  (the Cassini / ERP projections, the sine law, the z-buffered
+  re-projection);
+- stage 2, ``models/fusion.py``: ``ModeFusion`` and ``Baseline``, eval;
+- the whole frame, ``pipeline.py:TwoStagePipeline`` (``predict --stage
+  all`` without the CLI), f32 or bf16;
+- ``utils/flops.py``, the model-FLOP counts.
+
+Not yet: the fusion and bf16 training steps, ``data/``, the CLIs,
+``parallel/`` (``ROADMAP.md``).
 """
 
 __version__ = "0.1.0"

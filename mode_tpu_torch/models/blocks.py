@@ -1,4 +1,5 @@
-"""Building blocks of the stage-1 network (``mode_tpu/models/blocks.py``).
+"""Building blocks of the stage-1 and fusion networks
+(``mode_tpu/models/blocks.py``).
 
 Every module is named with the reference's torch ``state_dict`` path
 segments (``nn.Sequential`` indices included, with ``nn.ReLU`` placeholders
@@ -17,6 +18,11 @@ folded into the epilogue. A fused layer keeps its weight in the kernel's
 layout (every conv but the deconv: the K-major, in f32 split, layout of
 the tensor-core kernels) and its folded BN between calls, and remakes them
 only after one of its parameters or buffers changes.
+
+The fusion net's blocks (:class:`FusionBasicBlock`, :func:`up_bn_relu`,
+:class:`ConvHead2d`) take NHWC maps and keep them NHWC: the library convs
+and pools see channels-last NCHW views, so no block copies between the
+layouts.
 
 In training (``module.train()``) each conv + BN layer runs in the JAX
 package's order: the bare conv, BN with batch statistics, the residual, the
@@ -43,6 +49,7 @@ from mode_tpu_torch.ops import conv3d as conv3d_ops
 from mode_tpu_torch.ops import sphere_conv as sphere_ops
 from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
                                        deconv3d_bn_act, pack_weight_tc)
+from mode_tpu_torch.ops.epilogue import epilogue
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
 
 
@@ -402,20 +409,117 @@ class Classif(nn.Sequential):
     return self[2](y, plain=plain)[..., 0]
 
 
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+  """The NCHW view of an NHWC tensor (channels-last memory, no copy)."""
+  return x.permute(0, 3, 1, 2)
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+  """The fusion net's 2x2/2 max-pool on an NHWC map (the pool keeps
+  channels-last memory, so the result is a view)."""
+  return F.max_pool2d(_channels_last(x), 2, 2).permute(0, 2, 3,
+                                                       1).contiguous()
+
+
+class FusionConvBn(nn.Sequential):
+  """The fusion net's ``convbn`` (3x3, stride 1, padding 1, no bias) + BN,
+  with a ReLU after, on NHWC maps: ``forward(x, kernel)``.
+
+  ``kernel=True`` runs it as one call of ``ops/conv2d.py:conv2d_s1_bn_act``,
+  the BN and ReLU in the epilogue, where the JAX package runs the conv on
+  its 2-D band kernel; a Cin off a multiple of 8 (the fusion net's 12-
+  channel inputs) is padded with zero channels, input and weight, as the
+  JAX package pads them. Otherwise ``F.conv2d`` in the map's dtype, then
+  the folded BN and the ReLU in f32."""
+
+  def __init__(self, cin: int, cout: int):
+    super().__init__(nn.Conv2d(cin, cout, 3, 1, padding=1, bias=False),
+                     TorchBatchNorm(cout))
+    self._operands = _Operands()
+    self._packed = _Operands()
+
+  def forward(self, x: torch.Tensor, *, kernel: bool,
+              plain: bool = False) -> torch.Tensor:
+    conv, bn = self[0], self[1]
+    scale, bias = self._operands.get(
+        (bn.weight, bn.bias, bn.running_mean, bn.running_var), bn.folded)
+    if kernel:
+      pad = -conv.in_channels % 8
+      weight = self._packed.get((conv.weight,), lambda: (
+          conv2d_ops.pack_weight_tc(F.pad(conv.weight,
+                                          (0, 0, 0, 0, 0, pad)))))
+      if pad:
+        x = F.pad(x, (0, pad))
+      return conv2d_ops.conv2d_s1_bn_act(x, weight, scale, bias, None, True,
+                                         1, plain=plain)
+    y = F.conv2d(_channels_last(x), conv.weight, padding=1)
+    return epilogue(y.permute(0, 2, 3, 1), scale, bias, None, True, x.dtype)
+
+
+class FusionBasicBlock(nn.Module):
+  """The fusion net's ``BasicBlock``: two convbn + ReLU stages and no
+  residual. The reference builds a ``downsample`` branch that its forward
+  never runs; the port does not build it (``utils/convert.py`` drops its
+  keys). ``forward(x, route)`` on NHWC maps: each conv runs the 2-D kernel
+  where ``route(x_shape, cout)`` says so (``models/fusion.py``)."""
+
+  def __init__(self, cin: int, cout: int):
+    super().__init__()
+    self.conv1 = nn.Sequential(FusionConvBn(cin, cout), nn.ReLU())
+    self.conv2 = nn.Sequential(FusionConvBn(cout, cout), nn.ReLU())
+
+  def forward(self, x: torch.Tensor, *, route, plain: bool = False
+              ) -> torch.Tensor:
+    for stage in (self.conv1, self.conv2):
+      layer = stage[0]
+      x = layer(x, kernel=route(tuple(x.shape), layer[0].out_channels),
+                plain=plain)
+    return x
+
+
+def up_bn_relu(deconv: nn.ConvTranspose2d, bn: TorchBatchNorm,
+               x: torch.Tensor) -> torch.Tensor:
+  """``relu(BN(deconv(x)))`` on an NHWC map, the fusion decoder's k2 s2
+  transpose conv (with its bias) + BN + ReLU: ``F.conv_transpose2d`` in the
+  map's dtype on a channels-last view, then the bias folded into the BN's
+  affine and the ReLU, in f32."""
+  y = F.conv_transpose2d(_channels_last(x), deconv.weight,
+                         stride=deconv.stride)
+  scale, shift = bn.folded()
+  shift = shift + deconv.bias.float() * scale
+  return epilogue(y.permute(0, 2, 3, 1), scale, shift, None, True, x.dtype)
+
+
+class ConvHead2d(nn.Conv2d):
+  """The fusion nets' 1x1 head with a bias, ``nn.Conv2d(cin, 1, 1)``:
+  ``forward(x)`` on an NHWC map returns the f32 logits ``(B, H, W, 1)``,
+  the conv in the map's dtype and the bias added in f32 (the bias stays
+  f32 when the weight is cast)."""
+
+  def __init__(self, cin: int):
+    super().__init__(cin, 1, 1, bias=True)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    y = F.conv2d(_channels_last(x), self.weight)
+    return y.permute(0, 2, 3, 1).float() + self.bias.float()
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
   """The reference's initialisation, drawn from ``generator`` in module
   order: conv weights ~ N(0, sqrt(2 / (prod(k) * C_out))), BN weight 1 and
   bias 0, transpose-conv weights ~ U(+-1 / sqrt(C_out * prod(k))) (torch's
   default for them), sphere-conv weights ~ U(+-1 / sqrt(C_in * prod(k)))
-  (the reference ``SphereConv``'s own)."""
+  (the reference ``SphereConv``'s own); a conv's or transpose conv's bias
+  ~ U(+-1 / sqrt(fan_in)), torch's default, which the reference keeps."""
   for m in module.modules():
     if isinstance(m, (nn.Conv2d, Conv3dWeight)):
       w = m.weight
       n = math.prod(w.shape[2:]) * w.shape[0]
       w.copy_(torch.empty(w.shape).normal_(0, math.sqrt(2.0 / n),
                                            generator=generator))
-    elif isinstance(m, (ConvTranspose3dWeight, SphereConv)):
+    elif isinstance(m, (nn.ConvTranspose2d, ConvTranspose3dWeight,
+                        SphereConv)):
       # fan: C_out * prod(k) for the transpose conv's (I, O, *k) layout,
       # C_in * prod(k) for the sphere conv's (O, I, *k)
       w = m.weight
@@ -425,3 +529,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     elif isinstance(m, TorchBatchNorm):
       m.weight.fill_(1.0)
       m.bias.zero_()
+    if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and m.bias is not None:
+      w = m.weight          # fan_in: axis 1 times the taps, as torch's
+      bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
+      m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound,
+                                                      generator=generator))

@@ -1,0 +1,173 @@
+"""The whole frame: six stereo pairs through stage 1, the disparity -> depth
+bridge, and fusion (``mode_tpu/pipeline.py``; ``predict --stage all``
+without the CLI).
+
+The reference runs its two stages through the filesystem. Here a frame
+stays on the device from its input images to the fused depth map: it
+uploads its inputs and nothing else (the bridge's and the normalisation's
+constants are kept on the device), and no step waits on the host.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Mapping
+
+import torch
+
+from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.geometry.projection import rotate_cassini
+from mode_tpu_torch.geometry.reprojection import (
+    DEEP360_BASELINES, DEEP360_PAIR_TRANSFORMS, cassini_disp_to_depth,
+    depth_view_transforms_batched)
+from mode_tpu_torch.models.disparity import ModeDisparity
+from mode_tpu_torch.models.fusion import ModeFusion
+from mode_tpu_torch.training import cast_conv_params, imagenet_stats
+from mode_tpu_torch.utils.convert import load_reference_state_dict
+
+CAM_PAIRS = ("12", "13", "14", "23", "24", "34")
+# the "trans" pairs, the last three: a slice, so that selecting them makes
+# no index tensor (an upload on the card)
+_TRANS = slice(3, 6)
+assert all((DEEP360_PAIR_TRANSFORMS[p][0] == "trans")
+           == (k >= _TRANS.start) for k, p in enumerate(CAM_PAIRS))
+
+
+def normalize_uint8(imgs: torch.Tensor, dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+  """ImageNet-normalise uint8 HWC images on their device (the host sends 4x
+  fewer bytes than normalised f32) and cast to ``dtype``."""
+  mean, std = imagenet_stats(imgs.device)
+  x = imgs.float() / 255.0
+  return ((x - mean) / std).to(dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _baselines(device: torch.device) -> torch.Tensor:
+  """The pairs' baselines ``(6, 1, 1)`` f32, uploaded once per device."""
+  return torch.tensor([DEEP360_BASELINES[p] for p in CAM_PAIRS],
+                      dtype=torch.float32).to(device)[:, None, None]
+
+
+def bridge_all_pairs(disps: torch.Tensor, confs: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+  """The six pairs' disparities and confidences ``(6, H, W)``, pair order
+  ``CAM_PAIRS``, as depth maps and confidences in camera 1's frame ``(6, H,
+  W)``: the sine law per pair, then pair 12 as it is, the two "rot" pairs
+  rotated, the three "trans" pairs re-projected in one z-buffer sort
+  (bit-equal to three; one sort is three launches fewer on the card)."""
+  depth_l = cassini_disp_to_depth(disps, _baselines(disps.device))
+  out_d, out_c = list(depth_l), list(confs)
+  for k, pair in enumerate(CAM_PAIRS):
+    kind, params = DEEP360_PAIR_TRANSFORMS[pair]
+    if kind == "rot":
+      both = torch.stack([depth_l[k], confs[k]], dim=-1)[None]
+      rot = rotate_cassini(both, *params)[0]
+      out_d[k], out_c[k] = rot[..., 0], rot[..., 1]
+  d, c = depth_view_transforms_batched(
+      depth_l[_TRANS], confs[_TRANS],
+      tuple(DEEP360_PAIR_TRANSFORMS[p][1] for p in CAM_PAIRS[_TRANS]))
+  out_d[_TRANS], out_c[_TRANS] = list(d), list(c)
+  return torch.stack(out_d), torch.stack(out_c)
+
+
+class TwoStagePipeline:
+  """Whole-frame 360° depth: six stereo pairs and four views -> one fused
+  depth map.
+
+  Args:
+    disp: stage 1, a ``ModeDisparity`` built with ``out_conf=True``, or a
+      reference-layout ``state_dict`` for one (Sphere, Cassini).
+    fusion: stage 2, a ``ModeFusion`` or a reference-layout ``state_dict``
+      (the dead ``downsample`` keys are dropped).
+    maxdisp, max_depth: 192 and 1000 for Deep360.
+    dtype: stage 1's conv weights and activations (``torch.bfloat16`` for
+      speed); its softmax, soft-argmin and confidence stay f32.
+    stage1_chunk: pairs per stage-1 call (6, 3, 2 or 1).
+    uint8_inputs: the images are uint8 and normalised on the device: the
+      pairs into ``dtype``, the views into f32 before ``fusion_dtype``.
+    fusion_dtype: the fusion net's conv weights and activations (``dtype``
+      if None); its sigmoid head stays f32. The bridge always runs f32.
+    device: the CUDA card by default (raises without one); ``"cpu"`` runs
+      the plain PyTorch path. Modules passed in must be on it; the pipeline
+      casts their conv weights to its dtypes in place.
+  """
+
+  def __init__(self, disp: ModeDisparity | Mapping[str, Any],
+               fusion: ModeFusion | Mapping[str, Any], maxdisp: int = 192,
+               max_depth: float = 1000.0,
+               dtype: torch.dtype = torch.float32, stage1_chunk: int = 6,
+               uint8_inputs: bool = False,
+               fusion_dtype: torch.dtype | None = None,
+               device: str | torch.device | None = None):
+    self.device = resolve_device(device)
+    if 6 % stage1_chunk:
+      raise ValueError(f"stage1_chunk must divide 6, got {stage1_chunk}")
+    if isinstance(disp, Mapping):
+      model = ModeDisparity(maxdisp, out_conf=True, device=self.device)
+      load_reference_state_dict(model, disp)
+      disp = model
+    if isinstance(fusion, Mapping):
+      model = ModeFusion(max_depth, device=self.device)
+      load_reference_state_dict(model, fusion)
+      fusion = model
+    for name, model in (("stage 1", disp), ("fusion", fusion)):
+      if model.device != self.device:
+        raise ValueError(f"{name} is on {model.device}, the pipeline on "
+                         f"{self.device}")
+    if not disp.out_conf or disp.maxdisp != maxdisp:
+      raise ValueError(f"stage 1 must be built with out_conf=True and "
+                       f"maxdisp {maxdisp}")
+    if fusion.max_depth != max_depth:
+      raise ValueError(f"fusion has max_depth {fusion.max_depth}, the "
+                       f"pipeline {max_depth}")
+    self.dtype = dtype
+    self.fusion_dtype = fusion_dtype or dtype
+    self.disp = cast_conv_params(disp, dtype)
+    self.fusion = cast_conv_params(fusion, self.fusion_dtype)
+    self.stage1_chunk = stage1_chunk
+    self.uint8_inputs = uint8_inputs
+
+  def _input(self, imgs, dtype: torch.dtype) -> torch.Tensor:
+    imgs = torch.as_tensor(imgs, device=self.device)
+    if self.uint8_inputs:
+      return normalize_uint8(imgs, dtype)
+    return imgs.to(dtype)
+
+  def stage1(self, lefts, rights, *, plain: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Disparities and confidences ``(6, H, W)`` f32 of the six pairs
+    ``(6, H, W, 3)``."""
+    lefts = self._input(lefts, self.dtype)
+    rights = self._input(rights, self.dtype)
+    preds, confs = [], []
+    for i in range(0, 6, self.stage1_chunk):
+      p, c = self.disp(lefts[i:i + self.stage1_chunk],
+                       rights[i:i + self.stage1_chunk], plain=plain)
+      preds.append(p.float())
+      confs.append(c.float())
+    return torch.cat(preds), torch.cat(confs)
+
+  def fuse(self, depths: torch.Tensor, confs: torch.Tensor, rgbs, *,
+           plain: bool = False) -> torch.Tensor:
+    """The fused depth ``(H, W)`` f32 of the bridged maps ``(6, H, W)`` and
+    the four views ``(4, H, W, 3)``."""
+    rgbs = self._input(rgbs, torch.float32).to(self.fusion_dtype)
+    fdt = self.fusion_dtype
+    out = self.fusion([depths[k][None, :, :, None].to(fdt) for k in range(6)],
+                      [confs[k][None, :, :, None].to(fdt) for k in range(6)],
+                      [rgbs[k][None] for k in range(4)], plain=plain)
+    return out[0, :, :, 0]
+
+  def __call__(self, lefts, rights, rgbs, *, plain: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``lefts``/``rights`` ``(6, H, W, 3)`` (pair order ``CAM_PAIRS``) and
+    ``rgbs`` ``(4, H, W, 3)`` (cameras 1-4: pair 12's left and right, pair
+    34's left and right), tensors or arrays. Returns ``(fused (H, W),
+    disparities (6, H, W), confidences (6, H, W))``, f32 on the device.
+    ``plain=True`` runs the kernels' plain versions (a reference for the
+    card)."""
+    disp, conf = self.stage1(lefts, rights, plain=plain)
+    depths, confs = bridge_all_pairs(disp, conf)
+    return self.fuse(depths, confs, rgbs, plain=plain), disp, conf
+

@@ -10,11 +10,15 @@ rule is the CLI's (``mode_tpu/cli/train_disparity.py``).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable
 
 import torch
+from torch import nn
 
 from mode_tpu_torch.device import ieee_f32_convs
+from mode_tpu_torch.models.blocks import (Conv3dWeight,
+                                          ConvTranspose3dWeight, SphereConv)
 from mode_tpu_torch.utils.losses import disparity_deep_supervision
 
 # ImageNet statistics (the JAX package's data/preprocess.py)
@@ -24,16 +28,42 @@ BASE_LR = 1e-3
 START_DECAY = 45
 
 
+@functools.lru_cache(maxsize=8)
+def imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+  """The ImageNet mean and std, f32 ``(3,)``, uploaded once per device: a
+  call that uploads them waits on the device (an upload from pageable
+  memory synchronises)."""
+  return (torch.tensor(IMAGENET_MEAN, device=device),
+          torch.tensor(IMAGENET_STD, device=device))
+
+
 def normalize_rgb_on_device(x: torch.Tensor,
                             dtype: torch.dtype | None = None
                             ) -> torch.Tensor:
   """ImageNet-normalise a uint8 RGB batch ``(..., 3)`` where it lies; a
   float batch passes through. ``dtype`` casts the result."""
   if x.dtype == torch.uint8:
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
+    mean, std = imagenet_stats(x.device)
     x = (x.float() / 255.0 - mean) / std
   return x.to(dtype) if dtype is not None else x
+
+
+_CONV_WEIGHTS = (nn.Conv2d, nn.ConvTranspose2d, Conv3dWeight,
+                 ConvTranspose3dWeight, SphereConv)
+
+
+def cast_conv_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+  """Cast ``module``'s conv weights to ``dtype`` in place: every 2-D and 3-D
+  conv's and transpose conv's, the sphere convs' and the 1x1 heads';
+  biases and BN parameters stay f32 (the JAX package's
+  ``cast_conv_params``, which casts its ``kernel`` and ``kernel_t``
+  leaves). Each cast weight is a new ``Parameter``, so the layers remake
+  their kernel-layout weights on their next call. Returns ``module``."""
+  for m in module.modules():
+    if isinstance(m, _CONV_WEIGHTS) and m.weight.dtype != dtype:
+      m.weight = nn.Parameter(m.weight.detach().to(dtype),
+                              requires_grad=m.weight.requires_grad)
+  return module
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter]

@@ -7,8 +7,12 @@ JAX package names its Flax children with the same path segments
 ``mode_tpu/utils/torch_convert.py:convert_state_dict``: join the Flax path
 with dots, rename the leaf, and permute conv-like arrays back to torch's
 layout (the sphere convs' HWIO ``kernel`` included). Its result loads with
-``load_state_dict(strict=True)``. :func:`load_npz` loads the repo's
-reference-layout ``.npz`` weights (``tests/data/trained_mirror*.npz``).
+``load_state_dict(strict=True)``; a transpose conv's ``kernel_t`` ``(*K, O,
+I)`` becomes torch's ``(I, O, *K)`` by the same permutation, so the fusion
+nets' trees carry over too. :func:`load_npz` loads the repo's
+reference-layout ``.npz`` weights (``tests/data/trained_mirror*.npz``), and
+:func:`load_reference_state_dict` a reference ``state_dict`` whose dead
+parameters the port does not build.
 """
 
 from __future__ import annotations
@@ -77,6 +81,29 @@ def unwrap_checkpoint(obj: Mapping[str, Any]) -> dict[str, Any]:
   if "state_dict" in obj and not any(k.endswith("weight") for k in obj):
     obj = obj["state_dict"]
   return strip_module_prefix(obj)
+
+
+def load_reference_state_dict(model: torch.nn.Module,
+                              state: Mapping[str, Any]) -> list[str]:
+  """Load a reference-layout torch ``state_dict`` (raw, DataParallel-
+  prefixed, or in the training checkpoint's wrapper) into ``model``.
+
+  The keys of the reference's fusion ``BasicBlock`` s' ``downsample``
+  branches, which the reference builds and never runs (their parameters and
+  their BNs' ``num_batches_tracked``), map to nothing in the port: they are
+  dropped and returned, as ``mode_tpu/utils/torch_convert.py`` tolerates
+  them. Every other key must match, and every parameter and buffer of
+  ``model`` must be given (``strict=True``)."""
+  state = unwrap_checkpoint(state)
+  own = model.state_dict()
+  dropped = sorted(k for k in state if k not in own)
+  unknown = [k for k in dropped if ".downsample." not in f".{k}"]
+  if unknown:
+    raise KeyError(f"{len(unknown)} keys map to nothing in "
+                   f"{type(model).__name__}, e.g. {unknown[:4]}")
+  model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()
+                         if k in own}, strict=True)
+  return dropped
 
 
 def load_npz(model: torch.nn.Module, path: str | os.PathLike

@@ -816,3 +816,62 @@ def test_train_step_kernels_match_plain(gen):
                                                    spread[name])
   assert total["err"]**0.5 <= (1e-3 * total["norm"]**0.5
                                + 2 * total["spread"]**0.5), total
+
+
+@pytest.mark.parametrize("h,w", [(64, 32), (256, 128)])
+def test_bridge_on_the_card_matches_the_cpu(gen, h, w):
+  """The bridge on the card against the same function on the CPU from the
+  same disparities: the carried confidences (which show each target's
+  winner) bit-equal and the depths within 4e-7 of their value at >= 99.9%
+  of the pixels of each pair."""
+  from mode_tpu_torch.pipeline import bridge_all_pairs
+  disps = torch.rand((6, h, w), generator=gen, device="cuda") * (w / 3)
+  confs = torch.rand((6, h, w), generator=gen, device="cuda")
+  d, c = bridge_all_pairs(disps, confs)
+  rd, rc = bridge_all_pairs(disps.cpu(), confs.cpu())
+  d, c = d.cpu(), c.cpu()
+  for k in range(6):
+    conf_differ = (c[k] != rc[k]).float().mean()
+    depth_differ = ((d[k] - rd[k]).abs() > 4e-7 * rd[k].abs()).float().mean()
+    assert conf_differ <= 1e-3 and depth_differ <= 1e-3, (k, conf_differ,
+                                                          depth_differ)
+
+
+@pytest.mark.parametrize("h,w,maxdisp", [(64, 32, 16), (256, 128, 16)])
+def test_frame_on_the_card_matches_plain(gen, h, w, maxdisp):
+  """``TwoStagePipeline`` on the card against its plain path from the same
+  uint8 inputs: stage 1 at the served bars, the fused depth within 1e-3 m
+  (MAE) and 5e-2 m; at 256x128 the fusion net's full-resolution convs run
+  the 2-D kernel (W = 128)."""
+  import pathlib
+
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.pipeline import TwoStagePipeline
+  from mode_tpu_torch.utils.convert import load_npz
+  root = pathlib.Path(__file__).resolve().parents[1]
+  disp = load_npz(ModeDisparity(maxdisp, out_conf=True, device="cuda"),
+                  root / "tests/data/trained_mirror.npz")
+  fusion = ModeFusion(device="cuda")
+  with torch.no_grad():        # logits of a std ~1 (seeded features ~400)
+    fusion.feature_extraction.depth_layer7[2].weight.mul_(1 / 400)
+  pipe = TwoStagePipeline(disp, fusion, maxdisp, uint8_inputs=True)
+  lefts = torch.randint(0, 256, (6, h, w, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+  rights = torch.roll(lefts, -8, dims=2)
+  rgbs = torch.stack([lefts[0], rights[0], lefts[5], rights[5]])
+  kernels.reset_launches()
+  fused, pred, conf = pipe(lefts, rights, rgbs)
+  torch.cuda.synchronize()
+  launches = dict(kernels.LAUNCHES)
+  ref_fused, ref_pred, ref_conf = pipe(lefts, rights, rgbs, plain=True)
+  torch.cuda.synchronize()
+  assert launches["sphere_conv_bn_act"] == 32
+  if w % 128 == 0:
+    assert launches["conv2d_s1_bn_act"] >= 16
+  err = (pred - ref_pred).abs()
+  assert float(err.mean()) <= 1e-3 and float(err.max()) <= 1e-2
+  assert float((conf - ref_conf).abs().mean()) <= 1e-3
+  ferr = (fused - ref_fused).abs()
+  assert float(ferr.mean()) <= 1e-3 and float(ferr.max()) <= 5e-2
+  assert fused.shape == (h, w) and bool(torch.isfinite(fused).all())

@@ -85,3 +85,20 @@ def test_sphere_feature_extractor_is_the_next_slice():
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match="no CUDA device"):
       ModeDisparity(32, "Sphere", "ERP")
+
+
+def test_frame_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+  """The fusion nets and the whole-frame pipeline, like stage 1, build on
+  the card by default and only on an explicit CPU without one."""
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import Baseline, ModeFusion
+  from mode_tpu_torch.pipeline import TwoStagePipeline
+  disp = ModeDisparity(16, out_conf=True, device="cpu")
+  fusion = ModeFusion(device="cpu")
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  for build in (ModeFusion, Baseline,
+                lambda: TwoStagePipeline(disp, fusion, maxdisp=16)):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+      build()
+  assert TwoStagePipeline(disp, fusion, maxdisp=16,
+                          device="cpu").device == torch.device("cpu")
