@@ -25,23 +25,29 @@
    degenerate.
 3. Training paths: the stage-1 training step (``mode_tpu_torch.training``)
    of the Sphere model, seeded weights, at batch 2 on a seeded uint8 pair
-   and ground truth with a NaN patch: ``train_b2`` (Cassini, 1024x512) and
-   ``erp_train_b2`` (ERP, 512x1024). Step 1 runs through the kernels (and
-   records every kernel call, forward and backward) and again through the
-   plain versions from an identical copy: the loss and every gradient are
-   held against the plain step's, the gradients within a bar that adds the
-   gradient's own spread under f32-level input jitter. Three more steps
-   are timed with the launch counts set to 0 before and read after; they
-   must launch every kernel of the path at the counts of the JAX package's
-   training gates traced at the path's shape (``TRAIN_TRACED``) and lower
-   the loss; each prints the host clock at which the step returned beside
-   its end. One more step runs under ``torch.profiler`` for the time
-   breakdown: the device time by kind of kernel and, on the host, the
-   operations with the most self CPU time and the CUDA runtime calls
-   (kernel launches, synchronisations, copies). After ``train_b2`` the
-   trained weights take one step through the kernels and one through the
-   plain versions on the anchor's textured pair, held the same way
-   (``train_anchor``).
+   and ground truth with a NaN patch: ``train_b2`` (Cassini, 1024x512),
+   ``train_b2_bf16`` (the same in mixed precision: bf16 activations and
+   conv weights, f32 masters) and ``erp_train_b2`` (ERP, 512x1024). Step 1
+   runs through the kernels (and records every kernel call, forward and
+   backward) and again through the plain versions from an identical copy:
+   the loss and the gradients are held against the plain step's, the
+   gradients within a bar that adds the gradient's own spread under an
+   input jitter at the step's precision (``STEP_BARS``; in bf16 only the
+   leaves that jitter moves by less than 15% of their norm), every kernel
+   launch must take the step's dtype, and in bf16 an f32 step from the same
+   weights is read against the same plain step. Three more
+   steps are timed with the launch counts set to 0 before and read after;
+   they must launch every kernel of the path at the counts of the JAX
+   package's training gates traced at the path's shape (``TRAIN_TRACED``)
+   and lower the loss, and the parameters, gradients, Adam's moments and BN
+   statistics must be f32 after them; each prints the host clock at which
+   the step returned beside its end. One more step runs under
+   ``torch.profiler`` for the time breakdown: the device time by kind of
+   kernel and, on the host, the operations with the most self CPU time and
+   the CUDA runtime calls (kernel launches, synchronisations, copies).
+   After ``train_b2`` the trained weights take one step through the kernels
+   and one through the plain versions on the anchor's textured pair, held
+   the same way, in f32 and bf16 (``train_anchor``, ``train_anchor_bf16``).
 4. Whole-frame paths (``mode_tpu_torch.pipeline.TwoStagePipeline``, what
    ``predict --stage all`` runs): six 1024x512 uint8 Cassini pairs made
    like the anchor's inputs, each with its own disparity, and the four
@@ -56,12 +62,21 @@
    stage 1 against its plain path, the bridge on the card against the same
    function on the CPU, the fusion net against its plain versions, and the
    fused depths' spread. ``frame_bf16`` serves the same frame with both
-   stages in bf16 and holds its disparities to the f32 frame's.
+   stages in bf16 and holds its disparities to the f32 frame's. Then the
+   fusion net's training step (``make_fusion_train_step``) on a packed
+   frame of batch 4 at 1024x512 in the wire dtypes (f16 depths, uint8
+   confidences and views, unpacked on the card), seeded weights with the
+   head scaled to logits of mean 0 and std 1 in training, silog on an f32
+   ground truth partly past max_depth: ``fusion_train_b4`` (f32) and
+   ``fusion_train_b4_bf16``, driven as the stage-1 steps are, K9 forward
+   and as grad-input at twice the JAX gate's traced count
+   (``FUSION_TRAIN_K9``) a step.
 5. Kernel phase: calls each kernel's wrapper at every shape the paths gave
-   it (the recorded calls; the training step adds the grad-input shapes and
+   it (the recorded calls; the training steps add the grad-input shapes and
    the sphere conv's two backward kernels) and the regression shapes, in
-   f32 and bf16, holds the result against the kernel's plain PyTorch
-   version on the same inputs, and times the kernel, the plain version and
+   f32 and bf16 (a path's per-kernel times are in its own dtype), holds
+   the result against the kernel's plain PyTorch version on the same
+   inputs, and times the kernel, the plain version and
    one PyTorch library call of the same function where there is one, the
    library convs in IEEE f32 as the model runs its own
    (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
@@ -206,11 +221,30 @@ BF16_DISP_MAE = 0.0015 * MAXDISP
 # the served path whose per-pair numbers the kernels line carries for the
 # kernels that do not train (the regression head)
 MAIN_PATH = "sphere_b1"
-# The training paths: the Sphere model in each layout, f32; steps timed
-# after the first. path: (sphere_type, batch, (H, W)).
-TRAINS = {"train_b2": ("Cassini", 2, GEOMETRY["Cassini"]),
-          "erp_train_b2": ("ERP", 2, GEOMETRY["ERP"])}
+# The stage-1 training paths: the Sphere model in each layout, and the
+# Cassini step in mixed precision (bf16 activations and conv weights, f32
+# masters); steps timed after the first. path: (sphere_type, batch, (H, W),
+# compute dtype).
+TRAINS = {"train_b2": ("Cassini", 2, GEOMETRY["Cassini"], torch.float32),
+          "erp_train_b2": ("ERP", 2, GEOMETRY["ERP"], torch.float32),
+          "train_b2_bf16": ("Cassini", 2, GEOMETRY["Cassini"],
+                            torch.bfloat16)}
 TRAIN_STEPS = 3
+# The fusion net's training paths (mode_tpu_torch.training.
+# make_fusion_train_step on the packed wire inputs): ModeFusion(1000,
+# (32, 64, 128, 256)) with seeded weights, at the CLI's default batch 4
+# (mode_tpu/cli/train_fusion.py:46) and the pipeline's fusion shape.
+# path: (batch, (H, W), compute dtype).
+FUSION_TRAINS = {"fusion_train_b4": (4, GEOMETRY["Cassini"], torch.float32),
+                 "fusion_train_b4_bf16": (4, GEOMETRY["Cassini"],
+                                          torch.bfloat16)}
+# Per fusion training forward at that shape: the stride-1 3x3 convs that the
+# JAX package's batch-packed training gate sends to conv2d_3x3_fast_train,
+# traced with counting stubs under jax.eval_shape in f32 and in bf16
+# (tests/test_torch_fusion_train.py traces it and holds this number): all 38
+# but the two 12-channel input convs. Each launches K9 forward and as its
+# grad-input.
+FUSION_TRAIN_K9 = 36
 # Per training forward, by kernel family: the calls that the JAX package's
 # Pallas training gates send to its custom VJPs at the path's shape and
 # batch, traced with counting stubs under jax.eval_shape, the strided gates
@@ -222,6 +256,8 @@ TRAIN_STEPS = 3
 TRAIN_TRACED = {
     label: {"conv3d_s1": 10, "conv3d_s2": 6, "deconv3d": 6, "conv2d": 64,
             "sphere": 32} for label in TRAINS}
+# (the bf16 path's counts are the gates traced at the bf16 itemsize, inputs
+# and conv kernels cast: tests/test_torch_train_step_bf16.py)
 # A training step on the card against the same step through the plain
 # versions from the same weights: the loss within LOSS_RTOL; each gradient
 # leaf within GRAD_RTOL of its norm plus twice its spread, the largest
@@ -242,6 +278,32 @@ LOGIT_STD = 4.0
 # rounds its blended A values to bf16 (as the Pallas kernel does), which
 # adds ~2^-9 relative per product, summed over 9 * 128 of them.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# A training step's bars against its plain step, by compute dtype: the
+# loss's relative bar; the gradients' relative bars, over all the held
+# leaves ("global") and per leaf, each plus twice the spread, the largest
+# distance by which "draws" draws of the input jitter move the plain step's
+# gradient. In bf16 both steps round every activation to bf16 and may land
+# one bf16 step apart: the loss and the global gradient are held at
+# TOL[bfloat16]'s relative part, the spread is taken under a jitter of one
+# bf16 step (2^-8; a 1e-6 jitter vanishes in the cast to bf16), and a leaf
+# whose spread is "noise" or more of its norm is rounding noise at that
+# operating point and is not held (its bar would pass a zero gradient): so
+# with seeded weights, where bf16 moves the stage-1 and fusion gradients by
+# 76% or more of their norm, only the leaves next to the heads are held, and
+# the trained weights' step (train_anchor_bf16) is the bf16 step check. Its
+# leaf bar, 0.1, lies between the most that the kernel step needed over the
+# 4 anchor seeds of step_bar_study.py (0.033 on an H100) and what a zero
+# gradient needs on any held leaf (at least 1 - 2 * 0.15 = 0.7). An f32
+# step read against the plain bf16 step needed at most 0.046 there: the
+# bars cannot tell a bf16 step from an f32 one, so the paths check the
+# dtype their kernels took instead.
+STEP_BARS = {
+    torch.float32: {"loss": LOSS_RTOL, "global": GRAD_RTOL,
+                    "leaf": GRAD_RTOL, "jitter": INPUT_JITTER, "draws": 2,
+                    "noise": None},
+    torch.bfloat16: {"loss": TOL[torch.bfloat16][1],
+                     "global": TOL[torch.bfloat16][1], "leaf": 1e-1,
+                     "jitter": 2.0**-8, "draws": 4, "noise": 0.15}}
 # A served path on the card against its plain path, f32: the bars of
 # tests/test_trained_parity_midres.py.
 PRED_MAE, PRED_MAX, CONF_MAE = 1e-3, 1e-2, 1e-3
@@ -691,47 +753,57 @@ def _serve_path(label, model, gen, seed_shift):
           "peak_gib": peak_gib, "profile": prof, "check": check}
 
 
+class _Calls(dict):
+  """Recorded kernel calls by case, and the dtypes their inputs had."""
+
+  def __init__(self):
+    super().__init__()
+    self.dtypes = set()
+
+
 @contextlib.contextmanager
 def _recorded_launches(tag: str = "step"):
   """Record every kernel launch of the op modules while the block runs:
   ``{(kernel, x shape (NHWC / NDHWC; the sphere conv's backward: the dx
   shape), Cout, residual, relu, dilation): [tag, ...]}``, one entry per
-  launch, forward and backward alike."""
+  launch, forward and backward alike; ``.dtypes`` the dtypes of their
+  inputs."""
   from mode_tpu_torch.ops import conv2d, conv3d, sphere_conv
-  calls = {}
+  calls = _Calls()
 
-  def note(key):
+  def note(key, x):
     calls.setdefault(key, []).append(tag)
+    calls.dtypes.add(x.dtype)
 
   def conv3d_launch(mode, x, weight, scale, bias, residual, relu):
     out = orig[0](mode, x, weight, scale, bias, residual, relu)
     note((conv3d._NAMES[mode], tuple(x.shape), out.shape[-1],
-          residual is not None, bool(relu), 1))
+          residual is not None, bool(relu), 1), x)
     return out
 
   def conv2d_launch(x, weight, scale, bias, residual, relu, dilation):
     out = orig[1](x, weight, scale, bias, residual, relu, dilation)
     note(("conv2d_s1_bn_act", tuple(x.shape), out.shape[-1],
-          residual is not None, bool(relu), dilation))
+          residual is not None, bool(relu), dilation), x)
     return out
 
   # each sphere launch under the kernel name of its layout
   def sphere_launch(x, weight, scale, bias, residual, relu, sphere_type):
     out = orig[2](x, weight, scale, bias, residual, relu, sphere_type)
     note((sphere_conv.FORWARD[sphere_type], tuple(x.shape), out.shape[-1],
-          residual is not None, bool(relu), 1))
+          residual is not None, bool(relu), 1), x)
     return out
 
   def bwd_input_launch(g, weight, sphere_type):
     dx = orig[3](g, weight, sphere_type)
     note((sphere_conv.BWD_INPUT[sphere_type], tuple(dx.shape), g.shape[-1],
-          False, False, 1))
+          False, False, 1), g)
     return dx
 
   def bwd_weight_launch(x, g, sphere_type):
     dw = orig[4](x, g, sphere_type)
     note((sphere_conv.BWD_WEIGHT[sphere_type], tuple(x.shape), g.shape[-1],
-          False, False, 1))
+          False, False, 1), x)
     return dw
 
   names = ((conv3d, "_launch", conv3d_launch),
@@ -761,57 +833,127 @@ def _train_batch(gen, batch, h, w):
   return left, right.contiguous(), gt
 
 
-def _grad_check(label, twin, batch, kernel_loss, kernel_grads):
-  """Hold a kernel step's loss and gradients against the plain step of an
-  identical model ``twin``; returns what it saw, fails out of bounds."""
-  from mode_tpu_torch import training
-  left, right, gt = batch
-  lf = training.normalize_rgb_on_device(left)
-  rf = training.normalize_rgb_on_device(right)
+def plain_stepper(model, make_step, inputs):
+  """``plain_step(jgen, amount, **kw) -> (loss, gradients)``: one step of
+  ``make_step(m, plain=True, **kw)`` from a fresh copy ``m`` of ``model`` as
+  it is now, on ``inputs`` (float tensors, then the target), the float
+  inputs multiplied by ``1 + amount * N(0, 1)`` drawn from ``jgen`` and
+  cast back to their dtype (unchanged if ``jgen`` is None)."""
+  twin = copy.deepcopy(model)
 
-  def plain_step(l, r):
+  def plain_step(jgen, amount, **kw):
     m = copy.deepcopy(twin)
-    step = training.make_disparity_train_step(
-        m, training.make_optimizer(m.parameters()), plain=True)
-    loss = float(step(l, r, gt))
+    step = make_step(m, **{"plain": True, **kw})
+    xs = [x if jgen is None else (x.float() * (1 + amount * torch.randn(
+        x.shape, generator=jgen, device=x.device))).to(x.dtype)
+          for x in inputs[:-1]]
+    loss = float(step(*xs, inputs[-1]))
     return loss, {n: p.grad for n, p in m.named_parameters()}
 
-  loss, grads = plain_step(lf, rf)
-  spread = dict.fromkeys(grads, 0.0)
-  jgen = torch.Generator(device=DEVICE).manual_seed(7)
-  for _ in range(2):
-    jit = 1 + INPUT_JITTER * torch.randn(lf.shape, generator=jgen,
-                                         device=DEVICE)
-    _, other = plain_step(lf * jit, rf * jit)
-    for n, g in other.items():
-      spread[n] = max(spread[n], float(torch.linalg.vector_norm(g - grads[n])))
+  return plain_step
+
+
+def _against(grads, ref, spread, held):
+  """``grads`` against ``ref`` on the ``held`` leaves: per leaf the error
+  and the spread relative to the leaf's norm, and the least per-leaf bar it
+  passes, ``max(0, err - 2 spread) / norm``; then the global error, norm
+  and spread."""
   rows, err2, ref2, spread2 = [], 0.0, 0.0, 0.0
-  for n, g in kernel_grads.items():
-    err = float(torch.linalg.vector_norm(g - grads[n]))
-    norm = float(torch.linalg.vector_norm(grads[n]))
+  for n in held:
+    err = float(torch.linalg.vector_norm(grads[n] - ref[n]))
+    norm = float(torch.linalg.vector_norm(ref[n]))
     err2, ref2, spread2 = err2 + err**2, ref2 + norm**2, spread2 + spread[n]**2
     rows.append({"leaf": n, "rel": err / norm, "spread_rel": spread[n] / norm,
-                 "ratio": err / (GRAD_RTOL * norm + 2 * spread[n])})
-  worst = max(rows, key=lambda r: r["ratio"])
-  most = max(rows, key=lambda r: r["rel"])
+                 "needs": max(0.0, err - 2 * spread[n]) / norm})
+  return rows, err2**0.5, ref2**0.5, spread2**0.5
+
+
+def grad_check(label, plain_step, kernel_loss, kernel_grads,
+               dtype=torch.float32, jitter_seed=7, bars=None):
+  """Hold a kernel step's loss and gradients against the plain step of an
+  identical model (``plain_step`` from :func:`plain_stepper`) at ``bars``
+  (``STEP_BARS[dtype]`` if None); the jitter is drawn from
+  ``jitter_seed``. In bf16
+  also an f32 step against the same plain bf16 step, read at the same bars:
+  what a step that ran no bf16 would need. Returns what it saw, ``ok``
+  whether it is within the bars."""
+  bars = bars or STEP_BARS[dtype]
+  loss, grads = plain_step(None, 0.0)
+  spread = dict.fromkeys(grads, 0.0)
+  jgen = torch.Generator(device=DEVICE).manual_seed(jitter_seed)
+  for _ in range(bars["draws"]):
+    _, other = plain_step(jgen, bars["jitter"])
+    for n, g in other.items():
+      spread[n] = max(spread[n], float(torch.linalg.vector_norm(g - grads[n])))
+  held = [n for n, g in grads.items() if bars["noise"] is None
+          or spread[n] < bars["noise"] * float(torch.linalg.vector_norm(g))]
   check = {"loss": kernel_loss, "plain_loss": loss,
            "loss_rel": abs(kernel_loss - loss) / abs(loss),
-           "grad_rel_global": (err2 / ref2) ** 0.5,
-           "grad_spread_global": (spread2 / ref2) ** 0.5,
-           "grad_rel_median": statistics.median(r["rel"] for r in rows),
-           "worst_leaf": worst, "largest_rel_leaf": most}
-  print(f"{label} step vs plain step (f32): loss {kernel_loss:.7g} vs "
-        f"{loss:.7g} (rel {check['loss_rel']:.3g}, bar {LOSS_RTOL}); "
-        f"gradients: global rel {check['grad_rel_global']:.3g} (the plain "
-        f"step's spread under {INPUT_JITTER} input jitter "
-        f"{check['grad_spread_global']:.3g}), median leaf "
-        f"{check['grad_rel_median']:.3g}; worst leaf against its bar "
-        f"{worst['leaf']}: rel {worst['rel']:.3g}, spread "
-        f"{worst['spread_rel']:.3g}, ratio {worst['ratio']:.3g} (bar 1); "
-        f"largest rel {most['leaf']} {most['rel']:.3g}", flush=True)
-  if check["loss_rel"] > LOSS_RTOL or worst["ratio"] > 1:
-    _fail(f"{label}: the training step disagrees with its plain step")
+           "held_leaves": len(held), "leaves": len(grads)}
+  check["ok"] = check["loss_rel"] <= bars["loss"]
+  print(f"{label} step vs plain step ({_dtype_name(dtype)}): loss "
+        f"{kernel_loss:.7g} vs {loss:.7g} (rel {check['loss_rel']:.3g}, bar "
+        f"{bars['loss']}); gradients: " + (
+            f"all {len(grads)} leaves held" if bars["noise"] is None else
+            f"{len(held)} of {len(grads)} leaves move under {bars['draws']} "
+            f"draws of a {bars['jitter']:.3g} input jitter by less than "
+            f"{bars['noise']} of their norm and are held"), flush=True)
+  if not held:
+    return check
+  rows, err, ref, spread_all = _against(kernel_grads, grads, spread, held)
+  most = max(rows, key=lambda r: r["needs"])
+  check.update({
+      "grad_rel_global": err / ref, "grad_spread_global": spread_all / ref,
+      "grad_global_ratio": err / (bars["global"] * ref + 2 * spread_all),
+      "global_needs": max(0.0, err - 2 * spread_all) / ref,
+      "grad_rel_median": statistics.median(r["rel"] for r in rows),
+      "leaf_needs": most["needs"], "worst_leaf": most,
+      "largest_rel_leaf": max(rows, key=lambda r: r["rel"])})
+  check["ok"] = check["ok"] and (most["needs"] <= bars["leaf"]
+                                 and check["grad_global_ratio"] <= 1)
+  print(f"{label} held gradients: global rel {err / ref:.3g} (spread "
+        f"{spread_all / ref:.3g}; ratio to the bar "
+        f"{check['grad_global_ratio']:.3g}), median leaf "
+        f"{check['grad_rel_median']:.3g}; the leaf needing the widest bar "
+        f"{most['leaf']}: rel {most['rel']:.3g}, spread "
+        f"{most['spread_rel']:.3g}, needs {most['needs']:.3g} (bar "
+        f"{bars['leaf']}); largest rel {check['largest_rel_leaf']['leaf']} "
+        f"{check['largest_rel_leaf']['rel']:.3g}", flush=True)
+  if dtype != torch.float32:
+    f32_loss, f32_grads = plain_step(None, 0.0, compute_dtype=None)
+    rows, err, _, _ = _against(f32_grads, grads, spread, held)
+    f32 = max(rows, key=lambda r: r["needs"])
+    check["f32_step"] = {
+        "loss": f32_loss,
+        "loss_rel": abs(kernel_loss - f32_loss) / abs(f32_loss),
+        "grad_rel_global": err / ref, "leaf_needs": f32["needs"],
+        "grad_global_ratio": err / (bars["global"] * ref + 2 * spread_all),
+        "global_needs": max(0.0, err - 2 * spread_all) / ref,
+        "worst_leaf": f32["leaf"]}
+    print(f"{label}, an f32 step against the same plain bf16 step, read at "
+          f"the same bars: loss {f32_loss:.7g} (the kernel step's rel gap to "
+          f"it {check['f32_step']['loss_rel']:.3g}); held gradients global "
+          f"rel {err / ref:.3g} (ratio to the bar "
+          f"{check['f32_step']['grad_global_ratio']:.3g}), the leaf needing "
+          f"the widest bar {f32['leaf']}: {f32['needs']:.3g}", flush=True)
   return check
+
+
+def _dtype_name(dtype) -> str:
+  return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+
+def _assert_f32_masters(label, model, optimizer) -> None:
+  """Mixed precision keeps the parameters, their gradients, Adam's moments
+  and the BN statistics in f32."""
+  for n, p in model.named_parameters():
+    state = optimizer.state[p]
+    if {p.dtype, p.grad.dtype, state["exp_avg"].dtype,
+        state["exp_avg_sq"].dtype} != {torch.float32}:
+      _fail(f"{label}: {n} or its gradient or Adam state is not f32")
+  for n, b in model.named_buffers():
+    if n.endswith(("running_mean", "running_var")) and b.dtype != torch.float32:
+      _fail(f"{label}: BN statistic {n} is {b.dtype}")
 
 
 def _profile(fn, args):
@@ -834,8 +976,11 @@ def _profile(fn, args):
            ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                           "welford")),
            ("sort (the bridge's z-buffer)", ("sort",)),
+           # (not "index": cuDNN's "indexed" weight-gradient kernels)
            ("gathers and scatters (the bridge)", ("scatter", "gather",
-                                                  "index")),
+                                                  "index_elementwise",
+                                                  "index_put",
+                                                  "indexselect")),
            ("library convs (cuDNN: grad-weight, other convs)",
             ("cudnn", "fprop", "dgrad", "wgrad", "conv", "implicit")),
            ("matmul (the heads' upsample)", ("gemm", "gemv", "cutlass")),
@@ -891,27 +1036,51 @@ def _profile(fn, args):
 
 
 def _train_path(gen, label):
-  """Drive one training path: step 1 recorded and checked, three timed,
-  one profiled."""
-  from mode_tpu_torch import kernels, training
+  """Drive one stage-1 training path: step 1 recorded and checked, three
+  timed, one profiled."""
+  from mode_tpu_torch import training
   from mode_tpu_torch.models.disparity import ModeDisparity
-  sphere_type, batch_size, (h, w) = TRAINS[label]
+  sphere_type, batch_size, (h, w), dtype = TRAINS[label]
+  cdt = None if dtype == torch.float32 else dtype
   model = ModeDisparity(MAXDISP, "Sphere", sphere_type, device=DEVICE,
                         generator=torch.Generator().manual_seed(0))
-  twin = copy.deepcopy(model)
   batch = _train_batch(gen, batch_size, h, w)
-  step = training.make_disparity_train_step(
-      model, training.make_optimizer(model.parameters()))
+  left, right, gt = batch
+  make_step = functools.partial(_stage1_step, compute_dtype=cdt)
+  plain_step = plain_stepper(model, make_step, (
+      training.normalize_rgb_on_device(left),
+      training.normalize_rgb_on_device(right), gt))
+  optimizer = training.make_optimizer(model.parameters())
+  step = training.make_disparity_train_step(model, optimizer,
+                                            compute_dtype=cdt)
+  desc = (f"Sphere {sphere_type}, {_dtype_name(dtype)}, ({batch_size}, {h}, "
+          f"{w}, 3) uint8 pair, maxdisp {MAXDISP}, seeded weights")
+  return _drive_training(label, model, optimizer, step, batch, plain_step,
+                         train_expect(label), dtype, batch_size, desc)
+
+
+def _drive_training(label, model, optimizer, step, args, plain_step, expect,
+                    dtype, batch_size, desc):
+  """Step 1 recorded (every kernel launch, each in the path's dtype) and
+  held against the plain step (in bf16 also an f32 step read against it),
+  the masters asserted f32 after the steps; three steps
+  timed with the launch counts set to 0 before and read after; one
+  profiled."""
+  from mode_tpu_torch import kernels
   kernels.reset_launches()
   with _recorded_launches() as calls:
     t = time.perf_counter()
-    losses = [float(step(*batch))]
+    losses = [float(step(*args))]
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t) * 1e3
   first = dict(kernels.LAUNCHES)
-  check = _grad_check(label, twin, batch, losses[0],
-                      {n: p.grad.clone() for n, p in model.named_parameters()})
-  del twin
+  if calls.dtypes != {dtype}:
+    _fail(f"{label}: the kernels took {calls.dtypes}, expected {dtype}")
+  check = grad_check(label, plain_step, losses[0],
+                     {n: p.grad.clone() for n, p in model.named_parameters()},
+                     dtype)
+  if not check["ok"]:
+    _fail(f"{label}: the training step disagrees with its plain step")
 
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
@@ -919,7 +1088,7 @@ def _train_path(gen, label):
   step_ms, enqueue_ms = [], []
   for _ in range(TRAIN_STEPS):
     t = time.perf_counter()
-    loss = step(*batch)
+    loss = step(*args)
     # the step has returned: its work is enqueued (or run, where a call in
     # it waited for the device)
     enqueue_ms.append((time.perf_counter() - t) * 1e3)
@@ -928,21 +1097,19 @@ def _train_path(gen, label):
     step_ms.append((time.perf_counter() - t) * 1e3)
   launches = dict(kernels.LAUNCHES)
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  _assert_f32_masters(label, model, optimizer)
   per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in KERNELS}
   ms = statistics.median(step_ms[-2:])
-  print(f"{label}: Sphere {sphere_type}, f32, ({batch_size}, {h}, {w}, 3) "
-        f"uint8 pair, maxdisp {MAXDISP}, seeded weights; step 1 "
-        f"{first_ms:.2f} ms, steps 2-{TRAIN_STEPS + 1} "
-        + ", ".join(f"{t:.2f}" for t in step_ms)
+  print(f"{label}: {desc}; step 1 {first_ms:.2f} ms, steps "
+        f"2-{TRAIN_STEPS + 1} " + ", ".join(f"{t:.2f}" for t in step_ms)
         + f" ms: {ms:.2f} ms/step (median of the last two), "
         f"{ms / batch_size:.2f} ms/example, peak memory {peak_gib:.2f} GiB; "
         "host clock until the step returned " + ", ".join(
             f"{t:.2f}" for t in enqueue_ms) + " ms; loss "
         + " -> ".join(f"{x:.5g}" for x in losses), flush=True)
-  expect = train_expect(label)
   print(f"{label} launches per step: " + json.dumps(per_step)
-        + " (the JAX gates traced at this shape, per forward: "
-        + json.dumps(TRAIN_TRACED[label]) + ")", flush=True)
+        + " (expected from the JAX gates traced at this shape: "
+        + json.dumps(expect) + ")", flush=True)
   for name in set(expect) | set(launches) | set(first):
     want = expect.get(name, 0)
     if first.get(name, 0) != want or launches.get(name, 0) != want * TRAIN_STEPS:
@@ -951,7 +1118,7 @@ def _train_path(gen, label):
             f"{want} per step")
   if not losses[-1] < losses[0]:
     _fail(f"{label}: the loss did not fall over {TRAIN_STEPS + 1} steps")
-  prof = _profile(step, batch)
+  prof = _profile(step, args)
   print(f"{label} profiled step: host {prof['host_ms']:.2f} ms, device "
         f"{prof['device_ms']:.2f} ms; by kind (ms): "
         + json.dumps({k: round(v, 3) for k, v in prof["by_kind_ms"].items()})
@@ -968,36 +1135,133 @@ def _train_path(gen, label):
         "CPU ms): " + json.dumps(rt["by_name"]), flush=True)
   return {"calls": calls, "batch": batch_size, "ncalls": TRAIN_STEPS,
           "launches": launches, "call_ms": step_ms, "first_ms": first_ms,
-          "enqueue_ms": enqueue_ms,
+          "enqueue_ms": enqueue_ms, "dtype": dtype,
           "peak_gib": peak_gib, "losses": losses, "profile": prof,
           "check": check}
 
 
-def _train_anchor():
+def _fusion_batch(gen, batch, h, w):
+  """A packed fusion frame on the card, in the wire dtypes of
+  ``mode_tpu/data/fusion_pack.py``: six f16 depths in (1, MAX_DEPTH) m, six
+  uint8 confidences, four uint8 views; and an f32 ground truth of which
+  ~9% lies past MAX_DEPTH (masked out) and a patch is 0 (no depth)."""
+  def u8(c):
+    return torch.randint(0, 256, (batch, h, w, c), generator=gen,
+                         device=DEVICE, dtype=torch.uint8)
+  depths = [(torch.rand((batch, h, w, 1), generator=gen, device=DEVICE)
+             * (MAX_DEPTH - 1) + 1).half() for _ in range(6)]
+  gt = torch.rand((batch, h, w), generator=gen, device=DEVICE) * 1.1 * MAX_DEPTH
+  gt[:, 300:400, 100:220] = 0.0
+  return depths, [u8(1) for _ in range(6)], [u8(3) for _ in range(4)], gt
+
+
+def _fusion_model(batch):
+  """The fusion net with seeded weights and random BN affines, its 1x1
+  head scaled and shifted to logits of mean 0 and std 1 on ``batch`` in
+  training (the frame's calibration, with the batch's BN statistics)."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.models.fusion import ModeFusion
+  model = ModeFusion(MAX_DEPTH, device=DEVICE,
+                     generator=torch.Generator().manual_seed(0))
+  _randomize_for_serving(model, 2)
+  probe = copy.deepcopy(model).train()
+  logits = []
+  probe.feature_extraction.depth_layer7[2].register_forward_hook(
+      lambda m, a, out: logits.append(out))
+  with torch.no_grad():
+    probe(*training.unpack_fusion_inputs(*batch[:3]))
+  del probe
+  mean, std = float(logits[0].mean()), float(logits[0].std())
+  head = model.feature_extraction.depth_layer7[2]
+  with torch.no_grad():
+    head.weight.div_(std)
+    head.bias.sub_(mean).div_(std)
+  print(f"fusion training: head logits (mean, std) {mean:.4g}, {std:.4g} on "
+        "the batch in training, scaled to 0, 1", flush=True)
+  return model
+
+
+def _fusion_train_path(label, init, batch):
+  """Drive one fusion training path from the weights ``init`` on the packed
+  frame ``batch``: the step takes the wire dtypes and unpacks them on the
+  card; its plain twin takes the same inputs unpacked (and, as the f32
+  step read against it in bf16, the same values in f32)."""
+  from mode_tpu_torch import training
+  batch_size, (h, w), dtype = FUSION_TRAINS[label]
+  cdt = None if dtype == torch.float32 else dtype
+  model = copy.deepcopy(init)
+  unpacked = training.unpack_fusion_inputs(*batch[:3], dtype)
+  make_step = functools.partial(fusion_step, compute_dtype=cdt)
+  plain_step = plain_stepper(model, make_step, (
+      *[x for part in unpacked for x in part], batch[3]))
+  optimizer = training.make_optimizer(model.parameters())
+  training.set_learning_rate(optimizer, training.FUSION_LR)
+  step = training.make_fusion_train_step(model, optimizer, MAX_DEPTH,
+                                         compute_dtype=cdt, raw_inputs=True)
+  desc = (f"ModeFusion(1000, (32, 64, 128, 256)), {_dtype_name(dtype)}, "
+          f"packed ({batch_size}, {h}, {w}) frame (f16 depths, uint8 "
+          f"confidences and views), silog, lr {training.FUSION_LR:g}, "
+          "seeded weights")
+  return _drive_training(label, model, optimizer, step, batch, plain_step,
+                         {"conv2d_s1_bn_act": 2 * FUSION_TRAIN_K9}, dtype,
+                         batch_size, desc)
+
+
+def _stage1_step(m, compute_dtype=None, plain=False):
+  """``make_disparity_train_step`` of ``m`` with a fresh optimizer."""
+  from mode_tpu_torch import training
+  return training.make_disparity_train_step(
+      m, training.make_optimizer(m.parameters()), compute_dtype=compute_dtype,
+      plain=plain)
+
+
+def fusion_step(m, compute_dtype=None, plain=False):
+  """``make_fusion_train_step`` of ``m`` at ``FUSION_LR`` with a fresh
+  optimizer, as ``step(*depths, *confs, *views, gt)`` on float maps, cast
+  to ``compute_dtype`` (f32 if None) first."""
+  from mode_tpu_torch import training
+  opt = training.make_optimizer(m.parameters())
+  training.set_learning_rate(opt, training.FUSION_LR)
+  step = training.make_fusion_train_step(m, opt, MAX_DEPTH,
+                                         compute_dtype=compute_dtype,
+                                         plain=plain)
+  dt = compute_dtype or torch.float32
+
+  def run(*xs):
+    return step(*([x.to(dt) for x in xs[a:b]]
+                  for a, b in ((0, 6), (6, 12), (12, 16))), xs[16])
+
+  return run
+
+
+def _train_anchor(dtype=torch.float32, seed_shift=0):
   """The trained weights take one step through the kernels and one through
-  the plain versions, on the anchor's textured pair (disparity d; a NaN
-  patch in the ground truth): where the gradient is well conditioned."""
+  the plain versions, in ``dtype`` (bf16: mixed precision), on the anchor's
+  textured pair (disparity d; a NaN patch in the ground truth): where the
+  gradient is well conditioned. ``seed_shift`` draws other pairs and
+  another jitter (step_bar_study.py)."""
   from mode_tpu_torch import training
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.utils.convert import load_npz
-  _, batch, (h, w) = TRAINS["train_b2"]
+  batch, (h, w) = TRAINS["train_b2"][1:3]
   with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
     seed, disp = int(z["seed"]), int(z["disp"])
-  lefts, rights = zip(*(_make_anchor_batch(seed + b, disp, h, w)
-                        for b in range(batch)))
+  lefts, rights = zip(*(_make_anchor_batch(
+      seed + batch * seed_shift + b, disp, h, w) for b in range(batch)))
   left = torch.cat(lefts).permute(0, 2, 3, 1).contiguous().to(DEVICE)
   right = torch.cat(rights).permute(0, 2, 3, 1).contiguous().to(DEVICE)
   gt = torch.full((batch, h, w), float(disp), device=DEVICE)
   gt[:, 300:400, 100:220] = float("nan")
   model = load_npz(ModeDisparity(MAXDISP, device=DEVICE),
                    ROOT / "tests/data/trained_mirror_mid.npz")
-  twin = copy.deepcopy(model)
-  step = training.make_disparity_train_step(
-      model, training.make_optimizer(model.parameters()))
-  loss = float(step(left, right, gt))
-  return _grad_check("train_anchor (trained weights)", twin,
-                     (left, right, gt), loss,
-                     {n: p.grad for n, p in model.named_parameters()})
+  cdt = None if dtype == torch.float32 else dtype
+  make_step = functools.partial(_stage1_step, compute_dtype=cdt)
+  plain_step = plain_stepper(model, make_step, (left, right, gt))
+  loss = float(_stage1_step(model, cdt)(left, right, gt))
+  return grad_check(f"train_anchor{'' if cdt is None else '_bf16'} "
+                    "(trained weights)", plain_step, loss,
+                    {n: p.grad for n, p in model.named_parameters()}, dtype,
+                    7 + seed_shift)
 
 
 def _sphere_bwd_case(case, dtype, gen):
@@ -1177,10 +1441,11 @@ def _frame_checks(label, pipe, inputs, disp, conf):
   """The f32 frame's stage-wise checks from one frame's stage-1 outputs:
   stage 1 against its plain path, the bridge on the card against the CPU,
   the fusion net against its plain path, and the fused depths' spread."""
-  from mode_tpu_torch.pipeline import bridge_all_pairs, normalize_uint8
+  from mode_tpu_torch.pipeline import bridge_all_pairs
+  from mode_tpu_torch.training import normalize_rgb_on_device
   lefts, rights, rgbs = inputs
   h, w = GEOMETRY["Cassini"]
-  ln, rn = normalize_uint8(lefts), normalize_uint8(rights)
+  ln, rn = normalize_rgb_on_device(lefts), normalize_rgb_on_device(rights)
   jgen = torch.Generator(device=DEVICE).manual_seed(7)
   jit = 1 + INPUT_JITTER * torch.randn(ln.shape, generator=jgen,
                                        device=DEVICE)
@@ -1329,7 +1594,7 @@ def _frame_path(label, disp, fusion, inputs, f32_frame=None):
   return {"calls": calls if f32_frame is None else {}, "batch": 6,
           "ncalls": nframes, "launches": launches, "call_ms": frame_ms,
           "split_ms": split, "peak_gib": peak_gib, "profile": prof,
-          "check": check, "head": head,
+          "check": check, "head": head, "models": (pipe.disp, pipe.fusion),
           "outputs": None if f32_frame else {"fused": fused, "disp": disp_out,
                                              "bridged": bridged}}
 
@@ -1395,8 +1660,15 @@ def main() -> int:
   torch.cuda.empty_cache()
   seen["train_b2"] = _train_path(gen, "train_b2")
   torch.cuda.empty_cache()
+  seen["train_b2_bf16"] = _train_path(gen, "train_b2_bf16")
+  torch.cuda.empty_cache()
   train_anchor = _train_anchor()
   torch.cuda.empty_cache()
+  train_anchor_bf16 = _train_anchor(torch.bfloat16)
+  torch.cuda.empty_cache()
+  for check in (train_anchor, train_anchor_bf16):
+    if not check["ok"]:
+      _fail("train_anchor: the training step disagrees with its plain step")
 
   # ---- the ERP paths
   model = _served_model("erp_b1", gen)
@@ -1410,12 +1682,23 @@ def main() -> int:
   inputs = _frame_inputs()
   disp, fusion = _frame_models()
   seen["frame"] = _frame_path("frame", disp, fusion, inputs)
-  disp, fusion = copy.deepcopy(disp), copy.deepcopy(fusion)
+  # the f32 pipeline's own copies, the fusion head calibrated on the frame
+  disp, fusion = seen["frame"].pop("models")
   torch.cuda.empty_cache()
   seen["frame_bf16"] = _frame_path("frame_bf16", disp, fusion, inputs,
                                    seen["frame"]["outputs"])
+  seen["frame_bf16"].pop("models")
   del disp, fusion, inputs
   torch.cuda.empty_cache()
+
+  # ---- training the fusion net, f32 then bf16, from the same weights
+  batch_size, (h, w), _ = FUSION_TRAINS["fusion_train_b4"]
+  batch = _fusion_batch(gen, batch_size, h, w)
+  init = _fusion_model(batch)
+  for label in FUSION_TRAINS:
+    seen[label] = _fusion_train_path(label, init, batch)
+    torch.cuda.empty_cache()
+  del init, batch
 
   # ---- kernel phase: every recorded shape once, f32 and bf16
   cases = {}                 # case -> {path: launches per call}, layers
@@ -1424,8 +1707,8 @@ def main() -> int:
       # a training call at the shape of a served call shares its timing
       # (the epilogue's residual and ReLU aside)
       same = [c for c in cases if c[:3] == case[:3] and c[5] == case[5]]
-      entry = (cases[same[0]] if label in TRAINS and same
-               else cases.setdefault(case, ({}, layers, s["batch"])))
+      entry = (cases[same[0]] if (label in TRAINS or label in FUSION_TRAINS)
+               and same else cases.setdefault(case, ({}, layers, s["batch"])))
       entry[0][label] = len(layers)
   reg_cases = {}             # the served paths' regression shapes
   for label in PATHS:
@@ -1445,15 +1728,17 @@ def main() -> int:
   # ---- full-resolution anchor
   anchor = _anchor()
 
-  # ---- summary: per kernel, the f32 time of each path's calls, each shape's
-  # time alone times its launches per call, summed
+  # ---- summary: per kernel, the time of each path's calls in the path's
+  # dtype (f32, or bf16 for the mixed-precision training steps), each
+  # shape's time alone times its launches per call, summed
   summary = []
   for name, (source, replaces) in KERNELS.items():
     f32 = [r for r in rows if r["name"] == name and r["dtype"] == "float32"]
     b16 = [r for r in rows if r["name"] == name and r["dtype"] == "bfloat16"]
     per_path = {}
     for label, s in seen.items():
-      mine = [r for r in f32 if r["per_call"].get(label)]
+      mine = [r for r in (b16 if s.get("dtype") == torch.bfloat16 else f32)
+              if r["per_call"].get(label)]
       if not mine:
         continue
 
@@ -1474,7 +1759,7 @@ def main() -> int:
           t[key] = None if value is None or t[key] is None else (
               t[key] + value * n)
       per_path[label] = {
-          "by_tpu": by_tpu,
+          "dtype": mine[0]["dtype"], "by_tpu": by_tpu,
           "launches": s["launches"].get(name, 0),
           "launches_per_call": s["launches"].get(name, 0) / s["ncalls"],
           "pairs_per_call": s["batch"], "ms": total("kernel_ms"),
@@ -1498,7 +1783,8 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "times": "f32, ms per call of main_path (a training step, or one "
                  "pair served): each shape's time alone times its launches "
-                 "per call, summed; per_path gives every path",
+                 "per call, summed; per_path gives every path, each in its "
+                 "own dtype",
         "per_path": per_path,
         "pass": all(r["pass"] for r in f32 + b16)})
   print("kernels: " + ", ".join(
@@ -1515,13 +1801,15 @@ def main() -> int:
                   "batch": s["batch"], "peak_gib": s["peak_gib"],
                   "losses": s["losses"], "profile": s["profile"],
                   **s["check"]}
-          for label, s in seen.items() if label in TRAINS} | {
+          for label, s in seen.items()
+          if label in TRAINS or label in FUSION_TRAINS} | {
           label: {"median_ms_per_frame": statistics.median(s["call_ms"]),
                   "frame_ms": s["call_ms"], **s["split_ms"],
                   "peak_gib": s["peak_gib"], "profile": s["profile"],
                   "head_logits": s["head"], **s["check"]}
           for label, s in seen.items() if label in FRAMES} | {
-          "train_anchor": train_anchor, "anchor": anchor}))
+          "train_anchor": train_anchor,
+          "train_anchor_bf16": train_anchor_bf16, "anchor": anchor}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)
   print(json.dumps({"ok": True, "device": {

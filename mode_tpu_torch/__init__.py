@@ -17,17 +17,20 @@ Ported so far:
 - stage 1, ``models/disparity.py:ModeDisparity``: the eval forward at any
   batch with the sphere feature extractor (``conv="Sphere"``, Cassini, the
   default, or ERP) or PSMNet's (``conv="Regular"``), and the Sphere model's
-  training step (``training.py``);
+  training step (``training.py``), f32 or mixed precision (bf16);
 - the disparity -> depth bridge: ``ops/grid_sample.py`` and ``geometry/``
   (the Cassini / ERP projections, the sine law, the z-buffered
   re-projection);
-- stage 2, ``models/fusion.py``: ``ModeFusion`` and ``Baseline``, eval;
+- stage 2, ``models/fusion.py``: ``ModeFusion`` and ``Baseline``, eval and
+  training, and ``ModeFusion``'s training step with the silog loss
+  (``training.make_fusion_train_step``, f32 or bf16, on float or packed
+  wire inputs);
 - the whole frame, ``pipeline.py:TwoStagePipeline`` (``predict --stage
   all`` without the CLI), f32 or bf16;
 - ``utils/flops.py``, the model-FLOP counts.
 
-Not yet: the fusion and bf16 training steps, ``data/``, the CLIs,
-``parallel/`` (``ROADMAP.md``).
+Not yet: ``data/``, the CLIs, checkpoint I/O and ``parallel/``
+(``ROADMAP.md``).
 """
 
 __version__ = "0.1.0"

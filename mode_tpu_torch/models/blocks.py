@@ -33,6 +33,12 @@ gates of ``ops/``); elsewhere it is ``F.conv2d``/``F.conv3d``/
 ``F.conv_transpose3d`` or the plain sphere conv under autograd, as the JAX
 package leaves those convs to XLA. The Functions take the torch-layout
 ``Parameter`` and pack it in each call, so its gradient reaches it.
+
+A training conv computes in its input's dtype: it casts its weight at use
+(``w.to(x.dtype)``), so with bf16 activations the f32 master weights get
+f32 gradients through the cast, as the JAX package's mixed-precision step
+casts its conv kernels inside the differentiated function. Biases and BN
+parameters and statistics stay f32.
 """
 
 from __future__ import annotations
@@ -141,6 +147,7 @@ def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
   Function where the JAX package trains on Pallas, else ``F.conv3d``."""
   gate = (conv3d_ops.train_s1_eligible if stride == 1
           else conv3d_ops.train_s2_eligible)
+  weight = weight.to(x.dtype)
   if gate(x.shape, weight.shape[0]):
     return conv3d_ops.conv3d_train(x, weight, stride, plain=plain)
   return F.conv3d(x.permute(0, 4, 1, 2, 3), weight, stride=stride,
@@ -172,11 +179,13 @@ class ConvBn2d(nn.Sequential):
               plain: bool = False) -> torch.Tensor:
     conv = self[0]
     if self.training:
+      weight = conv.weight.to(x.dtype)
       if self._kernel_in_training(x):
-        y = conv2d_ops.conv2d_train(_nhwc(x), conv.weight, conv.dilation[0],
+        y = conv2d_ops.conv2d_train(_nhwc(x), weight, conv.dilation[0],
                                     plain=plain).permute(0, 3, 1, 2)
       else:
-        y = conv(x)
+        y = F.conv2d(x, weight, None, conv.stride, conv.padding,
+                     conv.dilation)
       return _bn_act(self[1], y, residual, relu)
     if not fused:
       y = self[1](conv(x))
@@ -212,10 +221,22 @@ def convbn(cin: int, cout: int, kernel: int, stride: int, pad: int,
   return ConvBn2d(cin, cout, kernel, stride, pad, dilation)
 
 
-def downsample_shortcut(cin: int, cout: int, stride: int) -> nn.Sequential:
+class Shortcut(nn.Sequential):
+  """The residual blocks' ``downsample``: a 1x1 conv (no bias) + BN, the
+  conv in its input's dtype; NCHW."""
+
+  def __init__(self, cin: int, cout: int, stride: int):
+    super().__init__(nn.Conv2d(cin, cout, 1, stride, bias=False),
+                     TorchBatchNorm(cout))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    conv = self[0]
+    return self[1](F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride))
+
+
+def downsample_shortcut(cin: int, cout: int, stride: int) -> Shortcut:
   """1x1 conv + BN shortcut of the residual blocks."""
-  return nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
-                       TorchBatchNorm(cout))
+  return Shortcut(cin, cout, stride)
 
 
 class BasicBlockNoRelu(nn.Module):
@@ -279,11 +300,12 @@ class SphereConvBn(nn.Sequential):
     kind = self.sphere_type
     if self.training:
       xn = _nhwc(x)
+      weight = self[0].weight.to(x.dtype)
       if sphere_ops.train_kernel_eligible(xn.shape, kind):
-        y = sphere_ops.sphere_conv_train(xn, self[0].weight, sphere_type=kind,
+        y = sphere_ops.sphere_conv_train(xn, weight, sphere_type=kind,
                                          plain=plain)
       else:
-        y = sphere_ops.sphere_conv(xn, self[0].weight, kind)
+        y = sphere_ops.sphere_conv(xn, weight, kind)
       return _bn_act(self[1], y.permute(0, 3, 1, 2), residual, relu)
     weight, scale, bias = _fused_operands(self, conv2d_ops.pack_weight_tc)
     y = sphere_conv_bn_act(_nhwc(x), weight, scale, bias,
@@ -375,7 +397,7 @@ class DeconvBn3d(nn.Sequential):
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
     if self.training:
-      weight = self[0].weight
+      weight = self[0].weight.to(x.dtype)
       if conv3d_ops.train_deconv_eligible(x.shape, weight.shape[1]):
         y = conv3d_ops.deconv3d_train(x, weight, plain=plain)
       else:
@@ -425,12 +447,19 @@ class FusionConvBn(nn.Sequential):
   """The fusion net's ``convbn`` (3x3, stride 1, padding 1, no bias) + BN,
   with a ReLU after, on NHWC maps: ``forward(x, kernel)``.
 
-  ``kernel=True`` runs it as one call of ``ops/conv2d.py:conv2d_s1_bn_act``,
-  the BN and ReLU in the epilogue, where the JAX package runs the conv on
-  its 2-D band kernel; a Cin off a multiple of 8 (the fusion net's 12-
-  channel inputs) is padded with zero channels, input and weight, as the
-  JAX package pads them. Otherwise ``F.conv2d`` in the map's dtype, then
-  the folded BN and the ReLU in f32."""
+  In eval, ``kernel=True`` runs it as one call of
+  ``ops/conv2d.py:conv2d_s1_bn_act``, the BN and ReLU in the epilogue, where
+  the JAX package runs the conv on its 2-D band kernel; a Cin off a
+  multiple of 8 (the fusion net's 12-channel inputs) is padded with zero
+  channels, input and weight, as the JAX package pads them. Otherwise
+  ``F.conv2d`` in the map's dtype, then the folded BN and the ReLU in f32.
+
+  In training the bare conv runs ``conv2d_ops.conv2d_train`` (forward and
+  grad-input on the kernel) where ``kernel`` says so, else ``F.conv2d``;
+  then BN with batch statistics and the ReLU. Nothing is padded (the JAX
+  training gate takes no Cin off a multiple of 8, so the router never asks
+  for the kernel there) and nothing is cached: the weight is cast to the
+  map's dtype at use."""
 
   def __init__(self, cin: int, cout: int):
     super().__init__(nn.Conv2d(cin, cout, 3, 1, padding=1, bias=False),
@@ -441,6 +470,13 @@ class FusionConvBn(nn.Sequential):
   def forward(self, x: torch.Tensor, *, kernel: bool,
               plain: bool = False) -> torch.Tensor:
     conv, bn = self[0], self[1]
+    if self.training:
+      weight = conv.weight.to(x.dtype)
+      if kernel:
+        y = conv2d_ops.conv2d_train(x, weight, plain=plain)
+      else:
+        y = F.conv2d(_channels_last(x), weight, padding=1).permute(0, 2, 3, 1)
+      return _bn_act(bn, y, None, True, channels_last=True)
     scale, bias = self._operands.get(
         (bn.weight, bn.bias, bn.running_mean, bn.running_var), bn.folded)
     if kernel:
@@ -481,8 +517,14 @@ def up_bn_relu(deconv: nn.ConvTranspose2d, bn: TorchBatchNorm,
                x: torch.Tensor) -> torch.Tensor:
   """``relu(BN(deconv(x)))`` on an NHWC map, the fusion decoder's k2 s2
   transpose conv (with its bias) + BN + ReLU: ``F.conv_transpose2d`` in the
-  map's dtype on a channels-last view, then the bias folded into the BN's
-  affine and the ReLU, in f32."""
+  map's dtype on a channels-last view, then, in eval, the bias folded into
+  the BN's affine and the ReLU, in f32. In training the bias is added by
+  the transpose conv, so it keeps its own gradient, and the BN takes the
+  batch's statistics."""
+  if bn.training:
+    y = F.conv_transpose2d(_channels_last(x), deconv.weight.to(x.dtype),
+                           deconv.bias.to(x.dtype), stride=deconv.stride)
+    return _bn_act(bn, y.permute(0, 2, 3, 1), None, True, channels_last=True)
   y = F.conv_transpose2d(_channels_last(x), deconv.weight,
                          stride=deconv.stride)
   scale, shift = bn.folded()
@@ -492,16 +534,17 @@ def up_bn_relu(deconv: nn.ConvTranspose2d, bn: TorchBatchNorm,
 
 class ConvHead2d(nn.Conv2d):
   """The fusion nets' 1x1 head with a bias, ``nn.Conv2d(cin, 1, 1)``:
-  ``forward(x)`` on an NHWC map returns the f32 logits ``(B, H, W, 1)``,
-  the conv in the map's dtype and the bias added in f32 (the bias stays
-  f32 when the weight is cast)."""
+  ``forward(x)`` on an NHWC map returns the f32 logits ``(B, H, W, 1)``.
+  The conv runs in f32 whatever the map's and the weight's dtype, as the
+  JAX package's head does (its flax conv promotes the map and the kernel
+  to the type of its f32 bias)."""
 
   def __init__(self, cin: int):
     super().__init__(cin, 1, 1, bias=True)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    y = F.conv2d(_channels_last(x), self.weight)
-    return y.permute(0, 2, 3, 1).float() + self.bias.float()
+    y = F.conv2d(_channels_last(x).float(), self.weight.float())
+    return y.permute(0, 2, 3, 1) + self.bias.float()
 
 
 @torch.no_grad()

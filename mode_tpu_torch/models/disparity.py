@@ -31,6 +31,7 @@ kept.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -143,7 +144,8 @@ class PSMNetFeatureExtraction(nn.Module):
                                self.branch1)]
     feat = torch.cat([out_raw, out_skip, *branches], dim=1)
     feat = self.lastconv[0](feat, relu=True, fused=fused, plain=plain)
-    return self.lastconv[2](feat).permute(0, 2, 3, 1)
+    last = self.lastconv[2]               # a bare 1x1 conv, in feat's dtype
+    return F.conv2d(feat, last.weight.to(feat.dtype)).permute(0, 2, 3, 1)
 
 
 class Hourglass(nn.Module):

@@ -11,16 +11,21 @@ included, with parameter-free placeholders where the reference has its pools,
 ReLUs and sigmoid). The fusion ``BasicBlock`` has no residual, and the
 ``downsample`` branches the reference builds and never runs are not built.
 
-The eval forward runs NHWC from input to output (``models/blocks.py``).
-Its stride-1 3x3 convs run the fused 2-D kernel of ``ops/conv2d.py`` exactly
+The forward runs NHWC from input to output (``models/blocks.py``). In eval
+its stride-1 3x3 convs run the fused 2-D kernel of ``ops/conv2d.py`` exactly
 where the JAX package runs them on its 2-D band kernels
 (:func:`kernel_route`); the others run ``F.conv2d`` in IEEE f32
-(``device.ieee_f32_convs``), as the JAX package leaves them to XLA. The
-training forward is not ported.
+(``device.ieee_f32_convs``), as the JAX package leaves them to XLA. In
+training (``module.train()``) every layer takes the batch's BN statistics,
+and the stride-1 3x3 convs run the kernel's autograd Function (forward and
+grad-input) where the JAX package's batch-packed training gate takes them;
+the JAX package never trains on its lane-major path, so neither does the
+port.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Sequence
 
 import torch
@@ -112,10 +117,7 @@ class FeatureExtractionFusion(nn.Module):
 
   def forward(self, depth_in: torch.Tensor, rgb_in: torch.Tensor, *,
               plain: bool = False) -> torch.Tensor:
-    if self.training:
-      raise NotImplementedError("the fusion net's training forward is not "
-                                "ported; call eval()")
-    route = kernel_route(lane_eligible(depth_in.shape))
+    route = kernel_route(not self.training and lane_eligible(depth_in.shape))
 
     def run(stage, x):
       return _blocks(stage, x, route, plain)
@@ -141,6 +143,12 @@ class FeatureExtractionFusion(nn.Module):
     return torch.sigmoid(self.depth_layer7[2](d7)) * self.max_depth
 
 
+def _grad_mode(model: nn.Module):
+  """The eval forward runs without autograd; the training forward as the
+  caller's grad mode says."""
+  return contextlib.nullcontext() if model.training else torch.no_grad()
+
+
 def _place(model: nn.Module, device, generator) -> torch.device:
   """Initialise ``model``'s weights from ``generator`` (seed 0 if None),
   move it to ``device`` (the CUDA card by default) and set eval mode."""
@@ -158,7 +166,8 @@ class ModeFusion(nn.Module):
   ``(B, H, W, 1)`` depths, six ``(B, H, W, 1)`` confidences and four
   ``(B, H, W, 3)`` views, on the model's device; depth and confidence are
   interleaved channel-wise, as the reference concatenates them. Returns the
-  fused depth ``(B, H, W, 1)`` in f32.
+  fused depth ``(B, H, W, 1)`` in f32: in eval without autograd, after
+  ``train()`` differentiable, its BN layers on the batch's statistics.
 
   The weights are drawn from ``generator`` (seed 0 if None) as the
   reference initialises them; load trained ones with ``load_state_dict``
@@ -186,7 +195,7 @@ class ModeFusion(nn.Module):
     if depth_in.device != self.device or rgb_in.device != self.device:
       raise ValueError(f"inputs on {depth_in.device}/{rgb_in.device}, model "
                        f"on {self.device}")
-    with torch.no_grad(), ieee_f32_convs():
+    with _grad_mode(self), ieee_f32_convs():
       return self.feature_extraction(depth_in, rgb_in, plain=plain)
 
 
@@ -228,12 +237,9 @@ class Baseline(nn.Module):
     self.device = _place(self, device, generator)
 
   def forward(self, depths, *, plain: bool = False) -> torch.Tensor:
-    if self.training:
-      raise NotImplementedError("the fusion net's training forward is not "
-                                "ported; call eval()")
     x = torch.cat(list(depths), -1)
     if x.device != self.device:
       raise ValueError(f"inputs on {x.device}, model on {self.device}")
-    with torch.no_grad(), ieee_f32_convs():
+    with _grad_mode(self), ieee_f32_convs():
       logits = self.feature_extraction(x, plain=plain)
     return torch.sigmoid(logits) * self.max_depth

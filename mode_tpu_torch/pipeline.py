@@ -22,7 +22,8 @@ from mode_tpu_torch.geometry.reprojection import (
     depth_view_transforms_batched)
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.models.fusion import ModeFusion
-from mode_tpu_torch.training import cast_conv_params, imagenet_stats
+from mode_tpu_torch.training import (cast_conv_params,
+                                     normalize_rgb_on_device)
 from mode_tpu_torch.utils.convert import load_reference_state_dict
 
 CAM_PAIRS = ("12", "13", "14", "23", "24", "34")
@@ -31,15 +32,6 @@ CAM_PAIRS = ("12", "13", "14", "23", "24", "34")
 _TRANS = slice(3, 6)
 assert all((DEEP360_PAIR_TRANSFORMS[p][0] == "trans")
            == (k >= _TRANS.start) for k, p in enumerate(CAM_PAIRS))
-
-
-def normalize_uint8(imgs: torch.Tensor, dtype: torch.dtype = torch.float32
-                    ) -> torch.Tensor:
-  """ImageNet-normalise uint8 HWC images on their device (the host sends 4x
-  fewer bytes than normalised f32) and cast to ``dtype``."""
-  mean, std = imagenet_stats(imgs.device)
-  x = imgs.float() / 255.0
-  return ((x - mean) / std).to(dtype)
 
 
 @functools.lru_cache(maxsize=8)
@@ -89,8 +81,13 @@ class TwoStagePipeline:
     fusion_dtype: the fusion net's conv weights and activations (``dtype``
       if None); its sigmoid head stays f32. The bridge always runs f32.
     device: the CUDA card by default (raises without one); ``"cpu"`` runs
-      the plain PyTorch path. Modules passed in must be on it; the pipeline
-      casts their conv weights to its dtypes in place.
+      the plain PyTorch path. Modules passed in must be on it.
+
+  The pipeline holds eval-mode copies of the modules passed in, their conv
+  weights cast to its dtypes, as the JAX pipeline applies both nets with
+  ``train=False`` to a cast copy of their parameters: the caller's modules
+  keep their mode, dtypes and BN statistics, and later changes to them do
+  not reach the pipeline.
   """
 
   def __init__(self, disp: ModeDisparity | Mapping[str, Any],
@@ -123,15 +120,15 @@ class TwoStagePipeline:
                        f"pipeline {max_depth}")
     self.dtype = dtype
     self.fusion_dtype = fusion_dtype or dtype
-    self.disp = cast_conv_params(disp, dtype)
-    self.fusion = cast_conv_params(fusion, self.fusion_dtype)
+    self.disp = cast_conv_params(disp, dtype).eval()
+    self.fusion = cast_conv_params(fusion, self.fusion_dtype).eval()
     self.stage1_chunk = stage1_chunk
     self.uint8_inputs = uint8_inputs
 
   def _input(self, imgs, dtype: torch.dtype) -> torch.Tensor:
     imgs = torch.as_tensor(imgs, device=self.device)
     if self.uint8_inputs:
-      return normalize_uint8(imgs, dtype)
+      return normalize_rgb_on_device(imgs, dtype)
     return imgs.to(dtype)
 
   def stage1(self, lefts, rights, *, plain: bool = False

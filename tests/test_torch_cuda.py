@@ -12,9 +12,10 @@ head kernel's refusal of a Cin past shared memory; the stage-1 model
 two backward kernels in both layouts, the layer-4 shapes of a batch-2
 step and a 16-lane dw stage included, and the two kernels' refusals; the
 regression head on logits spread over +-60 and its C entry's refusal of a
-shape past 48 KB of shared memory; and one training step at
-512x256, where every kernel family trains, against the same step through
-the plain versions.
+shape past 48 KB of shared memory; one training step at 512x256, where
+every kernel family trains, in f32 and in mixed precision (bf16), against
+the same step through the plain versions; and one fusion training step at
+256x128, f32 and bf16, K9 forward and grad-input, against its plain step.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -750,72 +751,135 @@ def test_erp_slice_at_batch_two_runs_the_kernels(gen):
   assert bool(torch.isfinite(pred).all() and torch.isfinite(conf).all())
 
 
-def test_train_step_kernels_match_plain(gen):
-  """One step at 512x256, batch 2, where every kernel family trains
-  (tests/test_torch_train_step.py counts the routing), with the trained
-  mid-resolution weights (maxdisp 48) on a textured pair, through the
-  kernels and through the plain versions from an identical copy: the same
-  loss; all the gradients within 1e-3 of the plain ones' norm plus twice
-  their spread, the largest distance by which a 1e-6 jitter of the
-  normalised inputs moves the plain step's gradients (two draws); each leaf
-  within 1e-2 plus twice its spread. The BN stack amplifies f32 rounding in
-  the gradients by ~1e2-1e3 at this size, so a leaf may part from the plain
-  one by a few 1e-3; the kernels themselves are held at 1e-5 above."""
-  import copy
-  import pathlib
+# The f32 per-leaf bar of the steps below (chip_smoke.STEP_BARS holds its
+# own steps' leaves at 1e-3): at 512x256 with the trained weights a leaf
+# needs up to 1.0e-3 beyond twice its spread.
+F32_LEAF = 1e-2
+
+
+def _step_against_plain(model, make_step, inputs, dtype):
+  """One step of ``make_step(model, plain=False)`` through the kernels on
+  ``inputs`` (float tensors, then the target) against the same step through
+  the plain versions from an identical copy, held by ``chip_smoke.py``'s
+  ``grad_check`` at its ``STEP_BARS[dtype]`` (in f32 each leaf at
+  ``F32_LEAF``). Returns the kernel step's launches."""
+  import chip_smoke
+  bars = dict(chip_smoke.STEP_BARS[dtype])
+  if dtype == torch.float32:
+    bars["leaf"] = F32_LEAF
+  plain_step = chip_smoke.plain_stepper(model, make_step, inputs)
+  kernels.reset_launches()
+  loss = float(make_step(model, plain=False)(*inputs))
+  torch.cuda.synchronize()
+  launched = dict(kernels.LAUNCHES)
+  grads = {n: p.grad for n, p in model.named_parameters()}
+  assert all(g.dtype == torch.float32 for g in grads.values())
+  check = chip_smoke.grad_check("card test", plain_step, loss, grads, dtype,
+                                bars=bars)
+  assert check["ok"], check
+  return launched
+
+
+def _textured_pair(gen, h, w, disp):
   import torch.nn.functional as F
+  fine = torch.randn((2, 3, h // 2, w // 2), generator=gen, device="cuda")
+  coarse = torch.randn((2, 3, h // 8, w // 8), generator=gen, device="cuda")
+  left = (F.interpolate(fine, size=(h, w), mode="bilinear")
+          + 0.5 * F.interpolate(coarse, size=(h, w), mode="bilinear"))
+  left = left.permute(0, 2, 3, 1).contiguous()
+  return left, torch.roll(left, -disp, dims=2)
+
+
+def _stage1_step(gen, dtype):
+  """One stage-1 step at 512x256, batch 2, with the trained mid-resolution
+  weights (maxdisp 48) on a textured pair, against its plain step."""
+  import pathlib
   from mode_tpu_torch import training
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.utils.convert import load_npz
   root = pathlib.Path(__file__).resolve().parents[1]
   model = load_npz(ModeDisparity(48, device="cuda"),
                    root / "tests/data/trained_mirror_mid.npz")
-  twin = copy.deepcopy(model)
-  fine = torch.randn((2, 3, 256, 128), generator=gen, device="cuda")
-  coarse = torch.randn((2, 3, 64, 32), generator=gen, device="cuda")
-  left = (F.interpolate(fine, size=(512, 256), mode="bilinear")
-          + 0.5 * F.interpolate(coarse, size=(512, 256), mode="bilinear"))
-  left = left.permute(0, 2, 3, 1).contiguous()
-  right = torch.roll(left, -12, dims=2)
+  left, right = _textured_pair(gen, 512, 256, 12)
   gt = torch.full((2, 512, 256), 12.0, device="cuda")
   gt[:, 40:80, 20:60] = float("nan")
+  cdt = None if dtype == torch.float32 else dtype
 
-  def run(m, plain, jitter=None):
-    step = training.make_disparity_train_step(
-        m, training.make_optimizer(m.parameters()), plain=plain)
-    l, r = (left, right) if jitter is None else (left * jitter,
-                                                 right * jitter)
-    kernels.reset_launches()
-    loss = float(step(l, r, gt))
-    torch.cuda.synchronize()
-    return loss, {n: p.grad for n, p in m.named_parameters()}
+  def make_step(m, compute_dtype=cdt, plain=False):
+    return training.make_disparity_train_step(
+        m, training.make_optimizer(m.parameters()),
+        compute_dtype=compute_dtype, plain=plain)
 
-  loss, grads = run(model, False)
-  launched = dict(kernels.LAUNCHES)
-  assert launched == {"conv3d_s1_bn_act": 14, "conv3d_s2_bn_act": 6,
-                      "deconv3d_bn_act": 6, "conv2d_s1_bn_act": 128,
-                      "sphere_conv_bn_act": 32, "sphere_conv_bwd_input": 32,
-                      "sphere_conv_bwd_weight": 32}, launched
-  ref_loss, ref = run(copy.deepcopy(twin), True)
-  spread = dict.fromkeys(ref, 0.0)
-  for _ in range(2):
-    jitter = 1 + 1e-6 * torch.randn(left.shape, generator=gen, device="cuda")
-    _, other = run(copy.deepcopy(twin), True, jitter)
-    for name, g in other.items():
-      spread[name] = max(spread[name],
-                         float(torch.linalg.vector_norm(g - ref[name])))
-  assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss), (loss, ref_loss)
-  total = {"err": 0.0, "norm": 0.0, "spread": 0.0}
-  for name, g in grads.items():
-    err = float(torch.linalg.vector_norm(g - ref[name]))
-    norm = float(torch.linalg.vector_norm(ref[name]))
-    for key, value in (("err", err), ("norm", norm),
-                       ("spread", spread[name])):
-      total[key] += value**2
-    assert err <= 1e-2 * norm + 2 * spread[name], (name, err, norm,
-                                                   spread[name])
-  assert total["err"]**0.5 <= (1e-3 * total["norm"]**0.5
-                               + 2 * total["spread"]**0.5), total
+  return _step_against_plain(model, make_step, (left, right, gt), dtype)
+
+
+STAGE1_LAUNCHES = {"conv3d_s1_bn_act": 14, "conv3d_s2_bn_act": 6,
+                   "deconv3d_bn_act": 6, "conv2d_s1_bn_act": 128,
+                   "sphere_conv_bn_act": 32, "sphere_conv_bwd_input": 32,
+                   "sphere_conv_bwd_weight": 32}
+
+
+def test_train_step_kernels_match_plain(gen):
+  """One step at 512x256, batch 2, where every kernel family trains
+  (tests/test_torch_train_step.py counts the routing), with the trained
+  mid-resolution weights (maxdisp 48) on a textured pair, through the
+  kernels and through the plain versions from an identical copy, at
+  ``chip_smoke.STEP_BARS``: the same loss; all the gradients within 1e-3
+  of the plain ones' norm plus twice their spread, the largest distance by
+  which a 1e-6 jitter of the normalised inputs moves the plain step's
+  gradients (two draws); each leaf within 1e-2 plus twice its spread. The
+  BN stack amplifies f32 rounding in the gradients by ~1e2-1e3 at this
+  size, so a leaf may part from the plain one by a few 1e-3; the kernels
+  themselves are held at 1e-5 above."""
+  launched = _stage1_step(gen, torch.float32)
+  assert launched == STAGE1_LAUNCHES, launched
+
+
+def test_bf16_train_step_kernels_match_plain(gen):
+  """The same step in mixed precision (bf16 activations and conv weights,
+  f32 masters), every kernel family in bf16 forward and backward, against
+  the plain bf16 step at ``chip_smoke.STEP_BARS``: the loss within 1e-2;
+  the leaves that a one-bf16-step input jitter moves by less than 0.15 of
+  their norm within 1e-2 globally and 1e-1 each of the plain ones' norm
+  plus twice their spread (four draws); the gradients f32."""
+  launched = _stage1_step(gen, torch.bfloat16)
+  assert launched == STAGE1_LAUNCHES, launched
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fusion_train_step_kernels_match_plain(gen, dtype):
+  """One fusion step (``make_fusion_train_step`` on the packed wire
+  inputs) at batch 2, 256x128, seeded weights with the head scaled to
+  logits of std ~1, through the kernels and through the plain versions:
+  K9 trains the 24 stride-1 3x3 convs of the 256x128 (W 128) and 128x64
+  (H 128) levels that have a Cin multiple of 8, forward and grad-input
+  (tests/test_torch_fusion_train.py counts the routing); the bars of
+  ``chip_smoke.STEP_BARS``, which in bf16 hold only the leaves next to the
+  head (the seeded net's other gradients are rounding noise in bf16)."""
+  import functools
+
+  import chip_smoke
+  from mode_tpu_torch import training
+  from mode_tpu_torch.models.fusion import ModeFusion
+  b, h, w = 2, 256, 128
+  model = ModeFusion(device="cuda")
+  with torch.no_grad():         # train-mode logits of a std ~1
+    model.feature_extraction.depth_layer7[2].weight.mul_(0.5)
+  depths = [(torch.rand((b, h, w, 1), generator=gen, device="cuda") * 999
+             + 1).half() for _ in range(6)]
+  confs = [torch.randint(0, 256, (b, h, w, 1), generator=gen, device="cuda",
+                         dtype=torch.uint8) for _ in range(6)]
+  rgbs = [torch.randint(0, 256, (b, h, w, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8) for _ in range(4)]
+  gt = torch.rand((b, h, w), generator=gen, device="cuda") * 1100
+  unpacked = training.unpack_fusion_inputs(depths, confs, rgbs, dtype)
+  make_step = functools.partial(
+      chip_smoke.fusion_step,
+      compute_dtype=None if dtype == torch.float32 else dtype)
+  launched = _step_against_plain(model, make_step,
+                                 (*unpacked[0], *unpacked[1], *unpacked[2],
+                                  gt), dtype)
+  assert launched == {"conv2d_s1_bn_act": 48}, launched
 
 
 @pytest.mark.parametrize("h,w", [(64, 32), (256, 128)])
@@ -840,14 +904,17 @@ def test_bridge_on_the_card_matches_the_cpu(gen, h, w):
 @pytest.mark.parametrize("h,w,maxdisp", [(64, 32, 16), (256, 128, 16)])
 def test_frame_on_the_card_matches_plain(gen, h, w, maxdisp):
   """``TwoStagePipeline`` on the card against its plain path from the same
-  uint8 inputs: stage 1 at the served bars, the fused depth within 1e-3 m
-  (MAE) and 5e-2 m; at 256x128 the fusion net's full-resolution convs run
-  the 2-D kernel (W = 128)."""
+  uint8 inputs, the plain path deterministic: stage 1 at the served bars;
+  the bridged depths of both paths' disparities apart by more than 1e-3 of
+  their value (a z-buffer winner flipped) at <= 1e-3 of the pixels; the
+  fused depth within 1e-3 m (MAE) and 5e-2 m of the plain fusion net on
+  the same bridged maps; at 256x128 the fusion net's full-resolution convs
+  run the 2-D kernel (W = 128)."""
   import pathlib
 
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.models.fusion import ModeFusion
-  from mode_tpu_torch.pipeline import TwoStagePipeline
+  from mode_tpu_torch.pipeline import TwoStagePipeline, bridge_all_pairs
   from mode_tpu_torch.utils.convert import load_npz
   root = pathlib.Path(__file__).resolve().parents[1]
   disp = load_npz(ModeDisparity(maxdisp, out_conf=True, device="cuda"),
@@ -864,14 +931,35 @@ def test_frame_on_the_card_matches_plain(gen, h, w, maxdisp):
   fused, pred, conf = pipe(lefts, rights, rgbs)
   torch.cuda.synchronize()
   launches = dict(kernels.LAUNCHES)
-  ref_fused, ref_pred, ref_conf = pipe(lefts, rights, rgbs, plain=True)
-  torch.cuda.synchronize()
+  # the plain path's library convs on deterministic cuDNN algorithms (the
+  # default ones vary between repeats by ~4e-6 px); two repeats must agree
+  # bit for bit
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    refs = [pipe.stage1(lefts, rights, plain=True) for _ in range(2)]
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  assert all(torch.equal(a, b) for a, b in zip(*refs))
+  ref_pred, ref_conf = refs[0]
   assert launches["sphere_conv_bn_act"] == 32
   if w % 128 == 0:
     assert launches["conv2d_s1_bn_act"] >= 16
   err = (pred - ref_pred).abs()
   assert float(err.mean()) <= 1e-3 and float(err.max()) <= 1e-2
   assert float((conf - ref_conf).abs().mean()) <= 1e-3
+  # The bridge is a z-buffer: where two candidates lie within stage 1's
+  # ~1e-5 px of each other the two paths may pick different winners (2
+  # pixels at 256x128, 3.76 m apart), and the fusion net spreads a flip
+  # over its receptive field (~500 pixels). So the winners are held by
+  # count, and the fusion net on the kernel path's bridged maps.
+  depths, confs = bridge_all_pairs(pred, conf)
+  ref_depths, _ = bridge_all_pairs(ref_pred, ref_conf)
+  flipped = ((depths - ref_depths).abs() > 1e-3 * ref_depths.abs()).float()
+  assert float(flipped.mean()) <= 1e-3
+  assert torch.equal(pipe.fuse(depths, confs, rgbs), fused)
+  ref_fused = pipe.fuse(depths, confs, rgbs, plain=True)
   ferr = (fused - ref_fused).abs()
   assert float(ferr.mean()) <= 1e-3 and float(ferr.max()) <= 5e-2
   assert fused.shape == (h, w) and bool(torch.isfinite(fused).all())

@@ -15,7 +15,9 @@ they leave them a 1e-7 input jitter moves the JAX package's own output by
 - the NHWC forward at 32x16, batch 2, channels (8, 16, 32, 64);
 - the lane-major forward at 16x128, batch 1, where the JAX package runs
   its 2-D band kernel (``_CONV3D_MODE="on"``, Pallas in interpret mode);
-- ``Baseline`` on the NHWC forward.
+- ``Baseline`` on the NHWC forward;
+- the eval forward keeps no graph (the training forward is held in
+  ``tests/test_torch_fusion_train.py``).
 
 The routing: the JAX fusion net traced under ``jax.eval_shape`` with
 counting stubs for its Pallas 2-D kernels, against the port's calls of
@@ -134,9 +136,21 @@ def test_reference_state_dict_loads_without_its_dead_branches():
 
 
 def test_fusion_forward_is_eval_only():
-  port = tfusion.ModeFusion(1000.0, SMALL, device="cpu").train()
-  with pytest.raises(NotImplementedError):
-    port(*(_torch(x) for x in _frame_inputs(1, 16, 8)))
+  """The eval forward is inference only: it keeps no graph and leaves the
+  BN statistics as they are, even when the caller has autograd on. Only
+  after ``train()`` (``tests/test_torch_fusion_train.py``) does the forward
+  build a graph and update them."""
+  port = tfusion.ModeFusion(1000.0, SMALL, device="cpu")
+  bn = port.feature_extraction.depth_layer1[0].conv1[0][1]
+  before = bn.running_mean.clone()
+  with torch.enable_grad():
+    out = port(*(_torch(x) for x in _frame_inputs(2, 16, 8)))
+  assert out.grad_fn is None and not out.requires_grad
+  assert torch.equal(bn.running_mean, before)
+  assert int(bn.num_batches_tracked) == 0
+  port.train()
+  out = port(*(_torch(x) for x in _frame_inputs(2, 16, 8)))
+  assert out.grad_fn is not None and int(bn.num_batches_tracked) == 1
 
 
 # --- which convs take the 2-D kernel -------------------------------------------

@@ -163,31 +163,94 @@ def test_pipeline_takes_reference_state_dicts(frame):
 
 
 def test_cast_conv_params_casts_conv_weights_only():
+  """A cast copy, as the JAX package's ``cast_conv_params`` returns a new
+  tree: conv weights bf16, biases and BN f32; the module passed in keeps
+  its f32 weights."""
   model = tdisp.ModeDisparity(MAXDISP, out_conf=True, device="cpu")
   fusion = tfusion.ModeFusion(1000.0, (8, 16, 32, 64), device="cpu")
   layer = model.feature_extraction.layer4[0].conv2
   before = tblocks._fused_operands(layer, tblocks.conv2d_ops.pack_weight_tc)
-  for m in (model, fusion):
-    assert ttraining.cast_conv_params(m, torch.bfloat16) is m
-    for name, p in m.named_parameters():
+  cast = {}
+  for key, m in (("disp", model), ("fusion", fusion)):
+    cast[key] = ttraining.cast_conv_params(m, torch.bfloat16)
+    assert cast[key] is not m
+    for (name, p), (_, q) in zip(cast[key].named_parameters(),
+                                 m.named_parameters()):
       conv = p.dim() >= 4        # every conv-like weight, the 1x1 head's
       assert p.dtype == (torch.bfloat16 if conv else torch.float32), name
-  assert fusion.feature_extraction.depth_layer7[2].bias.dtype == torch.float32
-  # the layers' kernel-layout weights follow the cast
-  after = tblocks._fused_operands(layer, tblocks.conv2d_ops.pack_weight_tc)
-  assert before[0].parts.dtype == torch.float32
+      assert q.dtype == torch.float32, name
+      assert torch.equal(p.float(), q.detach().to(p.dtype).float()), name
+  assert cast["fusion"].feature_extraction.depth_layer7[2].bias.dtype == (
+      torch.float32)
+  # the copy's kernel-layout weights follow the cast; the original's stay
+  after = tblocks._fused_operands(cast["disp"].feature_extraction.layer4[0]
+                                  .conv2, tblocks.conv2d_ops.pack_weight_tc)
+  again = tblocks._fused_operands(layer, tblocks.conv2d_ops.pack_weight_tc)
+  assert before[0].parts.dtype == again[0].parts.dtype == torch.float32
   assert after[0].parts.dtype == torch.bfloat16
   assert after[0].parts.shape[0] == 1 and before[0].parts.shape[0] == 2
+
+
+# --- the modules the pipeline holds (fault F4) --------------------------------
+
+
+def _bn_buffers(module):
+  return {k: v.clone() for k, v in module.state_dict().items()
+          if k.endswith(("running_mean", "running_var",
+                         "num_batches_tracked"))}
+
+
+def test_pipeline_runs_train_mode_modules_in_eval():
+  """Stage 1 and the fusion net handed over in train mode (as a training
+  step leaves them) give the frame of eval-mode modules, bit for bit; the
+  caller's modules keep their mode and their BN statistics."""
+  lefts, rights = (torch.from_numpy(a) for a in _frame()[True])
+  rgbs = torch.stack([lefts[0], rights[0], lefts[5], rights[5]])
+  fusion_vars = _fusion_variables()
+  eval_pipe = _port(fusion_vars, uint8_inputs=True)
+  want = eval_pipe(lefts, rights, rgbs)
+  disp = load_npz(tdisp.ModeDisparity(MAXDISP, out_conf=True, device="cpu"),
+                  NPZ).train()
+  fusion = carry(tfusion.ModeFusion(1000.0, device="cpu"),
+                 fusion_vars).train()
+  buffers = {"disp": _bn_buffers(disp), "fusion": _bn_buffers(fusion)}
+  pipe = tpipe.TwoStagePipeline(disp, fusion, MAXDISP, 1000.0,
+                                uint8_inputs=True, device="cpu")
+  got = pipe(lefts, rights, rgbs)
+  for a, b in zip(got, want):
+    assert torch.equal(a, b)
+  assert disp.training and fusion.training
+  assert not pipe.disp.training and not pipe.fusion.training
+  for key, m in (("disp", disp), ("fusion", fusion)):
+    for name, v in _bn_buffers(m).items():
+      assert torch.equal(v, buffers[key][name]), name
+
+
+def test_bf16_pipeline_leaves_the_callers_modules_f32():
+  disp = load_npz(tdisp.ModeDisparity(MAXDISP, out_conf=True, device="cpu"),
+                  NPZ)
+  fusion = tfusion.ModeFusion(1000.0, (8, 16, 32, 64), device="cpu")
+  pipe = tpipe.TwoStagePipeline(disp, fusion, MAXDISP, 1000.0,
+                                dtype=torch.bfloat16, device="cpu")
+  for m in (disp, fusion):
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+  for m in (pipe.disp, pipe.fusion):
+    assert torch.bfloat16 in {p.dtype for p in m.parameters()}
 
 
 def test_normalize_keeps_its_output_and_uploads_once():
   x = torch.from_numpy(np.random.default_rng(1).integers(
       0, 256, (2, 4, 5, 3), np.uint8))
   got = ttraining.normalize_rgb_on_device(x)
-  mean = torch.tensor(ttraining.IMAGENET_MEAN)
-  std = torch.tensor(ttraining.IMAGENET_STD)
-  assert torch.equal(got, (x.float() / 255.0 - mean) / std)
-  assert torch.equal(tpipe.normalize_uint8(x), got)
+  # the JAX package's compiled arithmetic: x * f32(1/255) - mean as one
+  # fused multiply-add, then times f32(1/std)
+  mean = np.float32(ttraining.IMAGENET_MEAN).astype(np.float64)
+  inv_std = np.float32(1) / np.float32(ttraining.IMAGENET_STD)
+  want = (x.numpy() * np.float64(np.float32(1 / 255)) - mean).astype(
+      np.float32) * inv_std
+  np.testing.assert_array_equal(got.numpy(), want)
+  assert torch.equal(ttraining.normalize_rgb_on_device(x, torch.bfloat16),
+                     got.to(torch.bfloat16))
   dev = torch.device("cpu")
   assert all(a is b for a, b in zip(ttraining.imagenet_stats(dev),
                                     ttraining.imagenet_stats(dev)))

@@ -127,14 +127,19 @@ def jax_step():
   return _jax_step()
 
 
-def _port_run(sphere_type="Cassini", h=H, w=W):
+def _port_run(sphere_type="Cassini", h=H, w=W, compute_dtype=None,
+              optimizer_out=None):
+  """One port step; ``optimizer_out`` (a list) receives the optimizer."""
   model = load_npz(tdisp.ModeDisparity(MAXDISP, "Sphere", sphere_type,
                                        device="cpu"), NPZ)
   optimizer = ttraining.make_optimizer(model.parameters())
-  step = ttraining.make_disparity_train_step(model, optimizer)
+  step = ttraining.make_disparity_train_step(model, optimizer,
+                                             compute_dtype=compute_dtype)
   left, right, gt = _batch(0, h, w)
   loss = step(torch.from_numpy(left), torch.from_numpy(right),
               torch.from_numpy(gt))
+  if optimizer_out is not None:
+    optimizer_out.append(optimizer)
   return model, float(loss)
 
 
@@ -269,19 +274,25 @@ def test_normalize_matches_jax():
 FAMILIES = ("conv3d_s1", "conv3d_s2", "deconv3d", "conv2d", "sphere")
 
 
-def _count_jax(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
+def _count_jax(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini",
+               dtype=None):
   """Trace the JAX model's training forward (``jax.eval_shape``) with its
   Pallas gates on, and count the calls of its Pallas custom VJPs; stubs
   return zeros of the right shape, so no kernel is traced. The strided
   gates are asked at the bf16 itemsize, at which the stride-1 gate always
   sizes its blocks (``band_pallas_ok``'s default): so no VMEM budget that
   only f32 exceeds enters, as the port leaves the TPU's memory budgets
-  out."""
+  out. ``dtype`` (``jnp.bfloat16``) traces the mixed-precision forward:
+  the inputs and the conv kernels cast, as the JAX step casts them."""
   model = jdisp.ModeDisparity(maxdisp=maxdisp, sphere_type=sphere_type,
                               remat=False)
-  left = jnp.zeros((batch, h, w, 3), jnp.float32)
+  left = jnp.zeros((batch, h, w, 3), dtype or jnp.float32)
   variables = jax.eval_shape(lambda: model.init(
       jax.random.PRNGKey(0), left, left, train=False))
+  if dtype is not None:
+    variables = {**variables, "params": jax.eval_shape(
+        lambda p: jtraining.cast_conv_params(p, dtype),
+        variables["params"])}
   calls = dict.fromkeys(FAMILIES, 0)
 
   def stub(family, shape_fn):
@@ -312,7 +323,8 @@ def _count_jax(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
   return calls
 
 
-def _count_port(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
+def _count_port(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini",
+                dtype=torch.float32):
   calls = dict.fromkeys(FAMILIES, 0)
 
   def counted(family, fn):
@@ -333,7 +345,7 @@ def _count_port(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini"):
       "sphere", sphere_ops.sphere_conv_train))
   model = tdisp.ModeDisparity(maxdisp, "Sphere", sphere_type,
                               device="cpu").train()
-  left = torch.zeros((batch, h, w, 3))
+  left = torch.zeros((batch, h, w, 3), dtype=dtype)
   with torch.no_grad():
     model(left, left)
   return calls
