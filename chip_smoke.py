@@ -71,7 +71,31 @@
    ``fusion_train_b4_bf16``, driven as the stage-1 steps are, K9 forward
    and as grad-input at twice the JAX gate's traced count
    (``FUSION_TRAIN_K9``) a step.
-5. Kernel phase: calls each kernel's wrapper at every shape the paths gave
+5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
+   tree of 1024x512 PNGs in a temporary directory (one episode; one frame
+   in training and validation, two in testing; each frame the frame
+   phase's six uint8 pairs, each pair's ground truth its constant
+   disparity, the depth pair 12's through the bridge), the trained mid
+   weights and the frame's calibrated fusion net written as reference
+   ``.tar`` files; then each CLI through its ``main(argv)`` with its
+   default device (the card): ``test_disparity`` at batch 1 (with its
+   dumps and without), 4 and 5 (a partial last batch: 5, 5, 2),
+   ``save_output_disparity_stage`` at batch 6, ``test_fusion`` on the
+   bridge's output, ``predict --stage disp`` and ``--stage all``. Each
+   invocation's launch counts, set to 0 before and read after, and each
+   loader batch's, must be the counts the served paths and the frame
+   expect per call; ``test_disparity``'s MAE must be the MAE of its own
+   dumps; stage 1 at every batch size from 1 to 6 must launch its path's
+   kernels and match its plain path on the same batch and the batch-1
+   dumps (the anchor's bars); ``test_fusion``'s dumps must match
+   ``ModeFusion`` and ``cassini_to_erp`` called directly on the same
+   decoded frames, and its metrics those of its dumps; ``predict --stage
+   all`` must match ``TwoStagePipeline`` called directly on the same
+   decoded images (the frame's fusion bars); every output file must exist
+   with its shape and range. Prints each CLI's wall time, its ms per pair
+   or frame after the first batch, its loader's wait per batch and decode
+   path. (``cli_profile.py`` profiles the CLIs' host work.)
+6. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training steps add the grad-input shapes and
    the sphere conv's two backward kernels) and the regression shapes, in
    f32 and bf16 (a path's per-kernel times are in its own dtype), holds
@@ -81,11 +105,11 @@
    library convs in IEEE f32 as the model runs its own
    (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
    precision flag, so the paths run as a caller's process runs them).
-6. Full-resolution anchor: the trained reference weights
+7. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
    against the frame's committed (pred, conf).
-7. Prints a ``{"kernels": [...]}`` line, then as the last line
+8. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, when there is no card or when any
@@ -100,9 +124,11 @@ import functools
 import inspect
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1599,6 +1625,495 @@ def _frame_path(label, disp, fusion, inputs, f32_frame=None):
                                              "bridged": bridged}}
 
 
+# ---- the serving CLIs (mode_tpu_torch/cli) on a Deep360-layout tree on
+# disk: one episode, one frame in training and in validation, two in
+# testing (24 pairs, 12 of them tested), each frame the frame phase's six
+# uint8 pairs, each pair's ground-truth disparity its FRAME_DISPS value
+# (the maps of tests/synth_data.py's tree, named as it names them).
+CLI_EPISODE = "ep1_500frames"
+CLI_FRAMES = {"training": 1, "validation": 1, "testing": 2}
+CLI_TEST_PAIRS = 6 * CLI_FRAMES["testing"]
+CLI_ALL_PAIRS = 6 * sum(CLI_FRAMES.values())
+
+
+def _cli_tree(root: Path, lefts, rights) -> None:
+  """Write the tree under ``root``: the PNGs of one frame once, copied for
+  the others; the disparities; the ground-truth depth, pair 12's ground
+  truth through the bridge (pair 12 is camera 1's own)."""
+  from PIL import Image
+
+  from mode_tpu_torch.geometry.reprojection import disp_to_depth_at_cam1
+  from mode_tpu_torch.pipeline import CAM_PAIRS
+  h, w = GEOMETRY["Cassini"]
+  depth = disp_to_depth_at_cam1(torch.full((h, w), float(FRAME_DISPS[0])),
+                                torch.ones(h, w), "12")[0].numpy()
+  written = {}
+  for subset, frames in CLI_FRAMES.items():
+    base = root / CLI_EPISODE / subset
+    for sub in ("rgb", "disp", "depth"):
+      (base / sub).mkdir(parents=True)
+    for f in range(frames):
+      for k, pair in enumerate(CAM_PAIRS):
+        for side, imgs in (("l", lefts), ("r", rights)):
+          path = base / "rgb" / f"{f:06d}_{pair}_rgb_{side}.png"
+          if (pair, side) in written:
+            shutil.copyfile(written[pair, side], path)
+          else:
+            Image.fromarray(imgs[k].cpu().numpy()).save(path)
+            written[pair, side] = path
+        np.savez(base / "disp" / f"{f:06d}_{pair}_disp.npz",
+                 np.full((h, w), FRAME_DISPS[k], np.float32))
+      np.savez(base / "depth" / f"{f:06d}_depth.npz", depth)
+
+
+@contextlib.contextmanager
+def _timed_loaders(records: list):
+  """While the block runs, the dataset CLIs' loaders record each batch's
+  size, the host clock at which it was asked for, how long the consumer
+  waited for it, the launch counts at that moment (so each batch's
+  launches are the difference to the next request) and whether the native
+  decode made it."""
+  from mode_tpu_torch import kernels
+  from mode_tpu_torch.cli import save_output_disparity_stage as save
+  from mode_tpu_torch.cli import test_disparity, test_fusion
+  from mode_tpu_torch.data.loader import DataLoader
+
+  class Timed(DataLoader):
+    def __iter__(self):
+      rec = {"sizes": [], "wait_s": [], "t": [], "launches": [], "native": 0}
+      records.append(rec)
+      get_batch = self.dataset.get_batch
+
+      def counted(indices, threads):
+        batch = get_batch(indices, threads)
+        rec["native"] += batch is not None
+        return batch
+
+      self.dataset.get_batch = counted
+      it = super().__iter__()
+      try:
+        while True:
+          t0 = time.perf_counter()
+          rec["t"].append(t0)
+          rec["launches"].append(dict(kernels.LAUNCHES))
+          try:
+            batch = next(it)
+          except StopIteration:
+            return
+          rec["wait_s"].append(time.perf_counter() - t0)
+          rec["sizes"].append(len(batch.get("dispNames")
+                                  or batch["gtNames"]))
+          yield batch
+      finally:
+        it.close()
+
+  mods = (save, test_disparity, test_fusion)
+  for mod in mods:
+    mod.DataLoader = Timed
+  try:
+    yield
+  finally:
+    for mod in mods:
+      mod.DataLoader = DataLoader
+
+
+def _cli_expect() -> dict[str, tuple]:
+  """Each invocation's batch sizes (None where no loader runs) and its
+  launches by kernel, one dict per model call: the counts the served paths
+  expect per call (sphere_b1 at batch 1, sphere_b6 at batch >= 2: K9 on
+  every stride-1 3x3 FE conv whatever the batch), the frame's, and the
+  fusion net's K8 a frame. The loaders keep a partial last batch."""
+  b1, bn, frame = ({k: n for k, (_, n) in table.items()} for table in (
+      PATHS["sphere_b1"][4], PATHS["sphere_b6"][4], FRAME_JAX))
+
+  def stage1(batch, pairs):
+    sizes = [min(batch, pairs - i) for i in range(0, pairs, batch)]
+    return sizes, [b1 if n == 1 else bn for n in sizes]
+
+  frames = CLI_FRAMES["testing"]
+  return {"test_disparity_b1": stage1(1, CLI_TEST_PAIRS),
+          "test_disparity_b1_nodump": stage1(1, CLI_TEST_PAIRS),
+          "test_disparity_b4": stage1(4, CLI_TEST_PAIRS),
+          "test_disparity_b5": stage1(5, CLI_TEST_PAIRS),
+          "save_output_disparity_stage": stage1(6, CLI_ALL_PAIRS),
+          "test_fusion": ([1] * frames,
+                          [{"conv2d_s1_bn_act": FUSION_K8}] * frames),
+          "predict_disp": (None, [b1]),
+          "predict_all": (None, [frame])}
+
+
+def _launch_diff(label, what, got, want) -> None:
+  for name in set(want) | set(got):
+    if got.get(name, 0) != want.get(name, 0):
+      _fail(f"cli {label}: {name} launched {got.get(name, 0)} times "
+            f"{what}, expected {want.get(name, 0)}")
+
+
+def _cli_run(label, main, argv, expect, records, card) -> tuple:
+  """Run one CLI through its ``main(argv)`` on the card with the launch
+  counts set to 0 before and read after; check them, in all and per batch,
+  and its batch sizes against ``expect``; print its wall time and its
+  loader's numbers."""
+  from mode_tpu_torch import kernels
+  sizes, per_call = expect
+  n = len(records)
+  torch.cuda.synchronize()
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  out = main(argv)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = dict(kernels.LAUNCHES)
+  info = {"wall_s": wall, "launches": launches}
+  line = f"cli {label}: {wall:.2f} s wall"
+  if (len(records) > n) != (sizes is not None):
+    _fail(f"cli {label}: a loader ran where none was expected, or none ran")
+  if sizes is not None:
+    rec = records[n]
+    if rec["sizes"] != sizes:
+      _fail(f"cli {label}: batches {rec['sizes']}, expected {sizes}")
+    snaps = rec["launches"]
+    for i, want in enumerate(per_call):
+      _launch_diff(label, f"in batch {i} (of {sizes[i]})", {
+          k: v - snaps[i].get(k, 0) for k, v in snaps[i + 1].items()
+          if v - snaps[i].get(k, 0)}, want)
+    later = sum(sizes[1:])
+    info.update(
+        batch_sizes=sizes,
+        first_batch_ms=(rec["t"][1] - rec["t"][0]) * 1e3,
+        steady_ms_per_item=(rec["t"][-1] - rec["t"][1]) * 1e3 / later,
+        loader_wait_ms=[w * 1e3 for w in rec["wait_s"]],
+        decode=("native" if rec["native"] == len(sizes) else
+                "PIL" if rec["native"] == 0 else "mixed"))
+    unit = "frame" if label == "test_fusion" else "pair"
+    waits = info["loader_wait_ms"]
+    line += (f", batches {sizes}, first batch "
+             f"{info['first_batch_ms']:.1f} ms, then "
+             f"{info['steady_ms_per_item']:.2f} ms per {unit}; loader wait "
+             f"{waits[0]:.1f} ms for the first batch, "
+             f"{statistics.mean(waits[1:]):.2f} ms a batch after it (max "
+             f"{max(waits[1:]):.2f}); decode {info['decode']}")
+  print(f"{line}; launches {json.dumps(launches)} ({card})", flush=True)
+  _launch_diff(label, "in all", launches, {
+      k: sum(c.get(k, 0) for c in per_call) for c in per_call for k in c})
+  return out, info
+
+
+def _cli_setup(root: Path, fusion_state: dict) -> tuple:
+  """Under ``root``: the Deep360 tree, predict's frame (``ca_<pair>_<l|r>
+  .png``), stage 1's trained mid weights and ``fusion_state`` as
+  reference-layout ``.tar`` files; returns their paths, the output
+  directory and each CLI invocation as ``{label: (main, argv)}``."""
+  from mode_tpu_torch.cli import predict, save_output_disparity_stage
+  from mode_tpu_torch.cli import test_disparity, test_fusion
+  from mode_tpu_torch.pipeline import CAM_PAIRS
+  h, w = GEOMETRY["Cassini"]
+  data, out, frame = root / "Deep360", root / "out", root / "frame"
+  lefts, rights, _ = _frame_inputs()
+  _cli_tree(data, lefts, rights)
+  frame.mkdir()
+  for pair in CAM_PAIRS:
+    for side in "lr":
+      shutil.copyfile(data / CLI_EPISODE / "testing" / "rgb" /
+                      f"000000_{pair}_rgb_{side}.png",
+                      frame / f"ca_{pair}_{side}.png")
+  with np.load(ROOT / "tests/data/trained_mirror_mid.npz") as z:
+    state = {k: torch.from_numpy(z[k].astype(np.float32)
+                                 if z[k].dtype == np.float16 else z[k])
+             for k in z.files}
+  disp_tar, fusion_tar = str(root / "disp.tar"), str(root / "fusion.tar")
+  torch.save({"epoch": 0, "state_dict": state}, disp_tar)
+  torch.save({"epoch": 0, "state_dict": fusion_state}, fusion_tar)
+
+  size = ["--height", str(h), "--width", str(w), "--max_disp", str(MAXDISP)]
+  stage1 = ["--checkpoint_disp", disp_tar, *size]
+  predict1 = ["--checkpoint_disp", disp_tar, "--heightC", str(h),
+              "--widthC", str(w), "--max_disp", str(MAXDISP),
+              "--max_depth", str(MAX_DEPTH)]
+  runs = {
+      "test_disparity_b1": (test_disparity.main, [
+          "--dataset_root", str(data), "--batch_size", "1",
+          "--save_output_path", str(out / "disp_b1"), "--save_ori",
+          *stage1]),
+      "test_disparity_b1_nodump": (test_disparity.main, [
+          "--dataset_root", str(data), "--batch_size", "1", *stage1]),
+      "test_disparity_b4": (test_disparity.main, [
+          "--dataset_root", str(data), "--batch_size", "4",
+          "--save_output_path", str(out / "disp_b4"), "--save_ori",
+          *stage1]),
+      # 12 pairs in batches of 5, 5 and 2
+      "test_disparity_b5": (test_disparity.main, [
+          "--dataset_root", str(data), "--batch_size", "5",
+          "--save_output_path", str(out / "disp_b5"), "--save_ori",
+          *stage1]),
+      "save_output_disparity_stage": (save_output_disparity_stage.main, [
+          "--datapath", str(data), "--outpath", str(out / "bridge"),
+          *stage1]),
+      "test_fusion": (test_fusion.main, [
+          "--datapath-input", str(out / "bridge"), "--datapath-dataset",
+          str(data), "--loadmodel", fusion_tar, "--outpath",
+          str(out / "fusion"), "--maxdepth", str(MAX_DEPTH)]),
+      "predict_disp": (predict.main, [
+          "--stage", "disp", "--left_name", str(frame / "ca_12_l.png"),
+          "--right_name", str(frame / "ca_12_r.png"), "--save_root",
+          str(out / "predict_disp"), *predict1]),
+      "predict_all": (predict.main, [
+          "--stage", "all", "--data_root", str(frame),
+          "--checkpoint_fusion", fusion_tar, "--save_root",
+          str(out / "predict_all"), *predict1])}
+  return data, out, frame, disp_tar, fusion_tar, runs
+
+
+def _cli_phase(fusion_state: dict, card: str) -> dict:
+  """The serving CLIs on the card, each through its ``main(argv)`` with its
+  default device, on a tree written to a temporary directory: then each
+  invocation's launches (in all and per batch), ``test_disparity``'s MAE
+  against its own dumps, the stage-1 path at every batch size from 1 to 6
+  against its plain path and the batch-1 dumps, ``test_fusion``'s dumps
+  against ``ModeFusion`` and ``cassini_to_erp`` called directly and its
+  metrics against its dumps, ``predict --stage all`` against
+  ``TwoStagePipeline`` called directly, and every output file's shape and
+  range."""
+  from mode_tpu_torch import kernels
+  from mode_tpu_torch.cli import common, predict, test_disparity, test_fusion
+  from mode_tpu_torch.data import native_io
+  from mode_tpu_torch.data.deep360 import (Deep360DatasetDisparity,
+                                           Deep360DatasetFusion)
+  from mode_tpu_torch.data.file_lists import list_deep360_fusion_test
+  from mode_tpu_torch.data.loader import DataLoader
+  from mode_tpu_torch.geometry import cassini_to_erp
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.pipeline import CAM_PAIRS, TwoStagePipeline
+  from mode_tpu_torch.utils import metrics
+  from PIL import Image
+  h, w = GEOMETRY["Cassini"]
+  expect = _cli_expect()
+  result = {"runs": {}}
+  t_phase = time.perf_counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    data, out, frame, disp_tar, fusion_tar, runs = _cli_setup(Path(tmp),
+                                                              fusion_state)
+    native = native_io.available()
+    result["tree_s"] = time.perf_counter() - t0
+    print(f"cli: a Deep360 tree of {CLI_ALL_PAIRS} pairs ({h}x{w} PNGs, "
+          f"{CLI_TEST_PAIRS} in testing) and the .tar weights written in "
+          f"{result['tree_s']:.2f} s; native decode (libmodeio) "
+          f"{'available' if native else 'missing: PIL decodes'}; "
+          f"predict decodes with PIL", flush=True)
+
+    records = []
+    returned = {}
+    with _timed_loaders(records):
+      for label, (main, argv) in runs.items():
+        returned[label], result["runs"][label] = _cli_run(
+            label, main, argv, expect[label], records, card)
+
+    # test_disparity's MAE is the MAE of its own dumps
+    _, _, disps = test_disparity.list_deep360_disparity_test(str(data))
+    names = [test_disparity._out_name(p, "Deep360") for p in disps]
+    gts = [float(np.load(p)["arr_0"][0, 0]) for p in disps]
+    for batch in (1, 4, 5):
+      label, sub = f"test_disparity_b{batch}", out / f"disp_b{batch}"
+      preds = [np.load(sub / f"{n}_pred.npz")["arr_0"] for n in names]
+      # a pair's ground truth is one value, held where it is in (0, maxdisp]
+      held = [0 < g <= MAXDISP for g in gts]
+      maes = [sum(np.abs(p - g).mean() for p, g, k in zip(
+          preds[i:i + batch], gts[i:i + batch], held[i:i + batch]) if k)
+              / max(sum(held[i:i + batch]), 1)
+              for i in range(0, len(preds), batch)]
+      got, want = float(returned[label]["MAE"]), float(np.mean(maes))
+      result["runs"][label]["mae"] = got
+      print(f"cli {label}: MAE {got:.6f} px, from its _pred.npz dumps "
+            f"{want:.6f} px; the table's row "
+            + json.dumps({k: float(v) for k, v in returned[label].items()}),
+            flush=True)
+      if not np.isfinite(got) or abs(got - want) > 1e-5 * max(want, 1.0):
+        _fail(f"cli {label}: its MAE is not its dumps' MAE")
+      for p in preds:
+        if p.shape != (h, w) or not np.isfinite(p).all():
+          _fail(f"cli {label}: a _pred.npz dump of shape {p.shape}")
+    b1 = [np.load(out / "disp_b1" / f"{n}_pred.npz")["arr_0"] for n in names]
+
+    # stage 1 at every batch size from 1 to 6 on the decoded test pairs,
+    # through the same .tar, against its plain path on the same batch and
+    # against the batch-1 dumps
+    model = ModeDisparity(MAXDISP, out_conf=True, device=DEVICE)
+    common.load_model_checkpoint(disp_tar, model)
+    ds = Deep360DatasetDisparity(*test_disparity.list_deep360_disparity_test(
+        str(data)), shape=(h, w))
+    errs = {}
+    for b in range(1, 7):
+      batch = ds.get_batch(list(range(b)), 8) if native else None
+      if batch is None:
+        batch = {k: np.stack([ds[i][k] for i in range(b)])
+                 for k in ("leftImg", "rightImg")}
+      left, right = (torch.from_numpy(batch[k]).to(DEVICE)
+                     for k in ("leftImg", "rightImg"))
+      kernels.reset_launches()
+      with torch.no_grad():
+        pred, conf = model(left, right)
+      launches = dict(kernels.LAUNCHES)
+      with torch.no_grad():
+        ref_pred, ref_conf = model(left, right, plain=True)
+      want = {k: n for k, (_, n) in PATHS["sphere_b1" if b == 1 else
+                                          "sphere_b6"][4].items()}
+      if launches != want:
+        _fail(f"cli: stage 1 at batch {b} launched {launches}, expected "
+              f"{want}")
+      plain = (pred - ref_pred).abs()
+      conf_mae = float((conf - ref_conf).abs().mean())
+      keep = [i for i in range(b) if held[i]]     # the dumps hold these
+      err = np.abs(pred.cpu().numpy()[keep] - np.stack(b1[:b])[keep])
+      errs[b] = {"plain_mae": float(plain.mean()),
+                 "plain_max": float(plain.max()), "conf_mae": conf_mae,
+                 "b1_mae": float(err.mean()), "b1_max": float(err.max())}
+      if (errs[b]["plain_mae"] > ANCHOR_MAE or errs[b]["plain_max"] > ANCHOR_MAX
+          or conf_mae > ANCHOR_CONF_MAE
+          or not bool(torch.isfinite(conf).all())):
+        _fail(f"cli: stage 1 at batch {b} disagrees with its plain path: "
+              f"{errs[b]}")
+      if err.mean() > ANCHOR_MAE or err.max() > ANCHOR_MAX:
+        _fail(f"cli: stage 1 at batch {b} disagrees with the batch-1 "
+              f"dumps: {errs[b]}")
+    result["batch_sizes"] = errs
+    print("cli: stage 1 at batch 1-6 on the test pairs (each at its path's "
+          "launches), pred MAE / max (px) and conf MAE against its plain "
+          "path on the same batch; pred MAE / max against test_disparity's "
+          "batch-1 dumps: " + ", ".join(
+              f"b{b} {e['plain_mae']:.3g}/{e['plain_max']:.3g}/"
+              f"{e['conf_mae']:.3g}; {e['b1_mae']:.3g}/{e['b1_max']:.3g}"
+              for b, e in errs.items())
+          + f" (bars {ANCHOR_MAE}, {ANCHOR_MAX}, {ANCHOR_CONF_MAE})",
+          flush=True)
+    del left, right, pred, conf, ref_pred, ref_conf, plain
+
+    # test_fusion's dumps against ModeFusion and cassini_to_erp called
+    # directly on the same decoded frames, and its metrics against the dumps
+    fusion = ModeFusion(MAX_DEPTH, device=DEVICE)
+    common.load_model_checkpoint(fusion_tar, fusion)
+    fus = out / "fusion" / "Deep360" / "fusion"
+    fds = Deep360DatasetFusion(*list_deep360_fusion_test(str(out / "bridge"),
+                                                         str(data)))
+    direct_err, recomputed = [], []
+    for batch in DataLoader(fds, batch_size=1, num_workers=1):
+      depths, confs, rgbs, gt = (torch.from_numpy(batch[k]).to(DEVICE) for k
+                                 in ("depths", "confs", "rgbs", "gt"))
+      with torch.no_grad():
+        pred = fusion([depths[:, k] for k in range(6)],
+                      [confs[:, k] for k in range(6)],
+                      [rgbs[:, k] for k in range(4)])
+      pred_erp = cassini_to_erp(pred)[0, ..., 0].cpu().numpy()
+      gt_erp = cassini_to_erp(gt[..., None])[0, ..., 0].cpu()
+      name = batch["gtNames"][0]           # named as test_fusion names it
+      dump = np.load(fus / "depth_pred" / (re.findall(r"ep[0-9]_", name)[0]
+                                           + Path(name).stem + "_pred.npy"))
+      direct_err.append(np.abs(dump - pred_erp))
+      m = metrics.depth_metrics(torch.from_numpy(dump), gt_erp,
+                                gt_erp <= MAX_DEPTH)
+      recomputed.append([float(m[k]) for k in test_fusion.METRIC_NAMES])
+    direct_err = np.stack(direct_err)
+    recomputed = dict(zip(test_fusion.METRIC_NAMES, np.mean(recomputed, 0)))
+    got = {k: float(v) for k, v in returned["test_fusion"].items()}
+    # the dumps' metrics summed in f32 on the host: 1e-4 relative; a
+    # percentage within one pixel's share
+    pixel = 100.0 / (h * w)
+    off = {k: (got[k], v) for k, v in recomputed.items()
+           if abs(got[k] - v) > (1e-4 * abs(v) if "%" not in k else pixel)}
+    result["test_fusion_vs_direct"] = {"mae": float(direct_err.mean()),
+                                       "max": float(direct_err.max()),
+                                       "metrics": got}
+    print(f"cli test_fusion's _pred.npy dumps vs ModeFusion and "
+          f"cassini_to_erp called directly: MAE {direct_err.mean():.3g} m "
+          f"(bar {FUSED_MAE}), max {direct_err.max():.3g} m (bar "
+          f"{FUSED_MAX}); its metrics " + json.dumps(got)
+          + ", from its dumps " + json.dumps(
+              {k: float(v) for k, v in recomputed.items()}), flush=True)
+    if direct_err.mean() > FUSED_MAE or direct_err.max() > FUSED_MAX:
+      _fail("cli: test_fusion's dumps disagree with ModeFusion called "
+            "directly")
+    if off or not all(np.isfinite(v) for v in got.values()):
+      _fail(f"cli: test_fusion's metrics are not its dumps' (got, "
+            f"recomputed): {off}")
+
+    # predict --stage all against TwoStagePipeline on the same decoded images
+    pl = [predict._load(frame / f"ca_{p}_l.png", h, w) for p in CAM_PAIRS]
+    pr = [predict._load(frame / f"ca_{p}_r.png", h, w) for p in CAM_PAIRS]
+    pipe = TwoStagePipeline(model, fusion, MAXDISP, MAX_DEPTH, device=DEVICE)
+    with torch.no_grad():
+      direct = pipe(np.stack(pl), np.stack(pr),
+                    np.stack([pl[0], pr[0], pl[5], pr[5]]))[0].cpu().numpy()
+    served = np.load(out / "predict_all" / "output_depth.npz")["arr_0"]
+    err = np.abs(served - direct)
+    result["predict_all_vs_pipeline"] = {"mae": float(err.mean()),
+                                         "max": float(err.max())}
+    print(f"cli predict --stage all vs TwoStagePipeline called directly: "
+          f"fused MAE {err.mean():.3g} m (bar {FUSED_MAE}), max "
+          f"{err.max():.3g} m (bar {FUSED_MAX}); depth mean "
+          f"{served.mean():.2f} m, std {served.std():.2f}", flush=True)
+    if err.mean() > FUSED_MAE or err.max() > FUSED_MAX:
+      _fail("cli: predict --stage all disagrees with TwoStagePipeline")
+
+    # every output file: its count, shape and range
+    def check(paths, shape, lo, hi, what):
+      paths = sorted(paths)
+      for p in paths:
+        a = (np.load(p)["arr_0"] if p.suffix == ".npz" else np.load(p)
+             if p.suffix == ".npy" else np.asarray(Image.open(p)))
+        a = a.astype(np.float64) / (255.0 if a.dtype == np.uint8 and
+                                    what == "conf" else 1.0)
+        if (a.shape[:2] != shape or not np.isfinite(a).all()
+            or a.min() < lo or a.max() > hi):
+          _fail(f"cli: {p.name} of shape {a.shape}, range "
+                f"{a.min():.4g}-{a.max():.4g}, expected {shape} in "
+                f"[{lo}, {hi}]")
+      return len(paths)
+
+    bridge = out / "bridge" / CLI_EPISODE
+    counts = {
+        "disp_b1 npz": check((out / "disp_b1").glob("*.npz"), (h, w), 0,
+                             MAXDISP, "disp"),
+        "disp_b1 png": check((out / "disp_b1").glob("*.png"), (h, 2 * w), 0,
+                             255, "png"),
+        "disp_b4 npz": check((out / "disp_b4").glob("*.npz"), (h, w), 0,
+                             MAXDISP, "disp"),
+        "disp_b5 npz": check((out / "disp_b5").glob("*.npz"), (h, w), 0,
+                             MAXDISP, "disp"),
+        "depth npz": check(bridge.glob("*/disp_pred2depth/*.npz"), (h, w), 0,
+                           MAX_DEPTH, "depth"),
+        "conf png": check(bridge.glob("*/conf_map/*.png"), (h, w), 0, 1,
+                          "conf"),
+        "fusion npy": check((fus / "depth_pred").glob("*.npy"), (w, h), 0,
+                            MAX_DEPTH, "depth"),
+        "fusion png": check(fus.glob("*/*.png"), (w, h), 0, 255, "png"),
+        "predict_disp conf": check([out / "predict_disp" /
+                                    "output_conf.png"], (h, w), 0, 1,
+                                   "conf"),
+        "predict_disp png": check([out / "predict_disp" /
+                                   "output_disp.png"], (h, w), 0, 255, "png"),
+        "predict_all npz": check([out / "predict_all" / "output_depth.npz"],
+                                 (h, w), 0, MAX_DEPTH, "depth"),
+        "predict_all png": check([out / "predict_all" / "output_depth.png"],
+                                 (h, w), 0, 255, "png")}
+    want = {"disp_b1 npz": CLI_TEST_PAIRS, "disp_b1 png": CLI_TEST_PAIRS,
+            "disp_b4 npz": CLI_TEST_PAIRS, "disp_b5 npz": CLI_TEST_PAIRS,
+            "depth npz": CLI_ALL_PAIRS,
+            "conf png": CLI_ALL_PAIRS, "fusion npy": CLI_FRAMES["testing"],
+            "fusion png": 2 * CLI_FRAMES["testing"]}
+    result["files"] = counts
+    print(f"cli output files (count, each of the expected shape and range: "
+          f"disparity in [0, {MAXDISP}], depth in [0, {MAX_DEPTH:g}], conf "
+          f"in [0, 1]): " + json.dumps(counts), flush=True)
+    for key, n in counts.items():
+      if n != want.get(key, 1):
+        _fail(f"cli: {n} files of {key}, expected {want.get(key, 1)}")
+    del model, fusion, pipe
+  result["phase_s"] = time.perf_counter() - t_phase
+  print(f"cli phase: {result['phase_s']:.2f} s ({card})", flush=True)
+  return result
+
+
 def _kernel_phase(cases, reg_cases, gen):
   """Every recorded kernel shape once, f32 and bf16: the rows it prints."""
   rows = []
@@ -1684,6 +2199,7 @@ def main() -> int:
   seen["frame"] = _frame_path("frame", disp, fusion, inputs)
   # the f32 pipeline's own copies, the fusion head calibrated on the frame
   disp, fusion = seen["frame"].pop("models")
+  cli_fusion = {k: v.detach().cpu() for k, v in fusion.state_dict().items()}
   torch.cuda.empty_cache()
   seen["frame_bf16"] = _frame_path("frame_bf16", disp, fusion, inputs,
                                    seen["frame"]["outputs"])
@@ -1699,6 +2215,10 @@ def main() -> int:
     seen[label] = _fusion_train_path(label, init, batch)
     torch.cuda.empty_cache()
   del init, batch
+
+  # ---- the serving CLIs on a Deep360 tree on disk
+  cli = _cli_phase(cli_fusion, card)
+  torch.cuda.empty_cache()
 
   # ---- kernel phase: every recorded shape once, f32 and bf16
   cases = {}                 # case -> {path: launches per call}, layers
@@ -1809,7 +2329,8 @@ def main() -> int:
                   "head_logits": s["head"], **s["check"]}
           for label, s in seen.items() if label in FRAMES} | {
           "train_anchor": train_anchor,
-          "train_anchor_bf16": train_anchor_bf16, "anchor": anchor}))
+          "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
+          "cli": cli}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -25,12 +25,20 @@ Ported so far:
   training, and ``ModeFusion``'s training step with the silog loss
   (``training.make_fusion_train_step``, f32 or bf16, on float or packed
   wire inputs);
-- the whole frame, ``pipeline.py:TwoStagePipeline`` (``predict --stage
-  all`` without the CLI), f32 or bf16;
-- ``utils/flops.py``, the model-FLOP counts.
+- the whole frame, ``pipeline.py:TwoStagePipeline``, f32 or bf16;
+- the four serving CLIs, ``cli/``: ``predict`` (``--stage disp`` and
+  ``all``), ``test_disparity``, ``save_output_disparity_stage`` and
+  ``test_fusion``, run as ``python -m mode_tpu_torch.cli.<name>`` with the
+  JAX CLIs' flags and ``--device`` (the card by default, ``cpu`` for the
+  plain path); they read reference-layout torch ``.tar`` weights
+  (``scripts/jax_checkpoint_to_torch.py`` converts a JAX checkpoint);
+- ``data/``: the Deep360 and 3D60 datasets, the file listers, the
+  threaded loader and the ``native/libmodeio.so`` reader; ``utils/``: the
+  metrics, the colormaps, checkpoint reading and the model-FLOP counts.
 
-Not yet: ``data/``, the CLIs, checkpoint I/O and ``parallel/``
-(``ROADMAP.md``).
+Not yet: the training CLIs, ``data/fusion_pack``,
+``models/initialize.py``, checkpoint saving, ``tb_writer`` and
+``profiling``, and ``parallel/`` (``ROADMAP.md``).
 """
 
 __version__ = "0.1.0"

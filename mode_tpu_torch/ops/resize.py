@@ -1,5 +1,6 @@
-"""Separable linear interpolation with torch ``F.interpolate`` semantics
-(align_corners), as per-axis products with dense (out, in) matrices.
+"""Separable linear and cubic interpolation with torch ``F.interpolate``
+semantics (align_corners), as per-axis products with dense (out, in)
+matrices.
 
 Mirrors ``mode_tpu/ops/resize.py``: the matrices are built the same way in
 float64 numpy and cast to float32, so the port and the JAX package contract
@@ -59,26 +60,60 @@ def linear_taps(n_out: int, n_in: int, align_corners: bool = True):
           m[rows, lo + 1])
 
 
-def interpolate(x: torch.Tensor, sizes: dict[int, int],
-                align_corners: bool = True) -> torch.Tensor:
-  """Linearly resize the axes of ``x`` named in ``sizes`` (axis -> length).
+def _cubic_weight(t: np.ndarray, a: float = -0.75) -> np.ndarray:
+  """The cubic convolution kernel (torch and OpenCV use a = -0.75)."""
+  t = np.abs(t)
+  return np.where(t <= 1, (a + 2) * t**3 - (a + 3) * t**2 + 1,
+                  np.where(t < 2, a * t**3 - 5 * a * t**2 + 8 * a * t - 4 * a,
+                           0.0))
 
-  Each axis is one matrix product, taken in float32 and cast back to
-  ``x.dtype``, in the order of ``sizes``. The other axes are folded into
-  the product's rows, so it is one GEMM: given the strided view,
-  ``matmul`` may batch it as one matrix-vector product per row (the
-  training heads' trailing axis of 1 made it do so on the card).
-  """
+
+@functools.lru_cache(maxsize=32)
+def cubic_matrix(n_out: int, n_in: int,
+                 align_corners: bool = True) -> np.ndarray:
+  """(n_out, n_in) bicubic interpolation matrix, float32; the taps past an
+  edge take the edge's value (torch's border replication)."""
+  m = np.zeros((n_out, n_in), np.float64)
+  if n_in == 1:
+    m[:, 0] = 1.0
+    return m.astype(np.float32)
+  o = np.arange(n_out, dtype=np.float64)
+  if align_corners:
+    src = o * (n_in - 1) / max(n_out - 1, 1)
+  else:
+    src = (o + 0.5) * n_in / n_out - 0.5
+  i0 = np.floor(src).astype(np.int64)
+  frac = src - i0
+  for k in range(-1, 3):
+    np.add.at(m, (np.arange(n_out), np.clip(i0 + k, 0, n_in - 1)),
+              _cubic_weight(k - frac))
+  return m.astype(np.float32)
+
+
+def _resize(x: torch.Tensor, sizes: dict[int, int], matrix,
+            align_corners: bool) -> torch.Tensor:
+  """Resize the axes of ``x`` named in ``sizes`` (axis -> length) by the
+  matrices ``matrix(n_out, n_in, align_corners)``: one product per axis,
+  taken in float32 and cast back to ``x.dtype``, in the order of
+  ``sizes``. The other axes are folded into the product's rows, so it is
+  one GEMM: given the strided view, ``matmul`` may batch it as one
+  matrix-vector product per row (the training heads' trailing axis of 1
+  made it do so on the card)."""
   for axis, n_out in sizes.items():
     n_in = x.shape[axis]
     if n_in == n_out:
       continue
-    mat = torch.from_numpy(linear_matrix(n_out, n_in, align_corners)).to(
-        x.device)
+    mat = torch.from_numpy(matrix(n_out, n_in, align_corners)).to(x.device)
     xm = torch.movedim(x, axis, -1).float()
     y = (xm.reshape(-1, n_in) @ mat.T).reshape(*xm.shape[:-1], n_out)
     x = torch.movedim(y.to(x.dtype), -1, axis)
   return x
+
+
+def interpolate(x: torch.Tensor, sizes: dict[int, int],
+                align_corners: bool = True) -> torch.Tensor:
+  """Linearly resize the axes of ``x`` named in ``sizes`` (axis -> length)."""
+  return _resize(x, sizes, linear_matrix, align_corners)
 
 
 def upsample_trilinear(x: torch.Tensor, d: int, h: int,
@@ -90,3 +125,9 @@ def upsample_trilinear(x: torch.Tensor, d: int, h: int,
 def upsample_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
   """NHWC bilinear resize, align_corners=True."""
   return interpolate(x, {1: h, 2: w})
+
+
+def upsample_bicubic(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+  """NHWC bicubic resize, align_corners=True (``F.interpolate(...,
+  mode='bicubic', align_corners=True)``; ``test_fusion --resize``)."""
+  return _resize(x, {1: h, 2: w}, cubic_matrix, True)
