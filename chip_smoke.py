@@ -72,8 +72,8 @@
    and as grad-input at twice the JAX gate's traced count
    (``FUSION_TRAIN_K9``) a step.
 5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
-   tree of 1024x512 PNGs in a temporary directory (one episode; one frame
-   in training and validation, two in testing; each frame the frame
+   tree of 1024x512 PNGs in a temporary directory (one episode; four frames
+   in training, one in validation, two in testing; each frame the frame
    phase's six uint8 pairs, each pair's ground truth its constant
    disparity, the depth pair 12's through the bridge), the trained mid
    weights and the frame's calibrated fusion net written as reference
@@ -95,9 +95,34 @@
    with its shape and range. Prints each CLI's wall time, its ms per pair
    or frame after the first batch, its loader's wait per batch and decode
    path. (``cli_profile.py`` profiles the CLIs' host work.)
-6. Kernel phase: calls each kernel's wrapper at every shape the paths gave
+6. The training CLIs, ``train_cli``, on the same tree and the bridge's
+   outputs, each through its ``main(argv)`` with its default device at
+   1024x512, maxdisp 192 and the CLIs' batch 4: ``train_disparity`` in f32
+   from the trained mid weights for two epochs of one step (lr 1e-3, then
+   1e-4; its first epoch traced with ``--trace_dir``), with ``--bf16
+   --device_normalize`` for three steps, and ``--resume`` from the f32
+   run's epoch-2 checkpoint for three steps of epoch 3; ``train_fusion``
+   for one step with ``ModeFusion`` from packed frames (``--packed_dir``)
+   in f32 and bf16, from float inputs, and with the ``Baseline``, each from
+   seeded weights whose head is scaled to logits of mean 0 and std 1.
+   Each step's launches (and their dtype) must be the training paths'
+   (``train_expect``, ``2 x FUSION_TRAIN_K9``, ``2 x BASELINE_TRAIN_K9``)
+   and each validation batch's the served counts; the first step of each
+   run must match the same step built directly on the batch a loader made
+   as the CLI makes it gives, from the same weights, and that step its
+   plain step (``grad_check`` at ``STEP_BARS``, each leaf's spread the
+   larger of the two steps' own); the f32 run's
+   checkpoints must show Adam's first step at lr 1e-3 and its second at
+   1e-4; every checkpoint must load strictly into a fresh model, and one of
+   each stage must serve through ``test_disparity`` and ``test_fusion`` at
+   the served counts; the packs must be their frames' arrays, the event
+   files the returned scalars, the trace must name the training kernels,
+   and ``--dp 2`` must be refused. Prints each run's wall time, ms per
+   step, validation ms per item, loader wait and peak memory.
+7. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training steps add the grad-input shapes and
-   the sphere conv's two backward kernels) and the regression shapes, in
+   the sphere conv's two backward kernels; the training CLIs' steps add
+   their batch-4 and ``Baseline`` shapes) and the regression shapes, in
    f32 and bf16 (a path's per-kernel times are in its own dtype), holds
    the result against the kernel's plain PyTorch version on the same
    inputs, and times the kernel, the plain version and
@@ -105,11 +130,11 @@
    library convs in IEEE f32 as the model runs its own
    (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
    precision flag, so the paths run as a caller's process runs them).
-7. Full-resolution anchor: the trained reference weights
+8. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
    against the frame's committed (pred, conf).
-8. Prints a ``{"kernels": [...]}`` line, then as the last line
+9. Prints a ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, when there is no card or when any
@@ -861,7 +886,8 @@ def _train_batch(gen, batch, h, w):
 
 def plain_stepper(model, make_step, inputs):
   """``plain_step(jgen, amount, **kw) -> (loss, gradients)``: one step of
-  ``make_step(m, plain=True, **kw)`` from a fresh copy ``m`` of ``model`` as
+  ``make_step(m, plain=True, **kw)`` (``plain=False`` in ``kw``: the
+  kernel step) from a fresh copy ``m`` of ``model`` as
   it is now, on ``inputs`` (float tensors, then the target), the float
   inputs multiplied by ``1 + amount * N(0, 1)`` drawn from ``jgen`` and
   cast back to their dtype (unchanged if ``jgen`` is None)."""
@@ -895,11 +921,17 @@ def _against(grads, ref, spread, held):
 
 
 def grad_check(label, plain_step, kernel_loss, kernel_grads,
-               dtype=torch.float32, jitter_seed=7, bars=None):
+               dtype=torch.float32, jitter_seed=7, bars=None,
+               own_spread=False):
   """Hold a kernel step's loss and gradients against the plain step of an
   identical model (``plain_step`` from :func:`plain_stepper`) at ``bars``
   (``STEP_BARS[dtype]`` if None); the jitter is drawn from
-  ``jitter_seed``. In bf16
+  ``jitter_seed``. With ``own_spread`` a leaf's spread is the larger of
+  the plain step's and the kernel step's own (the same draws through
+  ``plain_step(..., plain=False)``, against ``kernel_grads``): the kernel
+  step's 3xTF32 products make it move more than the plain step under a
+  jitter, on a few ill-conditioned leaves by as much as it parts from the
+  plain step (scripts/train_cli_step_noise.py). In bf16
   also an f32 step against the same plain bf16 step, read at the same bars:
   what a step that ran no bf16 would need. Returns what it saw, ``ok``
   whether it is within the bars."""
@@ -913,6 +945,13 @@ def grad_check(label, plain_step, kernel_loss, kernel_grads,
       spread[n] = max(spread[n], float(torch.linalg.vector_norm(g - grads[n])))
   held = [n for n, g in grads.items() if bars["noise"] is None
           or spread[n] < bars["noise"] * float(torch.linalg.vector_norm(g))]
+  if own_spread:
+    jgen = torch.Generator(device=DEVICE).manual_seed(jitter_seed)
+    for _ in range(bars["draws"]):
+      _, other = plain_step(jgen, bars["jitter"], plain=False)
+      for n, g in other.items():
+        spread[n] = max(spread[n], float(torch.linalg.vector_norm(
+            g - kernel_grads[n])))
   check = {"loss": kernel_loss, "plain_loss": loss,
            "loss_rel": abs(kernel_loss - loss) / abs(loss),
            "held_leaves": len(held), "leaves": len(grads)}
@@ -923,7 +962,9 @@ def grad_check(label, plain_step, kernel_loss, kernel_grads,
             f"all {len(grads)} leaves held" if bars["noise"] is None else
             f"{len(held)} of {len(grads)} leaves move under {bars['draws']} "
             f"draws of a {bars['jitter']:.3g} input jitter by less than "
-            f"{bars['noise']} of their norm and are held"), flush=True)
+            f"{bars['noise']} of their norm and are held") + (
+            "; the spread the larger of the plain step's and the kernel "
+            "step's own" if own_spread else ""), flush=True)
   if not held:
     return check
   rows, err, ref, spread_all = _against(kernel_grads, grads, spread, held)
@@ -1626,12 +1667,13 @@ def _frame_path(label, disp, fusion, inputs, f32_frame=None):
 
 
 # ---- the serving CLIs (mode_tpu_torch/cli) on a Deep360-layout tree on
-# disk: one episode, one frame in training and in validation, two in
-# testing (24 pairs, 12 of them tested), each frame the frame phase's six
-# uint8 pairs, each pair's ground-truth disparity its FRAME_DISPS value
-# (the maps of tests/synth_data.py's tree, named as it names them).
+# disk: one episode, four frames in training (the training CLIs' one full
+# batch of 4 frames and 24 pairs), one in validation, two in testing (42
+# pairs, 12 of them tested), each frame the frame phase's six uint8 pairs,
+# each pair's ground-truth disparity its FRAME_DISPS value (the maps of
+# tests/synth_data.py's tree, named as it names them).
 CLI_EPISODE = "ep1_500frames"
-CLI_FRAMES = {"training": 1, "validation": 1, "testing": 2}
+CLI_FRAMES = {"training": 4, "validation": 1, "testing": 2}
 CLI_TEST_PAIRS = 6 * CLI_FRAMES["testing"]
 CLI_ALL_PAIRS = 6 * sum(CLI_FRAMES.values())
 
@@ -1676,20 +1718,23 @@ def _timed_loaders(records: list):
   from mode_tpu_torch import kernels
   from mode_tpu_torch.cli import save_output_disparity_stage as save
   from mode_tpu_torch.cli import test_disparity, test_fusion
+  from mode_tpu_torch.cli import train_disparity, train_fusion
   from mode_tpu_torch.data.loader import DataLoader
 
   class Timed(DataLoader):
     def __iter__(self):
-      rec = {"sizes": [], "wait_s": [], "t": [], "launches": [], "native": 0}
+      rec = {"sizes": [], "wait_s": [], "t": [], "launches": [], "native": 0,
+             "shuffle": self.shuffle}
       records.append(rec)
-      get_batch = self.dataset.get_batch
+      get_batch = getattr(self.dataset, "get_batch", None)
 
       def counted(indices, threads):
         batch = get_batch(indices, threads)
         rec["native"] += batch is not None
         return batch
 
-      self.dataset.get_batch = counted
+      if get_batch is not None:           # (a packed dataset has none)
+        self.dataset.get_batch = counted
       it = super().__iter__()
       try:
         while True:
@@ -1707,7 +1752,7 @@ def _timed_loaders(records: list):
       finally:
         it.close()
 
-  mods = (save, test_disparity, test_fusion)
+  mods = (save, test_disparity, test_fusion, train_disparity, train_fusion)
   for mod in mods:
     mod.DataLoader = Timed
   try:
@@ -1864,9 +1909,9 @@ def _cli_setup(root: Path, fusion_state: dict) -> tuple:
   return data, out, frame, disp_tar, fusion_tar, runs
 
 
-def _cli_phase(fusion_state: dict, card: str) -> dict:
+def _cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
   """The serving CLIs on the card, each through its ``main(argv)`` with its
-  default device, on a tree written to a temporary directory: then each
+  default device, on a tree written under ``root``: then each
   invocation's launches (in all and per batch), ``test_disparity``'s MAE
   against its own dumps, the stage-1 path at every batch size from 1 to 6
   against its plain path and the batch-1 dumps, ``test_fusion``'s dumps
@@ -1891,227 +1936,909 @@ def _cli_phase(fusion_state: dict, card: str) -> dict:
   expect = _cli_expect()
   result = {"runs": {}}
   t_phase = time.perf_counter()
-  with tempfile.TemporaryDirectory() as tmp:
-    t0 = time.perf_counter()
-    data, out, frame, disp_tar, fusion_tar, runs = _cli_setup(Path(tmp),
-                                                              fusion_state)
-    native = native_io.available()
-    result["tree_s"] = time.perf_counter() - t0
-    print(f"cli: a Deep360 tree of {CLI_ALL_PAIRS} pairs ({h}x{w} PNGs, "
-          f"{CLI_TEST_PAIRS} in testing) and the .tar weights written in "
-          f"{result['tree_s']:.2f} s; native decode (libmodeio) "
-          f"{'available' if native else 'missing: PIL decodes'}; "
-          f"predict decodes with PIL", flush=True)
+  t0 = time.perf_counter()
+  data, out, frame, disp_tar, fusion_tar, runs = _cli_setup(root,
+                                                            fusion_state)
+  native = native_io.available()
+  result["tree_s"] = time.perf_counter() - t0
+  print(f"cli: a Deep360 tree of {CLI_ALL_PAIRS} pairs ({h}x{w} PNGs, "
+        f"{CLI_TEST_PAIRS} in testing) and the .tar weights written in "
+        f"{result['tree_s']:.2f} s; native decode (libmodeio) "
+        f"{'available' if native else 'missing: PIL decodes'}; "
+        f"predict decodes with PIL", flush=True)
 
-    records = []
-    returned = {}
-    with _timed_loaders(records):
-      for label, (main, argv) in runs.items():
-        returned[label], result["runs"][label] = _cli_run(
-            label, main, argv, expect[label], records, card)
+  records = []
+  returned = {}
+  with _timed_loaders(records):
+    for label, (main, argv) in runs.items():
+      returned[label], result["runs"][label] = _cli_run(
+          label, main, argv, expect[label], records, card)
 
-    # test_disparity's MAE is the MAE of its own dumps
-    _, _, disps = test_disparity.list_deep360_disparity_test(str(data))
-    names = [test_disparity._out_name(p, "Deep360") for p in disps]
-    gts = [float(np.load(p)["arr_0"][0, 0]) for p in disps]
-    for batch in (1, 4, 5):
-      label, sub = f"test_disparity_b{batch}", out / f"disp_b{batch}"
-      preds = [np.load(sub / f"{n}_pred.npz")["arr_0"] for n in names]
-      # a pair's ground truth is one value, held where it is in (0, maxdisp]
-      held = [0 < g <= MAXDISP for g in gts]
-      maes = [sum(np.abs(p - g).mean() for p, g, k in zip(
-          preds[i:i + batch], gts[i:i + batch], held[i:i + batch]) if k)
-              / max(sum(held[i:i + batch]), 1)
-              for i in range(0, len(preds), batch)]
-      got, want = float(returned[label]["MAE"]), float(np.mean(maes))
-      result["runs"][label]["mae"] = got
-      print(f"cli {label}: MAE {got:.6f} px, from its _pred.npz dumps "
-            f"{want:.6f} px; the table's row "
-            + json.dumps({k: float(v) for k, v in returned[label].items()}),
-            flush=True)
-      if not np.isfinite(got) or abs(got - want) > 1e-5 * max(want, 1.0):
-        _fail(f"cli {label}: its MAE is not its dumps' MAE")
-      for p in preds:
-        if p.shape != (h, w) or not np.isfinite(p).all():
-          _fail(f"cli {label}: a _pred.npz dump of shape {p.shape}")
-    b1 = [np.load(out / "disp_b1" / f"{n}_pred.npz")["arr_0"] for n in names]
-
-    # stage 1 at every batch size from 1 to 6 on the decoded test pairs,
-    # through the same .tar, against its plain path on the same batch and
-    # against the batch-1 dumps
-    model = ModeDisparity(MAXDISP, out_conf=True, device=DEVICE)
-    common.load_model_checkpoint(disp_tar, model)
-    ds = Deep360DatasetDisparity(*test_disparity.list_deep360_disparity_test(
-        str(data)), shape=(h, w))
-    errs = {}
-    for b in range(1, 7):
-      batch = ds.get_batch(list(range(b)), 8) if native else None
-      if batch is None:
-        batch = {k: np.stack([ds[i][k] for i in range(b)])
-                 for k in ("leftImg", "rightImg")}
-      left, right = (torch.from_numpy(batch[k]).to(DEVICE)
-                     for k in ("leftImg", "rightImg"))
-      kernels.reset_launches()
-      with torch.no_grad():
-        pred, conf = model(left, right)
-      launches = dict(kernels.LAUNCHES)
-      with torch.no_grad():
-        ref_pred, ref_conf = model(left, right, plain=True)
-      want = {k: n for k, (_, n) in PATHS["sphere_b1" if b == 1 else
-                                          "sphere_b6"][4].items()}
-      if launches != want:
-        _fail(f"cli: stage 1 at batch {b} launched {launches}, expected "
-              f"{want}")
-      plain = (pred - ref_pred).abs()
-      conf_mae = float((conf - ref_conf).abs().mean())
-      keep = [i for i in range(b) if held[i]]     # the dumps hold these
-      err = np.abs(pred.cpu().numpy()[keep] - np.stack(b1[:b])[keep])
-      errs[b] = {"plain_mae": float(plain.mean()),
-                 "plain_max": float(plain.max()), "conf_mae": conf_mae,
-                 "b1_mae": float(err.mean()), "b1_max": float(err.max())}
-      if (errs[b]["plain_mae"] > ANCHOR_MAE or errs[b]["plain_max"] > ANCHOR_MAX
-          or conf_mae > ANCHOR_CONF_MAE
-          or not bool(torch.isfinite(conf).all())):
-        _fail(f"cli: stage 1 at batch {b} disagrees with its plain path: "
-              f"{errs[b]}")
-      if err.mean() > ANCHOR_MAE or err.max() > ANCHOR_MAX:
-        _fail(f"cli: stage 1 at batch {b} disagrees with the batch-1 "
-              f"dumps: {errs[b]}")
-    result["batch_sizes"] = errs
-    print("cli: stage 1 at batch 1-6 on the test pairs (each at its path's "
-          "launches), pred MAE / max (px) and conf MAE against its plain "
-          "path on the same batch; pred MAE / max against test_disparity's "
-          "batch-1 dumps: " + ", ".join(
-              f"b{b} {e['plain_mae']:.3g}/{e['plain_max']:.3g}/"
-              f"{e['conf_mae']:.3g}; {e['b1_mae']:.3g}/{e['b1_max']:.3g}"
-              for b, e in errs.items())
-          + f" (bars {ANCHOR_MAE}, {ANCHOR_MAX}, {ANCHOR_CONF_MAE})",
+  # test_disparity's MAE is the MAE of its own dumps
+  _, _, disps = test_disparity.list_deep360_disparity_test(str(data))
+  names = [test_disparity._out_name(p, "Deep360") for p in disps]
+  gts = [float(np.load(p)["arr_0"][0, 0]) for p in disps]
+  for batch in (1, 4, 5):
+    label, sub = f"test_disparity_b{batch}", out / f"disp_b{batch}"
+    preds = [np.load(sub / f"{n}_pred.npz")["arr_0"] for n in names]
+    # a pair's ground truth is one value, held where it is in (0, maxdisp]
+    held = [0 < g <= MAXDISP for g in gts]
+    maes = [sum(np.abs(p - g).mean() for p, g, k in zip(
+        preds[i:i + batch], gts[i:i + batch], held[i:i + batch]) if k)
+            / max(sum(held[i:i + batch]), 1)
+            for i in range(0, len(preds), batch)]
+    got, want = float(returned[label]["MAE"]), float(np.mean(maes))
+    result["runs"][label]["mae"] = got
+    print(f"cli {label}: MAE {got:.6f} px, from its _pred.npz dumps "
+          f"{want:.6f} px; the table's row "
+          + json.dumps({k: float(v) for k, v in returned[label].items()}),
           flush=True)
-    del left, right, pred, conf, ref_pred, ref_conf, plain
+    if not np.isfinite(got) or abs(got - want) > 1e-5 * max(want, 1.0):
+      _fail(f"cli {label}: its MAE is not its dumps' MAE")
+    for p in preds:
+      if p.shape != (h, w) or not np.isfinite(p).all():
+        _fail(f"cli {label}: a _pred.npz dump of shape {p.shape}")
+  b1 = [np.load(out / "disp_b1" / f"{n}_pred.npz")["arr_0"] for n in names]
 
-    # test_fusion's dumps against ModeFusion and cassini_to_erp called
-    # directly on the same decoded frames, and its metrics against the dumps
-    fusion = ModeFusion(MAX_DEPTH, device=DEVICE)
-    common.load_model_checkpoint(fusion_tar, fusion)
-    fus = out / "fusion" / "Deep360" / "fusion"
-    fds = Deep360DatasetFusion(*list_deep360_fusion_test(str(out / "bridge"),
-                                                         str(data)))
-    direct_err, recomputed = [], []
-    for batch in DataLoader(fds, batch_size=1, num_workers=1):
-      depths, confs, rgbs, gt = (torch.from_numpy(batch[k]).to(DEVICE) for k
-                                 in ("depths", "confs", "rgbs", "gt"))
-      with torch.no_grad():
-        pred = fusion([depths[:, k] for k in range(6)],
-                      [confs[:, k] for k in range(6)],
-                      [rgbs[:, k] for k in range(4)])
-      pred_erp = cassini_to_erp(pred)[0, ..., 0].cpu().numpy()
-      gt_erp = cassini_to_erp(gt[..., None])[0, ..., 0].cpu()
-      name = batch["gtNames"][0]           # named as test_fusion names it
-      dump = np.load(fus / "depth_pred" / (re.findall(r"ep[0-9]_", name)[0]
-                                           + Path(name).stem + "_pred.npy"))
-      direct_err.append(np.abs(dump - pred_erp))
-      m = metrics.depth_metrics(torch.from_numpy(dump), gt_erp,
-                                gt_erp <= MAX_DEPTH)
-      recomputed.append([float(m[k]) for k in test_fusion.METRIC_NAMES])
-    direct_err = np.stack(direct_err)
-    recomputed = dict(zip(test_fusion.METRIC_NAMES, np.mean(recomputed, 0)))
-    got = {k: float(v) for k, v in returned["test_fusion"].items()}
-    # the dumps' metrics summed in f32 on the host: 1e-4 relative; a
-    # percentage within one pixel's share
-    pixel = 100.0 / (h * w)
-    off = {k: (got[k], v) for k, v in recomputed.items()
-           if abs(got[k] - v) > (1e-4 * abs(v) if "%" not in k else pixel)}
-    result["test_fusion_vs_direct"] = {"mae": float(direct_err.mean()),
-                                       "max": float(direct_err.max()),
-                                       "metrics": got}
-    print(f"cli test_fusion's _pred.npy dumps vs ModeFusion and "
-          f"cassini_to_erp called directly: MAE {direct_err.mean():.3g} m "
-          f"(bar {FUSED_MAE}), max {direct_err.max():.3g} m (bar "
-          f"{FUSED_MAX}); its metrics " + json.dumps(got)
-          + ", from its dumps " + json.dumps(
-              {k: float(v) for k, v in recomputed.items()}), flush=True)
-    if direct_err.mean() > FUSED_MAE or direct_err.max() > FUSED_MAX:
-      _fail("cli: test_fusion's dumps disagree with ModeFusion called "
-            "directly")
-    if off or not all(np.isfinite(v) for v in got.values()):
-      _fail(f"cli: test_fusion's metrics are not its dumps' (got, "
-            f"recomputed): {off}")
-
-    # predict --stage all against TwoStagePipeline on the same decoded images
-    pl = [predict._load(frame / f"ca_{p}_l.png", h, w) for p in CAM_PAIRS]
-    pr = [predict._load(frame / f"ca_{p}_r.png", h, w) for p in CAM_PAIRS]
-    pipe = TwoStagePipeline(model, fusion, MAXDISP, MAX_DEPTH, device=DEVICE)
+  # stage 1 at every batch size from 1 to 6 on the decoded test pairs,
+  # through the same .tar, against its plain path on the same batch and
+  # against the batch-1 dumps
+  model = ModeDisparity(MAXDISP, out_conf=True, device=DEVICE)
+  common.load_model_checkpoint(disp_tar, model)
+  ds = Deep360DatasetDisparity(*test_disparity.list_deep360_disparity_test(
+      str(data)), shape=(h, w))
+  errs = {}
+  for b in range(1, 7):
+    batch = ds.get_batch(list(range(b)), 8) if native else None
+    if batch is None:
+      batch = {k: np.stack([ds[i][k] for i in range(b)])
+               for k in ("leftImg", "rightImg")}
+    left, right = (torch.from_numpy(batch[k]).to(DEVICE)
+                   for k in ("leftImg", "rightImg"))
+    kernels.reset_launches()
     with torch.no_grad():
-      direct = pipe(np.stack(pl), np.stack(pr),
-                    np.stack([pl[0], pr[0], pl[5], pr[5]]))[0].cpu().numpy()
-    served = np.load(out / "predict_all" / "output_depth.npz")["arr_0"]
-    err = np.abs(served - direct)
-    result["predict_all_vs_pipeline"] = {"mae": float(err.mean()),
-                                         "max": float(err.max())}
-    print(f"cli predict --stage all vs TwoStagePipeline called directly: "
-          f"fused MAE {err.mean():.3g} m (bar {FUSED_MAE}), max "
-          f"{err.max():.3g} m (bar {FUSED_MAX}); depth mean "
-          f"{served.mean():.2f} m, std {served.std():.2f}", flush=True)
-    if err.mean() > FUSED_MAE or err.max() > FUSED_MAX:
-      _fail("cli: predict --stage all disagrees with TwoStagePipeline")
+      pred, conf = model(left, right)
+    launches = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+      ref_pred, ref_conf = model(left, right, plain=True)
+    want = {k: n for k, (_, n) in PATHS["sphere_b1" if b == 1 else
+                                        "sphere_b6"][4].items()}
+    if launches != want:
+      _fail(f"cli: stage 1 at batch {b} launched {launches}, expected "
+            f"{want}")
+    plain = (pred - ref_pred).abs()
+    conf_mae = float((conf - ref_conf).abs().mean())
+    keep = [i for i in range(b) if held[i]]     # the dumps hold these
+    err = np.abs(pred.cpu().numpy()[keep] - np.stack(b1[:b])[keep])
+    errs[b] = {"plain_mae": float(plain.mean()),
+               "plain_max": float(plain.max()), "conf_mae": conf_mae,
+               "b1_mae": float(err.mean()), "b1_max": float(err.max())}
+    if (errs[b]["plain_mae"] > ANCHOR_MAE or errs[b]["plain_max"] > ANCHOR_MAX
+        or conf_mae > ANCHOR_CONF_MAE
+        or not bool(torch.isfinite(conf).all())):
+      _fail(f"cli: stage 1 at batch {b} disagrees with its plain path: "
+            f"{errs[b]}")
+    if err.mean() > ANCHOR_MAE or err.max() > ANCHOR_MAX:
+      _fail(f"cli: stage 1 at batch {b} disagrees with the batch-1 "
+            f"dumps: {errs[b]}")
+  result["batch_sizes"] = errs
+  print("cli: stage 1 at batch 1-6 on the test pairs (each at its path's "
+        "launches), pred MAE / max (px) and conf MAE against its plain "
+        "path on the same batch; pred MAE / max against test_disparity's "
+        "batch-1 dumps: " + ", ".join(
+            f"b{b} {e['plain_mae']:.3g}/{e['plain_max']:.3g}/"
+            f"{e['conf_mae']:.3g}; {e['b1_mae']:.3g}/{e['b1_max']:.3g}"
+            for b, e in errs.items())
+        + f" (bars {ANCHOR_MAE}, {ANCHOR_MAX}, {ANCHOR_CONF_MAE})",
+        flush=True)
+  del left, right, pred, conf, ref_pred, ref_conf, plain
 
-    # every output file: its count, shape and range
-    def check(paths, shape, lo, hi, what):
-      paths = sorted(paths)
-      for p in paths:
-        a = (np.load(p)["arr_0"] if p.suffix == ".npz" else np.load(p)
-             if p.suffix == ".npy" else np.asarray(Image.open(p)))
-        a = a.astype(np.float64) / (255.0 if a.dtype == np.uint8 and
-                                    what == "conf" else 1.0)
-        if (a.shape[:2] != shape or not np.isfinite(a).all()
-            or a.min() < lo or a.max() > hi):
-          _fail(f"cli: {p.name} of shape {a.shape}, range "
-                f"{a.min():.4g}-{a.max():.4g}, expected {shape} in "
-                f"[{lo}, {hi}]")
-      return len(paths)
+  # test_fusion's dumps against ModeFusion and cassini_to_erp called
+  # directly on the same decoded frames, and its metrics against the dumps
+  fusion = ModeFusion(MAX_DEPTH, device=DEVICE)
+  common.load_model_checkpoint(fusion_tar, fusion)
+  fus = out / "fusion" / "Deep360" / "fusion"
+  fds = Deep360DatasetFusion(*list_deep360_fusion_test(str(out / "bridge"),
+                                                       str(data)))
+  direct_err, recomputed = [], []
+  for batch in DataLoader(fds, batch_size=1, num_workers=1):
+    depths, confs, rgbs, gt = (torch.from_numpy(batch[k]).to(DEVICE) for k
+                               in ("depths", "confs", "rgbs", "gt"))
+    with torch.no_grad():
+      pred = fusion([depths[:, k] for k in range(6)],
+                    [confs[:, k] for k in range(6)],
+                    [rgbs[:, k] for k in range(4)])
+    pred_erp = cassini_to_erp(pred)[0, ..., 0].cpu().numpy()
+    gt_erp = cassini_to_erp(gt[..., None])[0, ..., 0].cpu()
+    name = batch["gtNames"][0]           # named as test_fusion names it
+    dump = np.load(fus / "depth_pred" / (re.findall(r"ep[0-9]_", name)[0]
+                                         + Path(name).stem + "_pred.npy"))
+    direct_err.append(np.abs(dump - pred_erp))
+    m = metrics.depth_metrics(torch.from_numpy(dump), gt_erp,
+                              gt_erp <= MAX_DEPTH)
+    recomputed.append([float(m[k]) for k in common.METRIC_NAMES])
+  direct_err = np.stack(direct_err)
+  recomputed = dict(zip(common.METRIC_NAMES, np.mean(recomputed, 0)))
+  got = {k: float(v) for k, v in returned["test_fusion"].items()}
+  # the dumps' metrics summed in f32 on the host: 1e-4 relative; a
+  # percentage within one pixel's share
+  pixel = 100.0 / (h * w)
+  off = {k: (got[k], v) for k, v in recomputed.items()
+         if abs(got[k] - v) > (1e-4 * abs(v) if "%" not in k else pixel)}
+  result["test_fusion_vs_direct"] = {"mae": float(direct_err.mean()),
+                                     "max": float(direct_err.max()),
+                                     "metrics": got}
+  print(f"cli test_fusion's _pred.npy dumps vs ModeFusion and "
+        f"cassini_to_erp called directly: MAE {direct_err.mean():.3g} m "
+        f"(bar {FUSED_MAE}), max {direct_err.max():.3g} m (bar "
+        f"{FUSED_MAX}); its metrics " + json.dumps(got)
+        + ", from its dumps " + json.dumps(
+            {k: float(v) for k, v in recomputed.items()}), flush=True)
+  if direct_err.mean() > FUSED_MAE or direct_err.max() > FUSED_MAX:
+    _fail("cli: test_fusion's dumps disagree with ModeFusion called "
+          "directly")
+  if off or not all(np.isfinite(v) for v in got.values()):
+    _fail(f"cli: test_fusion's metrics are not its dumps' (got, "
+          f"recomputed): {off}")
 
-    bridge = out / "bridge" / CLI_EPISODE
-    counts = {
-        "disp_b1 npz": check((out / "disp_b1").glob("*.npz"), (h, w), 0,
-                             MAXDISP, "disp"),
-        "disp_b1 png": check((out / "disp_b1").glob("*.png"), (h, 2 * w), 0,
-                             255, "png"),
-        "disp_b4 npz": check((out / "disp_b4").glob("*.npz"), (h, w), 0,
-                             MAXDISP, "disp"),
-        "disp_b5 npz": check((out / "disp_b5").glob("*.npz"), (h, w), 0,
-                             MAXDISP, "disp"),
-        "depth npz": check(bridge.glob("*/disp_pred2depth/*.npz"), (h, w), 0,
-                           MAX_DEPTH, "depth"),
-        "conf png": check(bridge.glob("*/conf_map/*.png"), (h, w), 0, 1,
-                          "conf"),
-        "fusion npy": check((fus / "depth_pred").glob("*.npy"), (w, h), 0,
-                            MAX_DEPTH, "depth"),
-        "fusion png": check(fus.glob("*/*.png"), (w, h), 0, 255, "png"),
-        "predict_disp conf": check([out / "predict_disp" /
-                                    "output_conf.png"], (h, w), 0, 1,
-                                   "conf"),
-        "predict_disp png": check([out / "predict_disp" /
-                                   "output_disp.png"], (h, w), 0, 255, "png"),
-        "predict_all npz": check([out / "predict_all" / "output_depth.npz"],
-                                 (h, w), 0, MAX_DEPTH, "depth"),
-        "predict_all png": check([out / "predict_all" / "output_depth.png"],
-                                 (h, w), 0, 255, "png")}
-    want = {"disp_b1 npz": CLI_TEST_PAIRS, "disp_b1 png": CLI_TEST_PAIRS,
-            "disp_b4 npz": CLI_TEST_PAIRS, "disp_b5 npz": CLI_TEST_PAIRS,
-            "depth npz": CLI_ALL_PAIRS,
-            "conf png": CLI_ALL_PAIRS, "fusion npy": CLI_FRAMES["testing"],
-            "fusion png": 2 * CLI_FRAMES["testing"]}
-    result["files"] = counts
-    print(f"cli output files (count, each of the expected shape and range: "
-          f"disparity in [0, {MAXDISP}], depth in [0, {MAX_DEPTH:g}], conf "
-          f"in [0, 1]): " + json.dumps(counts), flush=True)
-    for key, n in counts.items():
-      if n != want.get(key, 1):
-        _fail(f"cli: {n} files of {key}, expected {want.get(key, 1)}")
-    del model, fusion, pipe
+  # predict --stage all against TwoStagePipeline on the same decoded images
+  pl = [predict._load(frame / f"ca_{p}_l.png", h, w) for p in CAM_PAIRS]
+  pr = [predict._load(frame / f"ca_{p}_r.png", h, w) for p in CAM_PAIRS]
+  pipe = TwoStagePipeline(model, fusion, MAXDISP, MAX_DEPTH, device=DEVICE)
+  with torch.no_grad():
+    direct = pipe(np.stack(pl), np.stack(pr),
+                  np.stack([pl[0], pr[0], pl[5], pr[5]]))[0].cpu().numpy()
+  served = np.load(out / "predict_all" / "output_depth.npz")["arr_0"]
+  err = np.abs(served - direct)
+  result["predict_all_vs_pipeline"] = {"mae": float(err.mean()),
+                                       "max": float(err.max())}
+  print(f"cli predict --stage all vs TwoStagePipeline called directly: "
+        f"fused MAE {err.mean():.3g} m (bar {FUSED_MAE}), max "
+        f"{err.max():.3g} m (bar {FUSED_MAX}); depth mean "
+        f"{served.mean():.2f} m, std {served.std():.2f}", flush=True)
+  if err.mean() > FUSED_MAE or err.max() > FUSED_MAX:
+    _fail("cli: predict --stage all disagrees with TwoStagePipeline")
+
+  # every output file: its count, shape and range
+  def check(paths, shape, lo, hi, what):
+    paths = sorted(paths)
+    for p in paths:
+      a = (np.load(p)["arr_0"] if p.suffix == ".npz" else np.load(p)
+           if p.suffix == ".npy" else np.asarray(Image.open(p)))
+      a = a.astype(np.float64) / (255.0 if a.dtype == np.uint8 and
+                                  what == "conf" else 1.0)
+      if (a.shape[:2] != shape or not np.isfinite(a).all()
+          or a.min() < lo or a.max() > hi):
+        _fail(f"cli: {p.name} of shape {a.shape}, range "
+              f"{a.min():.4g}-{a.max():.4g}, expected {shape} in "
+              f"[{lo}, {hi}]")
+    return len(paths)
+
+  bridge = out / "bridge" / CLI_EPISODE
+  counts = {
+      "disp_b1 npz": check((out / "disp_b1").glob("*.npz"), (h, w), 0,
+                           MAXDISP, "disp"),
+      "disp_b1 png": check((out / "disp_b1").glob("*.png"), (h, 2 * w), 0,
+                           255, "png"),
+      "disp_b4 npz": check((out / "disp_b4").glob("*.npz"), (h, w), 0,
+                           MAXDISP, "disp"),
+      "disp_b5 npz": check((out / "disp_b5").glob("*.npz"), (h, w), 0,
+                           MAXDISP, "disp"),
+      "depth npz": check(bridge.glob("*/disp_pred2depth/*.npz"), (h, w), 0,
+                         MAX_DEPTH, "depth"),
+      "conf png": check(bridge.glob("*/conf_map/*.png"), (h, w), 0, 1,
+                        "conf"),
+      "fusion npy": check((fus / "depth_pred").glob("*.npy"), (w, h), 0,
+                          MAX_DEPTH, "depth"),
+      "fusion png": check(fus.glob("*/*.png"), (w, h), 0, 255, "png"),
+      "predict_disp conf": check([out / "predict_disp" /
+                                  "output_conf.png"], (h, w), 0, 1,
+                                 "conf"),
+      "predict_disp png": check([out / "predict_disp" /
+                                 "output_disp.png"], (h, w), 0, 255, "png"),
+      "predict_all npz": check([out / "predict_all" / "output_depth.npz"],
+                               (h, w), 0, MAX_DEPTH, "depth"),
+      "predict_all png": check([out / "predict_all" / "output_depth.png"],
+                               (h, w), 0, 255, "png")}
+  want = {"disp_b1 npz": CLI_TEST_PAIRS, "disp_b1 png": CLI_TEST_PAIRS,
+          "disp_b4 npz": CLI_TEST_PAIRS, "disp_b5 npz": CLI_TEST_PAIRS,
+          "depth npz": CLI_ALL_PAIRS,
+          "conf png": CLI_ALL_PAIRS, "fusion npy": CLI_FRAMES["testing"],
+          "fusion png": 2 * CLI_FRAMES["testing"]}
+  result["files"] = counts
+  print(f"cli output files (count, each of the expected shape and range: "
+        f"disparity in [0, {MAXDISP}], depth in [0, {MAX_DEPTH:g}], conf "
+        f"in [0, 1]): " + json.dumps(counts), flush=True)
+  for key, n in counts.items():
+    if n != want.get(key, 1):
+      _fail(f"cli: {n} files of {key}, expected {want.get(key, 1)}")
+  del model, fusion, pipe
   result["phase_s"] = time.perf_counter() - t_phase
   print(f"cli phase: {result['phase_s']:.2f} s ({card})", flush=True)
   return result
+
+
+# ---- the training CLIs (mode_tpu_torch/cli/train_disparity.py,
+# train_fusion.py) on the serving phase's tree, after it: stage 1 trains on
+# its 24 training pairs and validates on its 6 validation pairs; stage 2
+# trains on the bridge's outputs for the 4 training frames (one full batch)
+# and validates on the validation frame. The CLIs' default batch size, 4.
+TRAIN_CLI_BATCH = 4
+# Per Baseline training forward at that shape: the stride-1 3x3 convs that
+# the JAX package's batch-packed training gate takes with its TPU memory
+# budget left out, as the port's gates leave it out, traced with counting
+# stubs under jax.eval_shape (tests/test_torch_train_cli.py traces it and
+# holds this number): all 18 but the 6-channel input conv (the budget
+# itself leaves one more, the conv with 256 input channels, to XLA on the
+# TPU). Each launches K9 forward and as its grad-input. At the validation's
+# batch 1 the Baseline runs no kernel (the JAX package runs it on the
+# batch-packed gate alone).
+BASELINE_TRAIN_K9 = 17
+# The learning-rate check on the f32 run's checkpoints (Adam from zero, as
+# the JAX CLI's): epoch 1 is Adam's first step, lr g / (|g| + eps), so a
+# parameter element whose gradient in the direct step is GRAD_HELD or more
+# moved by lr within LR_RTOL (eps / GRAD_HELD = 5e-4 of it, the rest left
+# for the CLI's step and the direct one parting on the gradient); epoch 2
+# is Adam's second step, whose |m^ / sqrt(v^)| is at most
+# (1 - b1) / sqrt(1 - b2) * sqrt(1 - b2^2) / (1 - b1^2) = 1.0014 by
+# Cauchy-Schwarz with b = (0.9, 0.999): no element moved by more than
+# 1.0014 lr, against up to 10 lr had the decay been missed. Both up to the
+# f32 rounding of the parameters.
+GRAD_HELD, LR_RTOL, ADAM_STEP2 = 2e-5, 1e-3, 1.0014
+# steps of the direct stage-1 step timed after its first, on one batch
+DIRECT_STEPS = 3
+# the CUDA kernels of a stage-1 training step, as its trace names them
+TRAIN_KERNEL_NAMES = ("conv3d_s1_tc_kernel", "conv3d_s2_tc_kernel",
+                      "deconv3d_tc_kernel", "conv2d_tc_kernel",
+                      "sphere_conv_tc_kernel", "bwd_input_tc_kernel",
+                      "bwd_weight_tc_kernel")
+
+
+@contextlib.contextmanager
+def _watched_steps(runs: list):
+  """While the block runs, every training step the CLIs build (the
+  stage-1 and fusion steps of ``mode_tpu_torch.training``, the Baseline's
+  of ``cli/train_fusion.py``) records its launches by kernel, the dtypes
+  its kernels took, its inputs' dtypes and device, and on the first step of
+  each run a copy of its inputs; each step's kernel calls by shape
+  (:func:`_recorded_launches`). ``runs`` gets one list of steps per built
+  step function (one per CLI run)."""
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.cli import train_fusion
+
+  def watch(make):
+    def made(*args, **kw):
+      step, steps = make(*args, **kw), []
+      runs.append(steps)
+
+      def watched(*xs):
+        flat = [x for part in xs
+                for x in (part if isinstance(part, list) else [part])]
+        rec = {"input_dtypes": sorted({str(x.dtype) for x in flat}),
+               "devices": sorted({x.device.type for x in flat}),
+               "inputs": [x.clone() for x in flat] if not steps else None}
+        before = dict(kernels.LAUNCHES)
+        with _recorded_launches() as calls:
+          loss = step(*xs)
+        rec["launches"] = {k: n - before.get(k, 0)
+                           for k, n in kernels.LAUNCHES.items()
+                           if n - before.get(k, 0)}
+        rec["kernel_dtypes"], rec["calls"] = calls.dtypes, calls
+        steps.append(rec)
+        return loss
+
+      return watched
+
+    return made
+
+  names = ((training, "make_disparity_train_step"),
+           (training, "make_fusion_train_step"),
+           (train_fusion, "make_baseline_step"))
+  orig = [getattr(mod, name) for mod, name in names]
+  for (mod, name), fn in zip(names, orig):
+    setattr(mod, name, watch(fn))
+  try:
+    yield
+  finally:
+    for (mod, name), fn in zip(names, orig):
+      setattr(mod, name, fn)
+
+
+def _event_scalars(log_dir: Path) -> dict:
+  """``{tag: {step: value}}`` of the one event file in ``log_dir``, read
+  with the port's own reader of its framing."""
+  from mode_tpu_torch.utils.tb_writer import read_scalars
+  (path,) = log_dir.glob("events.out.tfevents.*")
+  out = {}
+  for tag, step, value in read_scalars(str(path)):
+    out.setdefault(tag, {})[step] = value
+  return out
+
+
+def _f32(x: float) -> float:
+  return float(np.float32(x))
+
+
+def _train_cli_run(label, main, argv, records, steps, step_expect,
+                   val_expect, card) -> dict:
+  """One training CLI through its ``main(argv)`` on the card: the launch
+  counts set to 0 before and read after, each step's launches (and the
+  dtype its kernels took) and each validation batch's against
+  ``step_expect`` and ``val_expect``, their sum against the run's; its
+  wall time, ms per step after the first (the host clock at which the loop
+  asked for the next batch, just after the step's loss was read back), the
+  validation's ms per item, the loader's wait per batch and the peak
+  memory."""
+  from mode_tpu_torch import kernels
+  n_rec, n_steps = len(records), len(steps)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launches()
+  t0 = time.perf_counter()
+  out = main(argv)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = dict(kernels.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  if len(steps) != n_steps + 1:
+    _fail(f"train_cli {label}: built {len(steps) - n_steps} training steps, "
+          "expected 1")
+  run_steps = steps[-1]
+  if len(run_steps) != len(out["losses"]):
+    _fail(f"train_cli {label}: {len(run_steps)} steps watched, "
+          f"{len(out['losses'])} losses returned")
+  total = {}
+  for i, rec in enumerate(run_steps):
+    _launch_diff(f"train_cli {label}", f"in step {i + 1}", rec["launches"],
+                 step_expect)
+    if rec["devices"] != [torch.device(DEVICE).type]:
+      _fail(f"train_cli {label}: step {i + 1} took inputs on "
+            f"{rec['devices']}: the CLI did not run on the card")
+    for k, n in rec["launches"].items():
+      total[k] = total.get(k, 0) + n
+  train_recs = [r for r in records[n_rec:] if r["shuffle"]]
+  val_recs = [r for r in records[n_rec:] if not r["shuffle"]]
+  val_items, val_s = 0, 0.0
+  for rec in val_recs:
+    snaps = rec["launches"]
+    for i in range(len(snaps) - 1):
+      got = {k: v - snaps[i].get(k, 0) for k, v in snaps[i + 1].items()
+             if v - snaps[i].get(k, 0)}
+      _launch_diff(f"train_cli {label}", f"in validation batch {i} (of "
+                   f"{rec['sizes'][i]})", got, val_expect(rec["sizes"][i]))
+      for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    val_items += sum(rec["sizes"][:len(snaps) - 1])
+    val_s += rec["t"][len(snaps) - 1] - rec["t"][0]
+  _launch_diff(f"train_cli {label}", "in all (steps + validation batches)",
+               launches, total)
+  # each epoch's requests: t[i + 1] - t[i] is step i with its loader wait
+  step_ms = [(b - a) * 1e3 for rec in train_recs
+             for a, b in zip(rec["t"], rec["t"][1:])]
+  waits = [w * 1e3 for rec in train_recs for w in rec["wait_s"]]
+  later = step_ms[1:]
+  info = {"wall_s": wall, "launches": launches, "steps": len(run_steps),
+          "step_ms": step_ms,
+          "ms_per_step_after_first": statistics.mean(later) if later else None,
+          "val_ms_per_item": val_s * 1e3 / max(val_items, 1),
+          "val_items": val_items, "loader_wait_ms": waits,
+          "peak_gib": peak, "losses": out["losses"],
+          "kernel_dtypes": sorted({str(d) for r in run_steps
+                                   for d in r["kernel_dtypes"]}),
+          "input_dtypes": sorted({d for r in run_steps
+                                  for d in r["input_dtypes"]})}
+  print(f"train_cli {label}: {wall:.2f} s wall, {len(run_steps)} steps, ms "
+        "per step (from one batch request to the next) "
+        + ", ".join(f"{t:.1f}" for t in step_ms)
+        + (f", after the first {info['ms_per_step_after_first']:.1f}"
+           if later else "")
+        + f"; validation {info['val_ms_per_item']:.1f} ms per item over "
+        f"{val_items}; loader wait per batch "
+        + ", ".join(f"{t:.1f}" for t in waits)
+        + f" ms; peak {peak:.2f} GiB; kernels took {info['kernel_dtypes']}, "
+        f"step inputs {info['input_dtypes']}; losses "
+        + ", ".join(f"{x:.6g}" for x in out["losses"])
+        + f"; launches {json.dumps(launches)} ({card})", flush=True)
+  return out, info
+
+
+def _cli_seen(run_steps, dtype) -> dict:
+  """A training CLI run as the kernel phase reads a path: its first step's
+  kernel calls by shape (every step takes one full batch), its steps'
+  launches, in its dtype."""
+  launches = {}
+  for rec in run_steps:
+    for k, n in rec["launches"].items():
+      launches[k] = launches.get(k, 0) + n
+  return {"calls": run_steps[0]["calls"], "batch": TRAIN_CLI_BATCH,
+          "ncalls": len(run_steps), "launches": launches, "dtype": dtype,
+          "train": True}
+
+
+def _same_tensors(xs, ys) -> bool:
+  """Equal dtypes, shapes and values, NaN where the other has NaN."""
+  def same(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+      return False
+    if not a.is_floating_point():
+      return torch.equal(a, b)
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        a.nan_to_num(), b.nan_to_num())
+  return len(xs) == len(ys) and all(same(a, b) for a, b in zip(xs, ys))
+
+
+def _check_logs(label, log_dir: Path, want: dict) -> None:
+  """The run's event file holds exactly ``want`` (``{tag: {step: value}}``,
+  values as the writer's f32)."""
+  got = _event_scalars(log_dir)
+  want = {tag: {s: _f32(v) for s, v in steps.items()}
+          for tag, steps in want.items()}
+  if got != want:
+    _fail(f"train_cli {label}: the event file holds {got}, expected {want}")
+
+
+def _check_checkpoint(label, path: Path, make_model, epoch: int) -> dict:
+  """The checkpoint exists, loads with ``weights_only=True``, holds the
+  reference layout at ``epoch`` and loads into a fresh model with
+  ``strict=True``; returns its state_dict."""
+  if not path.exists():
+    _fail(f"train_cli {label}: no checkpoint {path.name}")
+  obj = torch.load(path, map_location="cpu", weights_only=True)
+  if sorted(obj) != ["epoch", "state_dict", "train_loss"] or \
+      obj["epoch"] != epoch:
+    _fail(f"train_cli {label}: {path.name} holds {sorted(obj)} at epoch "
+          f"{obj.get('epoch')}")
+  model = make_model()
+  model.load_state_dict(obj["state_dict"], strict=True)
+  del model
+  return obj["state_dict"]
+
+
+def _baseline_state(bridge: Path, data: Path) -> dict:
+  """The Baseline with seeded weights, its 1x1 head scaled and shifted to
+  logits of mean 0 and std 1 on the first four training frames in training
+  (as ``_fusion_model`` calibrates the fusion net); its state_dict on the
+  CPU."""
+  from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
+  from mode_tpu_torch.data.file_lists import list_deep360_fusion_train
+  from mode_tpu_torch.models.fusion import Baseline
+  model = Baseline(MAX_DEPTH, device=DEVICE,
+                   generator=torch.Generator().manual_seed(0))
+  td, tc, tr, tg, *_ = list_deep360_fusion_train(str(bridge), str(data))
+  ds = Deep360DatasetFusion(td, tc, tr, tg, training=True)
+  depths = torch.from_numpy(np.stack([ds[i]["depths"] for i in range(
+      TRAIN_CLI_BATCH)])).to(DEVICE)
+  probe = copy.deepcopy(model).train()
+  head = probe.feature_extraction.layer7[2]
+  logits = []
+  head.register_forward_hook(lambda m, a, out: logits.append(out))
+  with torch.no_grad():
+    probe([depths[:, k] for k in range(6)])
+  mean, std = float(logits[0].mean()), float(logits[0].std())
+  head = model.feature_extraction.layer7[2]
+  with torch.no_grad():
+    head.weight.div_(std)
+    head.bias.sub_(mean).div_(std)
+  print(f"train_cli: Baseline head logits (mean, std) {mean:.4g}, {std:.4g} "
+        "on the training batch in training, scaled to 0, 1", flush=True)
+  return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _fusion_val_expect(label, model, n):
+  """A fusion validation batch's launches: the validation frame alone, at
+  batch 1, where ModeFusion runs K8 on its lane-major convs and the
+  Baseline no kernel."""
+  if n != 1:
+    _fail(f"train_cli {label}: a validation batch of {n} frames, expected 1")
+  return {"conv2d_s1_bn_act": FUSION_K8} if model == "ModeFusion" else {}
+
+
+def _train_cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
+  """The training CLIs on the card, each through its ``main(argv)`` with
+  its default device, on the serving phase's tree under ``root``: then
+  each run's launches per step and per validation batch, its first step
+  against the same step built directly and run on the same batch from the
+  same weights and that step against its plain step, the learning rate
+  read from the f32 run's checkpoints, every checkpoint loaded strictly
+  and two of them served, the packs, the event files, the trace and the
+  refusal of more than one card."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.cli import common, test_disparity, test_fusion
+  from mode_tpu_torch.cli import train_disparity, train_fusion
+  from mode_tpu_torch.data.deep360 import (Deep360DatasetDisparity,
+                                           Deep360DatasetFusion)
+  from mode_tpu_torch.data.file_lists import (list_deep360_disparity_train,
+                                              list_deep360_fusion_train)
+  from mode_tpu_torch.data.fusion_pack import read_pack
+  from mode_tpu_torch.data.loader import DataLoader
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import Baseline, ModeFusion
+  from PIL import Image
+  h, w = GEOMETRY["Cassini"]
+  t_phase = time.perf_counter()
+  data, bridge, work = root / "Deep360", root / "out" / "bridge", root / "train"
+  disp_tar, fusion_tar = root / "disp.tar", work / "fusion_init.tar"
+  work.mkdir()
+  torch.save({"epoch": 0, "state_dict": fusion_state}, fusion_tar)
+  baseline_tar = work / "baseline_init.tar"
+  torch.save({"epoch": 0, "state_dict": _baseline_state(bridge, data)},
+             baseline_tar)
+  expect = _cli_expect()
+  stage1_step = train_expect("train_b2")
+  b1, bn = ({k: n for k, (_, n) in PATHS[p][4].items()}
+            for p in ("sphere_b1", "sphere_b6"))
+  size = ["--height", str(h), "--width", str(w), "--max_disp", str(MAXDISP)]
+  stage1 = ["--dataset_root", str(data), "--checkpoint_disp", str(disp_tar),
+            *size]
+  fusion = ["--datapath-input", str(bridge), "--datapath-dataset", str(data),
+            "--maxdepth", str(MAX_DEPTH), "--epochs", "1",
+            "--steps_per_epoch", "1"]
+  tars = {"ModeFusion": fusion_tar, "Baseline": baseline_tar}
+  stage1_runs = {
+      # (argv, step dtype)
+      "disp_f32": ([*stage1, "--epochs", "2", "--start_decay", "1",
+                    "--steps_per_epoch", "1", "--trace_dir",
+                    str(work / "trace")], torch.float32),
+      "disp_bf16": ([*stage1, "--bf16", "--device_normalize", "--epochs", "1",
+                     "--steps_per_epoch", "3"], torch.bfloat16),
+      "disp_resume": ([*size, "--dataset_root", str(data), "--resume",
+                       "--checkpoint_disp", str(
+                           work / "disp_f32" / "ModeDisparity" / "Deep360" /
+                           "ckpt_disp_ModeDisparity_Deep360_2.tar"),
+                       "--epochs", "3", "--start_decay", "1",
+                       "--steps_per_epoch", "3"], torch.float32)}
+  fusion_runs = {
+      "fusion_packed_f32": ("ModeFusion", ["--packed_dir",
+                                           str(work / "packs")],
+                            torch.float32),
+      "fusion_packed_bf16": ("ModeFusion", ["--packed_dir",
+                                            str(work / "packs"), "--bf16"],
+                             torch.bfloat16),
+      "fusion_float": ("ModeFusion", [], torch.float32),
+      "baseline": ("Baseline", [], torch.float32)}
+  # each run's kernel calls by shape, for the kernel phase
+  result = {"runs": {}, "seen": {}}
+  returned = {}
+  records, steps = [], []
+  with _timed_loaders(records), _watched_steps(steps):
+    for label, (argv, dtype) in stage1_runs.items():
+      argv = [*argv, "--save_checkpoint_path", str(work / label)]
+      returned[label], result["runs"][label] = _train_cli_run(
+          label, train_disparity.main, argv, records, steps, stage1_step,
+          lambda n: b1 if n == 1 else bn, card)
+      result["runs"][label]["first_inputs"] = steps[-1][0]["inputs"]
+      result["seen"][f"train_cli_{label}"] = _cli_seen(steps[-1], dtype)
+      if result["runs"][label]["kernel_dtypes"] != [str(dtype)]:
+        _fail(f"train_cli {label}: the kernels took "
+              f"{result['runs'][label]['kernel_dtypes']}, expected {dtype}")
+      torch.cuda.empty_cache()
+    for label, (model, extra, dtype) in fusion_runs.items():
+      argv = [*fusion, "--model", model, "--loadmodel", str(tars[model]),
+              "--savemodel", str(work / label), *extra]
+      k9 = FUSION_TRAIN_K9 if model == "ModeFusion" else BASELINE_TRAIN_K9
+      returned[label], result["runs"][label] = _train_cli_run(
+          label, train_fusion.main, argv, records, steps,
+          {"conv2d_s1_bn_act": 2 * k9},
+          functools.partial(_fusion_val_expect, label, model), card)
+      result["runs"][label]["first_inputs"] = steps[-1][0]["inputs"]
+      result["seen"][f"train_cli_{label}"] = _cli_seen(steps[-1], dtype)
+      if result["runs"][label]["kernel_dtypes"] != [str(dtype)]:
+        _fail(f"train_cli {label}: the kernels took "
+              f"{result['runs'][label]['kernel_dtypes']}, expected {dtype}")
+      torch.cuda.empty_cache()
+    # the checkpoints serve: a stage-1 and a fusion checkpoint through the
+    # serving CLIs, at their served launches
+    served = {
+        "test_disparity": (test_disparity.main, [
+            "--dataset_root", str(data), "--batch_size", "4",
+            "--checkpoint_disp", str(work / "disp_resume" / "ModeDisparity" /
+                                     "Deep360" /
+                                     "ckpt_disp_ModeDisparity_Deep360_3.tar"),
+            *size], expect["test_disparity_b4"]),
+        "test_fusion": (test_fusion.main, [
+            "--datapath-input", str(bridge), "--datapath-dataset", str(data),
+            "--loadmodel", str(work / "fusion_packed_f32" / "ModeFusion" /
+                               "Deep360" / "ckpt_fusion_epoch0.tar"),
+            "--outpath", str(work / "served_fusion"), "--maxdepth",
+            str(MAX_DEPTH)], expect["test_fusion"])}
+    for label, (main, argv, want) in served.items():
+      metrics, result[f"served_{label}"] = _cli_run(
+          f"{label} of a trained checkpoint", main, argv, want, records, card)
+      if not all(np.isfinite(float(v)) for v in metrics.values()):
+        _fail(f"train_cli: {label} of a trained checkpoint gave {metrics}")
+      result[f"served_{label}"]["metrics"] = {k: float(v)
+                                              for k, v in metrics.items()}
+  torch.cuda.empty_cache()
+
+  # ---- stage 1: the runs' epochs, checkpoints and event files
+  ck = {label: work / label / "ModeDisparity" / "Deep360"
+        for label in stage1_runs}
+  epochs = {"disp_f32": [1, 2], "disp_bf16": [1], "disp_resume": [3]}
+  states = {}
+  for label, eps in epochs.items():
+    out = returned[label]
+    if list(out["train_loss"]) != eps or list(out["val"]) != eps:
+      _fail(f"train_cli {label}: ran epochs {list(out['train_loss'])}, "
+            f"expected {eps}")
+    for ep in eps:
+      states[label, ep] = _check_checkpoint(
+          label, ck[label] / f"ckpt_disp_ModeDisparity_Deep360_{ep}.tar",
+          lambda: ModeDisparity(MAXDISP, device=DEVICE), ep)
+      if not all(np.isfinite(v) for v in out["val"][ep]):
+        _fail(f"train_cli {label}: validation {out['val'][ep]}")
+    _check_logs(label, ck[label] / "logs", {
+        "loss disp": dict(enumerate(out["losses"], 1)),
+        "total disp train loss": out["train_loss"],
+        "total disp validation loss": {e: v[0] for e, v in
+                                       out["val"].items()},
+        "total disp validation d1": {e: v[1] for e, v in out["val"].items()}})
+    for ep in eps:
+      if not (ck[label] / "outputs" / f"{ep:03d}_val.png").exists():
+        _fail(f"train_cli {label}: no validation colormap for epoch {ep}")
+  if result["runs"]["disp_bf16"]["input_dtypes"] != ["torch.float32",
+                                                     "torch.uint8"]:
+    _fail("train_cli disp_bf16: --device_normalize uploaded "
+          f"{result['runs']['disp_bf16']['input_dtypes']}, expected uint8 "
+          "images and the f32 ground truth")
+  if result["runs"]["disp_f32"]["input_dtypes"] != ["torch.float32"]:
+    _fail("train_cli disp_f32: the images were not uploaded normalised")
+
+  # the trace of disp_f32's first epoch names the port's training kernels
+  (trace,) = (work / "trace").glob("trace.*.json")
+  text = trace.read_text()
+  named = {k: k in text for k in TRAIN_KERNEL_NAMES}
+  result["trace"] = {"bytes": len(text), "names": named}
+  print(f"train_cli trace of disp_f32's first epoch: {trace.name}, "
+        f"{len(text) / 2**20:.1f} MiB; the port's kernels named in it: "
+        + json.dumps(named), flush=True)
+  if not all(named.values()):
+    _fail("train_cli: the trace does not name every training kernel")
+
+  # ---- the first step of each stage-1 run against the step built directly
+  # on the batch that a loader made as the CLI makes it gives, from the
+  # same weights, and that step against its plain step (_plain_check); the
+  # f32 one's gradients for the learning-rate check
+  lists = list_deep360_disparity_train(str(data))
+  result["direct"] = {}
+  grads = None
+  for label, weights, epoch in (("disp_f32", disp_tar, 1),
+                                ("disp_bf16", disp_tar, 1),
+                                ("disp_resume", ck["disp_f32"] /
+                                 "ckpt_disp_ModeDisparity_Deep360_2.tar", 3)):
+    dtype = stage1_runs[label][1]
+    ds = Deep360DatasetDisparity(*lists[:3], shape=(h, w),
+                                 device_normalize=label == "disp_bf16")
+    loader = DataLoader(ds, batch_size=TRAIN_CLI_BATCH, num_workers=4,
+                        shuffle=True, seed=123)
+    loader.set_epoch(epoch)
+    batch = next(iter(loader))
+    inputs = [torch.from_numpy(batch[k]).to(DEVICE)
+              for k in ("leftImg", "rightImg", "dispMap")]
+    cli_inputs = result["runs"][label].pop("first_inputs")
+    if not _same_tensors(inputs, cli_inputs):
+      _fail(f"train_cli {label}: the first step's batch is not the batch a "
+            "loader made as the CLI makes it gives")
+    model = ModeDisparity(MAXDISP, device=DEVICE)
+    common.load_model_checkpoint(str(weights), model)
+    cdt = None if dtype == torch.float32 else dtype
+    plain_step = plain_stepper(
+        model, functools.partial(_stage1_step, compute_dtype=cdt),
+        (*[training.normalize_rgb_on_device(x) if x.dtype == torch.uint8
+           else x for x in inputs[:2]], inputs[2]))
+    optimizer = training.make_optimizer(model.parameters())
+    step = training.make_disparity_train_step(model, optimizer,
+                                              compute_dtype=cdt)
+    loss = float(step(*inputs))
+    got = returned[label]["losses"][0]
+    bar = STEP_BARS[dtype]["loss"]
+    result["direct"][label] = {"cli": got, "direct": loss,
+                               "rel": abs(got - loss) / abs(loss), "bar": bar}
+    print(f"train_cli {label}: the first step's loss {got:.7g}, the step "
+          f"built directly on the same batch from the same weights {loss:.7g}"
+          f" (rel {abs(got - loss) / abs(loss):.3g}, bar {bar})", flush=True)
+    if abs(got - loss) > bar * abs(loss):
+      _fail(f"train_cli {label}: the first step disagrees with the direct "
+            "step")
+    _plain_check(f"train_cli {label}", result["direct"][label], plain_step,
+                 loss, model, dtype)
+    del plain_step
+    if label == "disp_f32":
+      grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    else:
+      # the direct step's own time on the same batch, its loss read back as
+      # the CLI reads it, beside the CLI's steps after its first
+      times = []
+      for _ in range(DIRECT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(step(*inputs))
+        times.append((time.perf_counter() - t) * 1e3)
+      result["direct"][label]["ms_per_step"] = statistics.mean(times)
+      print(f"train_cli {label}: the direct step {statistics.mean(times):.1f}"
+            f" ms a step over {DIRECT_STEPS} on one batch, the CLI's "
+            f"{result['runs'][label]['ms_per_step_after_first']:.1f} after "
+            "its first", flush=True)
+    del model, optimizer, step, inputs, cli_inputs
+    torch.cuda.empty_cache()
+
+  # ---- the learning rate, read from disp_f32's checkpoints
+  w0 = torch.load(disp_tar, weights_only=True)["state_dict"]
+  eps32 = torch.finfo(torch.float32).eps
+  lr1, lr2 = 1e-3, 1e-4
+  held = bad1 = bad2 = total = 0
+  dev1 = step2 = 0.0
+  for n, g in grads.items():
+    p0, p1, p2 = w0[n].float(), states["disp_f32", 1][n], \
+        states["disp_f32", 2][n]
+    d1, d2 = (p1 - p0).abs(), (p2 - p1).abs()
+    mask = g.abs() >= GRAD_HELD
+    dev = (d1 - lr1).abs()
+    round1 = eps32 * torch.maximum(p0.abs(), p1.abs())
+    bad1 += int((mask & (dev > LR_RTOL * lr1 + round1)).sum())
+    held += int(mask.sum())
+    total += g.numel()
+    if mask.any():
+      dev1 = max(dev1, float((dev - round1)[mask].max()))
+    round2 = eps32 * torch.maximum(p1.abs(), p2.abs())
+    bad2 += int((d2 > ADAM_STEP2 * lr2 + round2).sum())
+    step2 = max(step2, float(d2.max()))
+  result["learning_rate"] = {"held": held, "of": total, "epoch1_bad": bad1,
+                             "epoch1_max_dev": dev1, "epoch2_bad": bad2,
+                             "epoch2_max_step": step2}
+  print(f"train_cli disp_f32 learning rate from its checkpoints: epoch 1, "
+        f"{held} of {total} parameter elements with a direct-step gradient "
+        f">= {GRAD_HELD}, each moved by {lr1} within {LR_RTOL} of it "
+        f"({bad1} off; largest deviation {dev1:.3g} beyond f32 rounding); "
+        f"epoch 2, the largest move {step2:.4g} (bar {ADAM_STEP2} x {lr2}; "
+        f"{bad2} over)", flush=True)
+  if bad1 or bad2 or not held:
+    _fail("train_cli disp_f32: the checkpoints do not show lr 1e-3 in "
+          "epoch 1 and 1e-4 in epoch 2")
+
+  # ---- stage 2: checkpoints, event files, the packs and the direct step
+  fk = {label: work / label / model / "Deep360"
+        for label, (model, _, _) in fusion_runs.items()}
+  for label, (model, _, _) in fusion_runs.items():
+    out = returned[label]
+    make = (lambda: ModeFusion(MAX_DEPTH, device=DEVICE)) \
+        if model == "ModeFusion" else (lambda: Baseline(MAX_DEPTH,
+                                                        device=DEVICE))
+    _check_checkpoint(label, fk[label] / "ckpt_fusion_epoch0.tar", make, 0)
+    val = out["val"][0]
+    if not all(np.isfinite(v) for v in val.values()) or len(val) != 8:
+      _fail(f"train_cli {label}: validation {val}")
+    _check_logs(label, fk[label] / "log", {
+        "Training Loss": out["train_loss"],
+        **{k.split(" ")[0]: {0: v} for k, v in list(val.items())[:6]}})
+  td, tc, tr, tg, *_ = list_deep360_fusion_train(str(bridge), str(data))
+  packs = sorted((work / "packs" / "train").glob("*.mfp"))
+  items = Deep360DatasetFusion(td, tc, tr, tg)
+  if len(packs) != CLI_FRAMES["training"]:
+    _fail(f"train_cli: {len(packs)} packs, expected {CLI_FRAMES['training']}")
+  for i, path in enumerate(packs):
+    nbytes = 28 + h * w * (6 * 2 + 6 + 4 * 3 + 4)
+    depths, confs, rgbs, gt = read_pack(str(path))
+    item = items[i]
+    views = np.stack([np.asarray(Image.open(tr[k][i]).convert("RGB"))
+                      for k in range(4)])
+    same = (path.stat().st_size == nbytes
+            and np.array_equal(depths, item["depths"][..., 0].astype(
+                np.float16))
+            and np.array_equal(confs, (item["confs"][..., 0] * 255.0
+                                       + 0.5).astype(np.uint8))
+            and np.array_equal(rgbs, views)
+            and np.array_equal(gt, item["gt"]))
+    if not same:
+      _fail(f"train_cli: {path.name} ({path.stat().st_size} bytes, expected "
+            f"{nbytes}) is not its frame's decoded arrays")
+  print(f"train_cli packs: {len(packs)} .mfp files of {nbytes} bytes, each "
+        "its frame's decoded arrays (f16 depths, uint8 confidences and "
+        "views, f32 ground truth)", flush=True)
+  result["direct"].update(_fusion_direct_steps(
+      work, fusion_runs, returned, result, tars, (td, tc, tr, tg)))
+
+  # ---- more than one card is refused
+  try:
+    train_disparity.main([*stage1, "--dp", "2", "--save_checkpoint_path",
+                          str(work / "refused")])
+  except ValueError as e:
+    print(f"train_cli: --dp 2 refused: {e}", flush=True)
+  else:
+    _fail("train_cli: train_disparity --dp 2 ran")
+  result["phase_s"] = time.perf_counter() - t_phase
+  print(f"train_cli phase: {result['phase_s']:.2f} s ({card})", flush=True)
+  return result
+
+
+def _plain_check(label, out, plain_step, loss, model, dtype) -> None:
+  """A direct step (its ``loss`` and ``model``'s gradients) against its
+  plain step at ``STEP_BARS[dtype]``, each leaf's spread the larger of the
+  two steps' own, into ``out["plain"]``."""
+  out["plain"] = grad_check(label, plain_step, loss, {
+      n: p.grad.clone() for n, p in model.named_parameters()}, dtype,
+      own_spread=True)
+  if not out["plain"]["ok"]:
+    _fail(f"{label}: the direct step disagrees with its plain step")
+
+
+def _baseline_step(m, plain=False):
+  """The ``Baseline``'s CLI step of ``m`` at ``FUSION_LR`` with a fresh
+  optimizer, as ``step(*depths, gt)``."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.cli import train_fusion
+  opt = training.make_optimizer(m.parameters())
+  training.set_learning_rate(opt, training.FUSION_LR)
+  step = train_fusion.make_baseline_step(m, opt, MAX_DEPTH, plain=plain)
+  return lambda *xs: step(list(xs[:6]), xs[6])
+
+
+def _fusion_direct_steps(work, fusion_runs, returned, result, tars,
+                         lists) -> dict:
+  """Each fusion run's first step against the step built directly on the
+  batch that a loader made as the CLI makes it gives (epoch 0, seed 1),
+  from the same weights, and that step against its plain step (the packed
+  frames unpacked for it, as ``_fusion_train_path`` unpacks them)."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.cli import common, train_fusion
+  from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
+  from mode_tpu_torch.data.fusion_pack import PackedFusionDataset
+  from mode_tpu_torch.data.loader import DataLoader
+  from mode_tpu_torch.models.fusion import Baseline, ModeFusion
+  td, tc, tr, tg = lists
+  out = {}
+  for label, (model_name, extra, dtype) in fusion_runs.items():
+    packed = bool(extra)
+    ds = (PackedFusionDataset(sorted(str(p) for p in (
+        work / "packs" / "train").glob("*.mfp")), gt_names=tg) if packed
+          else Deep360DatasetFusion(td, tc, tr, tg, training=True))
+    loader = DataLoader(ds, batch_size=TRAIN_CLI_BATCH, shuffle=True,
+                        num_workers=TRAIN_CLI_BATCH, seed=1)
+    loader.set_epoch(0)
+    keys = (("depths", "confs", "rgbs", "gt") if model_name == "ModeFusion"
+            else ("depths", "gt"))
+    inputs = train_fusion.upload(next(iter(loader)), keys, DEVICE)
+    flat = [x for part in inputs
+            for x in (part if isinstance(part, list) else [part])]
+    cli_inputs = result["runs"][label].pop("first_inputs")
+    if not _same_tensors(flat, cli_inputs):
+      _fail(f"train_cli {label}: the first step's batch is not the batch a "
+            "loader made as the CLI makes it gives")
+    model = (ModeFusion(MAX_DEPTH, device=DEVICE) if model_name ==
+             "ModeFusion" else Baseline(MAX_DEPTH, device=DEVICE))
+    common.load_model_checkpoint(str(tars[model_name]), model)
+    cdt = None if dtype == torch.float32 else dtype
+    if model_name == "Baseline":
+      plain_step = plain_stepper(model, _baseline_step, flat)
+    else:
+      floats = (training.unpack_fusion_inputs(*inputs[:3], dtype) if packed
+                else inputs[:3])
+      plain_step = plain_stepper(
+          model, functools.partial(fusion_step, compute_dtype=cdt),
+          (*[x for part in floats for x in part], inputs[3]))
+    optimizer = training.make_optimizer(model.parameters())
+    training.set_learning_rate(optimizer, training.FUSION_LR)
+    if model_name == "ModeFusion":
+      step = training.make_fusion_train_step(model, optimizer, MAX_DEPTH,
+                                             compute_dtype=cdt,
+                                             raw_inputs=packed)
+    else:
+      step = train_fusion.make_baseline_step(model, optimizer, MAX_DEPTH)
+    loss = float(step(*inputs))
+    got = returned[label]["losses"][0]
+    bar = STEP_BARS[dtype]["loss"]
+    out[label] = {"cli": got, "direct": loss,
+                  "rel": abs(got - loss) / abs(loss), "bar": bar}
+    print(f"train_cli {label}: the first step's loss {got:.7g}, the step "
+          f"built directly on the same batch from the same weights {loss:.7g}"
+          f" (rel {out[label]['rel']:.3g}, bar {bar})", flush=True)
+    if abs(got - loss) > bar * abs(loss):
+      _fail(f"train_cli {label}: the first step disagrees with the direct "
+            "step")
+    _plain_check(f"train_cli {label}", out[label], plain_step, loss, model,
+                 dtype)
+    del model, optimizer, step, inputs, flat, cli_inputs, plain_step
+    torch.cuda.empty_cache()
+  return out
 
 
 def _kernel_phase(cases, reg_cases, gen):
@@ -2214,11 +2941,18 @@ def main() -> int:
   for label in FUSION_TRAINS:
     seen[label] = _fusion_train_path(label, init, batch)
     torch.cuda.empty_cache()
+  train_fusion_state = {k: v.detach().cpu() for k, v in
+                        init.state_dict().items()}
   del init, batch
 
-  # ---- the serving CLIs on a Deep360 tree on disk
-  cli = _cli_phase(cli_fusion, card)
-  torch.cuda.empty_cache()
+  # ---- the serving CLIs on a Deep360 tree on disk, then the training
+  # CLIs on the same tree and the serving phase's stage-1 outputs
+  with tempfile.TemporaryDirectory() as tmp:
+    cli = _cli_phase(Path(tmp), cli_fusion, card)
+    torch.cuda.empty_cache()
+    train_cli = _train_cli_phase(Path(tmp), train_fusion_state, card)
+    seen.update(train_cli.pop("seen"))
+    torch.cuda.empty_cache()
 
   # ---- kernel phase: every recorded shape once, f32 and bf16
   cases = {}                 # case -> {path: launches per call}, layers
@@ -2227,8 +2961,9 @@ def main() -> int:
       # a training call at the shape of a served call shares its timing
       # (the epilogue's residual and ReLU aside)
       same = [c for c in cases if c[:3] == case[:3] and c[5] == case[5]]
-      entry = (cases[same[0]] if (label in TRAINS or label in FUSION_TRAINS)
-               and same else cases.setdefault(case, ({}, layers, s["batch"])))
+      train = label in TRAINS or label in FUSION_TRAINS or s.get("train")
+      entry = (cases[same[0]] if train and same
+               else cases.setdefault(case, ({}, layers, s["batch"])))
       entry[0][label] = len(layers)
   reg_cases = {}             # the served paths' regression shapes
   for label in PATHS:
@@ -2306,6 +3041,8 @@ def main() -> int:
                  "per call, summed; per_path gives every path, each in its "
                  "own dtype",
         "per_path": per_path,
+        "train_cli_launches": sum(r["launches"].get(name, 0)
+                                  for r in train_cli["runs"].values()),
         "pass": all(r["pass"] for r in f32 + b16)})
   print("kernels: " + ", ".join(
       f"{s['name']} (replaces {', '.join(KERNELS[s['name']][1])}) "
@@ -2330,7 +3067,7 @@ def main() -> int:
           for label, s in seen.items() if label in FRAMES} | {
           "train_anchor": train_anchor,
           "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
-          "cli": cli}))
+          "cli": cli, "train_cli": train_cli}))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -32,13 +32,22 @@ Ported so far:
   JAX CLIs' flags and ``--device`` (the card by default, ``cpu`` for the
   plain path); they read reference-layout torch ``.tar`` weights
   (``scripts/jax_checkpoint_to_torch.py`` converts a JAX checkpoint);
-- ``data/``: the Deep360 and 3D60 datasets, the file listers, the
-  threaded loader and the ``native/libmodeio.so`` reader; ``utils/``: the
-  metrics, the colormaps, checkpoint reading and the model-FLOP counts.
+- the two training CLIs, ``cli/train_disparity.py`` and
+  ``cli/train_fusion.py``, with the JAX CLIs' flags and ``--device``; they
+  write reference-layout ``.tar`` checkpoints every epoch, which the
+  serving CLIs read, and TensorBoard event files;
+- ``data/``: the Deep360 and 3D60 datasets (uint8 images for
+  ``--device_normalize``), the file listers, the threaded loader, the
+  ``native/libmodeio.so`` reader and the packed fusion frames
+  (``fusion_pack.py``); ``models/initialize.py``: the ``--init_type``
+  menu; ``utils/``: the metrics, the colormaps, checkpoint reading and
+  saving (SHG-only loading in ``convert.py``), the TensorBoard writer
+  (``tb_writer.py``), tracing (``profiling.py``) and the model-FLOP
+  counts.
 
-Not yet: the training CLIs, ``data/fusion_pack``,
-``models/initialize.py``, checkpoint saving, ``tb_writer`` and
-``profiling``, and ``parallel/`` (``ROADMAP.md``).
+Not yet: ``parallel/`` (training on more than one card), the
+checkpointing of the feature extractor and hourglass, and the
+re-projection's other z-buffer forms (``ROADMAP.md``).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """What the CLIs share (``mode_tpu/cli/common.py``): seeding, the metric
-table, parameter counts and loading a checkpoint into a model."""
+table, parameter counts, loading a checkpoint into a model and the
+trainers' refusal of more than one card."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 from torch import nn
 
 from mode_tpu_torch.utils.checkpoint import load_torch_checkpoint
-from mode_tpu_torch.utils.convert import load_reference_state_dict
+from mode_tpu_torch.utils.convert import (load_reference_state_dict,
+                                          load_stack_hourglass_only)
 
 # converts a JAX (orbax) checkpoint directory into a reference .tar
 CONVERTER = "scripts/jax_checkpoint_to_torch.py"
@@ -21,6 +23,11 @@ def seed_everything(seed: int):
   random.seed(seed)
   np.random.seed(seed)
   torch.manual_seed(seed)
+
+
+# the fusion CLIs' validation metrics, in the order of their table
+METRIC_NAMES = ["MAE", "RMSE", "AbsRel", "SqRel", "SILog", "δ1 (%)",
+                "δ2 (%)", "δ3 (%)"]
 
 
 def format_table(headers: list[str], rows: list[list]) -> str:
@@ -38,20 +45,36 @@ def format_table(headers: list[str], rows: list[list]) -> str:
   return "\n".join([sep, fmt(headers), sep, *(fmt(r) for r in cells), sep])
 
 
+def one_card(**sizes) -> None:
+  """Refuse a mesh of more than one card: the trainers' ``--dp``/``--sp``
+  take None or 1."""
+  many = {k: v for k, v in sizes.items() if v not in (None, 1)}
+  if many:
+    raise ValueError(
+        f"{', '.join(f'--{k} {v}' for k, v in many.items())}: training on "
+        "more than one card is not ported yet (M12 in ROADMAP.md); use 1")
+
+
 def count_params(model: nn.Module) -> int:
   return sum(p.numel() for p in model.parameters())
 
 
-def load_model_checkpoint(path: str, model: nn.Module) -> int:
+def load_model_checkpoint(path: str, model: nn.Module,
+                          shg_only: bool = False) -> int:
   """Load a reference-layout torch ``.tar`` (a bare ``state_dict``, or the
   training wrapper ``{'epoch', 'state_dict', ...}``) into ``model`` in place
   (``utils/convert.py:load_reference_state_dict``); returns its epoch (0 if
-  it has none). A directory is a JAX (orbax) checkpoint, which this package
-  cannot read: convert it first."""
+  it has none). ``shg_only`` loads all but the feature extractor, which
+  keeps its weights (``--loadSHGonly``,
+  ``utils/convert.py:load_stack_hourglass_only``). A directory is a JAX
+  (orbax) checkpoint, which this package cannot read: convert it first."""
   if os.path.isdir(path):
     raise ValueError(
         f"{path} is a directory, a JAX (orbax) checkpoint; convert it to a "
         f"torch .tar with {CONVERTER} where JAX is installed")
   obj = load_torch_checkpoint(path)
-  load_reference_state_dict(model, obj)
+  if shg_only:
+    load_stack_hourglass_only(model, obj)
+  else:
+    load_reference_state_dict(model, obj)
   return int(obj.get("epoch", 0))

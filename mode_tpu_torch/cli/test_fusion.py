@@ -28,8 +28,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from mode_tpu_torch.cli.common import (count_params, format_table,
-                                       load_model_checkpoint)
+from mode_tpu_torch.cli.common import (METRIC_NAMES, count_params,
+                                       format_table, load_model_checkpoint)
 from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
 from mode_tpu_torch.data.file_lists import list_deep360_fusion_test
 from mode_tpu_torch.data.loader import DataLoader
@@ -39,9 +39,6 @@ from mode_tpu_torch.models.fusion import Baseline, ModeFusion
 from mode_tpu_torch.ops.resize import upsample_bicubic
 from mode_tpu_torch.utils import metrics
 from mode_tpu_torch.utils.colormap import jet_colormap
-
-METRIC_NAMES = ["MAE", "RMSE", "AbsRel", "SqRel", "SILog", "δ1 (%)",
-                "δ2 (%)", "δ3 (%)"]
 
 
 def build_parser():

@@ -49,20 +49,24 @@ class Deep360DatasetDisparity:
   """(deep360_loader.py:60-115)."""
 
   def __init__(self, left_imgs: Sequence[str], right_imgs: Sequence[str],
-               disps: Sequence[str], shape=(1024, 512), crop: bool = False):
+               disps: Sequence[str], shape=(1024, 512), crop: bool = False,
+               device_normalize: bool = False):
     self.left_imgs = list(left_imgs)
     self.right_imgs = list(right_imgs)
     self.disps = list(disps)
     self.height, self.width = shape
     self.crop = crop
+    # raw uint8 RGB (a quarter of the bytes to the device); the training
+    # step ImageNet-normalises it there (training.normalize_rgb_on_device)
+    self.device_normalize = device_normalize
 
   def __len__(self):
     return len(self.disps)
 
   def get_batch(self, indices, threads: int = 8):
-    """Native fast path: batched fused decode+normalize through libmodeio
-    (falls back to per-item Python when unavailable or when the items need
-    resizing/cropping)."""
+    """Native fast path: batched fused decode+normalize (or the raw uint8
+    decode, ``device_normalize``) through libmodeio (falls back to per-item
+    Python when unavailable or when the items need resizing/cropping)."""
     from mode_tpu_torch.data import native_io
     if self.crop or not native_io.available():
       return None
@@ -71,13 +75,13 @@ class Deep360DatasetDisparity:
         if probe.size != (self.width, self.height):
           return None
       self._native_ok = True
+    decode = (native_io.decode_rgb_batch_u8 if self.device_normalize
+              else native_io.decode_rgb_batch_normalized)
     try:
-      lefts = native_io.decode_rgb_batch_normalized(
-          [self.left_imgs[i] for i in indices], self.height, self.width,
-          threads)
-      rights = native_io.decode_rgb_batch_normalized(
-          [self.right_imgs[i] for i in indices], self.height, self.width,
-          threads)
+      lefts = decode([self.left_imgs[i] for i in indices], self.height,
+                     self.width, threads)
+      rights = decode([self.right_imgs[i] for i in indices], self.height,
+                      self.width, threads)
       disps = native_io.read_npz_batch(
           [self.disps[i] for i in indices], (self.height, self.width),
           threads)
@@ -99,8 +103,12 @@ class Deep360DatasetDisparity:
       left = left.resize((self.width, self.height))
       right = right.resize((self.width, self.height))
       disp = _nearest_resize(disp, self.width, self.height) * (self.width / w)
-    left = rgb_to_tensor(left)
-    right = rgb_to_tensor(right)
+    if self.device_normalize:
+      left = np.asarray(left, np.uint8)
+      right = np.asarray(right, np.uint8)
+    else:
+      left = rgb_to_tensor(left)
+      right = rgb_to_tensor(right)
     if self.crop:
       th, tw = 512, 256
       hh, ww = disp.shape

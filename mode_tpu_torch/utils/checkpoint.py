@@ -1,13 +1,33 @@
-"""Reading checkpoints (``mode_tpu/utils/checkpoint.py``): the reference's
-torch ``.tar`` files, ``{'epoch', 'state_dict', 'train_loss'}``. Saving
-comes with the training CLIs."""
+"""Checkpoints (``mode_tpu/utils/checkpoint.py``): the reference's torch
+``.tar`` files, ``{'epoch', 'state_dict', 'train_loss'}``, read and written.
+
+The trainers write one per epoch, as the reference's do
+(``train_disparity.py:91-94``, ``train_fusion.py:178-179``): the model's
+``state_dict`` in the reference's keys, which the serving CLIs load. Like
+the JAX package's trainers, they save no optimiser state, so a resumed run
+starts Adam from zero."""
 
 from __future__ import annotations
 
 import os
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
 
 import torch
+
+
+def save_checkpoint(path: str, payload: Mapping[str, Any]) -> None:
+  """Write ``payload`` (``{'epoch', 'state_dict', ...}``) to ``path`` as a
+  torch ``.tar``, every tensor of its ``state_dict`` detached and on the
+  CPU, so the file loads with ``weights_only=True`` anywhere. The file is
+  written beside ``path`` and then renamed over it: a reader never sees a
+  partial file."""
+  payload = dict(payload)
+  if "state_dict" in payload:
+    payload["state_dict"] = {k: v.detach().cpu()
+                             for k, v in payload["state_dict"].items()}
+  tmp = f"{path}.tmp"
+  torch.save(payload, tmp)
+  os.replace(tmp, path)
 
 
 def load_torch_checkpoint(path: str) -> Any:

@@ -106,6 +106,43 @@ def load_reference_state_dict(model: torch.nn.Module,
   return dropped
 
 
+def filter_stack_hourglass_only(state: Mapping[str, Any]) -> dict[str, Any]:
+  """The reference's partial load ``loadStackHourglassOnly``
+  (``initModel.py:35-43``; ``mode_tpu/utils/torch_convert.py:108-116``): a
+  checkpoint's ``state_dict`` without the feature extractor's keys (those
+  holding ``feature_extraction`` or ``forfilter1``), so only the 3-D
+  regularisation stack loads from it."""
+  return {k: v for k, v in unwrap_checkpoint(state).items()
+          if "feature_extraction" not in k and "forfilter1" not in k}
+
+
+def load_stack_hourglass_only(model: torch.nn.Module,
+                              state: Mapping[str, Any]) -> list[str]:
+  """Load :func:`filter_stack_hourglass_only` of ``state`` into ``model``:
+  the feature extractor keeps the weights it has (as
+  ``mode_tpu/utils/torch_convert.py:convert_shg_only`` leaves them), every
+  other parameter and buffer of ``model`` must be given, and every given key
+  must be ``model``'s (the fusion nets' dead ``downsample`` keys aside, as
+  :func:`load_reference_state_dict` drops them). Returns the keys left
+  with their own weights."""
+  state = filter_stack_hourglass_only(state)
+  own = model.state_dict()
+  unknown = [k for k in state
+             if k not in own and ".downsample." not in f".{k}"]
+  if unknown:
+    raise KeyError(f"{len(unknown)} keys map to nothing in "
+                   f"{type(model).__name__}, e.g. {unknown[:4]}")
+  kept = [k for k in own if k not in state]
+  missing = [k for k in kept
+             if "feature_extraction" not in k and "forfilter1" not in k]
+  if missing:
+    raise KeyError(f"{len(missing)} keys of {type(model).__name__} outside "
+                   f"the feature extractor are missing, e.g. {missing[:4]}")
+  model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()
+                         if k in own}, strict=False)
+  return kept
+
+
 def load_npz(model: torch.nn.Module, path: str | os.PathLike
              ) -> torch.nn.Module:
   """Load a reference-layout ``.npz`` state_dict (torch keys; float16

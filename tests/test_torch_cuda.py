@@ -15,7 +15,8 @@ regression head on logits spread over +-60 and its C entry's refusal of a
 shape past 48 KB of shared memory; one training step at 512x256, where
 every kernel family trains, in f32 and in mixed precision (bf16), against
 the same step through the plain versions; and one fusion training step at
-256x128, f32 and bf16, K9 forward and grad-input, against its plain step.
+256x128, f32 and bf16, K9 forward and grad-input, against its plain step;
+and both training CLIs, one step each at 512x256.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -963,3 +964,63 @@ def test_frame_on_the_card_matches_plain(gen, h, w, maxdisp):
   ferr = (fused - ref_fused).abs()
   assert float(ferr.mean()) <= 1e-3 and float(ferr.max()) <= 5e-2
   assert fused.shape == (h, w) and bool(torch.isfinite(fused).all())
+
+
+def test_trainers_take_a_step_on_the_card(gen, tmp_path):
+  """Both training CLIs, one step each with their default device at 512x256
+  (a synthetic tree, batch 2): ``train_disparity`` from the trained weights
+  launches every stage-1 kernel in its step and validation,
+  ``train_fusion --packed_dir`` the 2-D kernel (forward and grad-input);
+  each loss is finite and each checkpoint loads strictly."""
+  import importlib.util
+  import pathlib
+
+  from mode_tpu_torch.cli import train_disparity, train_fusion
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.utils.convert import load_npz
+  root = pathlib.Path(__file__).resolve().parents[1]
+  # by its path: run with --noconftest, ``tests`` may resolve to another
+  # installed package of that name
+  spec = importlib.util.spec_from_file_location(
+      "synth_data", root / "tests" / "synth_data.py")
+  synth = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(synth)
+  h, w, maxdisp = 512, 256, 16
+  data = synth.make_deep360_tree(str(tmp_path / "data"), frames_per_subset=2,
+                                 h=h, w=w)
+  pred = synth.make_fusion_inputs(str(tmp_path / "pred"), data)
+  tar = str(tmp_path / "disp.tar")
+  torch.save({"epoch": 0, "state_dict": load_npz(
+      ModeDisparity(maxdisp, device="cpu"),
+      root / "tests/data/trained_mirror.npz").state_dict()}, tar)
+  kernels.reset_launches()
+  out = train_disparity.main([
+      "--dataset_root", data, "--height", str(h), "--width", str(w),
+      "--max_disp", str(maxdisp), "--checkpoint_disp", tar, "--epochs", "1",
+      "--steps_per_epoch", "1", "--batch_size", "2",
+      "--save_checkpoint_path", str(tmp_path / "disp")])
+  launches = dict(kernels.LAUNCHES)
+  for name in ("conv3d_s1_bn_act", "conv3d_s2_bn_act", "deconv3d_bn_act",
+               "conv2d_s1_bn_act", "sphere_conv_bn_act",
+               "sphere_conv_bwd_input", "sphere_conv_bwd_weight",
+               "fused_disparity_regression"):
+    assert launches.get(name, 0) > 0, (name, launches)
+  assert len(out["losses"]) == 1 and all(
+      torch.isfinite(torch.tensor([*out["losses"], *out["val"][1]])))
+  saved = torch.load(str(tmp_path / "disp" / "ModeDisparity" / "Deep360" /
+                         "ckpt_disp_ModeDisparity_Deep360_1.tar"),
+                     weights_only=True)
+  ModeDisparity(maxdisp, device="cuda").load_state_dict(saved["state_dict"],
+                                                        strict=True)
+  kernels.reset_launches()
+  out = train_fusion.main([
+      "--datapath-input", pred, "--datapath-dataset", data, "--epochs", "1",
+      "--steps_per_epoch", "1", "--batch-size", "2", "--packed_dir",
+      str(tmp_path / "packs"), "--savemodel", str(tmp_path / "fusion")])
+  assert kernels.LAUNCHES["conv2d_s1_bn_act"] >= 2 * 8
+  assert len(out["losses"]) == 1 and all(
+      torch.isfinite(torch.tensor(out["losses"])))
+  saved = torch.load(str(tmp_path / "fusion" / "ModeFusion" / "Deep360" /
+                         "ckpt_fusion_epoch0.tar"), weights_only=True)
+  ModeFusion(device="cuda").load_state_dict(saved["state_dict"], strict=True)
