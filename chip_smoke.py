@@ -45,6 +45,15 @@
    ``torch.profiler`` for the time breakdown: the device time by kind of
    kernel and, on the host, the operations with the most self CPU time and
    the CUDA runtime calls (kernel launches, synchronisations, copies).
+   The model rematerialises its feature extractor and hourglasses in
+   training (``remat_policy="save_convs"``, the JAX model's default), so
+   these steps run that way. After ``train_b2``, ``remat``: the same step
+   not rematerialised, under ``"save_convs"`` and under ``"full"``, from
+   identical copies, each one's step-1 launches (``"save_convs"`` exactly
+   ``train_expect``, ``"full"`` that plus ``REMAT_FULL_RERUN``) and its loss
+   and gradients against one plain step at ``STEP_BARS``, two more steps
+   timed with their peak memory; then one f32 step at ``REMAT_BATCH``
+   under ``"save_convs"``, its launches checked and its peak printed.
    After ``train_b2`` the trained weights take one step through the kernels
    and one through the plain versions on the anchor's textured pair, held
    the same way, in f32 and bf16 (``train_anchor``, ``train_anchor_bf16``).
@@ -70,7 +79,21 @@
    ground truth partly past max_depth: ``fusion_train_b4`` (f32) and
    ``fusion_train_b4_bf16``, driven as the stage-1 steps are, K9 forward
    and as grad-input at twice the JAX gate's traced count
-   (``FUSION_TRAIN_K9``) a step.
+   (``FUSION_TRAIN_K9``) a step. Then data parallelism
+   (``mode_tpu_torch/parallel``): ``ddp_nccl``, ``train_b2`` through the
+   mesh-aware step on a process group of one NCCL rank in this process
+   (its launches, one broadcast per tensor when built and one gradient
+   all-reduce a step, step 1 against its plain step, its time in turns
+   with the step without a mesh, one profiled); ``ddp_gloo_2``, two
+   processes on the card over gloo (``parallel/launch.py``), a pair each
+   of a global batch of two with NaN patches of different sizes, then a
+   fusion step on half each of ``fusion_train_b4``'s frame: each rank's
+   launches at its batch (``RANK_TRACED``, the fusion net's
+   ``FUSION_TRAIN_K9``), the ranks bit-equal after each step, rank 0's
+   loss and gradients against the plain step of one process at the
+   global batch (``STEP_BARS``) and its BN statistics against that
+   process's kernel step; rank 0's step times and a profiled step's
+   share of collectives.
 5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
    tree of 1024x512 PNGs in a temporary directory (one episode; four frames
    in training, one in validation, two in testing; each frame the frame
@@ -116,8 +139,12 @@
    1e-4; every checkpoint must load strictly into a fresh model, and one of
    each stage must serve through ``test_disparity`` and ``test_fusion`` at
    the served counts; the packs must be their frames' arrays, the event
-   files the returned scalars, the trace must name the training kernels,
-   and ``--dp 2`` must be refused. Prints each run's wall time, ms per
+   files the returned scalars, the trace must name the training kernels;
+   ``train_disparity --dp 2`` as two gloo ranks on the card (one epoch of
+   two steps) must launch each rank's steps (rank 0 also its validation)
+   at the counts above, return the same losses on both ranks and write its
+   files from rank 0 alone; in one process ``--dp 2`` and ``--sp 2`` must
+   be refused. Prints each run's wall time, ms per
    step, validation ms per item, loader wait and peak memory.
 7. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training steps add the grad-input shapes and
@@ -309,6 +336,33 @@ TRAIN_TRACED = {
             "sphere": 32} for label in TRAINS}
 # (the bf16 path's counts are the gates traced at the bf16 itemsize, inputs
 # and conv kernels cast: tests/test_torch_train_step_bf16.py)
+# The data-parallel phases split train_b2's global batch of 2 over two
+# ranks, a pair each: per training forward of a rank at batch 1, the same
+# gates traced (tests/test_torch_parallel.py traces them and holds these
+# numbers): the stride-1 3-D and the 2-D convs need batch >= 2, the strided
+# convs and the sphere conv have no batch gate. fusion_train_b4's frame
+# split over two ranks leaves two a rank, where the fusion net's gate takes
+# FUSION_TRAIN_K9 as at four (held by the same test).
+RANK_TRACED = {"conv3d_s1": 0, "conv3d_s2": 6, "deconv3d": 6, "conv2d": 0,
+               "sphere": 32}
+DDP_WORLD = 2
+# The convs that remat_policy="full" runs again in the backward of a
+# train_b2 step, by kernel, from TRAIN_TRACED: every 2-D kernel conv (64)
+# and sphere conv (32) lies in the feature extractor; the hourglasses hold
+# the stride-2 convs (conv1, conv3: 6) and the deconvs (conv5, conv6: 6)
+# and, of the stride-1 kernel convs, each one's 1/8-level conv2 (3; the
+# other 7 are dres0, dres1 and the classifier heads, outside the
+# rematerialised blocks). "save_convs" runs none of them again.
+REMAT_FULL_RERUN = {"conv3d_s1_bn_act": 3, "conv3d_s2_bn_act": 6,
+                    "deconv3d_bn_act": 6, "conv2d_s1_bn_act": 64,
+                    "sphere_conv_bn_act": 32}
+REMAT_POLICIES = {"remat_off": (False, "save_convs"),
+                  "save_convs": (True, "save_convs"),
+                  "full": (True, "full")}
+REMAT_TURNS = 3
+# the f32 step at the per-card batch that the JAX step is built for: batch 4
+# peaked at 38.71 GiB without the rematerialisation (PERF.md)
+REMAT_BATCH = 8
 # A training step on the card against the same step through the plain
 # versions from the same weights: the loss within LOSS_RTOL; each gradient
 # leaf within GRAD_RTOL of its norm plus twice its spread, the largest
@@ -368,8 +422,12 @@ def train_expect(label: str) -> dict[str, int]:
   each Function launches its kernel in the forward and again as its
   grad-input (the stride-2 conv and the deconv each as the other's), and
   each sphere conv its forward and both backward kernels."""
-  t = TRAIN_TRACED[label]
-  fwd, dx, dw = SPHERE_KERNELS[TRAINS[label][0]]
+  return traced_launches(TRAIN_TRACED[label], TRAINS[label][0])
+
+
+def traced_launches(t: dict, sphere_type: str = "Cassini") -> dict[str, int]:
+  """:func:`train_expect` of the traced calls ``t``."""
+  fwd, dx, dw = SPHERE_KERNELS[sphere_type]
   strided = t["conv3d_s2"] + t["deconv3d"]
   return {"conv3d_s1_bn_act": 2 * t["conv3d_s1"],
           "conv3d_s2_bn_act": strided, "deconv3d_bn_act": strided,
@@ -873,12 +931,12 @@ def _recorded_launches(tag: str = "step"):
 
 
 def _train_batch(gen, batch, h, w):
-  """A uint8 pair (the right view the left rolled by 24 and 64 columns)
-  and ground truth in [0, MAXDISP) with a NaN patch."""
+  """A uint8 pair (the right view the left rolled by 24 and 64 columns,
+  in turns) and ground truth in [0, MAXDISP) with a NaN patch."""
   left = torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                        device=DEVICE, dtype=torch.uint8)
-  right = torch.stack([torch.roll(left[b], -d, dims=1)
-                       for b, d in enumerate((24, 64))])
+  right = torch.stack([torch.roll(left[b], -(24, 64)[b % 2], dims=1)
+                       for b in range(batch)])
   gt = torch.rand((batch, h, w), generator=gen, device=DEVICE) * MAXDISP
   gt[:, 300:400, 100:220] = float("nan")
   return left, right.contiguous(), gt
@@ -1329,6 +1387,464 @@ def _train_anchor(dtype=torch.float32, seed_shift=0):
                     "(trained weights)", plain_step, loss,
                     {n: p.grad for n, p in model.named_parameters()}, dtype,
                     7 + seed_shift)
+
+
+# ---- rematerialisation and data parallelism ---------------------------------
+
+
+def _memoized(plain_step):
+  """``plain_step`` (:func:`plain_stepper`) that computes each call once:
+  a call with the same jitter generator state, amount and keywords returns
+  the first one's result and leaves the generator where that call did, so
+  several :func:`grad_check` calls share one plain step and its draws."""
+  cache = {}
+
+  def step(jgen, amount, **kw):
+    state = None if jgen is None else jgen.get_state()
+    key = (None if state is None else bytes(state.numpy()), amount,
+           tuple(sorted(kw.items(), key=lambda kv: kv[0])))
+    if key not in cache:
+      cache[key] = (plain_step(jgen, amount, **kw),
+                    None if jgen is None else jgen.get_state())
+    out, after = cache[key]
+    if jgen is not None:
+      jgen.set_state(after)
+    return out
+
+  return step
+
+
+def _launch_check(label, got, want) -> None:
+  for name in set(want) | set(got):
+    if got.get(name, 0) != want.get(name, 0):
+      _fail(f"{label}: {name} launched {got.get(name, 0)} times, expected "
+            f"{want.get(name, 0)}")
+
+
+def _grads_of(model) -> dict:
+  return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def _remat_phase(gen) -> dict:
+  """``train_b2``'s step, f32 and bf16, with the feature extractor and
+  hourglasses not rematerialised, under ``"save_convs"`` and under
+  ``"full"``, each from an identical copy of the seeded model on the same
+  batch: step 1's launches (``"save_convs"``: ``train_expect``; ``"full"``:
+  that plus ``REMAT_FULL_RERUN``), in f32 its loss and gradients against
+  one plain step at ``STEP_BARS`` (its spread under the input jitter);
+  then ``REMAT_TURNS`` steps of each, the policies in turns, timed, each
+  with its peak memory above what the phase held before it. Then one f32
+  step at ``REMAT_BATCH`` under ``"save_convs"``, its kernel calls recorded
+  for the kernel phase."""
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  sphere_type, batch_size, (h, w), _ = TRAINS["train_b2"]
+  init = ModeDisparity(MAXDISP, "Sphere", sphere_type, device=DEVICE,
+                       generator=torch.Generator().manual_seed(0),
+                       remat=False)
+  batch = _train_batch(gen, batch_size, h, w)
+  plain_step = _memoized(plain_stepper(init, _stage1_step, (
+      training.normalize_rgb_on_device(batch[0]),
+      training.normalize_rgb_on_device(batch[1]), batch[2])))
+  out = {}
+  for label, dtype in (("train_b2", torch.float32),
+                       ("train_b2_bf16", torch.bfloat16)):
+    cdt = None if dtype == torch.float32 else dtype
+    expect = train_expect(label)
+    steps = {}
+    for policy, (remat, name) in REMAT_POLICIES.items():
+      model = copy.deepcopy(init)
+      model.remat, model.remat_policy = remat, name
+      step = training.make_disparity_train_step(
+          model, training.make_optimizer(model.parameters()),
+          compute_dtype=cdt)
+      kernels.reset_launches()
+      loss = float(step(*batch))
+      torch.cuda.synchronize()
+      launches = dict(kernels.LAUNCHES)
+      want = dict(expect)
+      if policy == "full":
+        want = {k: want.get(k, 0) + REMAT_FULL_RERUN.get(k, 0)
+                for k in set(want) | set(REMAT_FULL_RERUN)}
+      tag = f"remat {policy} {_dtype_name(dtype)}"
+      _launch_check(tag, launches, want)
+      if not np.isfinite(loss):
+        _fail(f"{tag}: loss {loss}")
+      check = {"loss": loss}
+      if dtype == torch.float32:
+        check = grad_check(tag, plain_step, loss, _grads_of(model))
+        if not check["ok"]:
+          _fail(f"{tag}: the step disagrees with its plain step")
+      steps[policy] = step
+      out[f"{policy}_{_dtype_name(dtype)}"] = {
+          "launches": launches, "step_ms": [], "peak_gib": [],
+          "step_peak_gib": [], **check}
+      print(f"{tag} (remat={remat}, remat_policy={name!r}): launches "
+            f"{json.dumps(launches)} (expected {json.dumps(want)})",
+            flush=True)
+    for _ in range(REMAT_TURNS):
+      for policy, step in steps.items():
+        rec = out[f"{policy}_{_dtype_name(dtype)}"]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        rec["peak_gib"].append(peak / 2**30)
+        rec["step_peak_gib"].append((peak - held) / 2**30)
+    for policy in steps:
+      rec = out[f"{policy}_{_dtype_name(dtype)}"]
+      rec["ms_per_step"] = statistics.median(rec["step_ms"])
+      print(f"remat {policy} {_dtype_name(dtype)}: ms/step "
+            f"{', '.join(f'{t:.2f}' for t in rec['step_ms'])} (the policies "
+            f"in turns; median {rec['ms_per_step']:.2f}); peak "
+            f"{max(rec['peak_gib']):.2f} GiB, "
+            f"{max(rec['step_peak_gib']):.2f} GiB above what the phase held "
+            "before the step", flush=True)
+    del steps, model, step
+    torch.cuda.empty_cache()
+  del plain_step, init
+  torch.cuda.empty_cache()
+
+  # one step at the batch that the rematerialisation is for
+  model = ModeDisparity(MAXDISP, "Sphere", sphere_type, device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+  optimizer = training.make_optimizer(model.parameters())
+  step = training.make_disparity_train_step(model, optimizer)
+  big = _train_batch(gen, REMAT_BATCH, h, w)
+  torch.cuda.synchronize()
+  held = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launches()
+  with _recorded_launches() as calls:
+    t = time.perf_counter()
+    loss = float(step(*big))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+  peak = torch.cuda.max_memory_allocated()
+  launches = dict(kernels.LAUNCHES)
+  label = f"remat_b{REMAT_BATCH}"
+  _launch_check(label, launches, train_expect("train_b2"))
+  if calls.dtypes != {torch.float32}:
+    _fail(f"{label}: the kernels took {calls.dtypes}, expected f32")
+  if not np.isfinite(loss):
+    _fail(f"{label}: loss {loss}")
+  out[f"save_convs_b{REMAT_BATCH}"] = {
+      "loss": loss, "ms": ms, "peak_gib": peak / 2**30,
+      "step_peak_gib": (peak - held) / 2**30, "launches": launches}
+  # the kernel phase holds and times every shape of this step
+  out["seen"] = {label: {"calls": calls, "batch": REMAT_BATCH, "ncalls": 1,
+                         "launches": launches, "dtype": torch.float32,
+                         "train": True}}
+  print(f"{label}: one f32 step at batch {REMAT_BATCH} ({h}x{w}, "
+        f"save_convs): loss {loss:.6g}, {ms:.1f} ms (its first step), peak "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} above the "
+        f"model and batch); launches as train_b2's; {len(calls)} kernel "
+        "shapes recorded for the kernel phase", flush=True)
+  del model, optimizer, step, big
+  torch.cuda.empty_cache()
+  return out
+
+
+def _allreduce_share(prof_events, host_ms) -> dict:
+  """The host time of the collectives in a profiled step against the
+  step's host time: the all-reduce events by name (their time with what
+  they wait for; a backend's event and the dispatcher's around it are one
+  span seen twice, so the share is the largest name's)."""
+  spans = {e.key: e.cpu_time_total / 1e3 for e in prof_events
+           if re.search(r"all_?reduce", e.key, re.I)
+           and not str(getattr(e, "device_type", "")).endswith("CUDA")}
+  ms = max(spans.values(), default=0.0)
+  return {"allreduce_ms": ms, "host_ms": host_ms, "spans_ms": spans,
+          "share": ms / host_ms if host_ms else None}
+
+
+def _profiled_step(step, args) -> dict:
+  """One step under ``torch.profiler``: its host ms and the collectives'
+  share (:func:`_allreduce_share`); the device time of the NCCL kernels."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t = time.perf_counter()
+    step(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+  events = prof.key_averages()
+  out = _allreduce_share(events, host_ms)
+  out["nccl_device_ms"] = sum(
+      getattr(e, "self_device_time_total", 0.0) for e in events
+      if "nccl" in e.key.lower()
+      and str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+  return out
+
+
+def _ddp_nccl_phase(gen) -> dict:
+  """``train_b2`` through the mesh-aware step on a process group of one
+  rank on NCCL (``init_process_group`` in this process on a local store):
+  its launches, the all-reduce path taken, step 1 against the plain step of
+  an identical copy at ``STEP_BARS``; then the mesh step and the step
+  without a mesh timed in turns, and one mesh step profiled."""
+  import torch.distributed as dist
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.parallel.mesh import make_mesh
+  sphere_type, batch_size, (h, w), _ = TRAINS["train_b2"]
+  dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    mesh = make_mesh(device=DEVICE)
+    model = ModeDisparity(MAXDISP, "Sphere", sphere_type, device=DEVICE,
+                          generator=torch.Generator().manual_seed(0))
+    single = copy.deepcopy(model)
+    batch = _train_batch(gen, batch_size, h, w)
+    plain_step = plain_stepper(model, _stage1_step, (
+        training.normalize_rgb_on_device(batch[0]),
+        training.normalize_rgb_on_device(batch[1]), batch[2]))
+    optimizer = training.make_optimizer(model.parameters())
+    step = training.make_disparity_train_step(model, optimizer, mesh=mesh)
+    built = mesh.collectives
+    kernels.reset_launches()
+    loss = float(step(*batch))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _launch_check("ddp_nccl", launches, train_expect("train_b2"))
+    if built < len(model.state_dict()) or mesh.collectives - built != 1:
+      _fail(f"ddp_nccl: {built} broadcasts when built, "
+            f"{mesh.collectives - built} all-reduces in the step: expected "
+            "one broadcast per tensor and one gradient all-reduce")
+    check = grad_check("ddp_nccl", plain_step, loss, _grads_of(model))
+    if not check["ok"]:
+      _fail("ddp_nccl: the step disagrees with its plain step")
+    single_step = _stage1_step(single)
+    single_step(*batch)
+    times = {"mesh": [], "single": []}
+    for label, fn in (("mesh", step), ("single", single_step),
+                      ("single", single_step), ("mesh", step)):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      fn(*batch)
+      torch.cuda.synchronize()
+      times[label].append((time.perf_counter() - t) * 1e3)
+    prof = _profiled_step(step, batch)
+  finally:
+    dist.destroy_process_group()
+  out = {"launches": launches, "broadcasts": built,
+         "ms_per_step": statistics.mean(times["mesh"]),
+         "single_ms_per_step": statistics.mean(times["single"]),
+         "step_ms": times, "profile": prof, **check}
+  print(f"ddp_nccl: one NCCL rank, the mesh step {out['ms_per_step']:.2f} "
+        f"ms/step against {out['single_ms_per_step']:.2f} without a mesh "
+        f"(in turns: {json.dumps(times)}); {built} broadcasts when built, "
+        f"one gradient all-reduce a step; profiled step: host "
+        f"{prof['host_ms']:.2f} ms, collectives {prof['allreduce_ms']:.3f} "
+        f"ms on the host, NCCL kernels {prof['nccl_device_ms']:.3f} ms on "
+        "the card", flush=True)
+  del model, single, optimizer, step, single_step, plain_step
+  torch.cuda.empty_cache()
+  return out
+
+
+RANK_DEVICE = "cuda:0"
+DDP_SEED, DDP_FUSION_SEED = 11, 12
+
+
+def _ddp_stage1_batch():
+  """The ranks' global stage-1 batch, the same on every process: a
+  ``train_b2`` pair with a second NaN patch on the second example, so the
+  two ranks' masks differ in size."""
+  gen = torch.Generator(device=DEVICE).manual_seed(DDP_SEED)
+  left, right, gt = _train_batch(gen, DDP_WORLD, *GEOMETRY["Cassini"])
+  gt[1, 600:800, 50:400] = float("nan")
+  return left, right, gt
+
+
+def _ddp_fusion_batch():
+  gen = torch.Generator(device=DEVICE).manual_seed(DDP_FUSION_SEED)
+  batch_size, (h, w), _ = FUSION_TRAINS["fusion_train_b4"]
+  return _fusion_batch(gen, batch_size, h, w)
+
+
+def _ddp_rank(fusion_state: dict) -> dict:
+  """One rank of ``ddp_gloo_2`` (run by :func:`_ddp_gloo_phase` in a
+  process of its own): a stage-1 step of the seeded model on its pair of
+  the global batch, launches counted, then two timed and one profiled;
+  a fusion step from ``fusion_state`` on its half of the packed frame.
+  Returns the losses, rank 0's gradients and BN statistics, and whether
+  the ranks hold bit-equal parameters, gradients and buffers."""
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.parallel import mesh as pmesh
+  mesh = pmesh.make_mesh(device=RANK_DEVICE)
+  out = {"rank": mesh.rank}
+  model = ModeDisparity(MAXDISP, device=RANK_DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+  optimizer = training.make_optimizer(model.parameters())
+  step = training.make_disparity_train_step(model, optimizer, mesh=mesh)
+  rows = pmesh.shard_batch(mesh, _ddp_stage1_batch())
+  kernels.reset_launches()
+  built = mesh.collectives
+  out["loss"] = float(step(*rows))
+  torch.cuda.synchronize()
+  out["launches"] = dict(kernels.LAUNCHES)
+  out["collectives"] = mesh.collectives - built
+  params = list(model.parameters())
+  out["same"] = pmesh.same_on_every_rank(
+      params + [p.grad for p in params] + list(model.buffers()), mesh)
+  if mesh.rank == 0:
+    out["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    out["stats"] = {n: b.cpu() for n, b in model.named_buffers()
+                    if n.endswith(("running_mean", "running_var"))}
+  step_ms = []
+  for _ in range(2):
+    t = time.perf_counter()
+    step(*rows)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t) * 1e3)
+  out["step_ms"] = step_ms
+  out["profile"] = _profiled_step(step, rows)
+  out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+  del model, optimizer, step, rows
+  torch.cuda.empty_cache()
+
+  fusion = ModeFusion(MAX_DEPTH, device=RANK_DEVICE)
+  fusion.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in fusion_state.items()})
+  optimizer = training.make_optimizer(fusion.parameters())
+  training.set_learning_rate(optimizer, training.FUSION_LR)
+  step = training.make_fusion_train_step(fusion, optimizer, MAX_DEPTH,
+                                         raw_inputs=True, mesh=mesh)
+  rows = pmesh.shard_batch(mesh, list(_ddp_fusion_batch()))
+  kernels.reset_launches()
+  out["fusion_loss"] = float(step(*rows))
+  torch.cuda.synchronize()
+  out["fusion_launches"] = dict(kernels.LAUNCHES)
+  params = list(fusion.parameters())
+  out["fusion_same"] = pmesh.same_on_every_rank(
+      params + [p.grad for p in params] + list(fusion.buffers()), mesh)
+  if mesh.rank == 0:
+    out["fusion_grads"] = {n: p.grad.cpu()
+                           for n, p in fusion.named_parameters()}
+  return out
+
+
+def _ddp_gloo_phase(fusion_state: dict, card: str) -> dict:
+  """Two ranks on the one card over gloo, each a process of its own
+  (``parallel/launch.py``), on ``train_b2``'s seeded model and a global
+  batch of two pairs with NaN patches of different sizes, then on a
+  fusion step of ``fusion_train_b4``'s packed frame: each rank's launches
+  at its batch (``RANK_TRACED``; the fusion net's at two), the ranks
+  bit-equal after each step, and rank 0's loss, gradients and BN
+  statistics against this process's step at the global batch from the
+  same weights: the loss and gradients at ``STEP_BARS`` against its
+  plain step (the spread under the input jitter), the statistics
+  against its kernel step within 1e-3 of each one's norm. A rank that
+  fails fails the phase."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.parallel.launch import run_ranks
+  t0 = time.perf_counter()
+  ranks = run_ranks(_ddp_rank, DDP_WORLD, ({k: v.cpu().numpy() for k, v in
+                                            fusion_state.items()},),
+                    timeout=600, device=RANK_DEVICE, backend="gloo")
+  wall = time.perf_counter() - t0
+  per_rank = traced_launches(RANK_TRACED)
+  for r in ranks:
+    label = f"ddp_gloo_2 rank {r['rank']}"
+    _launch_check(label, r["launches"], per_rank)
+    _launch_check(f"{label} fusion", r["fusion_launches"],
+                  {"conv2d_s1_bn_act": 2 * FUSION_TRAIN_K9})
+    if not (r["same"] and r["fusion_same"]):
+      _fail(f"{label}: the ranks' parameters, gradients or buffers parted")
+    if (r["loss"], r["fusion_loss"]) != (ranks[0]["loss"],
+                                         ranks[0]["fusion_loss"]):
+      _fail(f"{label}: its loss is not rank 0's")
+  rank0 = ranks[0]
+  # this process's step at the global batch, from the same weights
+  model = ModeDisparity(MAXDISP, device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+  batch = _ddp_stage1_batch()
+  plain_step = plain_stepper(model, _stage1_step, (
+      training.normalize_rgb_on_device(batch[0]),
+      training.normalize_rgb_on_device(batch[1]), batch[2]))
+  _stage1_step(model)(*batch)
+  check = grad_check("ddp_gloo_2 rank 0", plain_step, rank0["loss"],
+                     {n: torch.from_numpy(g).to(DEVICE)
+                      for n, g in rank0["grads"].items()})
+  if not check["ok"]:
+    _fail("ddp_gloo_2: rank 0's step disagrees with the one-process step")
+  stats_rel = 0.0
+  for n, b in model.named_buffers():
+    if n in rank0["stats"]:
+      err = float(torch.linalg.vector_norm(
+          torch.from_numpy(rank0["stats"][n]).to(DEVICE) - b))
+      stats_rel = max(stats_rel, err / float(torch.linalg.vector_norm(b)))
+  if stats_rel > GRAD_RTOL:
+    _fail(f"ddp_gloo_2: rank 0's BN statistics part from the one-process "
+          f"step's by {stats_rel:.3g} of their norm")
+  del model, plain_step
+  torch.cuda.empty_cache()
+  fusion = ModeFusion(MAX_DEPTH, device=DEVICE)
+  fusion.load_state_dict(fusion_state)
+  fbatch = _ddp_fusion_batch()
+  unpacked = training.unpack_fusion_inputs(*fbatch[:3])
+  plain_step = plain_stepper(fusion, fusion_step, (
+      *[x for part in unpacked for x in part], fbatch[3]))
+  fcheck = grad_check("ddp_gloo_2 rank 0 fusion", plain_step,
+                      rank0["fusion_loss"],
+                      {n: torch.from_numpy(g).to(DEVICE)
+                       for n, g in rank0["fusion_grads"].items()})
+  if not fcheck["ok"]:
+    _fail("ddp_gloo_2: rank 0's fusion step disagrees with the one-process "
+          "step")
+  del fusion, plain_step
+  torch.cuda.empty_cache()
+  out = {"wall_s": wall, "stats_rel": stats_rel, "check": check,
+         "fusion_check": fcheck,
+         "ranks": [{k: r[k] for k in ("rank", "loss", "fusion_loss",
+                                      "launches", "fusion_launches",
+                                      "collectives", "step_ms", "profile",
+                                      "peak_gib")}
+                   for r in ranks]}
+  prof = rank0["profile"]
+  print(f"ddp_gloo_2: two gloo ranks on one card ({card}), {wall:.1f} s "
+        f"with the processes' start; rank 0 ms/step "
+        f"{', '.join(f'{t:.1f}' for t in rank0['step_ms'])}, profiled step "
+        f"host {prof['host_ms']:.1f} ms of which collectives "
+        f"{prof['allreduce_ms']:.1f} ms ({100 * prof['share']:.1f}%), "
+        f"{rank0['collectives']} collectives a step; launches a rank "
+        f"{json.dumps(rank0['launches'])}; BN statistics {stats_rel:.3g} of "
+        "their norm from the one-process step", flush=True)
+  return out
+
+
+def _cli_rank(argv: list) -> dict:
+  """One rank of the two-rank ``train_disparity`` run (``train_cli``): its
+  launches and the files it opened to write while ``main(argv)`` ran."""
+  import builtins
+  from mode_tpu_torch import kernels
+  from mode_tpu_torch.cli import train_disparity
+  written, real_open = [], builtins.open
+
+  def watched(file, mode="r", *args, **kwargs):
+    if any(c in mode for c in "wax+"):
+      written.append(str(file))
+    return real_open(file, mode, *args, **kwargs)
+
+  kernels.reset_launches()
+  builtins.open = watched
+  try:
+    out = train_disparity.main(argv)
+  finally:
+    builtins.open = real_open
+  torch.cuda.synchronize()
+  return {"rank": torch.distributed.get_rank(), "losses": out["losses"],
+          "launches": dict(kernels.LAUNCHES), "written": written}
 
 
 def _sphere_bwd_case(case, dtype, gen):
@@ -2737,17 +3253,68 @@ def _train_cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
   result["direct"].update(_fusion_direct_steps(
       work, fusion_runs, returned, result, tars, (td, tc, tr, tg)))
 
-  # ---- more than one card is refused
-  try:
-    train_disparity.main([*stage1, "--dp", "2", "--save_checkpoint_path",
-                          str(work / "refused")])
-  except ValueError as e:
-    print(f"train_cli: --dp 2 refused: {e}", flush=True)
-  else:
-    _fail("train_cli: train_disparity --dp 2 ran")
+  # ---- two ranks over gloo on the card (--dp 2 at a world of 2), then
+  # --dp 2 at a world of 1 and --sp 2 refused
+  result["two_ranks"] = _train_cli_two_ranks(stage1, work, bn, card)
+  for flag in (["--dp", "2"], ["--sp", "2"]):
+    try:
+      train_disparity.main([*stage1, *flag, "--save_checkpoint_path",
+                            str(work / "refused")])
+    except ValueError as e:
+      print(f"train_cli: {' '.join(flag)} refused in one process: {e}",
+            flush=True)
+    else:
+      _fail(f"train_cli: train_disparity {' '.join(flag)} ran in one process")
+    if (work / "refused").exists():
+      _fail(f"train_cli: the refused {' '.join(flag)} run wrote files")
   result["phase_s"] = time.perf_counter() - t_phase
   print(f"train_cli phase: {result['phase_s']:.2f} s ({card})", flush=True)
   return result
+
+
+def _train_cli_two_ranks(stage1: list, work: Path, served: dict,
+                         card: str) -> dict:
+  """``train_disparity --dp 2`` as two gloo ranks on the card, one epoch of
+  two steps of the CLI's global batch 4 (two pairs a rank): each rank's
+  launches (rank 1 the two steps', rank 0 also the validation's two
+  batches, 4 and 2 pairs, at the served counts), rank 0 alone writing
+  files, the checkpoint loading strictly."""
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.parallel.launch import run_ranks
+  root = work / "disp_2ranks"
+  argv = [*stage1, "--epochs", "1", "--steps_per_epoch", "2",
+          "--save_checkpoint_path", str(root), "--dp", str(DDP_WORLD),
+          "--device", RANK_DEVICE]
+  t0 = time.perf_counter()
+  ranks = run_ranks(_cli_rank, DDP_WORLD, (argv,), timeout=600,
+                    device=RANK_DEVICE, backend="gloo")
+  wall = time.perf_counter() - t0
+  steps = {k: 2 * n for k, n in train_expect("train_b2").items()}
+  _launch_check("train_cli two ranks, rank 1", ranks[1]["launches"], steps)
+  _launch_check("train_cli two ranks, rank 0", ranks[0]["launches"], {
+      k: steps.get(k, 0) + 2 * served.get(k, 0)
+      for k in set(steps) | set(served)})
+  if ranks[0]["losses"] != ranks[1]["losses"] or len(ranks[0]["losses"]) != 2:
+    _fail(f"train_cli two ranks: losses {ranks[0]['losses']} and "
+          f"{ranks[1]['losses']}")
+  if ranks[1]["written"] or not ranks[0]["written"]:
+    _fail(f"train_cli two ranks: rank 0 wrote {ranks[0]['written']}, rank 1 "
+          f"{ranks[1]['written']}")
+  save = root / "ModeDisparity" / "Deep360"
+  files = sorted(str(p.relative_to(save)) for p in save.rglob("*")
+                 if p.is_file())
+  if (len(files) != 3 or files[0] != "ckpt_disp_ModeDisparity_Deep360_1.tar"
+      or not files[1].startswith("logs/events.out.tfevents.")
+      or files[2] != "outputs/001_val.png"):
+    _fail(f"train_cli two ranks: wrote {files}")
+  ModeDisparity(MAXDISP, device=DEVICE).load_state_dict(torch.load(
+      save / files[0], weights_only=True)["state_dict"], strict=True)
+  print(f"train_cli two ranks (gloo, {card}): {wall:.1f} s with the "
+        f"processes' start; losses {ranks[0]['losses']}; rank 0 wrote "
+        f"{len(ranks[0]['written'])} files, rank 1 none; launches rank 0 "
+        f"{json.dumps(ranks[0]['launches'])}", flush=True)
+  return {"wall_s": wall, "losses": ranks[0]["losses"], "files": files,
+          "launches": [r["launches"] for r in ranks]}
 
 
 def _plain_check(label, out, plain_step, loss, model, dtype) -> None:
@@ -2902,6 +3469,8 @@ def main() -> int:
   torch.cuda.empty_cache()
   seen["train_b2"] = _train_path(gen, "train_b2")
   torch.cuda.empty_cache()
+  remat = _remat_phase(gen)
+  seen.update(remat.pop("seen"))
   seen["train_b2_bf16"] = _train_path(gen, "train_b2_bf16")
   torch.cuda.empty_cache()
   train_anchor = _train_anchor()
@@ -2944,6 +3513,12 @@ def main() -> int:
   train_fusion_state = {k: v.detach().cpu() for k, v in
                         init.state_dict().items()}
   del init, batch
+  torch.cuda.empty_cache()
+
+  # ---- data parallelism: one NCCL rank in this process, two gloo ranks
+  ddp_nccl = _ddp_nccl_phase(gen)
+  ddp_gloo = _ddp_gloo_phase(train_fusion_state, card)
+  torch.cuda.empty_cache()
 
   # ---- the serving CLIs on a Deep360 tree on disk, then the training
   # CLIs on the same tree and the serving phase's stage-1 outputs
@@ -3067,7 +3642,8 @@ def main() -> int:
           for label, s in seen.items() if label in FRAMES} | {
           "train_anchor": train_anchor,
           "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
-          "cli": cli, "train_cli": train_cli}))
+          "remat": remat, "ddp_nccl": ddp_nccl, "ddp_gloo_2": ddp_gloo,
+          "cli": cli, "train_cli": train_cli}, default=str))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -43,11 +43,14 @@ Ported so far:
   menu; ``utils/``: the metrics, the colormaps, checkpoint reading and
   saving (SHG-only loading in ``convert.py``), the TensorBoard writer
   (``tb_writer.py``), tracing (``profiling.py``) and the model-FLOP
-  counts.
+  counts;
+- ``parallel/``: data-parallel training, one process a card under
+  ``torchrun`` (the steps' and trainers' ``mesh``), and ``remat.py``: the
+  stage-1 training forward's rematerialisation of the feature extractor
+  and hourglasses (``"save_convs"``, the default, or ``"full"``).
 
-Not yet: ``parallel/`` (training on more than one card), the
-checkpointing of the feature extractor and hourglass, and the
-re-projection's other z-buffer forms (``ROADMAP.md``).
+Not yet: the ``spatial`` axis of ``parallel/`` (the cost volume sharded
+over cards) and the re-projection's other z-buffer forms (``ROADMAP.md``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """What the CLIs share (``mode_tpu/cli/common.py``): seeding, the metric
-table, parameter counts, loading a checkpoint into a model and the
-trainers' refusal of more than one card."""
+table, parameter counts, loading a checkpoint into a model, and the
+trainers' mesh (one process per card under ``torchrun``) with what only
+rank 0 does."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mode_tpu_torch.parallel.mesh import (Mesh, initialize_distributed,
+                                          make_mesh)
 from mode_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from mode_tpu_torch.utils.convert import (load_reference_state_dict,
                                           load_stack_hourglass_only)
@@ -45,14 +48,35 @@ def format_table(headers: list[str], rows: list[list]) -> str:
   return "\n".join([sep, fmt(headers), sep, *(fmt(r) for r in cells), sep])
 
 
-def one_card(**sizes) -> None:
-  """Refuse a mesh of more than one card: the trainers' ``--dp``/``--sp``
-  take None or 1."""
-  many = {k: v for k, v in sizes.items() if v not in (None, 1)}
-  if many:
-    raise ValueError(
-        f"{', '.join(f'--{k} {v}' for k, v in many.items())}: training on "
-        "more than one card is not ported yet (M12 in ROADMAP.md); use 1")
+def training_mesh(dp: int | None, sp: int, device: str | None) -> Mesh:
+  """The trainers' mesh, as the JAX CLIs' ``make_mesh(data=--dp,
+  spatial=--sp)``: join ``torchrun``'s process group if there is one
+  (``parallel/mesh.py``), then ``--dp`` None means the world size and any
+  other value must equal it, and ``--sp`` must be 1. Without ``torchrun``
+  the world is this one process, on ``device``."""
+  initialize_distributed(device)
+  return make_mesh(data=dp, spatial=sp, device=device)
+
+
+class NullWriter:
+  """The event writer of a rank that writes none (every rank but 0)."""
+
+  def add_scalar(self, *args, **kwargs):
+    pass
+
+  def close(self):
+    pass
+
+
+def rank_zero(mesh: Mesh):
+  """``print`` on rank 0, a no-op on the others."""
+  return print if mesh.rank == 0 else (lambda *a, **k: None)
+
+
+def barrier() -> None:
+  """Wait for every rank (nothing without a process group)."""
+  if torch.distributed.is_initialized():
+    torch.distributed.barrier()
 
 
 def count_params(model: nn.Module) -> int:

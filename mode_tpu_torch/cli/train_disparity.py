@@ -18,13 +18,27 @@ the validation's per epoch. The flags are the JAX CLI's, plus ``--device``
 
 Each batch goes to the device in one copy per array (uint8 images with
 ``--device_normalize``, normalised there by the step); each step's loss is
-read back as the JAX CLI reads it. ``--dp`` and ``--sp`` (the JAX CLI's
-mesh) take 1 or nothing: training on more than one card is not ported yet.
+read back as the JAX CLI reads it.
+
+On several cards, one process each:
+
+    torchrun --nproc_per_node W -m mode_tpu_torch.cli.train_disparity ...
+
+``--batch_size`` is the global batch, split over the W ranks as the JAX
+CLI's ``--dp`` mesh splits it (``parallel/mesh.py``): every rank shuffles
+the same way and decodes only its own rows, the BN statistics and the loss
+are the global batch's and the gradients are averaged, so every rank takes
+the same step. ``--dp`` None is the world size, and any other value must
+equal it; ``--sp`` (the spatial axis) takes only 1. Rank 0 alone writes the
+checkpoints, event files, trace and validation images, runs the
+validation (unsharded, as the JAX CLI runs it) and prints; the others wait
+for it. ``--resume`` and ``--loadSHGonly`` load on every rank.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -32,12 +46,13 @@ import numpy as np
 import torch
 
 from mode_tpu_torch import training
-from mode_tpu_torch.cli.common import (count_params, load_model_checkpoint,
-                                       one_card, seed_everything)
+from mode_tpu_torch.cli.common import (NullWriter, barrier, count_params,
+                                       load_model_checkpoint, rank_zero,
+                                       seed_everything, training_mesh)
 from mode_tpu_torch.data.deep360 import Deep360DatasetDisparity
 from mode_tpu_torch.data.file_lists import list_deep360_disparity_train
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.parallel.mesh import batch_sharding
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.models.initialize import INIT_TYPES, init_model_params
 from mode_tpu_torch.utils import metrics
@@ -88,8 +103,9 @@ def build_parser():
   p.add_argument("--seed", type=int, default=123)
   p.add_argument("--save_checkpoint_path", default="./checkpoints/disp/")
   p.add_argument("--dp", type=int, default=None,
-                 help="data-parallel cards: 1 (the default; more are not "
-                      "ported yet)")
+                 help="data-parallel ranks (default: the world size, "
+                      "torchrun's --nproc_per_node; any other value must "
+                      "equal it)")
   p.add_argument("--sp", type=int, default=1,
                  help="spatial-parallel cards: 1 (more are not ported yet)")
   p.add_argument("--steps_per_epoch", type=int, default=None,
@@ -102,20 +118,23 @@ def build_parser():
 
 def main(argv=None):
   """Returns each step's loss, and each epoch's mean training loss and
-  validation (EPE, D1), by epoch."""
+  validation (EPE, D1; on rank 0), by epoch."""
   args = build_parser().parse_args(argv)
-  one_card(dp=args.dp, sp=args.sp)
-  device = resolve_device(args.device)
+  mesh = training_mesh(args.dp, args.sp, args.device)
+  device, main_rank = mesh.device, mesh.rank == 0
+  log = rank_zero(mesh)
   seed_everything(args.seed)
 
   save_root = os.path.join(args.save_checkpoint_path, args.model_disp,
                            args.dataset)
   image_path = os.path.join(save_root, "outputs")
-  os.makedirs(os.path.join(save_root, "logs"), exist_ok=True)
-  os.makedirs(image_path, exist_ok=True)
-  writer = SummaryWriter(os.path.join(save_root, "logs"))
+  if main_rank:
+    os.makedirs(os.path.join(save_root, "logs"), exist_ok=True)
+    os.makedirs(image_path, exist_ok=True)
+  writer = (SummaryWriter(os.path.join(save_root, "logs")) if main_rank
+            else NullWriter())
 
-  print(f"Preparing data. Dataset: <{args.dataset}>")
+  log(f"Preparing data. Dataset: <{args.dataset}>")
   if args.dataset == "Deep360":
     tl, tr, td, vl, vr, vd = list_deep360_disparity_train(
         args.dataset_root, soiled=args.soiled)
@@ -135,10 +154,11 @@ def main(argv=None):
         args.filenames_val, args.dataset_root, "validation",
         shape=(args.height, args.width), pair="lr",
         max_depth=args.max_depth_3d60)
-  print(f"Num of training data:{len(train_ds)}. "
+  log(f"Num of training data:{len(train_ds)}. "
         f"Num of validation data:{len(val_ds)}")
   train_loader = DataLoader(train_ds, batch_size=args.batch_size,
-                            num_workers=4, shuffle=True, seed=args.seed)
+                            num_workers=4, shuffle=True, seed=args.seed,
+                            rows=functools.partial(batch_sharding, mesh))
   val_loader = DataLoader(val_ds, batch_size=args.batch_size, num_workers=4)
 
   model = ModeDisparity(args.max_disp, "Sphere", "Cassini", out_conf=False,
@@ -147,8 +167,8 @@ def main(argv=None):
   if args.init_type != "default":
     init_model_params(model, args.init_type,
                       torch.Generator().manual_seed(args.seed + 1))
-    print(f"initialize model <{args.model_disp}> as type <{args.init_type}>")
-  print(f"Number of model parameters: {count_params(model)}")
+    log(f"initialize model <{args.model_disp}> as type <{args.init_type}>")
+  log(f"Number of model parameters: {count_params(model)}")
 
   start_epoch = 0
   if args.checkpoint_disp and args.checkpoint_disp != "None":
@@ -156,12 +176,13 @@ def main(argv=None):
                                        shg_only=args.loadSHGonly)
     if args.resume:
       start_epoch = ckpt_epoch
-    print(f"loaded checkpoint <{args.checkpoint_disp}> "
+    log(f"loaded checkpoint <{args.checkpoint_disp}> "
           f"(SHG-only={args.loadSHGonly}, resume from epoch {start_epoch})")
 
   optimizer = training.make_optimizer(model.parameters())
   train_step = training.make_disparity_train_step(
-      model, optimizer, compute_dtype=torch.bfloat16 if args.bf16 else None)
+      model, optimizer, compute_dtype=torch.bfloat16 if args.bf16 else None,
+      mesh=mesh)
 
   out = {"losses": [], "train_loss": {}, "val": {}}
   global_step = 0
@@ -169,12 +190,13 @@ def main(argv=None):
     t0 = time.time()
     lr = training.learning_rate(epoch, args.learning_rate, args.start_decay)
     training.set_learning_rate(optimizer, lr)
-    print(f"Epoch: {epoch}, Current Stage: Disp, "
+    log(f"Epoch: {epoch}, Current Stage: Disp, "
           f"Current Learning Rate: {lr}")
     train_loader.set_epoch(epoch)
 
     total_loss, n_batches = 0.0, 0
-    with trace(args.trace_dir if epoch == start_epoch + 1 else None, device):
+    first = epoch == start_epoch + 1 and main_rank
+    with trace(args.trace_dir if first else None, device):
       for i, batch in enumerate(train_loader):
         if args.steps_per_epoch and i >= args.steps_per_epoch:
           break
@@ -189,41 +211,50 @@ def main(argv=None):
     avg_loss = total_loss / max(n_batches, 1)
     writer.add_scalar("total disp train loss", avg_loss, epoch)
     out["train_loss"][epoch] = avg_loss
-    print(f"epoch: {epoch}, avg train loss: {avg_loss}")
+    log(f"epoch: {epoch}, avg train loss: {avg_loss}")
 
-    save_checkpoint(
-        os.path.join(save_root,
-                     f"ckpt_disp_{args.model_disp}_{args.dataset}_{epoch}.tar"),
-        {"epoch": epoch, "state_dict": model.state_dict(),
-         "train_loss": avg_loss})
-
-    model.eval()
-    total_epe, total_d1, counter = 0.0, 0.0, 0
-    for i, batch in enumerate(val_loader):
-      if args.steps_per_epoch and i >= args.steps_per_epoch:
-        break
-      left, right, gt = (torch.from_numpy(batch[k]).to(device) for k in
-                         ("leftImg", "rightImg", "dispMap"))
-      mask = (gt > 0) & torch.isfinite(gt) & (gt <= args.max_disp)
-      gt = torch.nan_to_num(gt)
-      pred = model(left, right)
-      epe, d1 = torch.stack([metrics.mae(pred, gt, mask),
-                             metrics.d1(3, 0.05, pred, gt, mask)]).tolist()
-      if i == 0:
-        g, p, m = (t[0].cpu().numpy() for t in (gt, pred, mask))
-        save_colormapped(os.path.join(image_path, f"{epoch:03d}_val.png"),
-                         np.concatenate([g, p], 1), np.concatenate([m, m], 1))
-      total_epe += epe
-      total_d1 += d1
-      counter += gt.shape[0]
-    val_epe, val_d1 = total_epe / max(counter, 1), total_d1 / max(counter, 1)
-    writer.add_scalar("total disp validation loss", val_epe, epoch)
-    writer.add_scalar("total disp validation d1", val_d1, epoch)
-    out["val"][epoch] = (val_epe, val_d1)
-    print(f"epoch: {epoch}, avg val loss: {val_epe}, avg val d1 {val_d1}")
-    print(f"Time of This epoch: {time.time() - t0} seconds")
+    if main_rank:
+      save_checkpoint(
+          os.path.join(save_root, f"ckpt_disp_{args.model_disp}_"
+                       f"{args.dataset}_{epoch}.tar"),
+          {"epoch": epoch, "state_dict": model.state_dict(),
+           "train_loss": avg_loss})
+      out["val"][epoch] = _validate(args, model, val_loader, device, writer,
+                                    image_path, epoch)
+    barrier()
+    log(f"Time of This epoch: {time.time() - t0} seconds")
   writer.close()
   return out
+
+
+def _validate(args, model, val_loader, device, writer, image_path,
+              epoch) -> tuple[float, float]:
+  """The epoch's validation, in eval mode and unsharded: EPE and D1, the
+  first batch's colormap; returns (EPE, D1)."""
+  model.eval()
+  total_epe, total_d1, counter = 0.0, 0.0, 0
+  for i, batch in enumerate(val_loader):
+    if args.steps_per_epoch and i >= args.steps_per_epoch:
+      break
+    left, right, gt = (torch.from_numpy(batch[k]).to(device) for k in
+                       ("leftImg", "rightImg", "dispMap"))
+    mask = (gt > 0) & torch.isfinite(gt) & (gt <= args.max_disp)
+    gt = torch.nan_to_num(gt)
+    pred = model(left, right)
+    epe, d1 = torch.stack([metrics.mae(pred, gt, mask),
+                           metrics.d1(3, 0.05, pred, gt, mask)]).tolist()
+    if i == 0:
+      g, p, m = (t[0].cpu().numpy() for t in (gt, pred, mask))
+      save_colormapped(os.path.join(image_path, f"{epoch:03d}_val.png"),
+                       np.concatenate([g, p], 1), np.concatenate([m, m], 1))
+    total_epe += epe
+    total_d1 += d1
+    counter += gt.shape[0]
+  val_epe, val_d1 = total_epe / max(counter, 1), total_d1 / max(counter, 1)
+  writer.add_scalar("total disp validation loss", val_epe, epoch)
+  writer.add_scalar("total disp validation d1", val_d1, epoch)
+  print(f"epoch: {epoch}, avg val loss: {val_epe}, avg val d1 {val_d1}")
+  return val_epe, val_d1
 
 
 if __name__ == "__main__":

@@ -19,12 +19,20 @@ six metrics per epoch. The flags are the JAX CLI's, plus ``--device`` (the
 CUDA card by default; ``cpu`` runs the kernels' plain versions).
 
 Each batch goes to the device in one copy per array; each step's loss is
-read back as the JAX CLI reads it. ``--dp`` takes 1 or nothing.
+read back as the JAX CLI reads it.
+
+On several cards (``torchrun --nproc_per_node W -m
+mode_tpu_torch.cli.train_fusion ...``) ``--batch-size`` is the global
+batch, split over the ranks as ``cli/train_disparity.py`` splits it, for
+both models; ``--dp`` None is the world size and any other value must equal
+it. Rank 0 alone packs the frames, writes, validates and prints; the
+others wait for it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import time
 
@@ -32,14 +40,16 @@ import numpy as np
 import torch
 
 from mode_tpu_torch import training
-from mode_tpu_torch.cli.common import (METRIC_NAMES, count_params,
-                                       format_table, load_model_checkpoint,
-                                       one_card, seed_everything)
+from mode_tpu_torch.cli.common import (METRIC_NAMES, NullWriter, barrier,
+                                       count_params, format_table,
+                                       load_model_checkpoint, rank_zero,
+                                       seed_everything, training_mesh)
 from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
 from mode_tpu_torch.data.file_lists import list_deep360_fusion_train
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import ieee_f32_convs, resolve_device
+from mode_tpu_torch.device import ieee_f32_convs
 from mode_tpu_torch.models.fusion import Baseline, ModeFusion
+from mode_tpu_torch.parallel.mesh import activate, batch_sharding
 from mode_tpu_torch.utils import metrics
 from mode_tpu_torch.utils.checkpoint import save_checkpoint
 from mode_tpu_torch.utils.losses import silog_loss
@@ -72,8 +82,9 @@ def build_parser():
                       "(ModeFusion only)")
   p.add_argument("--seed", type=int, default=1)
   p.add_argument("--dp", type=int, default=None,
-                 help="data-parallel cards: 1 (the default; more are not "
-                      "ported yet)")
+                 help="data-parallel ranks (default: the world size, "
+                      "torchrun's --nproc_per_node; any other value must "
+                      "equal it)")
   p.add_argument("--steps_per_epoch", type=int, default=None)
   p.add_argument("--device", default=None,
                  help="torch device; the CUDA card by default, 'cpu' runs "
@@ -82,21 +93,25 @@ def build_parser():
 
 
 def make_baseline_step(model: Baseline, optimizer: torch.optim.Optimizer,
-                       max_depth: float, plain: bool = False):
+                       max_depth: float, plain: bool = False, mesh=None):
   """``step(depths, gt) -> loss``: one f32 update of the ``Baseline``
   ablation, the JAX CLI's inlined step (``mode_tpu/cli/train_fusion.py:
   125-146``): silog (lambda 0.5) over ``gt <= max_depth``, Adam, the BN
   statistics updated. ``plain=True`` runs the kernels' plain versions (a
-  reference for the kernels on the card)."""
+  reference for the kernels on the card). ``mesh`` as in
+  ``training.make_fusion_train_step``: the JAX CLI's step sees the batch
+  that ``shard_batch`` spread over the mesh as one global batch."""
+  training.replicate(model, mesh)
 
   def step(depths, gt: torch.Tensor) -> torch.Tensor:
     mask = gt <= max_depth
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs():
+    with ieee_f32_convs(), activate(mesh):
       out = model(depths, plain=plain)
-      loss = silog_loss(training.SILOG_LAMBDA, out[..., 0], gt, mask)
+      loss = silog_loss(training.SILOG_LAMBDA, out[..., 0], gt, mask, mesh)
       loss.backward()
+    training.sync_gradients(model, mesh)
     optimizer.step()
     return loss.detach()
 
@@ -117,8 +132,9 @@ def main(argv=None):
   """Returns each step's loss, and each epoch's mean training loss and
   validation metrics, by epoch."""
   args = build_parser().parse_args(argv)
-  one_card(dp=args.dp)
-  device = resolve_device(args.device)
+  mesh = training_mesh(args.dp, 1, args.device)
+  device, main_rank = mesh.device, mesh.rank == 0
+  log = rank_zero(mesh)
   seed_everything(args.seed)
 
   td, tc, tr, tg, vd, vc, vr, vg = list_deep360_fusion_train(
@@ -126,13 +142,15 @@ def main(argv=None):
   packed = bool(args.packed_dir) and args.model == "ModeFusion" \
       and not args.resize
   if args.packed_dir and not packed:
-    print("--packed_dir ignored (requires ModeFusion and no --resize)")
+    log("--packed_dir ignored (requires ModeFusion and no --resize)")
   if packed:
     from mode_tpu_torch.data.fusion_pack import (PackedFusionDataset,
-                                                 pack_dataset)
-    paths = pack_dataset(td, tc, tr, tg,
-                         os.path.join(args.packed_dir, "train"),
-                         verbose=True)
+                                                 pack_dataset, pack_frame_path)
+    out_dir = os.path.join(args.packed_dir, "train")
+    if main_rank:
+      pack_dataset(td, tc, tr, tg, out_dir, verbose=True)
+    barrier()
+    paths = [pack_frame_path(out_dir, g) for g in tg]
     train_ds = PackedFusionDataset(paths, gt_names=tg)
   else:
     train_ds = Deep360DatasetFusion(td, tc, tr, tg, resize=args.resize,
@@ -140,7 +158,8 @@ def main(argv=None):
   val_ds = Deep360DatasetFusion(vd, vc, vr, vg, resize=False, training=False)
   train_loader = DataLoader(train_ds, batch_size=args.batch_size,
                             shuffle=True, num_workers=args.batch_size,
-                            seed=args.seed)
+                            seed=args.seed,
+                            rows=functools.partial(batch_sharding, mesh))
   val_loader = DataLoader(val_ds, batch_size=8, num_workers=8)
 
   gen = torch.Generator().manual_seed(0)
@@ -151,9 +170,9 @@ def main(argv=None):
     model = Baseline(args.maxdepth, device=device, generator=gen)
     keys = ("depths", "gt")
   if args.loadmodel:
-    print("Load pretrained model")
+    log("Load pretrained model")
     load_model_checkpoint(args.loadmodel, model)
-  print(f"Number of model parameters: {count_params(model)}")
+  log(f"Number of model parameters: {count_params(model)}")
 
   optimizer = training.make_optimizer(model.parameters())
   training.set_learning_rate(optimizer, args.lr)
@@ -161,18 +180,21 @@ def main(argv=None):
     train_step = training.make_fusion_train_step(
         model, optimizer, args.maxdepth,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
-        raw_inputs=packed)
+        raw_inputs=packed, mesh=mesh)
   else:
-    train_step = make_baseline_step(model, optimizer, args.maxdepth)
+    train_step = make_baseline_step(model, optimizer, args.maxdepth,
+                                    mesh=mesh)
 
   log_path = os.path.join(args.savemodel, args.model, args.dbname, "log")
-  os.makedirs(log_path, exist_ok=True)
-  writer = SummaryWriter(log_path, purge_step=args.epoch_start)
+  if main_rank:
+    os.makedirs(log_path, exist_ok=True)
+  writer = (SummaryWriter(log_path, purge_step=args.epoch_start)
+            if main_rank else NullWriter())
 
   out = {"losses": [], "train_loss": {}, "val": {}}
   t_start = time.time()
   for epoch in range(args.epoch_start, args.epoch_start + args.epochs):
-    print(f"This is {epoch}-th epoch")
+    log(f"This is {epoch}-th epoch")
     train_loader.set_epoch(epoch)
     total_loss, nb = 0.0, 0
     for i, batch in enumerate(train_loader):
@@ -186,31 +208,39 @@ def main(argv=None):
     writer.add_scalar("Training Loss", avg_loss, epoch)
     out["train_loss"][epoch] = avg_loss
 
-    save_checkpoint(os.path.join(args.savemodel, args.model, args.dbname,
-                                 f"ckpt_fusion_epoch{epoch}.tar"),
-                    {"epoch": epoch, "state_dict": model.state_dict(),
-                     "train_loss": avg_loss})
-
-    model.eval()
-    totals = np.zeros(len(METRIC_NAMES))
-    nb = 0
-    for i, batch in enumerate(val_loader):
-      if args.steps_per_epoch and i >= args.steps_per_epoch:
-        break
-      *inputs, gt = upload(batch, keys, device)
-      pred = model(*inputs)[..., 0]
-      m = metrics.depth_metrics(pred, gt, gt <= args.maxdepth)
-      totals += torch.stack([m[k] for k in METRIC_NAMES]).cpu().numpy()
-      nb += 1
-    mean = totals / max(nb, 1)
-    out["val"][epoch] = dict(zip(METRIC_NAMES, mean))
-    print()
-    print(format_table(METRIC_NAMES, [list(mean)]))
-    for name, val in zip(METRIC_NAMES[:6], mean[:6]):
-      writer.add_scalar(name.split(" ")[0], val, epoch)
-  print(f"full training time = {(time.time() - t_start) / 3600:.2f} HR")
+    if main_rank:
+      save_checkpoint(os.path.join(args.savemodel, args.model, args.dbname,
+                                   f"ckpt_fusion_epoch{epoch}.tar"),
+                      {"epoch": epoch, "state_dict": model.state_dict(),
+                       "train_loss": avg_loss})
+      out["val"][epoch] = _validate(args, model, val_loader, keys, device,
+                                    writer, epoch)
+    barrier()
+  log(f"full training time = {(time.time() - t_start) / 3600:.2f} HR")
   writer.close()
   return out
+
+
+def _validate(args, model, val_loader, keys, device, writer, epoch) -> dict:
+  """The epoch's validation, in eval mode and unsharded: the 8 metrics,
+  printed as a table and the first six logged; returns them by name."""
+  model.eval()
+  totals = np.zeros(len(METRIC_NAMES))
+  nb = 0
+  for i, batch in enumerate(val_loader):
+    if args.steps_per_epoch and i >= args.steps_per_epoch:
+      break
+    *inputs, gt = upload(batch, keys, device)
+    pred = model(*inputs)[..., 0]
+    m = metrics.depth_metrics(pred, gt, gt <= args.maxdepth)
+    totals += torch.stack([m[k] for k in METRIC_NAMES]).cpu().numpy()
+    nb += 1
+  mean = totals / max(nb, 1)
+  print()
+  print(format_table(METRIC_NAMES, [list(mean)]))
+  for name, val in zip(METRIC_NAMES[:6], mean[:6]):
+    writer.add_scalar(name.split(" ")[0], val, epoch)
+  return dict(zip(METRIC_NAMES, mean))
 
 
 if __name__ == "__main__":

@@ -38,12 +38,15 @@ class DataLoader:
 
   Args mirror torch's: dataset (len/getitem), batch_size, shuffle (epoch-
   seeded), num_workers (decode threads), drop_last, prefetch (batches kept
-  in flight).
+  in flight). ``rows`` (``rows(n) -> slice``, a data-parallel rank's
+  ``parallel.mesh.batch_sharding``) makes each batch only those rows of
+  the global batch of ``batch_size``: every rank shuffles the same way and
+  decodes its own rows.
   """
 
   def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                num_workers: int = 4, drop_last: bool = False,
-               seed: int = 0, prefetch: int = 2):
+               seed: int = 0, prefetch: int = 2, rows=None):
     self.dataset = dataset
     self.batch_size = batch_size
     self.shuffle = shuffle
@@ -51,6 +54,7 @@ class DataLoader:
     self.drop_last = drop_last
     self.seed = seed
     self.prefetch = max(1, prefetch)
+    self.rows = rows
     self.epoch = 0
 
   def set_epoch(self, epoch: int):
@@ -71,6 +75,8 @@ class DataLoader:
                for i in range(0, len(idx), self.batch_size)]
     if self.drop_last and batches and len(batches[-1]) < self.batch_size:
       batches.pop()
+    if self.rows is not None:
+      batches = [b[self.rows(len(b))] for b in batches]
     return batches
 
   def __iter__(self) -> Iterator[dict]:

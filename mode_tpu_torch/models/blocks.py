@@ -39,6 +39,12 @@ A training conv computes in its input's dtype: it casts its weight at use
 f32 gradients through the cast, as the JAX package's mixed-precision step
 casts its conv kernels inside the differentiated function. Biases and BN
 parameters and statistics stay f32.
+
+The training convs' library calls go through ``remat.library_conv``: the
+call itself, except inside a block that ``ModeDisparity`` rematerialises
+with the ``"save_convs"`` policy, which keeps the conv's output for the
+backward instead of running the conv again (the kernels' Functions keep
+theirs the same way).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mode_tpu_torch import remat
 from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.ops import conv3d as conv3d_ops
 from mode_tpu_torch.ops import sphere_conv as sphere_ops
@@ -57,6 +64,7 @@ from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
                                        deconv3d_bn_act, pack_weight_tc)
 from mode_tpu_torch.ops.epilogue import epilogue
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
+from mode_tpu_torch.parallel.mesh import active_mesh, all_sum, sharded
 
 
 class _Operands:
@@ -84,7 +92,14 @@ class TorchBatchNorm(nn.Module):
   axis 1. In training it normalises with the batch's f32 statistics over
   every other axis (biased variance) and updates the running ones with
   momentum 0.1 and the unbiased variance ``var * n / (n - 1)``, as
-  ``mode_tpu/models/blocks.py:TorchBatchNorm`` does."""
+  ``mode_tpu/models/blocks.py:TorchBatchNorm`` does.
+
+  Under a mesh whose batch is split over ranks (``parallel/mesh.py``) the
+  statistics are the global batch's, in the JAX package's two passes: the
+  mean from the all-reduced sum, then the variance from the all-reduced sum
+  of ``(x - mean)^2``, both f32 and differentiable. Where a rematerialised
+  block runs again for its backward (``remat.replaying``) the running
+  statistics are not updated a second time."""
 
   momentum = 0.1
 
@@ -98,6 +113,24 @@ class TorchBatchNorm(nn.Module):
     self.register_buffer("num_batches_tracked",
                          torch.tensor(0, dtype=torch.long))
 
+  def _global_batch(self, xf: torch.Tensor, mesh) -> torch.Tensor:
+    """Normalise with the statistics of every rank's batch (the ranks'
+    batches are the same size, so ``n`` is this rank's times ``W``)."""
+    dims = [0, *range(2, xf.dim())]
+    shape = (1, -1) + (1,) * (xf.dim() - 2)
+    n = xf.numel() // xf.shape[1] * mesh.data
+    mean = all_sum(xf.sum(dims), mesh) / n
+    d = xf - mean.view(shape)
+    var = all_sum((d * d).sum(dims), mesh) / n
+    if not remat.replaying():
+      with torch.no_grad():
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        self.num_batches_tracked += 1
+    inv = torch.rsqrt(var + self.eps) * self.weight
+    return d * inv.view(shape) + self.bias.view(shape)
+
   def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
     """``(scale, bias)`` in f32 with ``BN(x) == x * scale + bias``."""
     inv = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -105,12 +138,19 @@ class TorchBatchNorm(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     if self.training:
-      y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
-                       self.running_mean, self.running_var,
-                       self.weight, self.bias, training=True,
-                       momentum=self.momentum, eps=self.eps)
-      with torch.no_grad():
-        self.num_batches_tracked += 1
+      xf = x.to(torch.promote_types(x.dtype, torch.float32))
+      mesh = active_mesh()
+      if sharded(mesh):
+        return self._global_batch(xf, mesh).to(x.dtype)
+      # the rerun's momentum 0 leaves the running statistics as they are
+      replaying = remat.replaying()
+      y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight,
+                       self.bias, training=True,
+                       momentum=0.0 if replaying else self.momentum,
+                       eps=self.eps)
+      if not replaying:
+        with torch.no_grad():
+          self.num_batches_tracked += 1
       return y.to(x.dtype)
     shape = (-1,) + (1,) * (x.dim() - 2)
     inv = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -150,8 +190,8 @@ def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
   weight = weight.to(x.dtype)
   if gate(x.shape, weight.shape[0]):
     return conv3d_ops.conv3d_train(x, weight, stride, plain=plain)
-  return F.conv3d(x.permute(0, 4, 1, 2, 3), weight, stride=stride,
-                  padding=1).permute(0, 2, 3, 4, 1)
+  return remat.library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), weight,
+                            stride=stride, padding=1).permute(0, 2, 3, 4, 1)
 
 
 class ConvBn2d(nn.Sequential):
@@ -184,8 +224,8 @@ class ConvBn2d(nn.Sequential):
         y = conv2d_ops.conv2d_train(_nhwc(x), weight, conv.dilation[0],
                                     plain=plain).permute(0, 3, 1, 2)
       else:
-        y = F.conv2d(x, weight, None, conv.stride, conv.padding,
-                     conv.dilation)
+        y = remat.library_conv(F.conv2d, x, weight, stride=conv.stride,
+                               padding=conv.padding, dilation=conv.dilation)
       return _bn_act(self[1], y, residual, relu)
     if not fused:
       y = self[1](conv(x))
@@ -231,7 +271,8 @@ class Shortcut(nn.Sequential):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     conv = self[0]
-    return self[1](F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride))
+    return self[1](remat.library_conv(F.conv2d, x, conv.weight.to(x.dtype),
+                                      stride=conv.stride))
 
 
 def downsample_shortcut(cin: int, cout: int, stride: int) -> Shortcut:
@@ -401,9 +442,9 @@ class DeconvBn3d(nn.Sequential):
       if conv3d_ops.train_deconv_eligible(x.shape, weight.shape[1]):
         y = conv3d_ops.deconv3d_train(x, weight, plain=plain)
       else:
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), weight, stride=2,
-                               padding=1, output_padding=1).permute(
-                                   0, 2, 3, 4, 1)
+        y = remat.library_conv(F.conv_transpose3d, x.permute(0, 4, 1, 2, 3),
+                               weight, stride=2, padding=1,
+                               output_padding=1).permute(0, 2, 3, 4, 1)
       return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
         self, functools.partial(pack_weight_tc, transpose=True))

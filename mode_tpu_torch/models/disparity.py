@@ -25,7 +25,11 @@ where the JAX package trains on Pallas). The three full-resolution heads
 ``torch.utils.checkpoint``, as the JAX package runs them in XLA under
 ``jax.checkpoint``: K2 has no backward, and each head's softmax volume
 (maxdisp x H x W f32 per example) is recomputed in the backward rather than
-kept.
+kept. With ``remat`` (the default, as in the JAX package) the feature
+extractor (each view's call) and the three hourglasses are rematerialised
+too (``remat.py``): under ``remat_policy="save_convs"`` they keep only their
+convs' outputs and rerun their BN, residual and ReLU tails in the backward,
+under ``"full"`` they keep nothing and rerun their convs as well.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from mode_tpu_torch import remat as rematerialisation
 from mode_tpu_torch.device import ieee_f32_convs, resolve_device
 from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
                                           ConvBn3d, DeconvBn3d,
@@ -145,7 +150,8 @@ class PSMNetFeatureExtraction(nn.Module):
     feat = torch.cat([out_raw, out_skip, *branches], dim=1)
     feat = self.lastconv[0](feat, relu=True, fused=fused, plain=plain)
     last = self.lastconv[2]               # a bare 1x1 conv, in feat's dtype
-    return F.conv2d(feat, last.weight.to(feat.dtype)).permute(0, 2, 3, 1)
+    return rematerialisation.library_conv(
+        F.conv2d, feat, last.weight.to(feat.dtype)).permute(0, 2, 3, 1)
 
 
 class Hourglass(nn.Module):
@@ -189,7 +195,10 @@ class ModeDisparity(nn.Module):
   ``conv="Sphere"`` (the default) builds the sphere feature extractor on
   Cassini panoramas (H = 2W), or with ``sphere_type="ERP"`` on
   equirectangular ones (W = 2H); the two have the same parameters.
-  ``conv="Regular"`` builds PSMNet's. The weights are drawn
+  ``conv="Regular"`` builds PSMNet's. ``remat`` and ``remat_policy``
+  (``"save_convs"`` or ``"full"``) are the JAX model's fields of the same
+  names: how the training forward rematerialises the feature extractor
+  and the hourglasses (module docstring). The weights are drawn
   from ``generator`` (seed 0 if None) as the reference initialises them;
   load trained ones with ``load_state_dict`` (reference torch keys, see
   ``utils/convert.py``). ``device`` defaults to the CUDA card and raises
@@ -198,9 +207,15 @@ class ModeDisparity(nn.Module):
 
   def __init__(self, maxdisp: int = 192, conv: str = "Sphere",
                sphere_type: str = "Cassini", out_conf: bool = False, *,
+               remat: bool = True, remat_policy: str = "save_convs",
                device: str | torch.device | None = None,
                generator: torch.Generator | None = None):
     super().__init__()
+    if remat_policy not in rematerialisation.POLICIES:
+      raise ValueError(f"remat_policy must be one of "
+                       f"{rematerialisation.POLICIES}, got {remat_policy!r}")
+    self.remat = remat
+    self.remat_policy = remat_policy
     if conv == "Sphere":
       fe = SphereFeatureExtraction(sphere_type)
     elif conv == "Regular":
@@ -248,10 +263,19 @@ class ModeDisparity(nn.Module):
                                                 plain=plain)
     return (pred, conf) if self.out_conf else pred
 
+  def _remat(self, block, *args, **kwargs):
+    """``block(*args, **kwargs)``, rematerialised in training when
+    ``remat`` says so."""
+    if self.training and self.remat:
+      return rematerialisation.rematerialise(block, self.remat_policy, *args,
+                                             **kwargs)
+    return block(*args, **kwargs)
+
   def _costs(self, left, right, plain):
     """The three classifiers' summed logits ``(B, D, Hq, Wq)``."""
-    cost = build_cost_volume(self.feature_extraction(left, plain=plain),
-                             self.feature_extraction(right, plain=plain),
+    fe = self.feature_extraction
+    cost = build_cost_volume(self._remat(fe, left, plain=plain),
+                             self._remat(fe, right, plain=plain),
                              self.maxdisp // 4)
 
     cost0 = self.dres0[0](cost, relu=True, plain=plain)
@@ -259,11 +283,12 @@ class ModeDisparity(nn.Module):
     d1 = self.dres1[0](cost0, relu=True, plain=plain)
     cost0 = self.dres1[2](d1, cost0, plain=plain)
 
-    out1, pre1, post1 = self.dres2(cost0, None, None, plain=plain)
+    out1, pre1, post1 = self._remat(self.dres2, cost0, None, None,
+                                    plain=plain)
     out1 = out1 + cost0
-    out2, _, post2 = self.dres3(out1, pre1, post1, plain=plain)
+    out2, _, post2 = self._remat(self.dres3, out1, pre1, post1, plain=plain)
     out2 = out2 + cost0
-    out3, _, _ = self.dres4(out2, pre1, post2, plain=plain)
+    out3, _, _ = self._remat(self.dres4, out2, pre1, post2, plain=plain)
     out3 = out3 + cost0
 
     cost1 = self.classif1(out1, plain=plain)

@@ -33,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mode_tpu_torch import kernels
+from mode_tpu_torch import kernels, remat
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
@@ -174,7 +174,8 @@ class _Conv2d(torch.autograd.Function):
     x = x.contiguous()
     ctx.save_for_backward(x, weight)
     ctx.dilation, ctx.plain = dilation, plain
-    return conv2d_s1_bn_act(x, weight, dilation=dilation, plain=plain)
+    return remat.conv_output(lambda: conv2d_s1_bn_act(
+        x, weight, dilation=dilation, plain=plain))
 
   @staticmethod
   def backward(ctx, g):

@@ -45,7 +45,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mode_tpu_torch import kernels
+from mode_tpu_torch import kernels, remat
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
@@ -359,7 +359,8 @@ class _Conv3d(torch.autograd.Function):
     x = x.contiguous()
     ctx.save_for_backward(x, weight)
     ctx.mode, ctx.plain = mode, plain
-    return _run(mode, x, weight, None, None, None, False, plain)
+    return remat.conv_output(
+        lambda: _run(mode, x, weight, None, None, None, False, plain))
 
   @staticmethod
   def backward(ctx, g):

@@ -68,7 +68,7 @@ import math
 import numpy as np
 import torch
 
-from mode_tpu_torch import kernels
+from mode_tpu_torch import kernels, remat
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import conv2d, kmajor
 from mode_tpu_torch.ops.conv2d import pack_weight
@@ -750,8 +750,8 @@ class _SphereConv(torch.autograd.Function):
     packed = _checked_packed(weight, x.shape[-1], x.shape).to(x.dtype)
     ctx.save_for_backward(x, packed)
     ctx.sphere_type, ctx.plain = sphere_type, plain
-    return sphere_conv_bn_act(x, weight.to(x.dtype), sphere_type=sphere_type,
-                              plain=plain)
+    return remat.conv_output(lambda: sphere_conv_bn_act(
+        x, weight.to(x.dtype), sphere_type=sphere_type, plain=plain))
 
   @staticmethod
   def backward(ctx, g):

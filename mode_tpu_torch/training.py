@@ -14,6 +14,14 @@ rules are the CLIs' (``mode_tpu/cli/train_disparity.py``,
 activations and conv weights (each layer casts its f32 weight at use, so
 the gradients reach the f32 masters through the cast), f32 BN statistics,
 softmax, sigmoid head and loss; the parameters and Adam's state stay f32.
+
+``mesh=`` (``parallel/mesh.py``, one process per card) trains on the
+global batch split over the ranks, as the JAX steps' ``mesh`` does: each
+rank takes its own rows, the BN layers and the loss reduce over every
+rank's rows, and after the backward one all-reduce averages the f32
+gradients, so every rank takes the same Adam step. Building the step
+broadcasts rank 0's parameters and buffers once. Each rank's convs take
+the kernels as the single-card step takes them at the per-rank batch.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ from torch import nn
 from mode_tpu_torch.device import ieee_f32_convs
 from mode_tpu_torch.models.blocks import (Conv3dWeight,
                                           ConvTranspose3dWeight, SphereConv)
+from mode_tpu_torch.parallel.mesh import (Mesh, activate,
+                                          allreduce_gradients,
+                                          broadcast_state)
 from mode_tpu_torch.utils.losses import disparity_deep_supervision, silog_loss
 
 # ImageNet statistics (the JAX package's data/preprocess.py)
@@ -111,10 +122,24 @@ def learning_rate(epoch: int, base_lr: float = BASE_LR,
   return base_lr * (0.1 if epoch > start_decay else 1.0)
 
 
+def replicate(model: torch.nn.Module, mesh: Mesh | None) -> None:
+  """Give every rank of ``mesh`` rank 0's parameters and buffers (nothing
+  without a process group)."""
+  if mesh is not None and torch.distributed.is_initialized():
+    broadcast_state(model, mesh)
+
+
+def sync_gradients(model: torch.nn.Module, mesh: Mesh | None) -> None:
+  """Average the gradients over the ranks of ``mesh`` (nothing without a
+  process group)."""
+  if mesh is not None and torch.distributed.is_initialized():
+    allreduce_gradients(model.parameters(), mesh)
+
+
 def make_disparity_train_step(model: torch.nn.Module,
                               optimizer: torch.optim.Optimizer, *,
                               compute_dtype: torch.dtype | None = None,
-                              plain: bool = False
+                              plain: bool = False, mesh: Mesh | None = None
                               ) -> Callable[..., torch.Tensor]:
   """``step(left, right, disp_gt) -> loss``: one stage-1 update.
 
@@ -127,8 +152,11 @@ def make_disparity_train_step(model: torch.nn.Module,
   heads' softmax and soft-argmin and the loss stay f32. ``plain=True`` runs
   the kernels' plain versions (a reference for the kernels on the card).
   The forward and the backward run their library convs in IEEE f32
-  (``device.ieee_f32_convs``).
+  (``device.ieee_f32_convs``). With ``mesh`` the arguments are this rank's
+  rows of the global batch (``parallel.mesh.shard_batch``) and the loss is
+  the global batch's, the same on every rank (module docstring).
   """
+  replicate(model, mesh)
 
   def step(left: torch.Tensor, right: torch.Tensor,
            disp_gt: torch.Tensor) -> torch.Tensor:
@@ -136,12 +164,13 @@ def make_disparity_train_step(model: torch.nn.Module,
     gt = torch.where(mask, disp_gt, torch.zeros_like(disp_gt))
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs():
+    with ieee_f32_convs(), activate(mesh):
       preds = model(normalize_rgb_on_device(left, compute_dtype),
                     normalize_rgb_on_device(right, compute_dtype),
                     plain=plain)
-      loss = disparity_deep_supervision(preds, gt, mask)
+      loss = disparity_deep_supervision(preds, gt, mask, mesh)
       loss.backward()
+    sync_gradients(model, mesh)
     optimizer.step()
     return loss.detach()
 
@@ -166,7 +195,8 @@ def make_fusion_train_step(model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer,
                            max_depth: float, *,
                            compute_dtype: torch.dtype | None = None,
-                           raw_inputs: bool = False, plain: bool = False
+                           raw_inputs: bool = False, plain: bool = False,
+                           mesh: Mesh | None = None
                            ) -> Callable[..., torch.Tensor]:
   """``step(depths, confs, rgbs, gt) -> loss``: one stage-2 update of a
   ``ModeFusion``.
@@ -184,9 +214,11 @@ def make_fusion_train_step(model: torch.nn.Module,
   :func:`make_optimizer` with :func:`set_learning_rate` at
   ``FUSION_LR``, the CLI's constant rate. ``plain=True`` runs the
   kernels' plain versions. After the step each parameter's ``.grad``
-  holds this step's gradient.
+  holds this step's gradient. ``mesh`` as in
+  :func:`make_disparity_train_step`.
   """
   dtype = compute_dtype or torch.float32
+  replicate(model, mesh)
 
   def step(depths, confs, rgbs, gt: torch.Tensor) -> torch.Tensor:
     mask = gt <= max_depth
@@ -194,10 +226,11 @@ def make_fusion_train_step(model: torch.nn.Module,
       depths, confs, rgbs = unpack_fusion_inputs(depths, confs, rgbs, dtype)
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs():
+    with ieee_f32_convs(), activate(mesh):
       out = model(depths, confs, rgbs, plain=plain)
-      loss = silog_loss(SILOG_LAMBDA, out[..., 0], gt, mask)
+      loss = silog_loss(SILOG_LAMBDA, out[..., 0], gt, mask, mesh)
       loss.backward()
+    sync_gradients(model, mesh)
     optimizer.step()
     return loss.detach()
 

@@ -73,8 +73,10 @@ from mode_tpu_torch.data.loader import DataLoader
 from mode_tpu_torch.models import fusion as tfusion
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.ops import conv2d as conv2d_ops
+from mode_tpu_torch.parallel.launch import run_ranks
 from mode_tpu_torch.utils.convert import params_from_jax
 from mode_tpu_torch.utils.tb_writer import read_scalars
+from tests import torch_parallel_ranks as ranks
 from tests.synth_data import (make_3d60_tree, make_deep360_tree,
                               make_fusion_inputs)
 from tests.test_torch_cli import _fusion_state
@@ -469,10 +471,81 @@ TRAINERS = {"train_disparity": ttrain_disp, "train_fusion": ttrain_fusion}
     ("train_disparity", ["--dp", "8"]), ("train_fusion", ["--dp", "2"]),
     ("train_fusion", ["--dp", "8"])])
 def test_more_than_one_card_is_refused(setup, tmp_path, name, flag):
-  with pytest.raises(ValueError, match="M12 in ROADMAP.md"):
+  """In one process (a world of one), ``--dp`` other than 1 is not the
+  world size and ``--sp`` above 1 is the unported spatial axis: both
+  refused before anything is written. (Until the data axis was ported,
+  both were refused as training on more than one card.)"""
+  match = ("spatial axis of M12 in ROADMAP.md" if flag[0] == "--sp"
+           else "the data axis must be the world size, 1")
+  with pytest.raises(ValueError, match=match):
     TRAINERS[name].main(_argv(name, setup, str(tmp_path)) + flag
                         + ["--device", "cpu"])
   assert not os.listdir(tmp_path)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(setup):
+  """Each trainer as two gloo ranks with ``--dp 2`` (the global batch of
+  2 split one example a rank): stage 1 for one epoch from the trained
+  .tar, ``ModeFusion`` from float inputs."""
+  runs = {}
+  for name, argv in (
+      ("train_disparity", ["--dataset_root", setup["data"],
+                           "--checkpoint_disp", setup["tars"]["disp"],
+                           "--epochs", "1", "--save_checkpoint_path",
+                           _root(setup, "ranks", "stage1"), *STAGE1]),
+      ("train_fusion", ["--datapath-input", setup["fusion_in"],
+                        "--datapath-dataset", setup["data"], "--model",
+                        "ModeFusion", "--loadmodel",
+                        setup["tars"]["ModeFusion"], "--savemodel",
+                        _root(setup, "ranks", "fusion"), *FUSION])):
+    runs[name] = run_ranks(ranks.trainer, 2, (
+        name, argv + ["--device", "cpu", "--dp", "2"]), timeout=300,
+                           device="cpu", threads=2)
+  return runs
+
+
+@pytest.mark.parametrize("name", sorted(TRAINERS))
+def test_two_ranks_train_as_the_jax_cli(setup, stage1, fusion, two_ranks,
+                                        name):
+  """Two ranks save what the JAX CLI saves after the epoch (its run on
+  one device: the mesh step's numbers are held to the port's two-rank
+  step in ``tests/test_torch_parallel.py``), within this file's bars;
+  every rank returns the same losses; rank 0 alone wrote files."""
+  out = two_ranks[name]
+  assert out[0]["losses"] == out[1]["losses"]
+  assert out[0]["written"] and not out[1]["written"], out[1]["written"]
+  if name == "train_disparity":
+    root = _root(setup, "ranks", "stage1", "ModeDisparity", "Deep360")
+    want = _jax_state(os.path.join(stage1["jax"]["root"],
+                                   "ckpt_disp_ModeDisparity_Deep360_1"))
+    obj = torch.load(os.path.join(root, "ckpt_disp_ModeDisparity_Deep360_1"
+                                  ".tar"), weights_only=True)
+    before = {k: torch.as_tensor(v) for k, v in
+              get_trained_state_dict().items()}
+    lr, atol = 1e-3, ADAM_ATOL
+    assert sorted(os.listdir(root)) == ["ckpt_disp_ModeDisparity_Deep360_1"
+                                        ".tar", "logs", "outputs"]
+    assert len(os.listdir(os.path.join(root, "logs"))) == 1
+    _assert_close_rel(out[0]["losses"][0],
+                      stage1["jax"]["logs"]["loss disp"][1], LOSS_RTOL,
+                      "loss")
+  else:
+    root = _root(setup, "ranks", "fusion", "ModeFusion", "Deep360")
+    want = _jax_state(os.path.join(fusion["float"]["jax"]["root"],
+                                   "ckpt_fusion_epoch0"))
+    obj = torch.load(os.path.join(root, "ckpt_fusion_epoch0.tar"),
+                     weights_only=True)
+    before = {k: torch.as_tensor(v)
+              for k, v in _fusion_state("ModeFusion").items()}
+    lr, atol = FUSION_LR, FUSION_LR / 2
+    assert sorted(os.listdir(root)) == ["ckpt_fusion_epoch0.tar", "log"]
+    _assert_close_rel(out[0]["losses"][0],
+                      fusion["float"]["jax"]["logs"]["Training Loss"][0],
+                      LOSS_RTOL, "loss")
+  keep = [k for k in want if not k.endswith("num_batches_tracked")]
+  _assert_state_matches({k: obj["state_dict"][k] for k in keep},
+                        {k: want[k] for k in keep}, before, lr, atol)
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
