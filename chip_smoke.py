@@ -93,7 +93,17 @@
    loss and gradients against the plain step of one process at the
    global batch (``STEP_BARS``) and its BN statistics against that
    process's kernel step; rank 0's step times and a profiled step's
-   share of collectives.
+   share of collectives. Then the spatial axis (``parallel/shard_ops.py``):
+   ``sp_gloo_2``, two gloo ranks sharing the card on a ``(data 1, spatial
+   2)`` mesh, each serving its rows of one 1024x512 pair with the trained
+   mid weights, f32 then bf16 (conv weights cast): each rank's launches a
+   call must be one process's per pair (``PATHS["sphere_b1"]``), the 3-D
+   convs and K2 all on their halo forms (``SP_HALO``, three Cout-1 heads
+   among them), with 29 collectives a call (28 halo exchanges and K2's
+   gather); the maps gathered from both ranks must match the one-process
+   kernel path in f32 (``PRED_MAE``, ``PRED_MAX``, ``CONF_MAE``) and the
+   bf16 maps the f32 ones within ``BF16_DISP_MAE``; rank 0's ms a call (the
+   two ranks share the card) and a profiled call's all-gather time.
 5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
    tree of 1024x512 PNGs in a temporary directory (one episode; four frames
    in training, one in validation, two in testing; each frame the frame
@@ -157,6 +167,11 @@
    library convs in IEEE f32 as the model runs its own
    (``mode_tpu_torch.device.ieee_f32_convs``; the script sets no global
    precision flag, so the paths run as a caller's process runs them).
+   Then the halo forms: each 3-D call of ``sphere_b1`` at a rank's rows
+   for spatial 2 (``sp_gloo_2``'s, which the ranks recorded) and 4, with
+   its halo rows (``h_halo``), against its plain halo version, beside
+   cuDNN on the same rows and on the whole volume; and K2's row window
+   for rank 1 of 2 and of 4.
 8. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
@@ -492,9 +507,13 @@ def _bound(ops_n, nbytes, dtype, pipe_ops=0, sfu_ops=0):
 
 def _conv_case(case, dtype, gen):
   """Compare and time one recorded conv shape; returns the row it prints.
-  The kernel gets its weight packed once, as the model's layers keep it."""
+  The kernel gets its weight packed once, as the model's layers keep it.
+  A 3-D case with a seventh entry (the spatial size) is a halo case: ``xs``
+  a rank's haloed rows, the kernel's halo form against its plain halo
+  version, the library call the same function on the same rows."""
   from mode_tpu_torch.ops import conv2d, conv3d, sphere_conv
-  name, xs, cout, res, relu, dil = case
+  name, xs, cout, res, relu, dil = case[:6]
+  halo = len(case) > 6
   dev = torch.device(DEVICE)
   cin = xs[-1]
   deconv = name == "deconv3d_bn_act"
@@ -509,16 +528,19 @@ def _conv_case(case, dtype, gen):
        * (2.0 / (taps * cout)) ** 0.5).to(dtype)
   scale = torch.rand(cout, generator=gen, device=dev) * 0.4 + 0.8
   bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+  grid = (*xs[:2], xs[2] - 2, xs[3]) if halo else xs[:-1]  # its own rows
   if name == "conv3d_s2_bn_act":
-    oshape = (xs[0], *[(n - 1) // 2 + 1 for n in xs[1:4]], cout)
+    oshape = (xs[0], *[(n - 1) // 2 + 1 for n in grid[1:4]], cout)
   elif deconv:
-    oshape = (xs[0], *[2 * n for n in xs[1:4]], cout)
+    oshape = (xs[0], *[2 * n for n in grid[1:4]], cout)
   else:
-    oshape = (*xs[:-1], cout)
+    oshape = (*grid, cout)
   r = (torch.randn(oshape, generator=gen, device=dev) * 0.5).to(dtype)
   kw = {"relu": relu}
   if res:
     kw["residual"] = r
+  if halo:
+    kw["h_halo"] = True
   if name == "conv2d_s1_bn_act":
     kw["dilation"] = dil
     fn, packed = conv2d.conv2d_s1_bn_act, conv2d.pack_weight_tc(w)
@@ -551,18 +573,22 @@ def _conv_case(case, dtype, gen):
     x_cl = x.permute(0, 4, 1, 2, 3)       # channels-last 3-D view
     w_cl = w.contiguous(memory_format=torch.channels_last_3d)
     if deconv:
+      # (haloed: the shard's rows and the lower halo row, two output rows
+      # more than the halo form keeps)
+      x_dc = x_cl[:, :, :, 1:] if halo else x_cl
       def lib():
-        return F.conv_transpose3d(x_cl, w_cl, stride=2, padding=1,
+        return F.conv_transpose3d(x_dc, w_cl, stride=2, padding=1,
                                   output_padding=1)
     else:
       s = 1 if name == "conv3d_s1_bn_act" else 2
+      pad = (1, 0, 1) if halo else 1
       def lib():
-        return F.conv3d(x_cl, w_cl, stride=s, padding=1)
+        return F.conv3d(x_cl, w_cl, stride=s, padding=pad)
 
   fns = [lambda: run(False), lambda: run(True)] + ([lib] if lib else [])
   times = _time_in_turns(fns, 10)
   kernel_ms, plain_ms = times[:2]
-  grid = xs[:4] if deconv else oshape[:-1]
+  grid = grid if deconv else oshape[:-1]
   m = torch.Size(grid).numel()
   ops_n, pipe_ops = 2 * m * taps * cin * cout, 0
   isz = x.element_size()
@@ -577,7 +603,9 @@ def _conv_case(case, dtype, gen):
   return {"name": name, "dtype": str(dtype).split(".")[1],
           "shape": f"{xs}->{cout}" + (" +res" if res else "")
                    + (" relu" if relu else "") + (f" dil{dil}" if dil > 1
-                                                  else ""),
+                                                  else "")
+                   + (f" h_halo (spatial {case[6]})" if halo else ""),
+          "halo": case[6] if halo else None,
           "max_abs_err": abs_err, "max_rel_err": rel_err, "pass": ok,
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "library_ms": times[2] if lib else None,
@@ -586,9 +614,13 @@ def _conv_case(case, dtype, gen):
 
 
 def _regression_case(case, dtype, gen):
+  """Compare and time one regression shape; a fifth and sixth entry are a
+  row window (``row0``, ``h_out``: a rank's output rows)."""
   from mode_tpu_torch.ops import regression
-  (n, d, hq, wq), maxdisp, h, w = case
-  fn = regression.fused_disparity_regression
+  (n, d, hq, wq), maxdisp, h, w = case[:4]
+  row0, h_out = case[4:] if len(case) > 4 else (0, h)
+  fn = functools.partial(regression.fused_disparity_regression, row0=row0,
+                         h_out=h_out)
   cost = (torch.randn((n, d, hq, wq), generator=gen, device=DEVICE)
           * 2.0).to(dtype)
   (kp, kc), (pp, pc) = (fn(cost, maxdisp, h, w, plain=plain)
@@ -607,12 +639,15 @@ def _regression_case(case, dtype, gen):
   # one lerp (3 flops), the shift and the two sums (an add and an FMA) on
   # the FP32 pipes, and one exp on the special-function units; the
   # confidence's three probabilities are among those levels' terms
-  pipe_ops = n * h * w * (6 * d + 7 * maxdisp)
-  exps = n * h * w * maxdisp
-  nbytes = cost.numel() * cost.element_size() + 2 * n * h * w * 4
+  pipe_ops = n * h_out * w * (6 * d + 7 * maxdisp)
+  exps = n * h_out * w * maxdisp
+  nbytes = cost.numel() * cost.element_size() + 2 * n * h_out * w * 4
   return {"name": "fused_disparity_regression",
           "dtype": str(dtype).split(".")[1],
-          "shape": f"{(n, d, hq, wq)} maxdisp {maxdisp} -> {h}x{w}",
+          "shape": f"{(n, d, hq, wq)} maxdisp {maxdisp} -> {h}x{w}"
+                   + (f" rows [{row0}, {row0 + h_out})" if h_out != h
+                      else ""),
+          "halo": h // h_out if h_out != h else None,
           "max_abs_err": max(pred_err, conf_err), "pred_max_abs_err": pred_err,
           "conf_max_abs_err": conf_err, "conf_ties_left_out": int(tie.sum()),
           "max_rel_err": pred_rel, "pass": pred_ok and conf_ok,
@@ -884,8 +919,9 @@ def _recorded_launches(tag: str = "step"):
     calls.setdefault(key, []).append(tag)
     calls.dtypes.add(x.dtype)
 
-  def conv3d_launch(mode, x, weight, scale, bias, residual, relu):
-    out = orig[0](mode, x, weight, scale, bias, residual, relu)
+  def conv3d_launch(mode, x, weight, scale, bias, residual, relu,
+                    h_halo=False):
+    out = orig[0](mode, x, weight, scale, bias, residual, relu, h_halo)
     note((conv3d._NAMES[mode], tuple(x.shape), out.shape[-1],
           residual is not None, bool(relu), 1), x)
     return out
@@ -1081,13 +1117,14 @@ def _assert_f32_masters(label, model, optimizer) -> None:
       _fail(f"{label}: BN statistic {n} is {b.dtype}")
 
 
-def _profile(fn, args):
+def _profile(fn, args, collectives: str | None = None):
   """One call ``fn(*args)`` under torch.profiler: device time by kind of
   kernel (ms) and the host time of the call; on the host, the operations
   with the most self CPU time (the autograd engine's backward thread
   included, so their sum may exceed the call's wall time) and the counts
   of the CUDA runtime and driver calls (``cuda*``, ``cu*``): kernel
-  launches, synchronisations, copies."""
+  launches, synchronisations, copies; with ``collectives`` (a regex) the
+  host share of the collectives it names (:func:`_allreduce_share`)."""
   from torch.profiler import ProfilerActivity, profile
   kinds = (("port: sphere conv backward", ("bwd_input_tc_kernel",
                                            "bwd_weight_tc_kernel",
@@ -1145,7 +1182,9 @@ def _profile(fn, args):
   def calls(*subs):
     return sum(n for k, (n, _) in runtime.items() if any(t in k for t in subs))
 
-  return {"host_ms": host_ms, "device_ms": device_ms,
+  extra = ({} if collectives is None else {"collectives": _allreduce_share(
+      prof.key_averages(), host_ms, collectives)})
+  return {**extra, "host_ms": host_ms, "device_ms": device_ms,
           "idle_share": (1 - device_ms / host_ms) if device_ms else None,
           "by_kind_ms": by_kind,
           "top_kernels_ms": {k: [round(v[0], 3), v[1]] for k, v in top},
@@ -1549,13 +1588,15 @@ def _remat_phase(gen) -> dict:
   return out
 
 
-def _allreduce_share(prof_events, host_ms) -> dict:
+def _allreduce_share(prof_events, host_ms,
+                     pattern: str = r"all_?reduce") -> dict:
   """The host time of the collectives in a profiled step against the
-  step's host time: the all-reduce events by name (their time with what
-  they wait for; a backend's event and the dispatcher's around it are one
-  span seen twice, so the share is the largest name's)."""
+  step's host time: the events whose name matches ``pattern`` (the
+  all-reduces by default), by name (their time with what they wait for; a
+  backend's event and the dispatcher's around it are one span seen twice,
+  so the share is the largest name's)."""
   spans = {e.key: e.cpu_time_total / 1e3 for e in prof_events
-           if re.search(r"all_?reduce", e.key, re.I)
+           if re.search(pattern, e.key, re.I)
            and not str(getattr(e, "device_type", "")).endswith("CUDA")}
   ms = max(spans.values(), default=0.0)
   return {"allreduce_ms": ms, "host_ms": host_ms, "spans_ms": spans,
@@ -1820,6 +1861,211 @@ def _ddp_gloo_phase(fusion_state: dict, card: str) -> dict:
         f"{rank0['collectives']} collectives a step; launches a rank "
         f"{json.dumps(rank0['launches'])}; BN statistics {stats_rel:.3g} of "
         "their norm from the one-process step", flush=True)
+  return out
+
+
+# The spatial axis (parallel/shard_ops.py): sp_gloo_2 serves one sphere_b1
+# pair on a (data 1, spatial 2) mesh of two gloo ranks sharing the card, the
+# trained mid weights at 1024x512, in f32 and in bf16. Per call a rank runs
+# the whole feature extractor (so the served path's sphere and 2-D
+# launches) and its rows of the 3-D stack: every 3-D conv on its halo form
+# after one halo exchange, and K2 on its output rows after one gather.
+SP_WORLD = 2
+SP_SEED_SHIFT, SP_DISP, SP_CALLS = 200, 40, 3
+SP_HALO = {"conv3d_s1_bn_act": 16, "conv3d_s2_bn_act": 6,
+           "deconv3d_bn_act": 6, "fused_disparity_regression": 1}
+SP_HEADS = 3                            # the Cout-1 heads among the 16
+SP_COLLECTIVES = 16 + 6 + 6 + 1         # 28 halo exchanges, K2's gather
+# the halo forms' rows in the kernel phase: a rank's rows of the served
+# path's 3-D calls at these spatial sizes (sp_gloo_2 runs the first)
+SP_SIZES = (2, 4)
+# the TPU kernels' halo forms (the m_halo / row-window code) and the JAX
+# package's sharded wrappers around them
+SHARD_PY = "mode_tpu/parallel/shard_ops.py"
+HALO_KERNELS = {
+    "conv3d_s1_bn_act": (f"{CONV_PY}:273", f"{SHARD_PY}:54"),
+    "conv3d_s2_bn_act": (f"{CONV_PY}:484", f"{SHARD_PY}:87"),
+    "deconv3d_bn_act": (f"{CONV_PY}:681", f"{SHARD_PY}:117"),
+    "fused_disparity_regression": (
+        "mode_tpu/ops/pallas/regression_kernel.py:107", f"{SHARD_PY}:238")}
+
+
+def _sp_pair(device, h, w):
+  """The sp phase's pair, the same on every process: the anchor's textured
+  inputs (``_make_anchor_batch``) at ``h x w``, NHWC f32."""
+  with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
+    seed = int(z["seed"]) + SP_SEED_SHIFT
+  return tuple(x.permute(0, 2, 3, 1).contiguous().to(device)
+               for x in _make_anchor_batch(seed, SP_DISP, h, w))
+
+
+def _sp_model(device, maxdisp):
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  from mode_tpu_torch.utils.convert import load_npz
+  return load_npz(ModeDisparity(maxdisp, out_conf=True, device=device),
+                  ROOT / "tests/data/trained_mirror_mid.npz")
+
+
+def _sp_rank(device: str, hw: tuple, maxdisp: int) -> dict:
+  """One rank of ``sp_gloo_2`` (run by :func:`_sp_gloo_phase` in a process
+  of its own): the trained model on the pair under the mesh, its layers'
+  kernel calls recorded on the first call; then in f32 and in bf16 (conv
+  weights cast, ``training.cast_conv_params``) one call with the launch
+  counts and the collectives set to 0 before and read after, its rows
+  gathered into the whole maps, ``SP_CALLS`` calls timed and one
+  profiled. ``device``, ``hw`` and ``maxdisp`` come from the parent (the
+  pair's card and shape)."""
+  from mode_tpu_torch import kernels
+  from mode_tpu_torch.parallel import mesh as pmesh
+  from mode_tpu_torch.training import cast_conv_params
+  cuda = torch.device(device).type == "cuda"
+
+  def sync():                      # (a CPU rehearsal's ranks have no card)
+    if cuda:
+      torch.cuda.synchronize(device)
+
+  mesh = pmesh.make_mesh(data=1, spatial=SP_WORLD, device=device)
+  model = _sp_model(device, maxdisp)
+  left, right = _sp_pair(device, *hw)
+  out = {"place": (mesh.rank, mesh.spatial_rank)}
+  with pmesh.activate(mesh):
+    out["calls"] = _record_calls(model, left, right)[0]
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+      m = model if dtype == torch.float32 else cast_conv_params(
+          copy.deepcopy(model), dtype).eval()
+      args = (left.to(dtype), right.to(dtype))
+      m(*args)                                      # warm-up
+      sync()
+      kernels.reset_launches()
+      before = mesh.collectives
+      pred, conf = m(*args)
+      sync()
+      got = {"launches": dict(kernels.LAUNCHES),
+             "halo": dict(kernels.HALO_LAUNCHES),
+             "collectives": mesh.collectives - before,
+             "rows": tuple(pred.shape)}
+      got["pred"], got["conf"] = (pmesh.gather_rows(t, 1, mesh).cpu()
+                                  for t in (pred, conf))
+      call_ms = []
+      for _ in range(SP_CALLS):
+        t = time.perf_counter()
+        m(*args)
+        sync()
+        call_ms.append((time.perf_counter() - t) * 1e3)
+      got["call_ms"] = call_ms
+      got["profile"] = (_profile(m, args, collectives=r"all_?gather")
+                        if cuda else None)
+      out[label] = got
+  out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30 if cuda
+                     else None)
+  return out
+
+
+def _sp_gloo_phase(card: str) -> dict:
+  """``sp_gloo_2``: two gloo ranks sharing the card on a ``(1, 2)`` mesh
+  (``parallel/launch.py``), each serving the trained model on its rows of
+  one 1024x512 pair. Each rank's launches must be one process's per pair
+  (``PATHS["sphere_b1"]``'s counts), ``SP_HALO`` of them on the halo forms
+  (``SP_HEADS`` heads among the stride-1 convs), with ``SP_COLLECTIVES``
+  collectives a call; the f32 maps gathered from both ranks must hold the
+  one-process kernel path at ``PRED_MAE``/``PRED_MAX``/``CONF_MAE``, and the
+  bf16 maps the f32 ones within ``BF16_DISP_MAE``. A rank that fails
+  fails the phase. Returns the rank's recorded 3-D calls too, which the
+  kernel phase times at their haloed shapes."""
+  from mode_tpu_torch.parallel.launch import run_ranks
+  t0 = time.perf_counter()
+  ranks = run_ranks(_sp_rank, SP_WORLD,
+                    (RANK_DEVICE, GEOMETRY["Cassini"], MAXDISP), timeout=600,
+                    device=RANK_DEVICE, backend="gloo")
+  wall = time.perf_counter() - t0
+  served = {k: n for k, (_, n) in PATHS["sphere_b1"][4].items()}
+  for r, rank in enumerate(ranks):
+    label = f"sp_gloo_2 rank {r}"
+    if rank["place"] != (0, r):
+      _fail(f"{label}: mesh place {rank['place']}, expected (0, {r})")
+    heads = sum(len(layers) for case, layers in rank["calls"].items()
+                if case[0] == "conv3d_s1_bn_act" and case[2] == 1)
+    if heads != SP_HEADS:
+      _fail(f"{label}: {heads} Cout-1 heads, expected {SP_HEADS}")
+    for dtype in ("f32", "bf16"):
+      got = rank[dtype]
+      _launch_check(f"{label} {dtype}", got["launches"], served)
+      if got["halo"] != SP_HALO:
+        _fail(f"{label} {dtype}: halo launches {got['halo']}, expected "
+              f"{SP_HALO}")
+      if got["collectives"] != SP_COLLECTIVES:
+        _fail(f"{label} {dtype}: {got['collectives']} collectives a call, "
+              f"expected {SP_COLLECTIVES}")
+      if got["rows"] != (1, GEOMETRY["Cassini"][0] // SP_WORLD,
+                         GEOMETRY["Cassini"][1]):
+        _fail(f"{label} {dtype}: its rows have the shape {got['rows']}")
+    if not all(np.array_equal(rank[d][k], ranks[0][d][k])
+               for d in ("f32", "bf16") for k in ("pred", "conf")):
+      _fail(f"{label}: its gathered maps are not rank 0's")
+  # the one-process kernel path on the same pair
+  model = _sp_model(DEVICE, MAXDISP)
+  left, right = _sp_pair(DEVICE, *GEOMETRY["Cassini"])
+  with torch.no_grad():
+    ref_pred, ref_conf = model(left, right)
+  torch.cuda.synchronize()
+  shape = (1, *GEOMETRY["Cassini"])
+  f32, b16 = ({k: torch.from_numpy(ranks[0][d][k]).to(DEVICE)
+               for k in ("pred", "conf")} for d in ("f32", "bf16"))
+  check = _check_output("sp_gloo_2 f32 (gathered) vs one process",
+                        f32["pred"], f32["conf"], ref_pred, ref_conf, shape,
+                        seeded=False)
+  bf16_mae = float((b16["pred"] - f32["pred"]).abs().mean())
+  if not (torch.isfinite(b16["pred"]).all()
+          and torch.isfinite(b16["conf"]).all()) or bf16_mae > BF16_DISP_MAE:
+    _fail(f"sp_gloo_2: the bf16 maps are {bf16_mae:.4g} px (MAE) from the "
+          f"f32 ones (bar {BF16_DISP_MAE})")
+  del model
+  torch.cuda.empty_cache()
+  out = {"wall_s": wall, "check": check, "bf16_vs_f32_mae": bf16_mae,
+         "ranks": [{"place": r["place"], "peak_gib": r["peak_gib"],
+                    **{d: {k: r[d][k] for k in ("launches", "halo",
+                                                "collectives", "call_ms",
+                                                "profile")}
+                       for d in ("f32", "bf16")}} for r in ranks],
+         "calls": ranks[0]["calls"]}
+  for d in ("f32", "bf16"):
+    prof = ranks[0][d]["profile"] or {"host_ms": 0.0, "device_ms": 0.0,
+                                      "collectives": {"allreduce_ms": 0.0}}
+    print(f"sp_gloo_2 {d}: two gloo ranks on one card ({card}), rank 0 "
+          f"ms/call {', '.join(f'{t:.1f}' for t in ranks[0][d]['call_ms'])}"
+          f" (both ranks share the card); profiled call host "
+          f"{prof['host_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, "
+          f"all-gathers {prof['collectives']['allreduce_ms']:.1f} ms on the "
+          f"host; launches a rank {json.dumps(ranks[0][d]['launches'])}, "
+          f"halo forms {json.dumps(ranks[0][d]['halo'])}, "
+          f"{ranks[0][d]['collectives']} collectives a call", flush=True)
+  print(f"sp_gloo_2: {wall:.1f} s with the processes' start; bf16 maps "
+        f"{bf16_mae:.4g} px from the f32 ones (bar {BF16_DISP_MAE})",
+        flush=True)
+  return out
+
+
+def _halo_cases(served_calls: dict, rank_calls: dict) -> dict:
+  """The kernel phase's halo cases: each 3-D call of the served
+  ``sphere_b1`` path at a rank's rows for every ``SP_SIZES`` spatial size,
+  haloed (H / S + 2 rows); the first size's must be the rows the
+  ``sp_gloo_2`` rank recorded. Returns ``{case + (S,): (per_call,
+  layers)}``."""
+  three_d = {c: layers for c, layers in served_calls.items()
+             if c[0] in HALO_KERNELS}
+  local = {(c[0], (*c[1][:2], c[1][2] // SP_SIZES[0], *c[1][3:]), *c[2:]):
+           layers for c, layers in three_d.items()}
+  if {c: len(v) for c, v in local.items()} != {
+      c: len(v) for c, v in rank_calls.items() if c[0] in HALO_KERNELS}:
+    _fail("sp_gloo_2: the rank's 3-D calls are not sphere_b1's at half the "
+          "rows")
+  out = {}
+  for size in SP_SIZES:
+    label = "sp_gloo_2" if size == SP_WORLD else f"spatial_{size}"
+    for c, layers in three_d.items():
+      b, d, h, w, cin = c[1]
+      out[(c[0], (b, d, h // size + 2, w, cin), *c[2:], size)] = (
+          {label: len(layers)}, layers)
   return out
 
 
@@ -3408,26 +3654,91 @@ def _fusion_direct_steps(work, fusion_runs, returned, result, tars,
   return out
 
 
-def _kernel_phase(cases, reg_cases, gen):
-  """Every recorded kernel shape once, f32 and bf16: the rows it prints."""
+def _kernel_phase(cases, reg_cases, gen, halo_cases):
+  """Every recorded kernel shape once, f32 and bf16, then the halo forms
+  at a rank's rows, each beside the cuDNN time of its unsharded call
+  (``unsharded_library_ms``): the rows it prints."""
   rows = []
+
+  def emit(row, **extra):
+    row.update(extra)
+    rows.append(row)
+    print("kernel " + json.dumps(row), flush=True)
+
   for dtype in (torch.float32, torch.bfloat16):
+    library = {}
     for case, (per_call, layers, batch) in cases.items():
       if case[0] in SPHERE_BWD:
         row = _sphere_bwd_case(case, dtype, gen)
       else:
         row = _conv_case(case, dtype, gen)
-      row.update(per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
-                 layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
-                                                else ""))
-      rows.append(row)
-      print("kernel " + json.dumps(row), flush=True)
+      library[case] = row["library_ms"]
+      emit(row, per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
+           layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
+                                          else ""))
     for case, per_call in reg_cases.items():
-      row = _regression_case(case, dtype, gen)
-      row.update(per_call=per_call, tpu="K2")
-      rows.append(row)
-      print("kernel " + json.dumps(row), flush=True)
+      emit(_regression_case(case, dtype, gen), per_call=per_call,
+           tpu="K2" + (" row window" if len(case) > 4 else ""))
+    for case, (per_call, layers) in halo_cases.items():
+      (b, d, h, w, c), size = case[1], case[6]
+      whole = (case[0], (b, d, (h - 2) * size, w, c), *case[2:6])
+      emit(_conv_case(case, dtype, gen), per_call=per_call,
+           tpu=_tpu_kernel(whole, layers, 1) + " halo form",
+           unsharded_library_ms=library.get(whole),
+           layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
+                                          else ""))
   return rows
+
+
+def _halo_summary(rows, sp_gloo) -> list:
+  """The kernels line's entries of the halo forms (and K2's window): f32
+  ms per call of one ``sp_gloo_2`` rank (each shape's time alone times its
+  launches per call, summed), its launches in that phase's f32 call, and
+  per spatial size the same sums in f32 and bf16."""
+  out = []
+  launched = sp_gloo["ranks"][0]["f32"]["halo"]
+  for name, (replaces, wrapper) in HALO_KERNELS.items():
+    mine = [r for r in rows
+            if r["name"] == name and r.get("halo") is not None]
+    by_size = {}
+    for r in mine:
+      label, n = next(iter(r["per_call"].items()))
+      t = by_size.setdefault(f"{label} {r['dtype']}", {
+          "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+          "unsharded_library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+          "launches_per_call": 0})
+      t["launches_per_call"] += n
+      for key in ("plain_ms", "bound_ms", "library_ms",
+                  "unsharded_library_ms", "ops_ms", "bytes_ms"):
+        value = r.get(key)
+        t[key] = None if value is None or t[key] is None else (
+            t[key] + value * n)
+      t["ms"] += r["kernel_ms"] * n
+    main = by_size[f"sp_gloo_2 float32"]
+    f32 = [r for r in mine if r["dtype"] == "float32"]
+    b16 = [r for r in mine if r["dtype"] == "bfloat16"]
+    out.append({
+        "name": f"{name} (h_halo)" if name != "fused_disparity_regression"
+                else f"{name} (row window)",
+        "route": "cuda", "source": KERNELS[name][0], "replaces": replaces,
+        "also_replaces": [wrapper], "main_path": "sp_gloo_2",
+        "launches": launched.get(name, 0),
+        "launches_per_call": main["launches_per_call"],
+        "max_abs_err": max(r["max_abs_err"] for r in f32),
+        "max_abs_err_bf16": max(r["max_abs_err"] for r in b16),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": ("operations" if main["ops_ms"] >= main["bytes_ms"]
+                     else "bytes"),
+        "library_ms": main["library_ms"],
+        "unsharded_library_ms": main["unsharded_library_ms"],
+        "times": "f32, ms per call of one sp_gloo_2 rank (a 1024x512 "
+                 "pair's rows at spatial 2); by_size gives spatial 2 and 4 "
+                 "in f32 and bf16; library_ms is cuDNN on the same haloed "
+                 "rows, unsharded_library_ms cuDNN on the whole volume",
+        "by_size": by_size,
+        "pass": all(r["pass"] for r in mine)})
+  return out
 
 
 def main() -> int:
@@ -3515,9 +3826,12 @@ def main() -> int:
   del init, batch
   torch.cuda.empty_cache()
 
-  # ---- data parallelism: one NCCL rank in this process, two gloo ranks
+  # ---- data parallelism: one NCCL rank in this process, two gloo ranks;
+  # then the spatial axis: two gloo ranks serving a pair's rows
   ddp_nccl = _ddp_nccl_phase(gen)
   ddp_gloo = _ddp_gloo_phase(train_fusion_state, card)
+  torch.cuda.empty_cache()
+  sp_gloo = _sp_gloo_phase(card)
   torch.cuda.empty_cache()
 
   # ---- the serving CLIs on a Deep360 tree on disk, then the training
@@ -3546,10 +3860,17 @@ def main() -> int:
     case = ((seen[label]["batch"], MAXDISP // 4, h // 4, w // 4), MAXDISP, h,
             w)
     reg_cases.setdefault(case, {})[label] = 1
+  # the halo forms at a rank's rows, and K2's window for rank 1
+  halo_cases = _halo_cases(seen["sphere_b1"]["calls"], sp_gloo.pop("calls"))
+  h, w = GEOMETRY["Cassini"]
+  for size in SP_SIZES:
+    label = "sp_gloo_2" if size == SP_WORLD else f"spatial_{size}"
+    reg_cases[((1, MAXDISP // 4, h // 4, w // 4), MAXDISP, h, w, h // size,
+               h // size)] = {label: 1}
   # the plain versions and the library calls in IEEE f32, as the model's
   # forward and training step run their library convs
   with ieee_f32_convs():
-    rows = _kernel_phase(cases, reg_cases, gen)
+    rows = _kernel_phase(cases, reg_cases, gen, halo_cases)
   bad = [r for r in rows if not r["pass"]]
   if bad:
     _fail(f"{len(bad)} kernel comparisons out of tolerance: "
@@ -3562,9 +3883,12 @@ def main() -> int:
   # dtype (f32, or bf16 for the mixed-precision training steps), each
   # shape's time alone times its launches per call, summed
   summary = []
+  whole_rows = [r for r in rows if r.get("halo") is None]
   for name, (source, replaces) in KERNELS.items():
-    f32 = [r for r in rows if r["name"] == name and r["dtype"] == "float32"]
-    b16 = [r for r in rows if r["name"] == name and r["dtype"] == "bfloat16"]
+    f32 = [r for r in whole_rows
+           if r["name"] == name and r["dtype"] == "float32"]
+    b16 = [r for r in whole_rows
+           if r["name"] == name and r["dtype"] == "bfloat16"]
     per_path = {}
     for label, s in seen.items():
       mine = [r for r in (b16 if s.get("dtype") == torch.bfloat16 else f32)
@@ -3619,9 +3943,10 @@ def main() -> int:
         "train_cli_launches": sum(r["launches"].get(name, 0)
                                   for r in train_cli["runs"].values()),
         "pass": all(r["pass"] for r in f32 + b16)})
+  summary += _halo_summary(rows, sp_gloo)
   print("kernels: " + ", ".join(
-      f"{s['name']} (replaces {', '.join(KERNELS[s['name']][1])}) "
-      f"{'pass' if s['pass'] else 'FAIL'}" for s in summary))
+      f"{s['name']} (replaces {', '.join([s['replaces'], *s['also_replaces']])}"
+      f") {'pass' if s['pass'] else 'FAIL'}" for s in summary))
   print("paths: " + json.dumps({label: {
       "median_ms_per_call": statistics.median(s["call_ms"]),
       "pairs_per_call": s["batch"], "fe_ms": s["fe_ms"],
@@ -3643,6 +3968,7 @@ def main() -> int:
           "train_anchor": train_anchor,
           "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
           "remat": remat, "ddp_nccl": ddp_nccl, "ddp_gloo_2": ddp_gloo,
+          "sp_gloo_2": sp_gloo,
           "cli": cli, "train_cli": train_cli}, default=str))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)

@@ -12,8 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mode_tpu_torch.parallel.mesh import (Mesh, initialize_distributed,
-                                          make_mesh)
+from mode_tpu_torch.parallel.mesh import (SPATIAL_TRAINING_ITEM, Mesh,
+                                          initialize_distributed, make_mesh)
 from mode_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from mode_tpu_torch.utils.convert import (load_reference_state_dict,
                                           load_stack_hourglass_only)
@@ -52,8 +52,14 @@ def training_mesh(dp: int | None, sp: int, device: str | None) -> Mesh:
   """The trainers' mesh, as the JAX CLIs' ``make_mesh(data=--dp,
   spatial=--sp)``: join ``torchrun``'s process group if there is one
   (``parallel/mesh.py``), then ``--dp`` None means the world size and any
-  other value must equal it, and ``--sp`` must be 1. Without ``torchrun``
-  the world is this one process, on ``device``."""
+  other value must equal it, and ``--sp`` must be 1: the spatial axis
+  serves (``ModeDisparity`` in eval under a ``(data, spatial)`` mesh) but
+  does not train yet. Without ``torchrun`` the world is this one process,
+  on ``device``."""
+  if sp != 1:
+    raise ValueError(f"--sp {sp}: training with the cost volume split over "
+                     f"cards is not ported yet ({SPATIAL_TRAINING_ITEM}); "
+                     "use 1 (the spatial axis serves in eval only)")
   initialize_distributed(device)
   return make_mesh(data=dp, spatial=sp, device=device)
 

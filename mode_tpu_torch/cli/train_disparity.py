@@ -107,7 +107,8 @@ def build_parser():
                       "torchrun's --nproc_per_node; any other value must "
                       "equal it)")
   p.add_argument("--sp", type=int, default=1,
-                 help="spatial-parallel cards: 1 (more are not ported yet)")
+                 help="spatial-parallel cards: 1 (training under the "
+                      "spatial axis is not ported yet)")
   p.add_argument("--steps_per_epoch", type=int, default=None,
                  help="debug: truncate epochs to N steps")
   p.add_argument("--device", default=None,

@@ -40,8 +40,8 @@ conv2d_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
 }
 
 struct Kernels {
-  template <typename T, int BM, int BN>
-  static auto get() {
+  template <typename T, int BM, int BN, bool HALOED>
+  static auto get() {      // no halo form: h0 is always 0 here
     return &conv2d_tc_kernel<T, BM, BN>;
   }
 };
@@ -60,7 +60,7 @@ extern "C" int conv2d_s1_bn_act(int bf16, const void* x, const void* wbig,
                                 int nb, int h, int wd, int cin, int cout,
                                 int dil, int relu, void* stream) {
   if (dil < 1 || cin % 8 != 0 || cout < 1) return (int)cudaErrorInvalidValue;
-  const tc::Shape s{nb, 1, h, wd, cin, cout, 1, dil, 1, h, wd};
+  const tc::Shape s{nb, 1, h, wd, cin, cout, 1, dil, 1, h, wd, 0};
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

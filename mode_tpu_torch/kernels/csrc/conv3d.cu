@@ -31,12 +31,18 @@
 // it stores that phase's output voxels (2z + pd, 2y + ph, 2x + pw) and
 // clears the sums, while the next phase's copies are already in flight.
 // So every block does the same work and the pipeline fills once.
+//
+// Under the spatial axis (mode_tpu_torch/parallel/shard_ops.py; the m_halo
+// form of K5, conv3d_kernel.py:681-737) x holds a shard's rows with one
+// halo row above and below: the M grid is the shard's own rows, read from
+// an H origin of one row (tc::Shape's h0), so a tap at offset +1 on the
+// last row reads the lower halo row and the upper one is never read.
 
 #include "igemm_tc.cuh"
 
 namespace {
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool HALOED>
 __global__ void __launch_bounds__(2 * BM)
 deconv3d_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
                    const T* __restrict__ wsmall,
@@ -44,14 +50,14 @@ deconv3d_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
                    const float* __restrict__ bias,
                    const T* __restrict__ res, T* __restrict__ out,
                    const tc::Shape s, int relu) {
-  tc::conv_body<T, BM, BN, tc::DECONV>(x, wbig, wsmall, scale, bias, res,
-                                       out, s, relu);
+  tc::conv_body<T, BM, BN, tc::DECONV, HALOED>(x, wbig, wsmall, scale,
+                                               bias, res, out, s, relu);
 }
 
 struct Kernels {
-  template <typename T, int BM, int BN>
+  template <typename T, int BM, int BN, bool HALOED>
   static auto get() {
-    return &deconv3d_tc_kernel<T, BM, BN>;
+    return &deconv3d_tc_kernel<T, BM, BN, HALOED>;
   }
 };
 
@@ -61,19 +67,24 @@ struct Kernels {
 // (27, cout, cin), tap (kd*3 + kh)*3 + kw of the torch (I, O, 3, 3, 3)
 // weight; wsmall: for f32 its tf32 remainder (wbig + wsmall = w), unused
 // for bf16; scale, bias: (cout,) f32; res (may be null) and out: (nb,
-// 2 di, 2 hi, 2 wi, cout). x, w*, res and out are f32 (bf16 == 0) or bf16
-// (bf16 == 1), x and w* 16-byte aligned. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue without launching on a cin the
-// 16-byte copies cannot take.
+// 2 di, 2 (hi - 2 h_halo), 2 wi, cout); h_halo 1: x's first and last rows
+// are halo rows (see the top). x, w*, res and out are f32 (bf16 == 0) or
+// bf16 (bf16 == 1), x and w* 16-byte aligned. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue without launching on a cin
+// the 16-byte copies cannot take or a halo that leaves no row.
 extern "C" int deconv3d_bn_act(int bf16, const void* x, const void* wbig,
                                const void* wsmall, const void* scale,
                                const void* bias, const void* res, void* out,
                                int nb, int di, int hi, int wi, int cin,
-                               int cout, int relu, void* stream) {
-  if (cin % 8 != 0 || cout < 1) return (int)cudaErrorInvalidValue;
+                               int cout, int relu, int h_halo, void* stream) {
+  if (cin % 8 != 0 || cout < 1 || (h_halo != 0 && h_halo != 1) ||
+      hi - 2 * h_halo < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   // M is the input-sized grid, so the "output" extents of the walk are the
-  // input's.
-  const tc::Shape s{nb, di, hi, wi, cin, cout, 3, 1, di, hi, wi};
+  // input's own rows.
+  const tc::Shape s{nb, di, hi - 2 * h_halo, wi, cin, cout, 3, 1, di, hi,
+                    wi, h_halo};
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

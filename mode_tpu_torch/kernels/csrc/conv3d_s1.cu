@@ -28,12 +28,18 @@
 //    it reaches (kd = 2, 1, 0), so a plane is read from shared memory once
 //    per (kh, kw) and from device memory about (34 * 10) / (32 * 8) times.
 //    The weights (f32) sit in shared memory; the sums are f32 FMAs.
+//
+// Under the spatial axis (mode_tpu_torch/parallel/shard_ops.py, the
+// m_halo form of the TPU kernel, conv3d_kernel.py:273-335) x holds a
+// shard's rows of H with one halo row above and below, and is not padded
+// along H: both kernels read it from an H origin of one row (tc::Shape's
+// h0; the head kernel's h0), and the output has two rows fewer than x.
 
 #include "igemm_tc.cuh"
 
 namespace {
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool HALOED>
 __global__ void __launch_bounds__(2 * BM)
 conv3d_s1_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
                     const T* __restrict__ wsmall,
@@ -41,13 +47,14 @@ conv3d_s1_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
                     const float* __restrict__ bias,
                     const T* __restrict__ res, T* __restrict__ out,
                     const tc::Shape s, int relu) {
-  tc::conv_body<T, BM, BN>(x, wbig, wsmall, scale, bias, res, out, s, relu);
+  tc::conv_body<T, BM, BN, 1, HALOED>(x, wbig, wsmall, scale, bias, res,
+                                      out, s, relu);
 }
 
 struct Kernels {
-  template <typename T, int BM, int BN>
+  template <typename T, int BM, int BN, bool HALOED>
   static auto get() {
-    return &conv3d_s1_tc_kernel<T, BM, BN>;
+    return &conv3d_s1_tc_kernel<T, BM, BN, HALOED>;
   }
 };
 
@@ -77,13 +84,15 @@ int head_smem(int cin) {
 // Within the card's tc::SMEM_MAX: f32 Cin up to 72 and bf16 Cin up to 144
 // (ops/conv3d.py refuses the others).
 
+// h: the output's rows; x has hi = h + 2 h0 of them, and output row y reads
+// x's rows y - 1 + h0 .. y + 1 + h0 (zero outside x).
 template <typename T>
 __global__ void __launch_bounds__(HNT)
 conv3d_head_kernel(const T* __restrict__ x, const T* __restrict__ wk,
                    const float* __restrict__ scale,
                    const float* __restrict__ bias, const T* __restrict__ res,
                    T* __restrict__ out, int nb, int d, int h, int w, int cin,
-                   int relu) {
+                   int relu, int h0) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x;
   const int vs = cin * (int)sizeof(T) + 16;  // voxel stride, bytes
@@ -105,16 +114,17 @@ conv3d_head_kernel(const T* __restrict__ x, const T* __restrict__ wk,
   const int z1 = min(z0 + HZ, d);
   constexpr int CH = 16 / sizeof(T);
   const int cpv = cin / CH;  // 16-byte chunks per voxel
+  const int hi = h + 2 * h0;
   auto load_plane = [&](int p, int buf) {
     const uint32_t dst = tc::smem_u32(smem) + buf * plane;
     for (int i = tid; i < HALO * cpv; i += HNT) {
       const int v = i / cpv, c = i % cpv;
-      const int yy = y0 - 1 + v / (HW_ + 2), xx = x0 - 1 + v % (HW_ + 2);
-      const bool ok = (unsigned)p < (unsigned)d && (unsigned)yy < (unsigned)h &&
-                      (unsigned)xx < (unsigned)w;
+      const int yy = y0 - 1 + h0 + v / (HW_ + 2), xx = x0 - 1 + v % (HW_ + 2);
+      const bool ok = (unsigned)p < (unsigned)d &&
+                      (unsigned)yy < (unsigned)hi && (unsigned)xx < (unsigned)w;
       tc::cp_async16(
           dst + v * vs + c * 16,
-          ok ? x + ((((long long)b * d + p) * h + yy) * w + xx) * cin + c * CH
+          ok ? x + ((((long long)b * d + p) * hi + yy) * w + xx) * cin + c * CH
              : x,
           ok);
     }
@@ -170,7 +180,7 @@ conv3d_head_kernel(const T* __restrict__ x, const T* __restrict__ wk,
 template <typename T>
 cudaError_t launch_head(const void* x, const void* wk, const float* scale,
                         const float* bias, const void* res, void* out, int nb,
-                        int d, int h, int w, int cin, int relu,
+                        int d, int h, int w, int cin, int relu, int h0,
                         cudaStream_t stream) {
   const int smem = head_smem<T>(cin);
   if (smem > tc::SMEM_MAX) return cudaErrorInvalidValue;
@@ -183,20 +193,22 @@ cudaError_t launch_head(const void* x, const void* wk, const float* scale,
   conv3d_head_kernel<T><<<grid, HNT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wk), scale, bias,
       static_cast<const T*>(res), static_cast<T*>(out), nb, d, h, w, cin,
-      relu);
+      relu, h0);
   return cudaGetLastError();
 }
 
+// h: x's rows; the output has h - 2 h_halo.
 template <typename T>
 cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
                    const float* scale, const float* bias, const void* res,
                    void* out, int nb, int d, int h, int w, int cin, int cout,
-                   int relu, cudaStream_t stream) {
+                   int relu, int h_halo, cudaStream_t stream) {
+  const int ho = h - 2 * h_halo;
   if (cout == 1) {
-    return launch_head<T>(x, wbig, scale, bias, res, out, nb, d, h, w, cin,
-                          relu, stream);
+    return launch_head<T>(x, wbig, scale, bias, res, out, nb, d, ho, w, cin,
+                          relu, h_halo, stream);
   }
-  const tc::Shape s{nb, d, h, w, cin, cout, 3, 1, d, h, w};
+  const tc::Shape s{nb, d, ho, w, cin, cout, 3, 1, d, h, w, h_halo};
   return tc::dispatch<Kernels, T>(x, wbig, wsmall, scale, bias, res, out, s,
                                   relu, stream);
 }
@@ -207,23 +219,29 @@ cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
 // (27, cout, cin), tap (kd*3 + kh)*3 + kw; wsmall: for f32 with cout > 1
 // its tf32 remainder (wbig + wsmall = w), else null (the head kernel takes
 // wbig as the whole weight); scale, bias: (cout,) f32; res (may be
-// null) and out: (nb, d, h, w, cout). x, w*, res and out are f32
+// null) and out: (nb, d, h - 2 h_halo, w, cout); h_halo 1: x's first and
+// last rows are halo rows (see the top). x, w*, res and out are f32
 // (bf16 == 0) or bf16 (bf16 == 1), 16-byte aligned. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue without
-// launching where the head kernel's Cin does not fit in shared memory.
+// launching where the head kernel's Cin does not fit in shared memory or
+// the halo leaves no row.
 extern "C" int conv3d_s1_bn_act(int bf16, const void* x, const void* wbig,
                                 const void* wsmall, const void* scale,
                                 const void* bias, const void* res, void* out,
                                 int nb, int d, int h, int w, int cin,
-                                int cout, int relu, void* stream) {
-  if (cin % 8 != 0 || cout < 1) return (int)cudaErrorInvalidValue;
+                                int cout, int relu, int h_halo,
+                                void* stream) {
+  if (cin % 8 != 0 || cout < 1 || (h_halo != 0 && h_halo != 1) ||
+      h - 2 * h_halo < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16>(x, wbig, wsmall, s, b, res, out, nb, d, h,
-                                   w, cin, cout, relu, st)
+                                   w, cin, cout, relu, h_halo, st)
            : launch<float>(x, wbig, wsmall, s, b, res, out, nb, d, h, w, cin,
-                           cout, relu, st);
+                           cout, relu, h_halo, st);
   return (int)e;
 }

@@ -9,7 +9,10 @@
 // channels, K = taps x Cin in the order (tap, channel), the taps at
 // (k - 1) * dil on each tapped axis. At stride S (a template parameter, 1
 // or 2; stride 2 only with dilation 1) output voxel (z, y, x) reads input
-// voxel (S z + kd - 1, S y + kh - 1, S x + kw - 1). S = DECONV walks the
+// voxel (S z + kd - 1, S y + kh - 1 + h0, S x + kw - 1), h0 the H origin:
+// 0, or 1 in the HALO instantiations, whose input holds a spatial shard's
+// rows with a halo row above and below (not padded along H; the zero-fill
+// below pads what lies outside the input as it is). S = DECONV walks the
 // transposed conv of stride 2 instead (conv3d.cu): M the input voxels,
 // each writing one output voxel of each of the eight output parity phases,
 // the phases' taps one after another (see deconv_tap). One warpgroup (128
@@ -85,13 +88,16 @@ __host__ __device__ constexpr uint32_t swizzle(int r, int c) {
 
 // The extents of a call, d = 1 and kd = 1 for a 2-D map. At stride 1 the
 // input extents equal the output extents (padding = dilation); at stride 2
-// (padding 1) the output extent is ceil(input / 2) on every axis.
+// (padding 1) the output extent is ceil(input / 2) on every axis. With a
+// halo (h0 = 1) the input has two rows more than a SAME call would read:
+// hi = h + 2 at stride 1 and for DECONV, hi = 2 h + 2 at stride 2.
 struct Shape {
-  int nb, d, h, w;  // output extents
+  int nb, d, h, w;  // output extents (DECONV: the input grid's)
   int cin, cout;
   int kd;           // taps along D: 3 or 1
   int dil;          // dilation (and padding) of every tapped axis
   int di, hi, wi;   // input extents
+  int h0;           // H origin, 0 or 1: dispatch's choice of the HALO form
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -536,14 +542,19 @@ __device__ __forceinline__ int deconv_tap_at(int t) {
 }
 
 // The body of a conv kernel of stride S (or S = DECONV, above) launched
-// with 2 * BM threads and smem_bytes<T, BM, BN>() of dynamic shared memory.
+// with 2 * BM threads and smem_bytes<T, BM, BN>() of dynamic shared memory;
+// HALO reads the input from an H origin of one row (above). The origin is
+// a template parameter, not a value of the call: a run-time origin kept one
+// more 64-bit value live in the main loop and took the f32 tiles of Cout 32
+// (conv3d_s1.cu, conv3d.cu) past 128 registers, one block an SM instead of
+// two, 30% slower at the 1/4 level.
 // wbig, wsmall: the K-major weight, bf16 (taps, Cout, Cin) (wsmall unused),
 // f32 split in two parts of (taps, Cout, ceil(Cin / 32) * 32) whose K
 // position p of each 32-channel stage holds channel 8 (p % 4) + p / 4 (zero
 // past Cin); res may be null. For DECONV, s's output extents d, h, w are
 // the input's (the M grid) and the weight's taps are the torch transpose
 // weight's (kd, kh, kw).
-template <typename T, int BM, int BN, int S = 1>
+template <typename T, int BM, int BN, int S = 1, bool HALO = false>
 __device__ __forceinline__ void conv_body(
     const T* __restrict__ x, const T* __restrict__ wbig,
     const T* __restrict__ wsmall, const float* __restrict__ scale,
@@ -575,7 +586,10 @@ __device__ __forceinline__ void conv_body(
   const int nsteps = s.kd * 9 * nkc;
 
   // The A rows this thread copies (rows tid / CPR + i * NT / CPR, chunk
-  // ac) and their coordinates; the same for every K stage.
+  // ac) and their coordinates (the input voxel of the centre tap); the
+  // same for every K stage. Off stride 2 a haloed input's index is the
+  // grid's, m, plus the halo rows of the planes up to it (two a plane, one
+  // in its own).
   const int ac = tid % CPR;
   long long rm[NA];
   int rz[NA], ry[NA], rx[NA];
@@ -591,11 +605,15 @@ __device__ __forceinline__ void conv_body(
     ry[i] = (int)(t % s.h);
     if constexpr (S != 2) {
       rz[i] = (int)(t / s.h % s.d);
+      if constexpr (HALO) {
+        ry[i] += 1;
+        rm[i] += (2 * (t / s.h) + 1) * (long long)s.w;
+      }
     } else {
-      // the input voxel (S z, S y, S x) that the centre tap reads
+      // the input voxel (S z, S y + h0, S x) that the centre tap reads
       t /= s.h;
       rz[i] = S * (int)(t % s.d);
-      ry[i] *= S;
+      ry[i] = S * ry[i] + (HALO ? 1 : 0);
       rx[i] *= S;
       rm[i] = ((t / s.d * s.di + rz[i]) * s.hi + ry[i]) * s.wi + rx[i];
     }
@@ -603,11 +621,11 @@ __device__ __forceinline__ void conv_body(
   // The f32 weight's Cin is padded to whole stages (host-side pack).
   const int wcin = C::PARTS == 2 ? nkc * BK : s.cin;
 
-  // the input extents (the M grid's but at stride 2)
+  // the input extents (the M grid's but at stride 2, and along a haloed H)
   const int din = S == 2 ? s.di : s.d;
-  const int hin = S == 2 ? s.hi : s.h;
+  const int hin = S == 2 || HALO ? s.hi : s.h;
   const int win = S == 2 ? s.wi : s.w;
-  const long long ihw = S == 2 ? (long long)hin * win : hw;
+  const long long ihw = S == 2 || HALO ? (long long)hin * win : hw;
   auto load = [&](int step, int slot) {
     const int tap = step / nkc, kc = step - tap * nkc;
     int od, oh, ow, wtap = tap;
@@ -775,9 +793,11 @@ cudaError_t size_smem(Kernel kernel, int smem, bool (&sized)[MAX_DEVICES]) {
   return cudaSuccess;
 }
 
-// Launches kernel (a __global__ wrapper of conv_body<T, BM, BN, S>) over
-// the call's tiles; returns cudaGetLastError().
-template <typename T, int BM, int BN, typename Kernel>
+// Launches kernel (a __global__ wrapper of conv_body<T, BM, BN, S, HALO>)
+// over the call's tiles; returns cudaGetLastError(). HALO is a parameter
+// here too so that each kernel has its own `sized` flags (the two forms'
+// kernels have one type).
+template <typename T, int BM, int BN, bool HALO, typename Kernel>
 cudaError_t launch_tile(Kernel kernel, const void* x, const void* wbig,
                         const void* wsmall, const float* scale,
                         const float* bias, const void* res, void* out,
@@ -797,7 +817,8 @@ cudaError_t launch_tile(Kernel kernel, const void* x, const void* wbig,
 
 // The tile for a call: BN follows Cout (32, 64 or 128 wide, more N tiles
 // past 128); BM = 64 where 128-row tiles would not give every SM two.
-// K::get<T, BM, BN>() names the source's kernel.
+// K::get<T, BM, BN, HALO>() names the source's kernel, HALO = s.h0 (a
+// source without halo forms returns its one kernel for both).
 template <class K, typename T>
 cudaError_t dispatch(const void* x, const void* wbig, const void* wsmall,
                      const float* scale, const float* bias, const void* res,
@@ -805,10 +826,13 @@ cudaError_t dispatch(const void* x, const void* wbig, const void* wsmall,
                      cudaStream_t stream) {
   const long long mtot = (long long)s.nb * s.d * s.h * s.w;
   const bool tall = (mtot + 127) / 128 >= 2 * 132;
-#define TC_LAUNCH(BM_, BN_)                                                 \
-  return launch_tile<T, BM_, BN_>(K::template get<T, BM_, BN_>(), x, wbig, \
-                                  wsmall, scale, bias, res, out, s, relu,  \
-                                  stream)
+#define TC_LAUNCH(BM_, BN_)                                                \
+  return s.h0 ? launch_tile<T, BM_, BN_, true>(                            \
+                    K::template get<T, BM_, BN_, true>(), x, wbig, wsmall, \
+                    scale, bias, res, out, s, relu, stream)                \
+              : launch_tile<T, BM_, BN_, false>(                           \
+                    K::template get<T, BM_, BN_, false>(), x, wbig, wsmall,\
+                    scale, bias, res, out, s, relu, stream)
   if (s.cout > 64) {
     if (tall) TC_LAUNCH(128, 128);
     TC_LAUNCH(64, 128);

@@ -50,6 +50,11 @@
 // Why the staged columns and the walk by interval: each pixel's 48 levels
 // kept in shared memory would take 384 bytes a thread, leave 16 warps an SM,
 // and gather them with 8 scattered loads a level, a latency-bound pass.
+//
+// A call may write a window of rows, [row0, row0 + h_out) of the full-h
+// output (a rank of the spatial axis, mode_tpu_torch/parallel/shard_ops.py;
+// the TPU kernel's ys / mh_win / h_out, regression_kernel.py:107-127): one
+// block row per output row, its row taps read at row0 + blockIdx.y.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,12 +100,13 @@ __host__ __device__ constexpr long long smem_bytes(int d, int maxdisp,
 // then columns) the source indices idx[2j], idx[2j+1] and their weights
 // wgt[2j], wgt[2j+1]; then idx holds, for each source level k <= d, the
 // first disparity level whose lower index is k or more (maxdisp at k = d).
+// pred, conf: (n, gridDim.y, w), output rows row0 .. row0 + gridDim.y - 1.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 regression_kernel(const T* __restrict__ cost, const int* __restrict__ idx,
                   const float* __restrict__ wgt, float* __restrict__ pred,
                   float* __restrict__ conf, int d, int hq, int wq,
-                  int maxdisp, int h, int w, int ncol) {
+                  int maxdisp, int h, int w, int ncol, int row0) {
   extern __shared__ float2 smem[];
   float2* tw = smem;                                   // level weights
   int* tk = reinterpret_cast<int*>(tw + maxdisp);      // lower index
@@ -108,7 +114,7 @@ regression_kernel(const T* __restrict__ cost, const int* __restrict__ idx,
   float* colv = reinterpret_cast<float*>(start + d + 1);
   const int tid = threadIdx.x;
   const int xb = blockIdx.x * PX;
-  const int y = blockIdx.y;
+  const int y = row0 + blockIdx.y;
   const int n = blockIdx.z;
   const int* cidx = idx + 2 * (maxdisp + h);
   const float* cwgt = wgt + 2 * (maxdisp + h);
@@ -189,7 +195,7 @@ regression_kernel(const T* __restrict__ cost, const int* __restrict__ idx,
     ce0 += ex2(fmaf(w0.y, h0.x, w0.x * l0.x) - mx.x);
     ce1 += ex2(fmaf(w1.y, h1.y, w1.x * l1.y) - mx.y);
   }
-  const long long o = ((long long)n * h + y) * w + x0;
+  const long long o = ((long long)n * gridDim.y + blockIdx.y) * w + x0;
   pred[o] = p0;
   conf[o] = ce0 / s0;
   if (x0 + 1 < w) {
@@ -201,29 +207,33 @@ regression_kernel(const T* __restrict__ cost, const int* __restrict__ idx,
 template <typename T>
 cudaError_t launch(const void* cost, const int* idx, const float* wgt,
                    float* pred, float* conf, int n, int d, int hq, int wq,
-                   int maxdisp, int h, int w, cudaStream_t stream) {
+                   int maxdisp, int h, int w, int row0, int h_out,
+                   cudaStream_t stream) {
   const int ncol = block_columns(wq, w);
-  const dim3 grid((w + PX - 1) / PX, h, n);
+  const dim3 grid((w + PX - 1) / PX, h_out, n);
   regression_kernel<T><<<grid, NT, smem_bytes(d, maxdisp, ncol), stream>>>(
       static_cast<const T*>(cost), idx, wgt, pred, conf, d, hq, wq, maxdisp,
-      h, w, ncol);
+      h, w, ncol, row0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // cost: (n, d, hq, wq), f32 (bf16 == 0) or bf16 (bf16 == 1); idx, wgt: the
-// taps of the trilinear upsample and the source levels' first disparity
-// levels (see regression_kernel); pred, conf: (n, h, w) f32. Returns
+// taps of the trilinear upsample to (maxdisp, h, w) and the source levels'
+// first disparity levels (see regression_kernel); pred, conf: (n, h_out, w)
+// f32, rows [row0, row0 + h_out) of the full-h output. Returns
 // cudaErrorInvalidValue where the block's shared memory (smem_bytes)
-// exceeds SMEM_MAX, else cudaGetLastError() after the launch.
+// exceeds SMEM_MAX or the window is not rows of the output, else
+// cudaGetLastError() after the launch.
 extern "C" int fused_disparity_regression(int bf16, const void* cost,
                                           const void* idx, const void* wgt,
                                           void* pred, void* conf, int n, int d,
                                           int hq, int wq, int maxdisp, int h,
-                                          int w, void* stream) {
+                                          int w, int row0, int h_out,
+                                          void* stream) {
   if (smem_bytes(d, maxdisp, block_columns(wq, w)) > SMEM_MAX ||
-      maxdisp < 1 || d < 1) {
+      maxdisp < 1 || d < 1 || row0 < 0 || h_out < 1 || row0 + h_out > h) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -233,8 +243,8 @@ extern "C" int fused_disparity_regression(int bf16, const void* cost,
   float* pc = static_cast<float*>(conf);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16>(cost, ti, tw, pp, pc, n, d, hq, wq,
-                                   maxdisp, h, w, st)
+                                   maxdisp, h, w, row0, h_out, st)
            : launch<float>(cost, ti, tw, pp, pc, n, d, hq, wq, maxdisp, h, w,
-                           st);
+                           row0, h_out, st);
   return (int)e;
 }

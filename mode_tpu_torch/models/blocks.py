@@ -40,6 +40,13 @@ f32 gradients through the cast, as the JAX package's mixed-precision step
 casts its conv kernels inside the differentiated function. Biases and BN
 parameters and statistics stay f32.
 
+Under a mesh with a ``spatial`` axis (``parallel/mesh.py``) the 3-D layers
+hold their rank's rows of the volume's H and run their kernels through
+``parallel/shard_ops.py`` (a one-plane halo exchange with the neighbouring
+ranks, then the kernel's halo form), in eval only: a shape whose rows the
+sharded kernel cannot take raises, and nothing runs the layer unsharded in
+its place.
+
 The training convs' library calls go through ``remat.library_conv``: the
 call itself, except inside a block that ``ModeDisparity`` rematerialises
 with the ``"save_convs"`` policy, which keeps the conv's output for the
@@ -64,7 +71,9 @@ from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
                                        deconv3d_bn_act, pack_weight_tc)
 from mode_tpu_torch.ops.epilogue import epilogue
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
-from mode_tpu_torch.parallel.mesh import active_mesh, all_sum, sharded
+from mode_tpu_torch.parallel import shard_ops
+from mode_tpu_torch.parallel.mesh import (SPATIAL_TRAINING_ITEM, active_mesh,
+                                          all_sum, sharded, spatial_mesh)
 
 
 class _Operands:
@@ -181,10 +190,20 @@ def _bn_act(bn: TorchBatchNorm, y: torch.Tensor,
   return torch.relu(y) if relu else y
 
 
+def no_spatial_training() -> None:
+  """Refuse a training forward under a mesh that splits H: its halo
+  exchange has no backward yet."""
+  if spatial_mesh() is not None:
+    raise NotImplementedError(
+        "training under a spatial mesh is not ported yet "
+        f"({SPATIAL_TRAINING_ITEM}); the spatial axis serves in eval")
+
+
 def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
                   plain: bool) -> torch.Tensor:
   """The bare pad-1 3x3x3 conv of a training step, NDHWC: the kernels'
   Function where the JAX package trains on Pallas, else ``F.conv3d``."""
+  no_spatial_training()
   gate = (conv3d_ops.train_s1_eligible if stride == 1
           else conv3d_ops.train_s2_eligible)
   weight = weight.to(x.dtype)
@@ -192,6 +211,25 @@ def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
     return conv3d_ops.conv3d_train(x, weight, stride, plain=plain)
   return remat.library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), weight,
                             stride=stride, padding=1).permute(0, 2, 3, 4, 1)
+
+
+def _conv3d_eval(x, weight, stride, scale=None, bias=None, residual=None,
+                 relu=False, *, plain):
+  """The eval 3-D conv of stride 1 or 2 with its epilogue: the kernel on
+  the whole volume, or on this rank's rows under a spatial mesh."""
+  if stride == 2 and residual is not None:
+    raise ValueError("the stride-2 conv takes no residual")
+  mesh = spatial_mesh()
+  if mesh is not None:
+    if stride == 1:
+      return shard_ops.conv3d_s1_sharded(x, weight, scale, bias, residual,
+                                         relu, mesh=mesh, plain=plain)
+    return shard_ops.conv3d_s2_sharded(x, weight, scale, bias, relu,
+                                       mesh=mesh, plain=plain)
+  if stride == 1:
+    return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
+                            plain=plain)
+  return conv3d_s2_bn_act(x, weight, scale, bias, relu, plain=plain)
 
 
 class ConvBn2d(nn.Sequential):
@@ -389,10 +427,9 @@ class Conv3dWeight(nn.Module):
     """The bare conv (no affine, no ReLU), NDHWC."""
     if self.training:
       return _conv3d_train(x, self.weight, self.stride, plain)
-    conv = conv3d_s1_bn_act if self.stride == 1 else conv3d_s2_bn_act
     packed = self._operands.get(
         (self.weight,), lambda: pack_weight_tc(self.weight, self.stride))
-    return conv(x, packed, plain=plain)
+    return _conv3d_eval(x, packed, self.stride, plain=plain)
 
 
 class ConvTranspose3dWeight(nn.Module):
@@ -419,12 +456,8 @@ class ConvBn3d(nn.Sequential):
       return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
         self, functools.partial(pack_weight_tc, stride=self[0].stride))
-    if self[0].stride == 1:
-      return conv3d_s1_bn_act(x, weight, scale, bias, residual, relu,
-                              plain=plain)
-    if residual is not None:
-      raise ValueError("the stride-2 conv takes no residual")
-    return conv3d_s2_bn_act(x, weight, scale, bias, relu, plain=plain)
+    return _conv3d_eval(x, weight, self[0].stride, scale, bias, residual,
+                        relu, plain=plain)
 
 
 class DeconvBn3d(nn.Sequential):
@@ -438,6 +471,7 @@ class DeconvBn3d(nn.Sequential):
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
     if self.training:
+      no_spatial_training()
       weight = self[0].weight.to(x.dtype)
       if conv3d_ops.train_deconv_eligible(x.shape, weight.shape[1]):
         y = conv3d_ops.deconv3d_train(x, weight, plain=plain)
@@ -448,6 +482,10 @@ class DeconvBn3d(nn.Sequential):
       return _bn_act(self[1], y, residual, relu, channels_last=True)
     weight, scale, bias = _fused_operands(
         self, functools.partial(pack_weight_tc, transpose=True))
+    mesh = spatial_mesh()
+    if mesh is not None:
+      return shard_ops.deconv3d_sharded(x, weight, scale, bias, residual,
+                                        relu, mesh=mesh, plain=plain)
     return deconv3d_bn_act(x, weight, scale, bias, residual, relu,
                            plain=plain)
 

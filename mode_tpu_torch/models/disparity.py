@@ -30,6 +30,15 @@ extractor (each view's call) and the three hourglasses are rematerialised
 too (``remat.py``): under ``remat_policy="save_convs"`` they keep only their
 convs' outputs and rerun their BN, residual and ReLU tails in the backward,
 under ``"full"`` they keep nothing and rerun their convs as well.
+
+Under ``with activate(make_mesh(data=D, spatial=S)):`` (``parallel/``, one
+process a card, in eval) each rank runs the feature extractor whole on its
+rows of the batch (the sphere convs need whole maps), builds its rows of
+the cost volume's H from its rows of the features (the volume shifts along
+W, so slicing H first is exact), runs the 3-D stack on them
+(``parallel/shard_ops.py``: a halo exchange per conv) and the regression
+head on its output rows, and returns its ``(B / D, H / S, W)`` rows:
+``mesh.gather_rows`` (then ``global_batch_from_local``) makes the frame.
 """
 
 from __future__ import annotations
@@ -44,11 +53,14 @@ from mode_tpu_torch.device import ieee_f32_convs, resolve_device
 from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
                                           ConvBn3d, DeconvBn3d,
                                           RegularBasicBlock, SphereBasicBlock,
-                                          convbn, init_weights)
+                                          convbn, init_weights,
+                                          no_spatial_training)
 from mode_tpu_torch.ops.cost_volume import build_cost_volume
 from mode_tpu_torch.ops.regression import (disparity_regression,
                                            fused_disparity_regression)
 from mode_tpu_torch.ops.resize import interpolate, upsample_trilinear
+from mode_tpu_torch.parallel.mesh import constrain_spatial, spatial_mesh
+from mode_tpu_torch.parallel.shard_ops import regression_sharded
 
 
 def _stage(block, cin: int, cout: int, blocks: int, stride: int,
@@ -247,20 +259,27 @@ class ModeDisparity(nn.Module):
     """``left``/``right``: ``(B, H, W, 3)`` on the model's device.
     ``plain=True`` runs the kernels' plain PyTorch versions instead (a
     reference for the kernels on the card). The library convs run in IEEE
-    f32 (``device.ieee_f32_convs``), whatever cuDNN's TF32 flag says."""
+    f32 (``device.ieee_f32_convs``), whatever cuDNN's TF32 flag says. Under
+    a spatial mesh the outputs are this rank's rows (module docstring)."""
     if left.device != self.device or right.device != self.device:
       raise ValueError(f"inputs on {left.device}/{right.device}, model on "
                        f"{self.device}")
     h, w = left.shape[1:3]
     with ieee_f32_convs():
       if self.training:
+        no_spatial_training()
         return tuple(torch.utils.checkpoint.checkpoint(
             _regress, cost, self.maxdisp, h, w, use_reentrant=False)
                      for cost in self._costs(left, right, plain))
       with torch.no_grad():
         cost3 = self._costs(left, right, plain)[2]
-        pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
-                                                plain=plain)
+        mesh = spatial_mesh()
+        if mesh is not None:
+          pred, conf = regression_sharded(cost3, self.maxdisp, h, w,
+                                          mesh=mesh, plain=plain)
+        else:
+          pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
+                                                  plain=plain)
     return (pred, conf) if self.out_conf else pred
 
   def _remat(self, block, *args, **kwargs):
@@ -274,9 +293,11 @@ class ModeDisparity(nn.Module):
   def _costs(self, left, right, plain):
     """The three classifiers' summed logits ``(B, D, Hq, Wq)``."""
     fe = self.feature_extraction
-    cost = build_cost_volume(self._remat(fe, left, plain=plain),
-                             self._remat(fe, right, plain=plain),
-                             self.maxdisp // 4)
+    # this rank's rows of H under a spatial mesh (the whole maps otherwise)
+    cost = build_cost_volume(
+        constrain_spatial(self._remat(fe, left, plain=plain), 1),
+        constrain_spatial(self._remat(fe, right, plain=plain), 1),
+        self.maxdisp // 4)
 
     cost0 = self.dres0[0](cost, relu=True, plain=plain)
     cost0 = self.dres0[2](cost0, relu=True, plain=plain)

@@ -31,6 +31,15 @@ K-major :class:`~mode_tpu_torch.ops.kmajor.TcWeight` of
 takes the ``(27, Cin, Cout)`` layout of :func:`pack_weight`, repacked per
 call.
 
+Under a spatial mesh (``parallel/shard_ops.py``) each call takes
+``h_halo=True``: ``x`` then holds this rank's rows of H with one halo plane
+above and below (its neighbours' rows, or zeros at the mesh's edges), H is
+not padded, and the output is this rank's rows of the unsharded call:
+``H - 2`` of them at stride 1, ``(H - 2) // 2`` at stride 2 (the rows
+starting on an even global row), ``2 (H - 2)`` for the deconv, which does
+not read the upper halo plane. The kernels take the halo as an H origin of
+one row; the plain versions pad D and W only.
+
 For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
 convs as autograd Functions whose forward and grad-input run these kernels
 (the JAX package's custom VJPs), and ``train_*_eligible`` are the JAX
@@ -61,7 +70,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _deconv3d_lib():
   lib = build.load("conv3d")
   lib.deconv3d_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 8 + [ctypes.c_void_p])
   lib.deconv3d_bn_act.restype = ctypes.c_int
   return lib
 
@@ -70,7 +79,7 @@ def _deconv3d_lib():
 def _conv3d_s1_lib():
   lib = build.load("conv3d_s1")
   lib.conv3d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
   lib.conv3d_s1_bn_act.restype = ctypes.c_int
   return lib
 
@@ -79,7 +88,7 @@ def _conv3d_s1_lib():
 def _conv3d_s2_lib():
   lib = build.load("conv3d_s2")
   lib.conv3d_s2_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
   lib.conv3d_s2_bn_act.restype = ctypes.c_int
   return lib
 
@@ -141,22 +150,39 @@ def _torch_weight(mode, weight):
       4, 3, 0, 1, 2)
 
 
-def _out_shape(mode: int, x_shape, cout: int) -> tuple[int, ...]:
+def _out_shape(mode: int, x_shape, cout: int,
+               h_halo: bool = False) -> tuple[int, ...]:
   b, d, h, w, _ = x_shape
+  if h_halo:
+    h -= 2
+    if h < 1 or (mode == _S2 and h % 2):
+      own = ("an even count of rows" if mode == _S2
+             else "at least one row")
+      raise ValueError(f"{_NAMES[mode]}: a haloed x holds two halo planes "
+                       f"and {own} of its own, got H {h + 2}")
   if mode == _S1:
     return (b, d, h, w, cout)
-  if mode == _S2:
+  if mode == _S2:   # (a haloed H is even: (H - 1) // 2 + 1 = H / 2)
     return (b, (d - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1, cout)
   return (b, 2 * d, 2 * h, 2 * w, cout)
 
 
-def _plain(mode, x, weight, scale, bias, residual, relu):
-  """The same function in plain PyTorch, in f32, cast to ``x.dtype``."""
+def _plain(mode, x, weight, scale, bias, residual, relu, h_halo=False):
+  """The same function in plain PyTorch, in f32, cast to ``x.dtype``; with
+  ``h_halo`` H padded by the halo planes instead of zeros."""
   xc = x.float().permute(0, 4, 1, 2, 3)
   weight = _torch_weight(mode, weight)
   if mode == _DECONV:
-    y = F.conv_transpose3d(xc, weight.float(), stride=2, padding=1,
+    # the transposed conv reads its own rows and the one below: drop the
+    # upper halo plane, and the two output rows of the lower one
+    src = xc[:, :, :, 1:] if h_halo else xc
+    y = F.conv_transpose3d(src, weight.float(), stride=2, padding=1,
                            output_padding=1)
+    if h_halo:
+      y = y[:, :, :, :-2]
+  elif h_halo:
+    y = F.conv3d(F.pad(xc, (1, 1, 0, 0, 1, 1)), weight.float(),
+                 stride=1 if mode == _S1 else 2)
   else:
     y = F.conv3d(xc, weight.float(), stride=1 if mode == _S1 else 2,
                  padding=1)
@@ -173,10 +199,11 @@ def _check_residual(name, x, residual, shape):
                      f"tensor of shape {shape}")
 
 
-def _launch(mode, x, weight, scale, bias, residual, relu):
+def _launch(mode, x, weight, scale, bias, residual, relu, h_halo=False):
   """The stride-1 conv on ``conv3d_s1.cu`` (the tensor-core kernel, or the
   head kernel for Cout 1), the stride-2 conv on ``conv3d_s2.cu``, the
-  deconv on ``conv3d.cu``."""
+  deconv on ``conv3d.cu``; each C entry takes x's extents and the halo
+  flag."""
   name = _NAMES[mode]
   if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f"{name}: x must be a contiguous f32 or bf16 NDHWC "
@@ -194,39 +221,41 @@ def _launch(mode, x, weight, scale, bias, residual, relu):
     raise ValueError(f"{name}: the Cout-1 head kernel takes Cin up to "
                      f"{72 if x.dtype == torch.float32 else 144} "
                      f"in {x.dtype}, got Cin {cin}")
-  shape = _out_shape(mode, x.shape, cout)
+  shape = _out_shape(mode, x.shape, cout, h_halo)
   _check_residual(name, x, residual, shape)
   out = torch.empty(shape, dtype=x.dtype, device=x.device)
   flag = int(x.dtype == torch.bfloat16)
   ptrs = (x.data_ptr(), wbig, wsmall, scale.data_ptr(), bias.data_ptr())
+  extents = (*x.shape[:4], cin, cout, int(relu), int(h_halo))
   if mode == _S2:
     kernels.launch(name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
-                   *ptrs, out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
+                   *ptrs, out.data_ptr(), *extents, halo=h_halo)
   else:
     fn = (_deconv3d_lib().deconv3d_bn_act if deconv
           else _conv3d_s1_lib().conv3d_s1_bn_act)
     kernels.launch(name, fn, x.device, flag, *ptrs,
                    None if residual is None else residual.data_ptr(),
-                   out.data_ptr(), *x.shape[:4], cin, cout, int(relu))
+                   out.data_ptr(), *extents, halo=h_halo)
   return out
 
 
-def _run(mode, x, weight, scale, bias, residual, relu, plain):
+def _run(mode, x, weight, scale, bias, residual, relu, plain, h_halo=False):
   cout = _torch_weight(mode, weight).shape[1 if mode == _DECONV else 0]
   scale, bias = affine(scale, bias, cout, x.device)
   if plain or x.device.type == "cpu":
-    return _plain(mode, x, weight, scale, bias, residual, relu)
+    _out_shape(mode, x.shape, cout, h_halo)      # the same refusals
+    return _plain(mode, x, weight, scale, bias, residual, relu, h_halo)
   if x.device.type != "cuda":
     raise ValueError(f"{_NAMES[mode]}: unsupported device {x.device}")
-  return _launch(mode, x, weight, scale, bias, residual, relu)
+  return _launch(mode, x, weight, scale, bias, residual, relu, h_halo)
 
 
 def conv3d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
                      scale: torch.Tensor | None = None,
                      bias: torch.Tensor | None = None,
                      residual: torch.Tensor | None = None,
-                     relu: bool = False, *, plain: bool = False
-                     ) -> torch.Tensor:
+                     relu: bool = False, *, h_halo: bool = False,
+                     plain: bool = False) -> torch.Tensor:
   """Stride-1 SAME 3x3x3 conv + affine (+ residual) (+ ReLU).
 
   Args:
@@ -237,40 +266,45 @@ def conv3d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
       Cout)``; same dtype as ``x``.
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(B, D, H, W, Cout)`` added before the ReLU.
+    h_halo: ``x`` carries a halo plane above and below its rows (module
+      docstring); the output and the residual then have ``H - 2`` rows.
     plain: run the plain PyTorch version even on a CUDA tensor.
   Returns:
     ``(B, D, H, W, Cout)`` in ``x.dtype``.
   """
-  return _run(_S1, x, weight, scale, bias, residual, relu, plain)
+  return _run(_S1, x, weight, scale, bias, residual, relu, plain, h_halo)
 
 
 def conv3d_s2_bn_act(x: torch.Tensor, weight: torch.Tensor,
                      scale: torch.Tensor | None = None,
                      bias: torch.Tensor | None = None,
-                     relu: bool = False, *, plain: bool = False
-                     ) -> torch.Tensor:
+                     relu: bool = False, *, h_halo: bool = False,
+                     plain: bool = False) -> torch.Tensor:
   """Stride-2 pad-1 3x3x3 conv + affine (+ ReLU): ``(B, D, H, W, Cin)`` ->
-  ``(B, ceil(D/2), ceil(H/2), ceil(W/2), Cout)``; arguments as for
+  ``(B, ceil(D/2), ceil(H/2), ceil(W/2), Cout)``, with ``h_halo`` ``(H -
+  2) / 2`` rows (``H - 2`` even); arguments as for
   :func:`conv3d_s1_bn_act` (the kernel's layout:
   ``pack_weight_tc(weight, stride=2)``)."""
-  return _run(_S2, x, weight, scale, bias, None, relu, plain)
+  return _run(_S2, x, weight, scale, bias, None, relu, plain, h_halo)
 
 
 def deconv3d_bn_act(x: torch.Tensor, weight: torch.Tensor,
                     scale: torch.Tensor | None = None,
                     bias: torch.Tensor | None = None,
                     residual: torch.Tensor | None = None,
-                    relu: bool = False, *, plain: bool = False
-                    ) -> torch.Tensor:
+                    relu: bool = False, *, h_halo: bool = False,
+                    plain: bool = False) -> torch.Tensor:
   """ConvTranspose3d(k3, s2, p1, output_padding 1) + affine (+ residual)
-  (+ ReLU): ``(B, D, H, W, Cin)`` -> ``(B, 2D, 2H, 2W, Cout)``.
+  (+ ReLU): ``(B, D, H, W, Cin)`` -> ``(B, 2D, 2H, 2W, Cout)``, with
+  ``h_halo`` ``2 (H - 2)`` rows.
 
   ``weight`` is the torch transpose-conv layout ``(Cin, Cout, 3, 3, 3)``,
   its ``pack_weight_tc(weight, transpose=True)`` layout (the kernel's) or
   its ``pack_weight(weight, transpose=True)`` layout; on the card Cin a
   multiple of 8. The other arguments are as for :func:`conv3d_s1_bn_act`.
   """
-  return _run(_DECONV, x, weight, scale, bias, residual, relu, plain)
+  return _run(_DECONV, x, weight, scale, bias, residual, relu, plain,
+              h_halo)
 
 
 # --- training ---------------------------------------------------------------

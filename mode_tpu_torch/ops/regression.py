@@ -8,7 +8,10 @@ it is built), which never forms the full-resolution probability volume. On
 a CPU tensor, or with ``plain=True``, it runs the plain PyTorch version: the
 align_corners trilinear upsample of ``ops/resize.py``, a softmax in f32,
 :func:`disparity_regression` and :func:`confidence_from_prob`, as
-``mode_tpu/models/disparity.py:288-311`` does.
+``mode_tpu/models/disparity.py:288-311`` does. With ``row0``/``h_out`` both
+compute output rows ``[row0, row0 + h_out)`` of the full-``h`` result, as
+the TPU kernel's row-window tables (``ys``/``mh_win``/``h_out``) do for a
+rank of the ``spatial`` axis (``parallel/shard_ops.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
-from mode_tpu_torch.ops.resize import linear_taps, upsample_trilinear
+from mode_tpu_torch.ops.resize import interpolate, linear_matrix, linear_taps
 
 _NAME = "fused_disparity_regression"
 
@@ -30,7 +33,7 @@ _NAME = "fused_disparity_regression"
 def _regression_lib():
   lib = build.load("regression")
   lib.fused_disparity_regression.argtypes = (
-      [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+      [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
       + [ctypes.c_void_p])
   lib.fused_disparity_regression.restype = ctypes.c_int
   return lib
@@ -76,45 +79,69 @@ def _tap_tables(d: int, hq: int, wq: int, maxdisp: int, h: int, w: int,
           torch.from_numpy(np.ascontiguousarray(wgt, np.float32)).to(device))
 
 
-def _plain(cost_q, maxdisp, h, w):
-  up = upsample_trilinear(cost_q.float()[..., None], maxdisp, h, w)[..., 0]
+def _upsample_rows(cost_q, maxdisp, h, w, row0, h_out):
+  """Rows ``[row0, row0 + h_out)`` of the align_corners trilinear upsample
+  of ``(N, D, Hq, Wq)`` to ``(N, maxdisp, h, w)``, in f32: the products of
+  ``ops/resize.py:upsample_trilinear`` (D, then H, then W), H through the
+  window's rows of its matrix."""
+  x = interpolate(cost_q.float(), {1: maxdisp})
+  hq = x.shape[2]
+  mat = torch.from_numpy(linear_matrix(h, hq)[row0:row0 + h_out]).to(
+      x.device)
+  xm = torch.movedim(x, 2, -1)
+  x = torch.movedim((xm.reshape(-1, hq) @ mat.T).reshape(*xm.shape[:-1],
+                                                         h_out), -1, 2)
+  return interpolate(x, {3: w})
+
+
+def _plain(cost_q, maxdisp, h, w, row0, h_out):
+  up = _upsample_rows(cost_q, maxdisp, h, w, row0, h_out)
   prob = torch.softmax(up, dim=1)
   pred = disparity_regression(prob, maxdisp)
   return pred, confidence_from_prob(prob, pred, maxdisp)
 
 
-def _launch(cost_q, maxdisp, h, w):
+def _launch(cost_q, maxdisp, h, w, row0=0, h_out=None):
   if (cost_q.dim() != 4 or cost_q.dtype not in (torch.float32, torch.bfloat16)
       or not cost_q.is_contiguous()):
     raise ValueError(f"{_NAME}: cost_q must be a contiguous f32 or bf16 "
                      f"(N, D, Hq, Wq) tensor, got {tuple(cost_q.shape)} "
                      f"{cost_q.dtype}")
   n, d, hq, wq = cost_q.shape
+  h_out = h if h_out is None else h_out
   idx, wgt = _tap_tables(d, hq, wq, maxdisp, h, w, cost_q.device)
-  pred = torch.empty((n, h, w), dtype=torch.float32, device=cost_q.device)
+  pred = torch.empty((n, h_out, w), dtype=torch.float32,
+                     device=cost_q.device)
   conf = torch.empty_like(pred)
   kernels.launch(
       _NAME, _regression_lib().fused_disparity_regression, cost_q.device,
       int(cost_q.dtype == torch.bfloat16), cost_q.data_ptr(), idx.data_ptr(),
       wgt.data_ptr(), pred.data_ptr(), conf.data_ptr(), n, d, hq, wq,
-      maxdisp, h, w)
+      maxdisp, h, w, row0, h_out, halo=h_out != h)
   return pred, conf
 
 
 def fused_disparity_regression(cost_q: torch.Tensor, maxdisp: int, h: int,
-                               w: int, *, plain: bool = False
+                               w: int, *, row0: int = 0,
+                               h_out: int | None = None, plain: bool = False
                                ) -> tuple[torch.Tensor, torch.Tensor]:
   """Upsample + softmax + soft-argmin + confidence.
 
   Args:
     cost_q: ``(N, D, Hq, Wq)`` quarter-resolution logits, f32 or bf16.
     maxdisp, h, w: the full-resolution sizes.
+    row0, h_out: the output rows ``[row0, row0 + h_out)`` of the full-``h``
+      result (``h_out`` None: to the last row).
     plain: run the plain PyTorch version even on a CUDA tensor.
   Returns:
-    ``(pred, conf)``, each ``(N, h, w)`` f32.
+    ``(pred, conf)``, each ``(N, h_out, w)`` f32.
   """
+  h_out = h - row0 if h_out is None else h_out
+  if row0 < 0 or h_out < 1 or row0 + h_out > h:
+    raise ValueError(f"{_NAME}: rows [{row0}, {row0 + h_out}) are not rows "
+                     f"of an output of {h}")
   if plain or cost_q.device.type == "cpu":
-    return _plain(cost_q, maxdisp, h, w)
+    return _plain(cost_q, maxdisp, h, w, row0, h_out)
   if cost_q.device.type != "cuda":
     raise ValueError(f"{_NAME}: unsupported device {cost_q.device}")
-  return _launch(cost_q, maxdisp, h, w)
+  return _launch(cost_q, maxdisp, h, w, row0, h_out)

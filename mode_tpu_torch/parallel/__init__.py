@@ -1,8 +1,11 @@
-"""Training on several cards (``mode_tpu/parallel/``): the ``data`` axis.
+"""Several cards (``mode_tpu/parallel/``): the ``data`` and ``spatial`` axes.
 
-``mesh.py`` makes the process group and the mesh, splits the global batch
-over the ranks, all-reduces the gradients and holds the active mesh that
-the BatchNorm layers and the losses read; ``launch.py`` starts one process
-per rank on one host, as ``torchrun`` does. The ``spatial`` axis (the cost
-volume's H over cards) is not ported yet (``ROADMAP.md``).
+``mesh.py`` makes the process group, the ``(data, spatial)`` mesh and its
+axes' process groups, splits the global batch over the data ranks and H
+over the spatial ranks, all-reduces the gradients and holds the active
+mesh that the BatchNorm layers, the losses and the 3-D layers read;
+``shard_ops.py`` runs the cost volume's kernels on a spatial rank's rows
+(halo exchanges, the regression head's row window), in eval; ``launch.py``
+starts one process per rank on one host, as ``torchrun`` does. Training
+under ``spatial > 1`` is not ported yet (``ROADMAP.md``).
 """

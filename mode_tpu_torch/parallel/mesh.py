@@ -1,9 +1,15 @@
-"""The device mesh of data-parallel training (``mode_tpu/parallel/mesh.py``).
+"""The device mesh (``mode_tpu/parallel/mesh.py``): ``data`` ranks along
+the batch, ``spatial`` ranks along the cost volume's H.
 
 The JAX package runs one program over a ``("data", "spatial")`` mesh of
 devices and lets XLA reduce over the sharded batch. The port runs one
-process per card (``torchrun --nproc_per_node W``), each on its own rows of
-the global batch, and makes every reduction over the batch explicit:
+process per card (``torchrun --nproc_per_node W``), rank ``r`` at mesh
+place ``(r // spatial, r % spatial)`` as ``mesh_utils.create_device_mesh``
+lays the JAX mesh out row-major, and makes every cross-rank step explicit.
+
+The ``data`` axis (training and serving): each data index holds its rows
+of the global batch, and every reduction over the batch runs over the data
+group of its spatial index:
 
 - the BatchNorm layers in training normalise with the global batch's
   statistics (``models/blocks.py:TorchBatchNorm``), as ``jnp.mean`` over a
@@ -18,9 +24,15 @@ global loss and starts its backward from it, so every rank's gradient comes
 out ``W`` times its share, and the average over ranks is the gradient of
 the global loss (exactly, for ``W`` a power of two).
 
-Only the ``data`` axis is ported; ``spatial > 1`` raises. A process that
-``torchrun`` did not start is a world of one with no process group, and
-the code paths are the single-card ones.
+The ``spatial`` axis (eval only): the ranks of one data index split the
+cost volume's H (:func:`row_sharding`, :func:`constrain_spatial`); each 3-D
+conv runs on its rows after a one-plane halo exchange with its neighbours
+(``parallel/shard_ops.py``), and :func:`gather_rows` assembles the rows
+over the spatial group. Training under ``spatial > 1`` is not ported
+(``SPATIAL_TRAINING_ITEM``).
+
+A process that ``torchrun`` did not start is a world of one with no process
+group, and the code paths are the single-card ones.
 """
 
 from __future__ import annotations
@@ -37,8 +49,8 @@ import torch.distributed as dist
 
 from mode_tpu_torch.device import resolve_device
 
-# where ROADMAP.md lists what the spatial axis needs
-SPATIAL_ITEM = "the spatial axis of M12 in ROADMAP.md"
+# where ROADMAP.md lists what training under a spatial mesh needs
+SPATIAL_TRAINING_ITEM = "training under --sp in ROADMAP.md"
 # How long a collective may wait for the other ranks. The trainers' rank 0
 # alone packs the fusion set before the first step and validates each
 # epoch while the others wait at a barrier: far longer than the backends'
@@ -88,14 +100,23 @@ def join_group(device: str | torch.device | None = None,
 
 @dataclasses.dataclass
 class Mesh:
-  """The ranks' mesh over the default process group: ``data`` ranks along
-  the batch, one along ``spatial``. ``rank`` is this process's place on
-  ``data`` and ``device`` its card. ``collectives`` counts the
-  all-reduces, broadcasts and all-gathers issued through it."""
+  """The ranks' ``(data, spatial)`` mesh over the default process group.
+  ``rank`` is this process's place on ``data`` (its rows of the batch),
+  ``spatial_rank`` its place on ``spatial`` (its rows of H), ``device``
+  its card. ``data_group`` is the process group of the ranks at this
+  spatial index, ``spatial_group`` that of the ranks at this data index;
+  None is the default group, which a group holding every rank is (the
+  spatial group is not used when ``spatial == 1``). Rank r sits at ``(r //
+  spatial, r % spatial)``, so data index 0 at this spatial index is global
+  rank ``spatial_rank``. ``collectives`` counts the all-reduces,
+  broadcasts and all-gathers issued through it."""
   data: int
   rank: int
   device: torch.device
   spatial: int = 1
+  spatial_rank: int = 0
+  data_group: Optional[dist.ProcessGroup] = None
+  spatial_group: Optional[dist.ProcessGroup] = None
   collectives: int = 0
 
   @property
@@ -103,35 +124,75 @@ class Mesh:
     return {"data": self.data, "spatial": self.spatial}
 
 
+def _axis_groups(data: int, spatial: int, world: int, mine: int):
+  """Make the process groups of both axes, every one on every rank in the
+  same order (``new_group`` must be called so): the spatial group of each
+  data index, then the data group of each spatial index. A group of the
+  whole world is the default group (None). Returns this rank's
+  ``(data_group, spatial_group)``."""
+  def group(ranks):
+    if len(ranks) == world:
+      return None
+    return dist.new_group(ranks, timeout=GROUP_TIMEOUT)
+
+  spatial_groups = [group([d * spatial + s for s in range(spatial)])
+                    for d in range(data)]
+  data_groups = [group([d * spatial + s for d in range(data)])
+                 for s in range(spatial)]
+  return data_groups[mine % spatial], spatial_groups[mine // spatial]
+
+
 def make_mesh(data: int | None = None, spatial: int = 1,
               device: str | torch.device | None = None) -> Mesh:
-  """The mesh of this process group: ``data=None`` means the world size,
-  any other value must equal it. ``device`` as
+  """The mesh of this process group: ``data * spatial`` must be the world
+  size (``data=None``: the world size over ``spatial``). ``device`` as
   ``device.resolve_device`` takes it (None: the current card, which
-  :func:`initialize_distributed` made ``cuda:LOCAL_RANK``)."""
-  if spatial != 1:
-    raise ValueError(f"--sp {spatial}: sharding the cost volume over cards "
-                     f"is not ported yet ({SPATIAL_ITEM}); use 1")
+  :func:`initialize_distributed` made ``cuda:LOCAL_RANK``). With
+  ``spatial > 1`` every rank must call it, in the same order as its other
+  group-making calls."""
   world = dist.get_world_size() if dist.is_initialized() else 1
-  if data is None:
-    data = world
-  if data != world:
+  if spatial < 1 or world % spatial:
     raise ValueError(
-        f"--dp {data}: the data axis must be the world size, {world}; start "
-        f"{data} processes (torchrun --nproc_per_node {data}) or leave it "
-        "out")
-  rank = dist.get_rank() if dist.is_initialized() else 0
-  return Mesh(data=data, rank=rank, device=resolve_device(device))
+        f"--sp {spatial}: the spatial axis must divide the world size, "
+        f"{world}")
+  if data is None:
+    data = world // spatial
+  if data * spatial != world:
+    what = (f"--dp {data}: the data axis must be the world size, {world}"
+            if spatial == 1 else
+            f"--dp {data} x --sp {spatial}: the mesh must hold the world "
+            f"size, {world}")
+    raise ValueError(
+        f"{what}; start {data * spatial} processes (torchrun "
+        f"--nproc_per_node {data * spatial}) or leave --dp out")
+  mine = dist.get_rank() if dist.is_initialized() else 0
+  groups = ((None, None) if spatial == 1
+            else _axis_groups(data, spatial, world, mine))
+  return Mesh(data=data, rank=mine // spatial, device=resolve_device(device),
+              spatial=spatial, spatial_rank=mine % spatial,
+              data_group=groups[0], spatial_group=groups[1])
 
 
 def batch_sharding(mesh: Mesh, batch: int) -> slice:
   """This rank's rows of a global batch of ``batch``: the contiguous block
-  ``[r B / W, (r + 1) B / W)``, as ``P("data")`` shards the leading axis."""
+  ``[r B / D, (r + 1) B / D)`` of its data index ``r``, as ``P("data")``
+  shards the leading axis."""
   if batch % mesh.data:
     raise ValueError(f"a global batch of {batch} does not split over "
                      f"{mesh.data} ranks")
   n = batch // mesh.data
   return slice(mesh.rank * n, (mesh.rank + 1) * n)
+
+
+def row_sharding(mesh: Mesh, n: int) -> slice:
+  """This rank's rows of an H axis of ``n``: ``[s n / S, (s + 1) n / S)``
+  of its spatial index ``s``, as ``P(..., "spatial", ...)`` shards it."""
+  if n % mesh.spatial:
+    raise ValueError(f"an H of {n} rows does not split over the "
+                     f"{mesh.spatial} ranks of the spatial axis (H % "
+                     f"{mesh.spatial} != 0)")
+  k = n // mesh.spatial
+  return slice(mesh.spatial_rank * k, (mesh.spatial_rank + 1) * k)
 
 
 def shard_batch(mesh: Optional[Mesh], tree):
@@ -146,15 +207,28 @@ def shard_batch(mesh: Optional[Mesh], tree):
   return tree[batch_sharding(mesh, tree.shape[0])]
 
 
+def _gather(local: torch.Tensor, n: int, group, mesh: Mesh) -> list:
+  parts = [torch.empty_like(local) for _ in range(n)]
+  dist.all_gather(parts, local.contiguous(), group=group)
+  mesh.collectives += 1
+  return parts
+
+
 def global_batch_from_local(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
-  """The global batch from every rank's rows, in rank order (an
-  all-gather; the local tensor itself at one rank)."""
+  """The global batch from every data index's rows, in order (an
+  all-gather over the data group; the local tensor itself at one)."""
   if mesh.data == 1:
     return local
-  parts = [torch.empty_like(local) for _ in range(mesh.data)]
-  dist.all_gather(parts, local.contiguous())
-  mesh.collectives += 1
-  return torch.cat(parts)
+  return torch.cat(_gather(local, mesh.data, mesh.data_group, mesh))
+
+
+def gather_rows(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+  """The spatial group's rows of ``t`` along ``axis``, in order (an
+  all-gather over the spatial group; ``t`` itself at one)."""
+  if mesh.spatial == 1:
+    return t
+  return torch.cat(_gather(t, mesh.spatial, mesh.spatial_group, mesh),
+                   dim=axis)
 
 
 @contextlib.contextmanager
@@ -178,10 +252,19 @@ def sharded(mesh: Optional[Mesh]) -> bool:
   return mesh is not None and mesh.data > 1
 
 
+def spatial_mesh() -> Optional[Mesh]:
+  """The active mesh if it splits H over more than one rank, else None."""
+  mesh = active_mesh()
+  return mesh if mesh is not None and mesh.spatial > 1 else None
+
+
 def constrain_spatial(x: torch.Tensor, h_axis: int) -> torch.Tensor:
-  """``x`` as it is: with ``spatial == 1`` nothing is sharded along H."""
-  del h_axis
-  return x
+  """This rank's rows of ``x`` along ``h_axis`` under an active mesh with
+  ``spatial > 1`` (:func:`row_sharding`); ``x`` as it is otherwise."""
+  mesh = spatial_mesh()
+  if mesh is None:
+    return x
+  return x[(slice(None),) * h_axis + (row_sharding(mesh, x.shape[h_axis]),)]
 
 
 class _AllSum(torch.autograd.Function):
@@ -191,7 +274,7 @@ class _AllSum(torch.autograd.Function):
   def forward(ctx, x, mesh):
     ctx.mesh = mesh
     x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=mesh.data_group)
     mesh.collectives += 1
     return x
 
@@ -208,16 +291,17 @@ def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def all_count(n: torch.Tensor, mesh: Mesh) -> torch.Tensor:
   """The sum of a count over the ranks, without a gradient."""
   n = n.detach().clone()
-  dist.all_reduce(n)
+  dist.all_reduce(n, group=mesh.data_group)
   mesh.collectives += 1
   return n
 
 
 def broadcast_state(module: torch.nn.Module, mesh: Mesh) -> None:
-  """Copy rank 0's parameters and buffers to every rank, in place."""
+  """Copy data index 0's parameters and buffers to every rank of the data
+  group, in place."""
   with torch.no_grad():
     for t in [*module.parameters(), *module.buffers()]:
-      dist.broadcast(t.data, src=0)
+      dist.broadcast(t.data, src=mesh.spatial_rank, group=mesh.data_group)
       mesh.collectives += 1
 
 
@@ -233,7 +317,7 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
     by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
   for grads in by_dtype.values():
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=mesh.data_group)
     mesh.collectives += 1
     flat.div_(mesh.data)
     offset = 0
@@ -243,13 +327,14 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
 
 
 def same_on_every_rank(tensors: Iterable[torch.Tensor], mesh: Mesh) -> bool:
-  """Whether every rank holds bit-equal ``tensors`` (rank 0's bytes,
-  broadcast, compared on each rank; then the verdicts all-reduced)."""
+  """Whether every rank of the data group holds bit-equal ``tensors`` (data
+  index 0's bytes, broadcast, compared on each rank; then the verdicts
+  all-reduced)."""
   flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
                     for t in tensors])
   ref = flat.clone()
-  dist.broadcast(ref, src=0)
+  dist.broadcast(ref, src=mesh.spatial_rank, group=mesh.data_group)
   bad = torch.tensor([float(not torch.equal(ref, flat))], device=flat.device)
-  dist.all_reduce(bad)
+  dist.all_reduce(bad, group=mesh.data_group)
   mesh.collectives += 2
   return float(bad) == 0.0

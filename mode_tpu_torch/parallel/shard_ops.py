@@ -1,0 +1,86 @@
+"""The cost-volume kernels over the ``spatial`` axis
+(``mode_tpu/parallel/shard_ops.py``), eval only.
+
+Each rank holds its rows of the volume's H (``mesh.row_sharding``). A
+3x3x3 conv of stride 1 or 2 reads one row beyond each end of its rows, and
+the k3 s2 p1 op1 transpose conv one row beyond the last: :func:`halo_concat`
+brings those planes from the neighbours (zeros at the mesh's edges, the
+convs' zero padding), and the kernel runs on the haloed rows with
+``h_halo=True`` (``ops/conv3d.py``). The regression head
+(:func:`regression_sharded`) gathers the quarter-resolution logits, which
+are small, and expands only this rank's output rows.
+
+Every function here takes its arguments as the op it wraps takes them and
+counts its collectives on ``mesh.collectives``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from mode_tpu_torch.ops import conv3d, regression
+from mode_tpu_torch.parallel.mesh import Mesh, gather_rows, row_sharding
+
+H_AXIS = 2          # the H axis of an NDHWC volume
+
+
+def halo_concat(x: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+  """``x`` with the previous rank's last plane along ``axis`` before it and
+  the next rank's first plane after it (zeros at the spatial group's ends):
+  one all-gather of every rank's (first, last) planes over the spatial
+  group, from which each rank takes its neighbours'."""
+  n = x.shape[axis]
+  ends = torch.stack([x.select(axis, 0), x.select(axis, n - 1)]).contiguous()
+  parts = [torch.empty_like(ends) for _ in range(mesh.spatial)]
+  dist.all_gather(parts, ends, group=mesh.spatial_group)
+  mesh.collectives += 1
+  s = mesh.spatial_rank
+  zero = torch.zeros_like(ends[0])
+  above = parts[s - 1][1] if s > 0 else zero
+  below = parts[s + 1][0] if s + 1 < mesh.spatial else zero
+  return torch.cat([above.unsqueeze(axis), x, below.unsqueeze(axis)],
+                   dim=axis)
+
+
+def conv3d_s1_sharded(x, weight, scale=None, bias=None, residual=None,
+                      relu=False, *, mesh: Mesh, plain: bool = False):
+  """``conv3d.conv3d_s1_bn_act`` on this rank's rows (the Cout-1 head
+  included)."""
+  return conv3d.conv3d_s1_bn_act(halo_concat(x, H_AXIS, mesh), weight, scale,
+                                 bias, residual, relu, h_halo=True,
+                                 plain=plain)
+
+
+def conv3d_s2_sharded(x, weight, scale=None, bias=None, relu=False, *,
+                      mesh: Mesh, plain: bool = False):
+  """``conv3d.conv3d_s2_bn_act`` on this rank's rows, which must start on
+  an even global row: an even count of them on every rank, i.e. the whole
+  H a multiple of 2 * spatial."""
+  if x.shape[H_AXIS] % 2:
+    raise ValueError(
+        f"the stride-2 conv under a spatial mesh needs H % (2 x spatial) "
+        f"== 0: H {x.shape[H_AXIS] * mesh.spatial} over {mesh.spatial} "
+        "ranks")
+  return conv3d.conv3d_s2_bn_act(halo_concat(x, H_AXIS, mesh), weight, scale,
+                                 bias, relu, h_halo=True, plain=plain)
+
+
+def deconv3d_sharded(x, weight, scale=None, bias=None, residual=None,
+                     relu=False, *, mesh: Mesh, plain: bool = False):
+  """``conv3d.deconv3d_bn_act`` on this rank's rows: twice as many output
+  rows, the upper halo plane unread."""
+  return conv3d.deconv3d_bn_act(halo_concat(x, H_AXIS, mesh), weight, scale,
+                                bias, residual, relu, h_halo=True,
+                                plain=plain)
+
+
+def regression_sharded(cost_q: torch.Tensor, maxdisp: int, h: int, w: int, *,
+                       mesh: Mesh, plain: bool = False):
+  """``regression.fused_disparity_regression`` for this rank's output rows
+  of the full ``h``: the spatial group's rows of the quarter-resolution
+  ``cost_q`` (N, D, Hq / S, Wq) gathered, then the row window."""
+  rows = row_sharding(mesh, h)
+  return regression.fused_disparity_regression(
+      gather_rows(cost_q, 2, mesh), maxdisp, h, w, row0=rows.start,
+      h_out=rows.stop - rows.start, plain=plain)

@@ -295,7 +295,7 @@ def test_head_kernel_refuses_a_cin_past_shared_memory(gen):
     err = C._conv3d_s1_lib().conv3d_s1_bn_act(
         int(dtype == torch.bfloat16), x.data_ptr(), tw.parts[0].data_ptr(),
         None, one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(),
-        1, 3, 4, 5, past, 1, 0, torch.cuda.current_stream().cuda_stream)
+        1, 3, 4, 5, past, 1, 0, 0, torch.cuda.current_stream().cuda_stream)
     assert err == 1                                    # cudaErrorInvalidValue
   torch.cuda.synchronize()
 
@@ -376,7 +376,7 @@ def test_deconv_entry_refuses_a_cin_off_its_copies(gen):
   err = C._deconv3d_lib().deconv3d_bn_act(
       0, x.data_ptr(), tw.parts[0].data_ptr(), tw.parts[1].data_ptr(),
       one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(), 1, 2, 3,
-      4, 12, 8, 0, torch.cuda.current_stream().cuda_stream)
+      4, 12, 8, 0, 0, torch.cuda.current_stream().cuda_stream)
   torch.cuda.synchronize()
   assert err == 1                                      # cudaErrorInvalidValue
   assert bool((out == 7.0).all())                      # nothing launched
@@ -1024,3 +1024,67 @@ def test_trainers_take_a_step_on_the_card(gen, tmp_path):
   saved = torch.load(str(tmp_path / "fusion" / "ModeFusion" / "Deep360" /
                          "ckpt_fusion_epoch0.tar"), weights_only=True)
   ModeFusion(device="cuda").load_state_dict(saved["state_dict"], strict=True)
+
+
+# --- the spatial axis: the halo forms and the row window ----------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fn,x_shape,cout,res,relu", [
+    # a rank's rows of a 1024x512 pair at spatial 2, with its two halo rows
+    (C.conv3d_s1_bn_act, (1, 48, 130, 128, 64), 32, False, True),   # dres0.0
+    (C.conv3d_s1_bn_act, (1, 48, 130, 128, 32), 32, True, False),   # dres1.2
+    (C.conv3d_s1_bn_act, (1, 48, 130, 128, 32), 1, False, False),   # head
+    (C.conv3d_s1_bn_act, (1, 6, 18, 16, 64), 64, False, True),      # K6
+    (C.conv3d_s2_bn_act, (1, 48, 130, 128, 32), 64, False, True),   # conv1
+    (C.conv3d_s2_bn_act, (1, 24, 66, 64, 64), 64, False, True),     # conv3
+    (C.deconv3d_bn_act, (1, 6, 18, 16, 64), 64, True, True),        # K7
+    (C.deconv3d_bn_act, (1, 12, 34, 32, 64), 32, False, False),     # conv6
+    # spatial 4, and a ragged shard
+    (C.conv3d_s1_bn_act, (1, 48, 66, 128, 32), 32, False, True),
+    (C.conv3d_s2_bn_act, (2, 5, 8, 7, 24), 40, False, True),
+    (C.deconv3d_bn_act, (2, 3, 5, 5, 16), 24, True, False),
+])
+def test_halo_kernel_matches_plain(gen, fn, x_shape, cout, res, relu, dtype):
+  """Each kernel's halo form (``h_halo=True``) against its plain halo
+  version on the same haloed rows: one launch, counted as haloed."""
+  cin = x_shape[-1]
+  deconv = fn is C.deconv3d_bn_act
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cin, cout, 3, 3, 3) if deconv else (cout, cin, 3, 3, 3),
+                   generator=gen, device="cuda")
+       * (2.0 / (27 * cout)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  kw = {"relu": relu, "h_halo": True}
+  rows = x_shape[2] - 2
+  if res:
+    shape = ((x_shape[0], 2 * x_shape[1], 2 * rows, 2 * x_shape[3], cout)
+             if deconv else (*x_shape[:2], rows, x_shape[3], cout))
+    kw["residual"] = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+  kernels.reset_launches()
+  got = fn(x, w, scale, bias, **kw)
+  want = fn(x, w, scale, bias, plain=True, **kw)
+  torch.cuda.synchronize()
+  assert sum(kernels.LAUNCHES.values()) == 1
+  assert sum(kernels.HALO_LAUNCHES.values()) == 1
+  assert got.dtype == dtype and got.shape == want.shape
+  _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("row0,h_out", [(512, 512), (0, 256), (768, 256),
+                                        (5, 17)])
+def test_regression_window_matches_plain(gen, row0, h_out, dtype):
+  """K2's row window at the 1024x512 shapes: rank 1 of 2, ranks 0 and 3
+  of 4, and a ragged window; the plain window computes the same rows."""
+  cost = (torch.randn((1, 48, 256, 128), generator=gen, device="cuda")
+          * 2.0).to(dtype)
+  pred, conf = R.fused_disparity_regression(cost, 192, 1024, 512, row0=row0,
+                                            h_out=h_out)
+  ref_pred, ref_conf = R.fused_disparity_regression(
+      cost, 192, 1024, 512, row0=row0, h_out=h_out, plain=True)
+  torch.cuda.synchronize()
+  assert pred.shape == (1, h_out, 512)
+  _close(pred, ref_pred, torch.float32)
+  tie = (ref_pred - ref_pred.floor() - 0.5).abs() < 1e-3
+  _close(conf[~tie], ref_conf[~tie], torch.float32)

@@ -96,6 +96,7 @@ class _Guard:
   def __init__(self):
     self.current = None
     self.calls = []
+    self.entry_args = []
 
   @contextlib.contextmanager
   def device(self, d):
@@ -112,6 +113,7 @@ class _Guard:
   def entry(self, name, err=0):
     def fn(*args):
       self.calls.append((name, self.current, args[-1]))
+      self.entry_args.append(args)
       return err
     return fn
 
@@ -336,3 +338,38 @@ def test_deconv_entry_refusal_raises_and_is_not_counted(guard, monkeypatch):
   with pytest.raises(RuntimeError, match="deconv3d_bn_act: .*CUDA error 1"):
     _launches(guard)["deconv3d_bn_act"]()
   assert not kernels.LAUNCHES
+
+
+# --- 5. the halo forms and the row window -------------------------------------
+
+@pytest.mark.parametrize("name,mode,x_shape,out_shape", [
+    ("conv3d_s1_bn_act", C._S1, (1, 2, 6, 4, 16), (1, 2, 4, 4, 16)),
+    ("conv3d_s2_bn_act", C._S2, (1, 2, 6, 4, 16), (1, 1, 2, 2, 16)),
+    ("deconv3d_bn_act", C._DECONV, (1, 2, 6, 4, 16), (1, 4, 8, 8, 16))])
+def test_halo_launches_pass_the_flag_and_count_apart(guard, name, mode,
+                                                     x_shape, out_shape):
+  """``h_halo`` reaches the C entry as its last int beside x's own extents,
+  the output has the halo form's rows, and the launch counts under its
+  kernel's key and again as haloed; a call without it counts once."""
+  one = torch.ones(16)
+  x, w = torch.randn(x_shape), torch.randn((16, 16, 3, 3, 3))
+  for halo in (True, False):
+    out = C._launch(mode, x, w, one, 0 * one, None, False, halo)
+    assert guard.calls[-1][0] == name
+    assert guard.entry_args[-1][-9:-1] == (*x_shape[:4], 16, 16, 0,
+                                           int(halo))
+    if halo:
+      assert tuple(out.shape) == out_shape
+  assert dict(kernels.LAUNCHES) == {name: 2}
+  assert dict(kernels.HALO_LAUNCHES) == {name: 1}
+
+
+def test_regression_window_reaches_the_entry(guard):
+  """``row0`` and ``h_out`` are the C entry's last two ints; the output
+  has ``h_out`` rows, and a window short of the whole output counts as
+  haloed."""
+  cost = torch.randn((1, 4, 8, 4))
+  pred, _ = R._launch(cost, 16, 32, 16, 8, 16)
+  assert pred.shape == (1, 16, 16)
+  assert guard.entry_args[-1][-3:-1] == (8, 16)
+  assert dict(kernels.HALO_LAUNCHES) == {"fused_disparity_regression": 1}

@@ -356,8 +356,10 @@ def test_losses_are_global_masked_means(units):
 
 def test_shard_batch_takes_the_p_data_rows(units):
   """Rank r's rows are the shard of ``P("data")`` on the mesh's r-th
-  device; the mesh refuses a data axis off the world size, a spatial axis
-  and a batch that does not split."""
+  device; the mesh refuses a data axis off the world size, a ``data x
+  spatial`` mesh off it and a batch that does not split. (Until the
+  spatial axis was ported, ``spatial=2`` was refused too.) ``spatial=2``
+  at ``data=1`` puts rank r at spatial place r with the whole batch."""
   inputs, outs = units
   (rows,) = inputs["mesh"]
   outs = [out["mesh"] for out in outs]
@@ -371,11 +373,15 @@ def test_shard_batch_takes_the_p_data_rows(units):
                                   shards[mesh.devices[r, 0]])
     np.testing.assert_array_equal(out["gathered"], rows)
     refused = out["refused"]
-    assert set(refused) == {"data_off_world", "data_3", "spatial_2",
+    assert set(refused) == {"data_off_world", "data_3", "mesh_off_world",
                             "batch_3"}
     assert "world size, 2" in refused["data_off_world"]
-    assert "spatial axis" in refused["spatial_2"]
+    assert "must hold the world size, 2" in refused["mesh_off_world"]
     assert "does not split" in refused["batch_3"]
+    shape, data_rank, spatial_rank, batch = out["spatial_mesh"]
+    assert shape == {"data": 1, "spatial": WORLD}
+    assert (data_rank, spatial_rank) == (0, r)
+    np.testing.assert_array_equal(batch, rows)
 
 
 def test_chip_smoke_expects_the_rank_launches(monkeypatch):

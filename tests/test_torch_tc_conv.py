@@ -14,7 +14,9 @@ kernels themselves on the card (``tests/test_torch_cuda.py``,
    (at stride 1 and 2), the zero-fill predicate, the swizzled address each
    chunk lands at and the address wgmma's descriptor (or the f32 A
    fragment) reads back, and the accumulator fragment's rows and columns in
-   the epilogue rebuild the plain conv exactly at ragged shapes.
+   the epilogue rebuild the plain conv exactly at ragged shapes; at an H
+   origin of one row (the HALO instantiations) each spatial shard's haloed
+   rows rebuild its rows of the conv of the whole volume.
 3. The sphere conv's walk: each row's four corner copies from the shift
    tables (zero-filled at the seam, on the drop lane, past Cin and past M),
    its corner weights copied beside them, each thread's blend of its
@@ -222,7 +224,8 @@ def _deconv_tap_at(t):
   return (b >> 7, b >> 6 & 1, b >> 5 & 1), b & 31
 
 
-def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1, deconv=False):
+def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1, deconv=False,
+               h0=0):
   """The kernel's walk over one call, in f64: the copies of each stage
   into shared memory, the reads of A (f32: each thread's tf32 fragment;
   bf16: the descriptor) and B (the descriptor), the products, and the
@@ -232,13 +235,16 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1, deconv=False):
   over ``stride``, rounded up. With ``deconv`` the walk of the transposed
   conv (S = DECONV): M the input grid, the taps of ``_deconv_tap``, and
   after each phase's last stage the epilogue into that phase's output
-  voxels, returned as (N * 2D * 2H * 2W, Cout) rows."""
+  voxels, returned as (N * 2D * 2H * 2W, Cout) rows. ``h0`` is the H
+  origin (``tc::Shape``'s): 1 for a haloed x, whose H then has two rows
+  more than the output grid (the M grid, for the deconv) takes."""
   cfg = CFG[dtype]
   esize, rb = cfg["esize"], cfg["rb"]
   ch, cpr = 16 // esize, rb // 16          # channels per chunk, chunks/row
   nt = 2 * bm
   n, d, h, w, cin = x.shape
-  do, ho, wo = (d, h, w) if deconv else (-(-e // stride) for e in (d, h, w))
+  do, ho, wo = ((d, h - 2 * h0, w) if deconv else
+                (-(-e // stride) for e in (d, h - 2 * h0, w)))
   cout = wk.shape[1]
   mtot = n * do * ho * wo
   if deconv:
@@ -305,9 +311,14 @@ def _walk_conv(x, wk, kd, dil, dtype, bm, bn, stride=1, deconv=False):
             bb, rem = divmod(m, do * ho * wo)
             z, rem = divmod(rem, ho * wo)
             y, xx = divmod(rem, wo)
-            # the input voxel the centre tap reads
-            z, y, xx = stride * z, stride * y, stride * xx
-            base = ((bb * d + z) * h + y) * w + xx
+            if stride == 2:
+              # the input voxel the centre tap reads
+              z, y, xx = 2 * z, 2 * y + h0, 2 * xx
+              base = ((bb * d + z) * h + y) * w + xx
+            else:
+              # the grid's index plus the halo rows of the planes up to it
+              base = m + (2 * (bb * do + z) + 1) * h0 * w
+              y += h0
             ok = (m < mtot and c0 < cin and 0 <= z + od < d
                   and 0 <= y + oh < h and 0 <= xx + ow < w)
             src = ((base + (od * h + oh) * w + ow) * cin + c0) if ok else None
@@ -416,6 +427,56 @@ def test_stride2_walk_rebuilds_the_conv(x_shape, cout, bm, dtype):
   assert np.allclose(plain.reshape(-1, cout).numpy(), want, atol=1e-3)
 
 
+def _haloed(x, r0, r1):
+  """Rows [r0, r1) of x's H with a halo row either side, zeros past the
+  ends, as ``parallel/shard_ops.py:halo_concat`` hands them over."""
+  return np.pad(x, ((0, 0), (0, 0), (1, 1), (0, 0), (0, 0)))[:, :, r0:r1 + 2]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode,x_shape,cout,bm,split", [
+    ("s1", (1, 2, 8, 5, 16), 24, 64, 2),     # Cin < a stage
+    ("s1", (2, 1, 6, 3, 40), 72, 128, 3),    # Cin 32 + 8, N tile 128
+    ("s2", (1, 3, 8, 5, 16), 24, 64, 2),     # odd D and W
+    ("s2", (2, 2, 12, 4, 40), 8, 128, 3),    # two rows a shard
+    ("deconv", (1, 2, 6, 5, 16), 24, 64, 3),
+    ("deconv", (2, 1, 4, 3, 40), 72, 128, 2),
+])
+def test_halo_walk_rebuilds_the_rows_of_the_conv(mode, x_shape, cout, bm,
+                                                 split, dtype):
+  """The walk at H origin 1 (conv3d_s1.cu, conv3d_s2.cu, conv3d.cu with
+  h_halo): each shard of a ``split``-way split of H, with its halo rows,
+  rebuilds its rows of the conv of the whole volume exactly on
+  integer-valued inputs: at stride 1 and for the deconv's M grid the
+  shard's rows, at stride 2 half of them; every output written once."""
+  rng = np.random.default_rng(7)
+  cin = x_shape[-1]
+  x = rng.integers(-4, 5, x_shape).astype(np.float64)
+  bn = _tile(1, cout)[1]
+  if mode == "deconv":
+    wt = rng.integers(-4, 5, (cin, cout, 3, 3, 3)).astype(np.float64)
+    wk = wt.transpose(2, 3, 4, 1, 0).reshape(27, cout, cin)
+    whole = _deconv_im2col(x, wt)
+  else:
+    stride = 2 if mode == "s2" else 1
+    wk = rng.integers(-4, 5, (27, cout, cin)).astype(np.float64)
+    whole = _im2col(x, _taps(3, 1), stride) @ wk.transpose(0, 2, 1).reshape(
+        -1, cout)
+  n, d, h, w = x_shape[:4]
+  out_h = {"s1": h, "s2": h // 2, "deconv": 2 * h}[mode]
+  out_d, out_w = {"s1": (d, w), "s2": (-(-d // 2), -(-w // 2)),
+                  "deconv": (2 * d, 2 * w)}[mode]
+  whole = whole.reshape(n, out_d, out_h, out_w, cout)
+  rows, per = h // split, out_h // split
+  for s in range(split):
+    got = _walk_conv(_haloed(x, s * rows, (s + 1) * rows), wk, 3, 1, dtype,
+                     bm, bn, stride=2 if mode == "s2" else 1,
+                     deconv=mode == "deconv", h0=1)
+    want = whole[:, :, s * per:(s + 1) * per].reshape(-1, cout)
+    assert not np.isnan(got).any()
+    assert np.array_equal(got, want)
+
+
 def test_deconv_taps_cover_the_kernel_once():
   """The 27 taps of the deconv's walk: phase p's (1 + pd)(1 + ph)(1 + pw)
   in a row, ending at taps 0, 2, 4, 8, 10, 14, 18, 26; every weight tap
@@ -498,11 +559,29 @@ def test_head_plane_walk_rebuilds_the_conv():
   the volume) adds its kd = 2, 1, 0 taps to output planes p - 1, p, p + 1,
   and output plane p - 1 is complete and stored after plane p, over a
   block's planes [z0, z1)."""
+  _head_plane_walk(0)
+
+
+def test_head_plane_walk_rebuilds_a_shards_rows():
+  """The same walk at H origin 1: x is a shard's rows with their halo
+  rows, and the output is that shard's rows of the whole conv."""
+  _head_plane_walk(1)
+
+
+def _head_plane_walk(h0):
+  """The head kernel's walk, a plane's rows those of ``load_plane``:
+  output row y reads x's row y - 1 + h0 + kh of hi = h + 2 h0 (zero
+  outside x)."""
   rng = np.random.default_rng(3)
   d, h, w, cin, hz = 5, 3, 4, 8, 2
-  x = rng.integers(-4, 5, (1, d, h, w, cin)).astype(np.float64)
+  whole_x = rng.integers(-4, 5, (1, d, 3 * h, w, cin)).astype(np.float64)
+  x = _haloed(whole_x, h, 2 * h) if h0 else whole_x[:, :, :h]
   wt = rng.integers(-4, 5, (27, cin)).astype(np.float64)
-  xp = np.pad(x[0], ((0, 0), (1, 1), (1, 1), (0, 0)))
+  hi = h + 2 * h0
+  rows = np.arange(-1 + h0, h + 1 + h0)        # the rows a plane stages
+  inside = (rows >= 0) & (rows < hi)
+  xp = np.zeros((d, h + 2, w + 2, cin))
+  xp[:, inside, 1:-1] = x[0][:, rows[inside]]
   out = np.full((d, h, w), np.nan)
   for z0 in range(0, d, hz):
     z1 = min(z0 + hz, d)
@@ -516,7 +595,11 @@ def test_head_plane_walk_rebuilds_the_conv():
       if p - 1 >= z0:
         out[p - 1] = acc[0]
       acc = [acc[1], acc[2], np.zeros((h, w))]
-  want = (_im2col(x, _taps(3, 1)) @ wt.reshape(-1)).reshape(d, h, w)
+  if h0:
+    want = (_im2col(whole_x, _taps(3, 1)) @ wt.reshape(-1)).reshape(
+        d, 3 * h, w)[:, h:2 * h]
+  else:
+    want = (_im2col(x, _taps(3, 1)) @ wt.reshape(-1)).reshape(d, h, w)
   assert np.array_equal(out, want)
 
 

@@ -472,10 +472,12 @@ TRAINERS = {"train_disparity": ttrain_disp, "train_fusion": ttrain_fusion}
     ("train_fusion", ["--dp", "8"])])
 def test_more_than_one_card_is_refused(setup, tmp_path, name, flag):
   """In one process (a world of one), ``--dp`` other than 1 is not the
-  world size and ``--sp`` above 1 is the unported spatial axis: both
-  refused before anything is written. (Until the data axis was ported,
-  both were refused as training on more than one card.)"""
-  match = ("spatial axis of M12 in ROADMAP.md" if flag[0] == "--sp"
+  world size and ``--sp`` above 1 is training under the spatial axis,
+  which is not ported (the axis serves in eval only): both refused before
+  anything is written. (Until the data axis was ported, both were refused
+  as training on more than one card; until the spatial axis served, ``--sp``
+  was refused as the unported axis.)"""
+  match = ("training under --sp in ROADMAP.md" if flag[0] == "--sp"
            else "the data axis must be the world size, 1")
   with pytest.raises(ValueError, match=match):
     TRAINERS[name].main(_argv(name, setup, str(tmp_path)) + flag

@@ -108,20 +108,25 @@ def global_losses(pred: np.ndarray, gt: np.ndarray, mask: np.ndarray,
 
 
 def mesh_checks(rows: np.ndarray) -> dict:
-  """This rank's shard of ``rows``, and which mesh requests raise."""
+  """This rank's shard of ``rows``, which mesh requests raise, and the
+  place of this rank on a ``(1, 2)`` mesh."""
   mesh = pmesh.make_mesh(device=CPU)
   refused = {}
   for label, kw in (("data_off_world", {"data": 1}),
-                    ("data_3", {"data": 3}), ("spatial_2", {"spatial": 2})):
+                    ("data_3", {"data": 3}),
+                    ("mesh_off_world", {"data": 2, "spatial": 2})):
     try:
       pmesh.make_mesh(device=CPU, **kw)
     except ValueError as e:
       refused[label] = str(e)
+  spatial = pmesh.make_mesh(spatial=2, device=CPU)
   try:
     pmesh.shard_batch(mesh, rows[:3])
   except ValueError as e:
     refused["batch_3"] = str(e)
   return {"shape": mesh.shape, "rank": mesh.rank,
+          "spatial_mesh": (spatial.shape, spatial.rank, spatial.spatial_rank,
+                           pmesh.shard_batch(spatial, rows)),
           "rows": pmesh.shard_batch(mesh, rows), "refused": refused,
           "gathered": pmesh.global_batch_from_local(
               mesh, torch.from_numpy(pmesh.shard_batch(mesh, rows)))}
