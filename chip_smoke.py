@@ -103,7 +103,20 @@
    gather); the maps gathered from both ranks must match the one-process
    kernel path in f32 (``PRED_MAE``, ``PRED_MAX``, ``CONF_MAE``) and the
    bf16 maps the f32 ones within ``BF16_DISP_MAE``; rank 0's ms a call (the
-   two ranks share the card) and a profiled call's all-gather time.
+   two ranks share the card) and a profiled call's all-gather time; then
+   the ERP model on its rows of one 512x1024 pair, f32, held the same way
+   (``PATHS["erp_b1"]``'s launches). Then ``sp_frame_gloo_2``: the two ranks
+   serve the whole frame (the ``frame`` phase's inputs, the trained mid
+   weights and its calibrated fusion net) on the same mesh, f32 and bf16:
+   stage 1 on each rank's rows, the disparities and confidences gathered,
+   the bridge whole on each rank, the fusion net on each rank's rows (its
+   ``FUSION_K8`` kernel convs on K8's halo form, depth_layer4's two on
+   cuDNN over the haloed rows), the fused map gathered. Each rank's
+   launches a frame must be one process's (``FRAME_JAX``), the halo forms
+   ``SP_FRAME_HALO``, with ``SP_FRAME_COLLECTIVES`` collectives a frame;
+   the f32 frame must hold the one-process ``frame`` (stage 1 at the served
+   bars, the fused depths at ``FUSED_MAE``/``FUSED_MAX``) and the bf16
+   disparities the f32 ones within ``BF16_DISP_MAE``.
 5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
    tree of 1024x512 PNGs in a temporary directory (one episode; four frames
    in training, one in validation, two in testing; each frame the frame
@@ -171,7 +184,10 @@
    for spatial 2 (``sp_gloo_2``'s, which the ranks recorded) and 4, with
    its halo rows (``h_halo``), against its plain halo version, beside
    cuDNN on the same rows and on the whole volume; and K2's row window
-   for rank 1 of 2 and of 4.
+   for rank 1 of 2 and of 4; and K8's halo form at each fusion-net shape of
+   the frame (``sp_frame_gloo_2``'s, which the ranks recorded) and at the
+   Sphere stem's shape, for spatial 2 and 4, beside the kernel and cuDNN
+   on the whole map and cuDNN on the same haloed rows.
 8. Full-resolution anchor: the trained reference weights
    (``tests/data/trained_mirror_mid.npz``) on the inputs of
    ``tests/data/fullres_torch_frame.npz``, regenerated from its seed, held
@@ -508,9 +524,10 @@ def _bound(ops_n, nbytes, dtype, pipe_ops=0, sfu_ops=0):
 def _conv_case(case, dtype, gen):
   """Compare and time one recorded conv shape; returns the row it prints.
   The kernel gets its weight packed once, as the model's layers keep it.
-  A 3-D case with a seventh entry (the spatial size) is a halo case: ``xs``
-  a rank's haloed rows, the kernel's halo form against its plain halo
-  version, the library call the same function on the same rows."""
+  A 3-D or 2-D case with a seventh entry (the spatial size) is a halo
+  case: ``xs`` a rank's haloed rows, the kernel's halo form against its
+  plain halo version, the library call the same function on the same
+  rows."""
   from mode_tpu_torch.ops import conv2d, conv3d, sphere_conv
   name, xs, cout, res, relu, dil = case[:6]
   halo = len(case) > 6
@@ -528,7 +545,9 @@ def _conv_case(case, dtype, gen):
        * (2.0 / (taps * cout)) ** 0.5).to(dtype)
   scale = torch.rand(cout, generator=gen, device=dev) * 0.4 + 0.8
   bias = torch.randn(cout, generator=gen, device=dev) * 0.1
-  grid = (*xs[:2], xs[2] - 2, xs[3]) if halo else xs[:-1]  # its own rows
+  hx = 1 if len(xs) == 4 else 2                           # the H axis
+  grid = ((*xs[:hx], xs[hx] - 2, *xs[hx + 1:-1]) if halo  # its own rows
+          else xs[:-1])
   if name == "conv3d_s2_bn_act":
     oshape = (xs[0], *[(n - 1) // 2 + 1 for n in grid[1:4]], cout)
   elif deconv:
@@ -567,8 +586,9 @@ def _conv_case(case, dtype, gen):
   if name == "conv2d_s1_bn_act":
     x_cl = x.permute(0, 3, 1, 2)          # channels-last view for cuDNN
     w_cl = w.contiguous(memory_format=torch.channels_last)
+    pad = (0, 1) if halo else dil          # (haloed: W alone padded)
     def lib():
-      return F.conv2d(x_cl, w_cl, padding=dil, dilation=dil)
+      return F.conv2d(x_cl, w_cl, padding=pad, dilation=dil)
   elif not two_d:
     x_cl = x.permute(0, 4, 1, 2, 3)       # channels-last 3-D view
     w_cl = w.contiguous(memory_format=torch.channels_last_3d)
@@ -926,8 +946,9 @@ def _recorded_launches(tag: str = "step"):
           residual is not None, bool(relu), 1), x)
     return out
 
-  def conv2d_launch(x, weight, scale, bias, residual, relu, dilation):
-    out = orig[1](x, weight, scale, bias, residual, relu, dilation)
+  def conv2d_launch(x, weight, scale, bias, residual, relu, dilation,
+                    h_halo=False):
+    out = orig[1](x, weight, scale, bias, residual, relu, dilation, h_halo)
     note(("conv2d_s1_bn_act", tuple(x.shape), out.shape[-1],
           residual is not None, bool(relu), dilation), x)
     return out
@@ -1887,7 +1908,11 @@ HALO_KERNELS = {
     "conv3d_s2_bn_act": (f"{CONV_PY}:484", f"{SHARD_PY}:87"),
     "deconv3d_bn_act": (f"{CONV_PY}:681", f"{SHARD_PY}:117"),
     "fused_disparity_regression": (
-        "mode_tpu/ops/pallas/regression_kernel.py:107", f"{SHARD_PY}:238")}
+        "mode_tpu/ops/pallas/regression_kernel.py:107", f"{SHARD_PY}:238"),
+    "conv2d_s1_bn_act": (f"{CONV2D_PY}:168", f"{SHARD_PY}:151")}
+# the phase whose rank's calls a halo form's kernels-line entry counts
+# (sp_gloo_2 unless named): K8's halo form serves the fusion net's rows
+HALO_PHASE = {"conv2d_s1_bn_act": "sp_frame_gloo_2"}
 
 
 def _sp_pair(device, h, w):
@@ -1899,63 +1924,82 @@ def _sp_pair(device, h, w):
                for x in _make_anchor_batch(seed, SP_DISP, h, w))
 
 
-def _sp_model(device, maxdisp):
+def _sp_model(device, maxdisp, sphere_type="Cassini"):
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.utils.convert import load_npz
-  return load_npz(ModeDisparity(maxdisp, out_conf=True, device=device),
+  return load_npz(ModeDisparity(maxdisp, "Sphere", sphere_type, out_conf=True,
+                                device=device),
                   ROOT / "tests/data/trained_mirror_mid.npz")
 
 
-def _sp_rank(device: str, hw: tuple, maxdisp: int) -> dict:
-  """One rank of ``sp_gloo_2`` (run by :func:`_sp_gloo_phase` in a process
-  of its own): the trained model on the pair under the mesh, its layers'
-  kernel calls recorded on the first call; then in f32 and in bf16 (conv
-  weights cast, ``training.cast_conv_params``) one call with the launch
-  counts and the collectives set to 0 before and read after, its rows
-  gathered into the whole maps, ``SP_CALLS`` calls timed and one
-  profiled. ``device``, ``hw`` and ``maxdisp`` come from the parent (the
-  pair's card and shape)."""
+def _sp_call(fn, args, mesh, device, calls: int, profile: bool) -> dict:
+  """One call ``fn(*args)`` of a rank under ``mesh`` after a warm-up, with
+  the launch counts and the collectives set to 0 before and read after,
+  its outputs on the host; then ``calls`` calls timed and, with
+  ``profile``, one profiled."""
   from mode_tpu_torch import kernels
-  from mode_tpu_torch.parallel import mesh as pmesh
-  from mode_tpu_torch.training import cast_conv_params
   cuda = torch.device(device).type == "cuda"
 
   def sync():                      # (a CPU rehearsal's ranks have no card)
     if cuda:
       torch.cuda.synchronize(device)
 
+  fn(*args)                                         # warm-up
+  sync()
+  kernels.reset_launches()
+  before = mesh.collectives
+  outputs = fn(*args)
+  sync()
+  got = {"launches": dict(kernels.LAUNCHES),
+         "halo": dict(kernels.HALO_LAUNCHES),
+         "collectives": mesh.collectives - before, "outputs": outputs}
+  call_ms = []
+  for _ in range(calls):
+    t = time.perf_counter()
+    fn(*args)
+    sync()
+    call_ms.append((time.perf_counter() - t) * 1e3)
+  got["call_ms"] = call_ms
+  got["profile"] = (_profile(fn, args, collectives=r"all_?gather")
+                    if cuda and profile else None)
+  return got
+
+
+def _sp_rank(device: str, hw: tuple, erp_hw: tuple, maxdisp: int) -> dict:
+  """One rank of ``sp_gloo_2`` (run by :func:`_sp_gloo_phase` in a process
+  of its own): the trained model on the pair under the mesh, its layers'
+  kernel calls recorded on the first call; then in f32 and in bf16 (conv
+  weights cast, ``training.cast_conv_params``) one call with the launch
+  counts and the collectives set to 0 before and read after, its rows
+  gathered into the whole maps, ``SP_CALLS`` calls timed and one
+  profiled; then the ERP model on its ``erp_hw`` pair the same way, f32,
+  unprofiled. ``device``, ``hw``, ``erp_hw`` and ``maxdisp`` come from the
+  parent (the pairs' card and shapes)."""
+  from mode_tpu_torch.parallel import mesh as pmesh
+  from mode_tpu_torch.training import cast_conv_params
+  cuda = torch.device(device).type == "cuda"
   mesh = pmesh.make_mesh(data=1, spatial=SP_WORLD, device=device)
-  model = _sp_model(device, maxdisp)
-  left, right = _sp_pair(device, *hw)
   out = {"place": (mesh.rank, mesh.spatial_rank)}
-  with pmesh.activate(mesh):
+
+  def serve(label, m, args, profile):
+    got = _sp_call(m, args, mesh, device, SP_CALLS, profile)
+    pred, conf = got.pop("outputs")
+    got["rows"] = tuple(pred.shape)
+    got["pred"], got["conf"] = (pmesh.gather_rows(t, 1, mesh).cpu()
+                                for t in (pred, conf))
+    out[label] = got
+
+  with pmesh.activate(mesh), torch.no_grad():
+    model = _sp_model(device, maxdisp)
+    left, right = _sp_pair(device, *hw)
     out["calls"] = _record_calls(model, left, right)[0]
     for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
       m = model if dtype == torch.float32 else cast_conv_params(
           copy.deepcopy(model), dtype).eval()
-      args = (left.to(dtype), right.to(dtype))
-      m(*args)                                      # warm-up
-      sync()
-      kernels.reset_launches()
-      before = mesh.collectives
-      pred, conf = m(*args)
-      sync()
-      got = {"launches": dict(kernels.LAUNCHES),
-             "halo": dict(kernels.HALO_LAUNCHES),
-             "collectives": mesh.collectives - before,
-             "rows": tuple(pred.shape)}
-      got["pred"], got["conf"] = (pmesh.gather_rows(t, 1, mesh).cpu()
-                                  for t in (pred, conf))
-      call_ms = []
-      for _ in range(SP_CALLS):
-        t = time.perf_counter()
-        m(*args)
-        sync()
-        call_ms.append((time.perf_counter() - t) * 1e3)
-      got["call_ms"] = call_ms
-      got["profile"] = (_profile(m, args, collectives=r"all_?gather")
-                        if cuda else None)
-      out[label] = got
+      serve(label, m, (left.to(dtype), right.to(dtype)), True)
+    del model, m
+    serve("erp", _sp_model(device, maxdisp, "ERP"), _sp_pair(device, *erp_hw),
+          False)
   out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30 if cuda
                      else None)
   return out
@@ -1964,21 +2008,26 @@ def _sp_rank(device: str, hw: tuple, maxdisp: int) -> dict:
 def _sp_gloo_phase(card: str) -> dict:
   """``sp_gloo_2``: two gloo ranks sharing the card on a ``(1, 2)`` mesh
   (``parallel/launch.py``), each serving the trained model on its rows of
-  one 1024x512 pair. Each rank's launches must be one process's per pair
-  (``PATHS["sphere_b1"]``'s counts), ``SP_HALO`` of them on the halo forms
-  (``SP_HEADS`` heads among the stride-1 convs), with ``SP_COLLECTIVES``
-  collectives a call; the f32 maps gathered from both ranks must hold the
-  one-process kernel path at ``PRED_MAE``/``PRED_MAX``/``CONF_MAE``, and the
-  bf16 maps the f32 ones within ``BF16_DISP_MAE``. A rank that fails
-  fails the phase. Returns the rank's recorded 3-D calls too, which the
-  kernel phase times at their haloed shapes."""
+  one 1024x512 pair, then the ERP model on its rows of one 512x1024 pair.
+  Each rank's launches must be one process's per pair
+  (``PATHS["sphere_b1"]``'s and ``PATHS["erp_b1"]``'s counts), ``SP_HALO``
+  of them on the halo forms (``SP_HEADS`` heads among the stride-1 convs),
+  with ``SP_COLLECTIVES`` collectives a call; the f32 maps gathered from
+  both ranks must hold the one-process kernel path at
+  ``PRED_MAE``/``PRED_MAX``/``CONF_MAE`` (Cassini and ERP), and the bf16
+  maps the f32 ones within ``BF16_DISP_MAE``. A rank that fails fails the
+  phase. Returns the rank's recorded 3-D calls too, which the kernel phase
+  times at their haloed shapes."""
   from mode_tpu_torch.parallel.launch import run_ranks
   t0 = time.perf_counter()
   ranks = run_ranks(_sp_rank, SP_WORLD,
-                    (RANK_DEVICE, GEOMETRY["Cassini"], MAXDISP), timeout=600,
-                    device=RANK_DEVICE, backend="gloo")
+                    (RANK_DEVICE, GEOMETRY["Cassini"], GEOMETRY["ERP"],
+                     MAXDISP), timeout=600, device=RANK_DEVICE,
+                    backend="gloo")
   wall = time.perf_counter() - t0
-  served = {k: n for k, (_, n) in PATHS["sphere_b1"][4].items()}
+  served = {label: {k: n for k, (_, n) in PATHS[path][4].items()}
+            for label, path in (("f32", "sphere_b1"), ("bf16", "sphere_b1"),
+                                ("erp", "erp_b1"))}
   for r, rank in enumerate(ranks):
     label = f"sp_gloo_2 rank {r}"
     if rank["place"] != (0, r):
@@ -1987,48 +2036,53 @@ def _sp_gloo_phase(card: str) -> dict:
                 if case[0] == "conv3d_s1_bn_act" and case[2] == 1)
     if heads != SP_HEADS:
       _fail(f"{label}: {heads} Cout-1 heads, expected {SP_HEADS}")
-    for dtype in ("f32", "bf16"):
+    for dtype in ("f32", "bf16", "erp"):
       got = rank[dtype]
-      _launch_check(f"{label} {dtype}", got["launches"], served)
+      h, w = GEOMETRY["ERP" if dtype == "erp" else "Cassini"]
+      _launch_check(f"{label} {dtype}", got["launches"], served[dtype])
       if got["halo"] != SP_HALO:
         _fail(f"{label} {dtype}: halo launches {got['halo']}, expected "
               f"{SP_HALO}")
       if got["collectives"] != SP_COLLECTIVES:
         _fail(f"{label} {dtype}: {got['collectives']} collectives a call, "
               f"expected {SP_COLLECTIVES}")
-      if got["rows"] != (1, GEOMETRY["Cassini"][0] // SP_WORLD,
-                         GEOMETRY["Cassini"][1]):
+      if got["rows"] != (1, h // SP_WORLD, w):
         _fail(f"{label} {dtype}: its rows have the shape {got['rows']}")
     if not all(np.array_equal(rank[d][k], ranks[0][d][k])
-               for d in ("f32", "bf16") for k in ("pred", "conf")):
+               for d in ("f32", "bf16", "erp") for k in ("pred", "conf")):
       _fail(f"{label}: its gathered maps are not rank 0's")
-  # the one-process kernel path on the same pair
-  model = _sp_model(DEVICE, MAXDISP)
-  left, right = _sp_pair(DEVICE, *GEOMETRY["Cassini"])
-  with torch.no_grad():
-    ref_pred, ref_conf = model(left, right)
-  torch.cuda.synchronize()
-  shape = (1, *GEOMETRY["Cassini"])
+  # the one-process kernel path on the same pairs
+  checks = {}
+  for label, sphere_type in (("f32", "Cassini"), ("erp", "ERP")):
+    model = _sp_model(DEVICE, MAXDISP, sphere_type)
+    left, right = _sp_pair(DEVICE, *GEOMETRY[sphere_type])
+    with torch.no_grad():
+      ref_pred, ref_conf = model(left, right)
+    torch.cuda.synchronize()
+    got = {k: torch.from_numpy(ranks[0][label][k]).to(DEVICE)
+           for k in ("pred", "conf")}
+    checks[label] = _check_output(
+        f"sp_gloo_2 {sphere_type} f32 (gathered) vs one process",
+        got["pred"], got["conf"], ref_pred, ref_conf,
+        (1, *GEOMETRY[sphere_type]), seeded=False)
+    del model
   f32, b16 = ({k: torch.from_numpy(ranks[0][d][k]).to(DEVICE)
                for k in ("pred", "conf")} for d in ("f32", "bf16"))
-  check = _check_output("sp_gloo_2 f32 (gathered) vs one process",
-                        f32["pred"], f32["conf"], ref_pred, ref_conf, shape,
-                        seeded=False)
   bf16_mae = float((b16["pred"] - f32["pred"]).abs().mean())
   if not (torch.isfinite(b16["pred"]).all()
           and torch.isfinite(b16["conf"]).all()) or bf16_mae > BF16_DISP_MAE:
     _fail(f"sp_gloo_2: the bf16 maps are {bf16_mae:.4g} px (MAE) from the "
           f"f32 ones (bar {BF16_DISP_MAE})")
-  del model
   torch.cuda.empty_cache()
-  out = {"wall_s": wall, "check": check, "bf16_vs_f32_mae": bf16_mae,
+  out = {"wall_s": wall, "check": checks["f32"], "erp_check": checks["erp"],
+         "bf16_vs_f32_mae": bf16_mae,
          "ranks": [{"place": r["place"], "peak_gib": r["peak_gib"],
                     **{d: {k: r[d][k] for k in ("launches", "halo",
                                                 "collectives", "call_ms",
                                                 "profile")}
-                       for d in ("f32", "bf16")}} for r in ranks],
+                       for d in ("f32", "bf16", "erp")}} for r in ranks],
          "calls": ranks[0]["calls"]}
-  for d in ("f32", "bf16"):
+  for d in ("f32", "bf16", "erp"):
     prof = ranks[0][d]["profile"] or {"host_ms": 0.0, "device_ms": 0.0,
                                       "collectives": {"allreduce_ms": 0.0}}
     print(f"sp_gloo_2 {d}: two gloo ranks on one card ({card}), rank 0 "
@@ -2045,6 +2099,147 @@ def _sp_gloo_phase(card: str) -> dict:
   return out
 
 
+# The whole frame over the spatial axis: sp_frame_gloo_2 serves the frame
+# phase's frame (TwoStagePipeline, six 1024x512 uint8 pairs and four views,
+# the trained mid weights, the frame's calibrated fusion net) on a (1, 2)
+# mesh of two gloo ranks sharing the card, f32 and bf16. Per frame a rank
+# runs stage 1's one call on its rows (SP_HALO), gathers the disparities
+# and confidences, runs the bridge whole, the fusion net on its rows (its
+# FUSION_K8 kernel convs on K8's halo form, depth_layer4's two on cuDNN,
+# FUSION_CONVS halo exchanges) and gathers the fused map.
+FUSION_CONVS = 38                  # the fusion net's stride-1 3x3 convs
+SP_FRAME_HALO = {**SP_HALO, "conv2d_s1_bn_act": FUSION_K8}
+SP_FRAME_COLLECTIVES = SP_COLLECTIVES + 2 + FUSION_CONVS + 1
+SP_FRAME_CALLS = 2
+
+
+def _sp_frame_rank(device: str, hw: tuple, maxdisp: int,
+                   fusion_state: dict) -> dict:
+  """One rank of ``sp_frame_gloo_2`` (run by :func:`_sp_frame_phase`): the
+  frame served under the mesh, its kernel launches recorded on the first
+  f32 frame (``_recorded_launches``: the haloed shapes); then in f32 and
+  in bf16 (both stages) one frame with the counts and the collectives set
+  to 0 before and read after, ``SP_FRAME_CALLS`` frames timed and one
+  profiled. ``device``, ``hw`` and ``maxdisp`` come from the parent."""
+  from mode_tpu_torch.models.fusion import ModeFusion
+  from mode_tpu_torch.parallel import mesh as pmesh
+  from mode_tpu_torch.pipeline import TwoStagePipeline
+  cuda = torch.device(device).type == "cuda"
+  mesh = pmesh.make_mesh(data=1, spatial=SP_WORLD, device=device)
+  disp = _sp_model(device, maxdisp)
+  fusion = ModeFusion(MAX_DEPTH, device=device)
+  fusion.load_state_dict(fusion_state, strict=True)
+  inputs = _frame_inputs(device, hw)
+  out = {"place": (mesh.rank, mesh.spatial_rank)}
+  with pmesh.activate(mesh), torch.no_grad():
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+      pipe = TwoStagePipeline(disp, fusion, maxdisp, MAX_DEPTH, dtype=dtype,
+                              stage1_chunk=6, uint8_inputs=True,
+                              fusion_dtype=dtype, device=device)
+      if label == "f32":
+        with _recorded_launches("sp_frame") as calls:
+          pipe(*inputs)
+        out["calls"] = dict(calls)
+      got = _sp_call(pipe, inputs, mesh, device, SP_FRAME_CALLS, True)
+      got.update(zip(("fused", "disp", "conf"),
+                     (t.cpu() for t in got.pop("outputs"))))
+      out[label] = got
+  out["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30 if cuda
+                     else None)
+  return out
+
+
+def _sp_frame_phase(card: str, fusion_state: dict, ref: dict) -> dict:
+  """``sp_frame_gloo_2``: two gloo ranks sharing the card on a ``(1, 2)``
+  mesh, each serving the whole frame. Each rank's launches a frame must be
+  one process's (``FRAME_JAX``), ``SP_FRAME_HALO`` of them on the halo
+  forms, with ``SP_FRAME_COLLECTIVES`` collectives a frame, and both ranks
+  must return the same whole frame; the f32 frame must hold the
+  one-process ``frame`` (``ref``: its fused map, disparities and
+  confidences): stage 1 at ``PRED_MAE``/``PRED_MAX``/``CONF_MAE``, the fused
+  depths at ``FUSED_MAE``/``FUSED_MAX``, ``FUSED_INSIDE`` of them inside
+  (1, 999) m; the bf16 disparities the f32 ones within ``BF16_DISP_MAE``.
+  Returns the rank's recorded 2-D halo calls too, which the kernel phase
+  times."""
+  from mode_tpu_torch.parallel.launch import run_ranks
+  t0 = time.perf_counter()
+  ranks = run_ranks(_sp_frame_rank, SP_WORLD,
+                    (RANK_DEVICE, GEOMETRY["Cassini"], MAXDISP, fusion_state),
+                    timeout=600, device=RANK_DEVICE, backend="gloo")
+  wall = time.perf_counter() - t0
+  h, w = GEOMETRY["Cassini"]
+  frame = {k: n for k, (_, n) in FRAME_JAX.items()}
+  for r, rank in enumerate(ranks):
+    label = f"sp_frame_gloo_2 rank {r}"
+    if rank["place"] != (0, r):
+      _fail(f"{label}: mesh place {rank['place']}, expected (0, {r})")
+    for dtype in ("f32", "bf16"):
+      got = rank[dtype]
+      _launch_check(f"{label} {dtype}", got["launches"], frame)
+      if got["halo"] != SP_FRAME_HALO:
+        _fail(f"{label} {dtype}: halo launches {got['halo']}, expected "
+              f"{SP_FRAME_HALO}")
+      if got["collectives"] != SP_FRAME_COLLECTIVES:
+        _fail(f"{label} {dtype}: {got['collectives']} collectives a frame, "
+              f"expected {SP_FRAME_COLLECTIVES}")
+      if got["fused"].shape != (h, w) or got["disp"].shape != (6, h, w):
+        _fail(f"{label} {dtype}: a frame of shapes {got['fused'].shape}, "
+              f"{got['disp'].shape}")
+    if not all(np.array_equal(rank[d][k], ranks[0][d][k])
+               for d in ("f32", "bf16") for k in ("fused", "disp", "conf")):
+      _fail(f"{label}: its frame is not rank 0's")
+  f32, b16 = ({k: torch.from_numpy(ranks[0][d][k]).to(DEVICE)
+               for k in ("fused", "disp", "conf")} for d in ("f32", "bf16"))
+  check = {"stage1": _check_output(
+      "sp_frame_gloo_2 f32 stage 1 (gathered) vs one process", f32["disp"],
+      f32["conf"], ref["disp"], ref["conf"], (6, h, w), seeded=False)}
+  err = (f32["fused"] - ref["fused"]).abs()
+  inside = float(((f32["fused"] > 1) & (f32["fused"] < MAX_DEPTH - 1))
+                 .float().mean())
+  check["fused"] = {"mae": float(err.mean()), "max": float(err.max()),
+                    "inside_share": inside}
+  bf16_mae = float((b16["disp"] - f32["disp"]).abs().mean())
+  check["bf16_disp_mae_vs_f32"] = bf16_mae
+  check["bf16_fused_mae_vs_f32"] = float(
+      (b16["fused"] - f32["fused"]).abs().mean())
+  print(f"sp_frame_gloo_2 f32 fused (gathered) vs one process: MAE "
+        f"{check['fused']['mae']:.3g} m (bar {FUSED_MAE}), max "
+        f"{check['fused']['max']:.3g} m (bar {FUSED_MAX}), {inside:.1%} "
+        f"inside (1, {MAX_DEPTH - 1:g}) m; bf16 disparities {bf16_mae:.4g} px"
+        f" (MAE) from the f32 ones (bar {BF16_DISP_MAE}), fused "
+        f"{check['bf16_fused_mae_vs_f32']:.4g} m (no bar)", flush=True)
+  if not bool(torch.isfinite(f32["fused"]).all()):
+    _fail("sp_frame_gloo_2: non-finite fused depths")
+  if check["fused"]["mae"] > FUSED_MAE or check["fused"]["max"] > FUSED_MAX:
+    _fail("sp_frame_gloo_2: the fused map disagrees with one process's")
+  if inside < FUSED_INSIDE:
+    _fail("sp_frame_gloo_2: degenerate fused depth")
+  if not bool(torch.isfinite(b16["fused"]).all()) or bf16_mae > BF16_DISP_MAE:
+    _fail("sp_frame_gloo_2: the bf16 frame drifts from the f32 frame")
+  torch.cuda.empty_cache()
+  out = {"wall_s": wall, "check": check,
+         "ranks": [{"place": r["place"], "peak_gib": r["peak_gib"],
+                    **{d: {k: r[d][k] for k in ("launches", "halo",
+                                                "collectives", "call_ms",
+                                                "profile")}
+                       for d in ("f32", "bf16")}} for r in ranks],
+         "calls": ranks[0]["calls"]}
+  for d in ("f32", "bf16"):
+    prof = ranks[0][d]["profile"] or {"host_ms": 0.0, "device_ms": 0.0,
+                                      "collectives": {"allreduce_ms": 0.0}}
+    print(f"sp_frame_gloo_2 {d}: two gloo ranks on one card ({card}), rank "
+          f"0 ms/frame "
+          f"{', '.join(f'{t:.1f}' for t in ranks[0][d]['call_ms'])} (both "
+          f"ranks share the card); profiled frame host "
+          f"{prof['host_ms']:.1f} ms, device {prof['device_ms']:.1f} ms, "
+          f"all-gathers {prof['collectives']['allreduce_ms']:.1f} ms on the "
+          f"host; halo forms {json.dumps(ranks[0][d]['halo'])}, "
+          f"{ranks[0][d]['collectives']} collectives a frame", flush=True)
+  print(f"sp_frame_gloo_2: {wall:.1f} s with the processes' start",
+        flush=True)
+  return out
+
+
 def _halo_cases(served_calls: dict, rank_calls: dict) -> dict:
   """The kernel phase's halo cases: each 3-D call of the served
   ``sphere_b1`` path at a rank's rows for every ``SP_SIZES`` spatial size,
@@ -2052,11 +2247,12 @@ def _halo_cases(served_calls: dict, rank_calls: dict) -> dict:
   ``sp_gloo_2`` rank recorded. Returns ``{case + (S,): (per_call,
   layers)}``."""
   three_d = {c: layers for c, layers in served_calls.items()
-             if c[0] in HALO_KERNELS}
+             if c[0] in HALO_KERNELS and c[0] not in HALO_PHASE}
   local = {(c[0], (*c[1][:2], c[1][2] // SP_SIZES[0], *c[1][3:]), *c[2:]):
            layers for c, layers in three_d.items()}
   if {c: len(v) for c, v in local.items()} != {
-      c: len(v) for c, v in rank_calls.items() if c[0] in HALO_KERNELS}:
+      c: len(v) for c, v in rank_calls.items()
+      if c[0] in HALO_KERNELS and c[0] not in HALO_PHASE}:
     _fail("sp_gloo_2: the rank's 3-D calls are not sphere_b1's at half the "
           "rows")
   out = {}
@@ -2066,6 +2262,42 @@ def _halo_cases(served_calls: dict, rank_calls: dict) -> dict:
       b, d, h, w, cin = c[1]
       out[(c[0], (b, d, h // size + 2, w, cin), *c[2:], size)] = (
           {label: len(layers)}, layers)
+  return out
+
+
+def _conv2d_halo_cases(frame_calls: dict, stem_calls: dict,
+                       rank_calls: dict) -> dict:
+  """The kernel phase's cases of K8's halo form: each of the frame's
+  fusion-net shapes of the 2-D kernel (its batch-1 calls) and the served
+  ``sphere_b1`` path's stem shape, at a rank's rows for every ``SP_SIZES``
+  spatial size, haloed (H / S + 2 rows); at the first size the fusion
+  shapes must be the haloed calls the ``sp_frame_gloo_2`` rank made.
+  Returns ``{case + (S,): (per_call, layers)}``."""
+  def fusion(calls):
+    return {c: layers for c, layers in calls.items()
+            if c[0] == "conv2d_s1_bn_act" and c[1][0] == 1}
+
+  def haloed(c, size):
+    b, h, w, cin = c[1]
+    return (c[0], (b, h // size + 2, w, cin), *c[2:])
+
+  whole = fusion(frame_calls)
+  if {haloed(c, SP_WORLD): len(v) for c, v in whole.items()} != {
+      c: len(v) for c, v in fusion(rank_calls).items()}:
+    _fail("sp_frame_gloo_2: the rank's 2-D halo calls are not the frame's "
+          "fusion calls at half the rows")
+  stem = {c: layers for c, layers in stem_calls.items()
+          if c[0] == "conv2d_s1_bn_act"}
+  out = {}
+  for size in SP_SIZES:
+    for prefix, calls in (("frame", whole), ("stem", stem)):
+      label = ("sp_frame_gloo_2" if prefix == "frame" and size == SP_WORLD
+               else f"{prefix}_spatial_{size}")
+      for c, layers in calls.items():
+        key = (*haloed(c, size), size)
+        if key in out:
+          _fail(f"the halo case {key} stands for two paths")
+        out[key] = ({label: len(layers)}, layers)
   return out
 
 
@@ -2193,15 +2425,15 @@ def _anchor():
 FRAME_DISPS = (16, 24, 32, 40, 48, 56)
 
 
-def _frame_inputs():
-  """A frame's six uint8 pairs ``(6, H, W, 3)`` on the card, made like the
-  anchor's inputs, each from its own seed and with its own disparity, and
-  the four views (pair 12's left and right, pair 34's left and right). The
-  uint8 values are the texture put through the inverse of the ImageNet
-  normalisation, so the normalised pairs are the texture up to the 8-bit
-  step."""
+def _frame_inputs(device=DEVICE, hw=None):
+  """A frame's six uint8 pairs ``(6, H, W, 3)`` on ``device`` (``(H, W)``
+  = ``hw``, the Cassini geometry if None), made like the anchor's inputs,
+  each from its own seed and with its own disparity, and the four views
+  (pair 12's left and right, pair 34's left and right). The uint8 values
+  are the texture put through the inverse of the ImageNet normalisation,
+  so the normalised pairs are the texture up to the 8-bit step."""
   from mode_tpu_torch.training import IMAGENET_MEAN, IMAGENET_STD
-  h, w = GEOMETRY["Cassini"]
+  h, w = hw or GEOMETRY["Cassini"]
   with np.load(ROOT / "tests/data/fullres_torch_frame.npz") as z:
     seed = int(z["seed"])
   mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
@@ -2211,8 +2443,8 @@ def _frame_inputs():
     for x, out in ((left, lefts), (right, rights)):
       x = x[0].permute(1, 2, 0) * std + mean
       out.append(torch.round(x * 255).clamp(0, 255).to(torch.uint8))
-  lefts = torch.stack(lefts).to(DEVICE)
-  rights = torch.stack(rights).to(DEVICE)
+  lefts = torch.stack(lefts).to(device)
+  rights = torch.stack(rights).to(device)
   return lefts, rights, torch.stack([lefts[0], rights[0], lefts[5],
                                      rights[5]])
 
@@ -2425,6 +2657,7 @@ def _frame_path(label, disp, fusion, inputs, f32_frame=None):
           "split_ms": split, "peak_gib": peak_gib, "profile": prof,
           "check": check, "head": head, "models": (pipe.disp, pipe.fusion),
           "outputs": None if f32_frame else {"fused": fused, "disp": disp_out,
+                                             "conf": conf_out,
                                              "bridged": bridged}}
 
 
@@ -3656,8 +3889,9 @@ def _fusion_direct_steps(work, fusion_runs, returned, result, tars,
 
 def _kernel_phase(cases, reg_cases, gen, halo_cases):
   """Every recorded kernel shape once, f32 and bf16, then the halo forms
-  at a rank's rows, each beside the cuDNN time of its unsharded call
-  (``unsharded_library_ms``): the rows it prints."""
+  at a rank's rows, each beside the kernel's and cuDNN's times of its
+  unsharded call (``unsharded_ms``, ``unsharded_library_ms``): the rows it
+  prints."""
   rows = []
 
   def emit(row, **extra):
@@ -3666,13 +3900,13 @@ def _kernel_phase(cases, reg_cases, gen, halo_cases):
     print("kernel " + json.dumps(row), flush=True)
 
   for dtype in (torch.float32, torch.bfloat16):
-    library = {}
+    library, kernel = {}, {}
     for case, (per_call, layers, batch) in cases.items():
       if case[0] in SPHERE_BWD:
         row = _sphere_bwd_case(case, dtype, gen)
       else:
         row = _conv_case(case, dtype, gen)
-      library[case] = row["library_ms"]
+      library[case], kernel[case] = row["library_ms"], row["kernel_ms"]
       emit(row, per_call=per_call, tpu=_tpu_kernel(case, layers, batch),
            layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
                                           else ""))
@@ -3680,24 +3914,31 @@ def _kernel_phase(cases, reg_cases, gen, halo_cases):
       emit(_regression_case(case, dtype, gen), per_call=per_call,
            tpu="K2" + (" row window" if len(case) > 4 else ""))
     for case, (per_call, layers) in halo_cases.items():
-      (b, d, h, w, c), size = case[1], case[6]
-      whole = (case[0], (b, d, (h - 2) * size, w, c), *case[2:6])
+      xs, size = case[1], case[6]
+      hx = 1 if len(xs) == 4 else 2                     # the H axis
+      whole = (case[0], (*xs[:hx], (xs[hx] - 2) * size, *xs[hx + 1:]),
+               *case[2:6])
       emit(_conv_case(case, dtype, gen), per_call=per_call,
            tpu=_tpu_kernel(whole, layers, 1) + " halo form",
+           unsharded_ms=kernel.get(whole),
            unsharded_library_ms=library.get(whole),
            layers=" ".join(layers[:4]) + (" ..." if len(layers) > 4
                                           else ""))
   return rows
 
 
-def _halo_summary(rows, sp_gloo) -> list:
+def _halo_summary(rows, sp_gloo, sp_frame) -> list:
   """The kernels line's entries of the halo forms (and K2's window): f32
-  ms per call of one ``sp_gloo_2`` rank (each shape's time alone times its
-  launches per call, summed), its launches in that phase's f32 call, and
-  per spatial size the same sums in f32 and bf16."""
+  ms per call of one rank of the form's phase (``HALO_PHASE``: a pair's
+  rows in ``sp_gloo_2``, a frame's in ``sp_frame_gloo_2``; each shape's
+  time alone times its launches per call, summed), its launches in that
+  phase's f32 call, and per spatial size the same sums in f32 and bf16,
+  beside the unsharded shapes' kernel and cuDNN times."""
   out = []
-  launched = sp_gloo["ranks"][0]["f32"]["halo"]
+  phases = {"sp_gloo_2": sp_gloo, "sp_frame_gloo_2": sp_frame}
   for name, (replaces, wrapper) in HALO_KERNELS.items():
+    phase = HALO_PHASE.get(name, "sp_gloo_2")
+    launched = phases[phase]["ranks"][0]["f32"]["halo"]
     mine = [r for r in rows
             if r["name"] == name and r.get("halo") is not None]
     by_size = {}
@@ -3705,23 +3946,25 @@ def _halo_summary(rows, sp_gloo) -> list:
       label, n = next(iter(r["per_call"].items()))
       t = by_size.setdefault(f"{label} {r['dtype']}", {
           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-          "unsharded_library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-          "launches_per_call": 0})
+          "unsharded_ms": 0.0, "unsharded_library_ms": 0.0, "ops_ms": 0.0,
+          "bytes_ms": 0.0, "launches_per_call": 0})
       t["launches_per_call"] += n
-      for key in ("plain_ms", "bound_ms", "library_ms",
+      for key in ("plain_ms", "bound_ms", "library_ms", "unsharded_ms",
                   "unsharded_library_ms", "ops_ms", "bytes_ms"):
         value = r.get(key)
         t[key] = None if value is None or t[key] is None else (
             t[key] + value * n)
       t["ms"] += r["kernel_ms"] * n
-    main = by_size[f"sp_gloo_2 float32"]
+    main = by_size[f"{phase} float32"]
     f32 = [r for r in mine if r["dtype"] == "float32"]
     b16 = [r for r in mine if r["dtype"] == "bfloat16"]
+    what = ("a 1024x512 pair's rows at spatial 2" if phase == "sp_gloo_2"
+            else "a 1024x512 frame's fusion rows at spatial 2")
     out.append({
         "name": f"{name} (h_halo)" if name != "fused_disparity_regression"
                 else f"{name} (row window)",
         "route": "cuda", "source": KERNELS[name][0], "replaces": replaces,
-        "also_replaces": [wrapper], "main_path": "sp_gloo_2",
+        "also_replaces": [wrapper], "main_path": phase,
         "launches": launched.get(name, 0),
         "launches_per_call": main["launches_per_call"],
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -3731,11 +3974,13 @@ def _halo_summary(rows, sp_gloo) -> list:
         "bound_by": ("operations" if main["ops_ms"] >= main["bytes_ms"]
                      else "bytes"),
         "library_ms": main["library_ms"],
+        "unsharded_ms": main["unsharded_ms"],
         "unsharded_library_ms": main["unsharded_library_ms"],
-        "times": "f32, ms per call of one sp_gloo_2 rank (a 1024x512 "
-                 "pair's rows at spatial 2); by_size gives spatial 2 and 4 "
-                 "in f32 and bf16; library_ms is cuDNN on the same haloed "
-                 "rows, unsharded_library_ms cuDNN on the whole volume",
+        "times": f"f32, ms per call of one {phase} rank ({what}); by_size "
+                 "gives spatial 2 and 4 in f32 and bf16; library_ms is "
+                 "cuDNN on the same haloed rows, unsharded_ms and "
+                 "unsharded_library_ms the kernel and cuDNN on the whole "
+                 "shapes",
         "by_size": by_size,
         "pass": all(r["pass"] for r in mine)})
   return out
@@ -3833,6 +4078,10 @@ def main() -> int:
   torch.cuda.empty_cache()
   sp_gloo = _sp_gloo_phase(card)
   torch.cuda.empty_cache()
+  # the whole frame over the spatial axis, held against the f32 frame
+  sp_frame = _sp_frame_phase(card, cli_fusion,
+                             seen["frame"].pop("outputs"))
+  torch.cuda.empty_cache()
 
   # ---- the serving CLIs on a Deep360 tree on disk, then the training
   # CLIs on the same tree and the serving phase's stage-1 outputs
@@ -3862,6 +4111,9 @@ def main() -> int:
     reg_cases.setdefault(case, {})[label] = 1
   # the halo forms at a rank's rows, and K2's window for rank 1
   halo_cases = _halo_cases(seen["sphere_b1"]["calls"], sp_gloo.pop("calls"))
+  halo_cases.update(_conv2d_halo_cases(seen["frame"]["calls"],
+                                       seen["sphere_b1"]["calls"],
+                                       sp_frame.pop("calls")))
   h, w = GEOMETRY["Cassini"]
   for size in SP_SIZES:
     label = "sp_gloo_2" if size == SP_WORLD else f"spatial_{size}"
@@ -3943,7 +4195,7 @@ def main() -> int:
         "train_cli_launches": sum(r["launches"].get(name, 0)
                                   for r in train_cli["runs"].values()),
         "pass": all(r["pass"] for r in f32 + b16)})
-  summary += _halo_summary(rows, sp_gloo)
+  summary += _halo_summary(rows, sp_gloo, sp_frame)
   print("kernels: " + ", ".join(
       f"{s['name']} (replaces {', '.join([s['replaces'], *s['also_replaces']])}"
       f") {'pass' if s['pass'] else 'FAIL'}" for s in summary))
@@ -3968,7 +4220,7 @@ def main() -> int:
           "train_anchor": train_anchor,
           "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
           "remat": remat, "ddp_nccl": ddp_nccl, "ddp_gloo_2": ddp_gloo,
-          "sp_gloo_2": sp_gloo,
+          "sp_gloo_2": sp_gloo, "sp_frame_gloo_2": sp_frame,
           "cli": cli, "train_cli": train_cli}, default=str))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)

@@ -25,42 +25,56 @@
 // bf16 directly), the map being a volume of depth 1: each K stage copies a
 // tap's 32 channels of 128 (or 64) pixels with zero-filling cp.async into
 // wgmma's swizzled layout, B = Cout wide (32, 64 or 128).
+//
+// Under the spatial axis (mode_tpu_torch/parallel/shard_ops.py; the m_halo
+// form of K8, conv2d_kernel.py:168-211) x holds a shard's rows with one halo
+// row above and below, dilation 1: the walk reads it from an H origin of
+// one row (tc::Shape's h0, the HALOED instantiations), W alone is padded,
+// and hi - 2 output rows come out.
 
 #include "igemm_tc.cuh"
 
 namespace {
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool HALOED>
 __global__ void __launch_bounds__(2 * BM)
 conv2d_tc_kernel(const T* __restrict__ x, const T* __restrict__ wbig,
                  const T* __restrict__ wsmall, const float* __restrict__ scale,
                  const float* __restrict__ bias, const T* __restrict__ res,
                  T* __restrict__ out, const tc::Shape s, int relu) {
-  tc::conv_body<T, BM, BN>(x, wbig, wsmall, scale, bias, res, out, s, relu);
+  tc::conv_body<T, BM, BN, 1, HALOED>(x, wbig, wsmall, scale, bias, res, out,
+                                      s, relu);
 }
 
 struct Kernels {
   template <typename T, int BM, int BN, bool HALOED>
-  static auto get() {      // no halo form: h0 is always 0 here
-    return &conv2d_tc_kernel<T, BM, BN>;
+  static auto get() {
+    return &conv2d_tc_kernel<T, BM, BN, HALOED>;
   }
 };
 
 }  // namespace
 
-// x: (nb, h, wd, cin), cin a multiple of 8; wbig: the K-major weight
+// x: (nb, hi, wd, cin), cin a multiple of 8; wbig: the K-major weight
 // (9, cout, cin), tap kh*3 + kw; wsmall: for f32 its tf32 remainder (wbig +
 // wsmall = w), unused for bf16; scale, bias: (cout,) f32; res (may be null)
-// and out: (nb, h, wd, cout); dil: the dilation, which is also the padding.
-// x, w*, res and out are f32 (bf16 == 0) or bf16 (bf16 == 1), 16-byte
-// aligned. Returns cudaGetLastError() after the launch.
+// and out: (nb, h, wd, cout), h = hi, or with h_halo 1 (x's first and last
+// rows halo rows, dilation 1) hi - 2; dil: the dilation, which is also the
+// padding (of W alone with a halo). x, w*, res and out are f32 (bf16 == 0)
+// or bf16 (bf16 == 1), 16-byte aligned. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue without launching on a shape it does
+// not take.
 extern "C" int conv2d_s1_bn_act(int bf16, const void* x, const void* wbig,
                                 const void* wsmall, const void* scale,
                                 const void* bias, const void* res, void* out,
-                                int nb, int h, int wd, int cin, int cout,
-                                int dil, int relu, void* stream) {
-  if (dil < 1 || cin % 8 != 0 || cout < 1) return (int)cudaErrorInvalidValue;
-  const tc::Shape s{nb, 1, h, wd, cin, cout, 1, dil, 1, h, wd, 0};
+                                int nb, int hi, int wd, int cin, int cout,
+                                int dil, int relu, int h_halo, void* stream) {
+  if (dil < 1 || cin % 8 != 0 || cout < 1 || (h_halo != 0 && h_halo != 1) ||
+      (h_halo && (dil != 1 || hi < 3))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int h = hi - 2 * h_halo;
+  const tc::Shape s{nb, 1, h, wd, cin, cout, 1, dil, 1, hi, wd, h_halo};
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -817,8 +817,7 @@ cudaError_t launch_tile(Kernel kernel, const void* x, const void* wbig,
 
 // The tile for a call: BN follows Cout (32, 64 or 128 wide, more N tiles
 // past 128); BM = 64 where 128-row tiles would not give every SM two.
-// K::get<T, BM, BN, HALO>() names the source's kernel, HALO = s.h0 (a
-// source without halo forms returns its one kernel for both).
+// K::get<T, BM, BN, HALO>() names the source's kernel, HALO = s.h0.
 template <class K, typename T>
 cudaError_t dispatch(const void* x, const void* wbig, const void* wsmall,
                      const float* scale, const float* bias, const void* res,

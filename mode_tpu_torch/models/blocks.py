@@ -41,9 +41,10 @@ casts its conv kernels inside the differentiated function. Biases and BN
 parameters and statistics stay f32.
 
 Under a mesh with a ``spatial`` axis (``parallel/mesh.py``) the 3-D layers
-hold their rank's rows of the volume's H and run their kernels through
-``parallel/shard_ops.py`` (a one-plane halo exchange with the neighbouring
-ranks, then the kernel's halo form), in eval only: a shape whose rows the
+and the fusion net's 3x3 convs hold their rank's rows of the volume's or
+the map's H and run through ``parallel/shard_ops.py`` (a one-plane halo
+exchange with the neighbouring ranks, then the kernel's halo form, or the
+library conv on the haloed rows), in eval only: a shape whose rows the
 sharded kernel cannot take raises, and nothing runs the layer unsharded in
 its place.
 
@@ -533,6 +534,11 @@ class FusionConvBn(nn.Sequential):
   channels, input and weight, as the JAX package pads them. Otherwise
   ``F.conv2d`` in the map's dtype, then the folded BN and the ReLU in f32.
 
+  Under a spatial mesh (eval) ``x`` is this rank's rows of the map and the
+  conv runs on them after a one-row halo exchange: the kernel's halo form
+  (``shard_ops.conv2d_s1_sharded``) where ``kernel`` says so, else
+  ``F.conv2d`` on the haloed rows (``shard_ops.conv2d_library_sharded``).
+
   In training the bare conv runs ``conv2d_ops.conv2d_train`` (forward and
   grad-input on the kernel) where ``kernel`` says so, else ``F.conv2d``;
   then BN with batch statistics and the ReLU. Nothing is padded (the JAX
@@ -550,6 +556,7 @@ class FusionConvBn(nn.Sequential):
               plain: bool = False) -> torch.Tensor:
     conv, bn = self[0], self[1]
     if self.training:
+      no_spatial_training()
       weight = conv.weight.to(x.dtype)
       if kernel:
         y = conv2d_ops.conv2d_train(x, weight, plain=plain)
@@ -558,6 +565,7 @@ class FusionConvBn(nn.Sequential):
       return _bn_act(bn, y, None, True, channels_last=True)
     scale, bias = self._operands.get(
         (bn.weight, bn.bias, bn.running_mean, bn.running_var), bn.folded)
+    mesh = spatial_mesh()
     if kernel:
       pad = -conv.in_channels % 8
       weight = self._packed.get((conv.weight,), lambda: (
@@ -565,10 +573,17 @@ class FusionConvBn(nn.Sequential):
                                           (0, 0, 0, 0, 0, pad)))))
       if pad:
         x = F.pad(x, (0, pad))
+      if mesh is not None:
+        return shard_ops.conv2d_s1_sharded(x, weight, scale, bias, None, True,
+                                           mesh=mesh, plain=plain)
       return conv2d_ops.conv2d_s1_bn_act(x, weight, scale, bias, None, True,
                                          1, plain=plain)
-    y = F.conv2d(_channels_last(x), conv.weight, padding=1)
-    return epilogue(y.permute(0, 2, 3, 1), scale, bias, None, True, x.dtype)
+    if mesh is not None:
+      y = shard_ops.conv2d_library_sharded(x, conv.weight, mesh=mesh)
+    else:
+      y = F.conv2d(_channels_last(x), conv.weight,
+                   padding=1).permute(0, 2, 3, 1)
+    return epilogue(y, scale, bias, None, True, x.dtype)
 
 
 class FusionBasicBlock(nn.Module):

@@ -21,6 +21,21 @@ and the stride-1 3x3 convs run the kernel's autograd Function (forward and
 grad-input) where the JAX package's batch-packed training gate takes them;
 the JAX package never trains on its lane-major path, so neither does the
 port.
+
+Under ``with activate(make_mesh(data=D, spatial=S)):`` (``parallel/``, one
+process a card, eval only) ``ModeFusion`` takes this rank's rows of the
+batch (B / D) of whole maps, cuts its rows of H at entry and returns its
+``(B / D, H / S, W, 1)`` rows: each 3x3 conv runs on its rows after a
+one-row halo exchange (``parallel/shard_ops.py``), on the 2-D kernel's halo
+form where the JAX package runs ``conv2d_band_sharded`` (the lane-major
+forward's ``kernel_route``; W is never split, so the routes are the
+unsharded ones) and as ``F.conv2d`` on the haloed rows elsewhere; the
+pools, the transpose convs, the concatenations and the 1x1 head are
+row-local. H must be a multiple of 8 S, so that every rank holds an even
+count of rows before each of the three pools; the JAX package lets GSPMD
+partition other shapes, the port raises. ``Baseline``, which the JAX
+package runs NHWC and leaves to GSPMD under a mesh, raises under a spatial
+mesh.
 """
 
 from __future__ import annotations
@@ -34,8 +49,10 @@ from torch import nn
 from mode_tpu_torch.device import ieee_f32_convs, resolve_device
 from mode_tpu_torch.models.blocks import (ConvHead2d, FusionBasicBlock,
                                           TorchBatchNorm, init_weights,
-                                          max_pool2, up_bn_relu)
+                                          max_pool2, no_spatial_training,
+                                          up_bn_relu)
 from mode_tpu_torch.ops import conv2d as conv2d_ops
+from mode_tpu_torch.parallel.mesh import constrain_spatial, spatial_mesh
 
 Route = Callable[[tuple, int], bool]
 
@@ -61,6 +78,23 @@ def kernel_route(lane: bool) -> Route:
   if lane:
     return lambda x_shape, cout: x_shape[2] % 128 == 0 and cout % 8 == 0
   return conv2d_ops.train_kernel_eligible
+
+
+def _library_only(x_shape, cout) -> bool:
+  """The route of the NHWC forward under a spatial mesh: every conv a
+  library call, as the JAX package's batch-packed kernel takes no mesh."""
+  return False
+
+
+def _spatial_rows(mesh, depth_in: torch.Tensor, rgb_in: torch.Tensor):
+  """This rank's rows of both NHWC inputs; H must be a multiple of 8 S."""
+  h = depth_in.shape[1]
+  if h % (8 * mesh.spatial):
+    raise ValueError(
+        f"the fusion net under a spatial mesh needs H % (8 x spatial) == 0, "
+        f"an even count of rows a rank before each of its three pools: H "
+        f"{h} over {mesh.spatial} ranks")
+  return constrain_spatial(depth_in, 1), constrain_spatial(rgb_in, 1)
 
 
 def _blocks(stage: nn.Sequential, x: torch.Tensor, route: Route,
@@ -117,7 +151,13 @@ class FeatureExtractionFusion(nn.Module):
 
   def forward(self, depth_in: torch.Tensor, rgb_in: torch.Tensor, *,
               plain: bool = False) -> torch.Tensor:
-    route = kernel_route(not self.training and lane_eligible(depth_in.shape))
+    lane = not self.training and lane_eligible(depth_in.shape)
+    route = kernel_route(lane)
+    mesh = spatial_mesh()
+    if mesh is not None:       # this rank's rows (ModeFusion: eval only)
+      depth_in, rgb_in = _spatial_rows(mesh, depth_in, rgb_in)
+      if not lane:
+        route = _library_only
 
     def run(stage, x):
       return _blocks(stage, x, route, plain)
@@ -173,7 +213,8 @@ class ModeFusion(nn.Module):
   reference initialises them; load trained ones with ``load_state_dict``
   or ``utils/convert.py:load_reference_state_dict``. ``device`` defaults
   to the CUDA card and raises without one; pass ``"cpu"`` to run the plain
-  PyTorch path on the CPU."""
+  PyTorch path on the CPU. Under a spatial mesh (eval) the output is this
+  rank's rows (module docstring)."""
 
   def __init__(self, max_depth: float = 1000.0,
                channels: Sequence[int] = (32, 64, 128, 256), *,
@@ -195,6 +236,8 @@ class ModeFusion(nn.Module):
     if depth_in.device != self.device or rgb_in.device != self.device:
       raise ValueError(f"inputs on {depth_in.device}/{rgb_in.device}, model "
                        f"on {self.device}")
+    if self.training:
+      no_spatial_training()
     with _grad_mode(self), ieee_f32_convs():
       return self.feature_extraction(depth_in, rgb_in, plain=plain)
 
@@ -225,8 +268,9 @@ class BaselineFeatures(nn.Module):
 class Baseline(nn.Module):
   """The ablation fusion net: ``forward(depths)``, a list of ``(B, H, W,
   1)`` depth maps, returns ``(B, H, W, 1)`` f32 depths. The JAX package
-  runs it NHWC, so its convs take the batch-packed kernel's gate only.
-  ``device`` and ``generator`` as for :class:`ModeFusion`."""
+  runs it NHWC, so its convs take the batch-packed kernel's gate only, and
+  under a mesh leaves it to GSPMD; the port refuses it under a spatial
+  mesh. ``device`` and ``generator`` as for :class:`ModeFusion`."""
 
   def __init__(self, max_depth: float = 1000.0, in_channels: int = 6, *,
                device: str | torch.device | None = None,
@@ -237,6 +281,11 @@ class Baseline(nn.Module):
     self.device = _place(self, device, generator)
 
   def forward(self, depths, *, plain: bool = False) -> torch.Tensor:
+    if spatial_mesh() is not None:
+      raise NotImplementedError(
+          "Baseline under a spatial mesh is not ported: the JAX package runs "
+          "it NHWC and leaves its sharding to GSPMD; serve ModeFusion, or "
+          "run Baseline without the spatial axis")
     x = torch.cat(list(depths), -1)
     if x.device != self.device:
       raise ValueError(f"inputs on {x.device}, model on {self.device}")

@@ -13,6 +13,15 @@ is built), or raises on an input the kernel does not take. On a CPU tensor,
 or when the caller passes ``plain=True``, it runs the plain PyTorch version:
 ``F.conv2d`` in f32 and the same epilogue.
 
+Under a spatial mesh (``parallel/shard_ops.py``) a call takes
+``h_halo=True``: ``x`` then holds this rank's rows of H with one halo row
+above and below (its neighbours' rows, or zeros at the mesh's edges), H is
+not padded, and the output is this rank's ``H - 2`` rows of the unsharded
+call, as ``conv2d_band_pallas(..., m_halo=True)`` computes them. The kernel
+takes the halo as an H origin of one row; the plain version pads W only.
+Dilation 2 takes no halo (the JAX package shards only the dilation-1
+per-image convs, ``mode_tpu/models/blocks.py:350``).
+
 The weight is torch's ``(Cout, Cin, 3, 3)``, or the kernel's K-major
 :class:`~mode_tpu_torch.ops.kmajor.TcWeight` from :func:`pack_weight_tc`,
 which saves the per-call repack where a layer keeps it (``models/blocks.py``
@@ -47,7 +56,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def _conv2d_lib():
   lib = build.load("conv2d")
   lib.conv2d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
   lib.conv2d_s1_bn_act.restype = ctypes.c_int
   return lib
 
@@ -83,15 +92,33 @@ def _torch_weight(weight):
   return weight
 
 
-def _plain(x, weight, scale, bias, residual, relu, dilation):
+def _plain(x, weight, scale, bias, residual, relu, dilation, h_halo=False):
+  """The same function in plain PyTorch, in f32, cast to ``x.dtype``; with
+  ``h_halo`` H padded by the halo rows instead of zeros."""
   weight = _torch_weight(weight)
   y = F.conv2d(x.float().permute(0, 3, 1, 2), weight.float(),
-               padding=dilation, dilation=dilation)
+               padding=(0, 1) if h_halo else dilation, dilation=dilation)
   return epilogue(y.permute(0, 2, 3, 1), scale, bias, residual, relu,
                   x.dtype)
 
 
-def _launch(x, weight, scale, bias, residual, relu, dilation):
+def _out_shape(x_shape, cout: int, dilation: int,
+               h_halo: bool) -> tuple[int, ...]:
+  n, h, w, _ = x_shape
+  if h_halo:
+    if dilation != 1:
+      raise ValueError(f"{_NAME}: a haloed x takes dilation 1, got "
+                       f"{dilation}")
+    if h < 3:
+      raise ValueError(f"{_NAME}: a haloed x holds two halo rows and at "
+                       f"least one row of its own, got H {h}")
+    h -= 2
+  return (n, h, w, cout)
+
+
+def _launch(x, weight, scale, bias, residual, relu, dilation, h_halo=False):
+  """The tensor-core kernel of ``conv2d.cu``; its C entry takes x's
+  extents and the halo flag."""
   if x.dim() != 4 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f"{_NAME}: x must be a contiguous f32 or bf16 NHWC "
                      f"map, got {tuple(x.shape)} {x.dtype}")
@@ -100,7 +127,7 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
       _torch_weight(weight))
   cout = tw.cout
   wbig, wsmall = kmajor.operands(_NAME, x, tw, 9, x.dtype == torch.float32)
-  shape = (n, h, w, cout)
+  shape = _out_shape(x.shape, cout, dilation, h_halo)
   if residual is not None and (tuple(residual.shape) != shape
                                or residual.dtype != x.dtype
                                or residual.device != x.device
@@ -113,7 +140,7 @@ def _launch(x, weight, scale, bias, residual, relu, dilation):
       int(x.dtype == torch.bfloat16), x.data_ptr(), wbig, wsmall,
       scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      n, h, w, cin, cout, dilation, int(relu))
+      n, h, w, cin, cout, dilation, int(relu), int(h_halo), halo=h_halo)
   return out
 
 
@@ -122,6 +149,7 @@ def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor | None = None,
                      residual: torch.Tensor | None = None,
                      relu: bool = False, dilation: int = 1, *,
+                     h_halo: bool = False,
                      plain: bool = False) -> torch.Tensor:
   """Stride-1 3x3 conv, padding = dilation, + affine (+ residual) (+ ReLU).
 
@@ -134,19 +162,22 @@ def conv2d_s1_bn_act(x: torch.Tensor, weight: torch.Tensor,
     scale, bias: ``(Cout,)`` epilogue affine, kept in f32 (1 and 0 if None).
     residual: optional ``(N, H, W, Cout)`` added before the ReLU.
     dilation: 1 or 2; the padding equals it, so the map keeps its size.
+    h_halo: ``x``'s first and last rows are halo rows (module docstring);
+      dilation 1 only.
     plain: run the plain PyTorch version even on a CUDA tensor.
   Returns:
-    ``(N, H, W, Cout)`` in ``x.dtype``.
+    ``(N, H, W, Cout)`` in ``x.dtype``, ``H - 2`` rows with ``h_halo``.
   """
   if dilation not in (1, 2):
     raise ValueError(f"{_NAME}: dilation must be 1 or 2, got {dilation}")
   scale, bias = affine(scale, bias, _torch_weight(weight).shape[0],
                        x.device)
   if plain or x.device.type == "cpu":
-    return _plain(x, weight, scale, bias, residual, relu, dilation)
+    _out_shape(x.shape, scale.shape[0], dilation, h_halo)  # the same refusals
+    return _plain(x, weight, scale, bias, residual, relu, dilation, h_halo)
   if x.device.type != "cuda":
     raise ValueError(f"{_NAME}: unsupported device {x.device}")
-  return _launch(x, weight, scale, bias, residual, relu, dilation)
+  return _launch(x, weight, scale, bias, residual, relu, dilation, h_halo)
 
 
 # --- training ---------------------------------------------------------------

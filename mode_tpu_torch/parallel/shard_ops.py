@@ -1,14 +1,19 @@
-"""The cost-volume kernels over the ``spatial`` axis
+"""The kernels over the ``spatial`` axis
 (``mode_tpu/parallel/shard_ops.py``), eval only.
 
-Each rank holds its rows of the volume's H (``mesh.row_sharding``). A
-3x3x3 conv of stride 1 or 2 reads one row beyond each end of its rows, and
-the k3 s2 p1 op1 transpose conv one row beyond the last: :func:`halo_concat`
-brings those planes from the neighbours (zeros at the mesh's edges, the
-convs' zero padding), and the kernel runs on the haloed rows with
-``h_halo=True`` (``ops/conv3d.py``). The regression head
-(:func:`regression_sharded`) gathers the quarter-resolution logits, which
-are small, and expands only this rank's output rows.
+Each rank holds its rows of the volume's or the map's H
+(``mesh.row_sharding``). A 3x3x3 conv of stride 1 or 2 reads one row
+beyond each end of its rows, and the k3 s2 p1 op1 transpose conv one row
+beyond the last: :func:`halo_concat` brings those planes from the
+neighbours (zeros at the mesh's edges, the convs' zero padding), and the
+kernel runs on the haloed rows with ``h_halo=True`` (``ops/conv3d.py``).
+The fusion net's stride-1 3x3 2-D convs do the same on NHWC rows: on the
+2-D kernel's halo form (:func:`conv2d_s1_sharded`, ``ops/conv2d.py``) where
+the JAX package runs ``conv2d_band_sharded``, and as ``F.conv2d`` on the
+haloed rows (:func:`conv2d_library_sharded`) where it leaves the conv to
+XLA. The regression head (:func:`regression_sharded`) gathers the
+quarter-resolution logits, which are small, and expands only this rank's
+output rows.
 
 Every function here takes its arguments as the op it wraps takes them and
 counts its collectives on ``mesh.collectives``.
@@ -18,11 +23,13 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from mode_tpu_torch.ops import conv3d, regression
+from mode_tpu_torch.ops import conv2d, conv3d, regression
 from mode_tpu_torch.parallel.mesh import Mesh, gather_rows, row_sharding
 
 H_AXIS = 2          # the H axis of an NDHWC volume
+H_AXIS_2D = 1       # the H axis of an NHWC map
 
 
 def halo_concat(x: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
@@ -73,6 +80,26 @@ def deconv3d_sharded(x, weight, scale=None, bias=None, residual=None,
   return conv3d.deconv3d_bn_act(halo_concat(x, H_AXIS, mesh), weight, scale,
                                 bias, residual, relu, h_halo=True,
                                 plain=plain)
+
+
+def conv2d_s1_sharded(x, weight, scale=None, bias=None, residual=None,
+                      relu=False, *, mesh: Mesh, plain: bool = False):
+  """``conv2d.conv2d_s1_bn_act`` (dilation 1) on this rank's rows of an
+  NHWC map; ``residual`` is this rank's rows of the output."""
+  return conv2d.conv2d_s1_bn_act(halo_concat(x, H_AXIS_2D, mesh), weight,
+                                 scale, bias, residual, relu, h_halo=True,
+                                 plain=plain)
+
+
+def conv2d_library_sharded(x: torch.Tensor, weight: torch.Tensor, *,
+                           mesh: Mesh) -> torch.Tensor:
+  """The bare 3x3 pad-1 conv ``F.conv2d(x, weight, padding=1)`` on this
+  rank's rows of an NHWC map, NHWC out: ``F.conv2d`` on the haloed rows,
+  W alone padded, in the caller's precision (the models run it under
+  ``device.ieee_f32_convs``)."""
+  xh = halo_concat(x, H_AXIS_2D, mesh)
+  return F.conv2d(xh.permute(0, 3, 1, 2), weight,
+                  padding=(0, 1)).permute(0, 2, 3, 1)
 
 
 def regression_sharded(cost_q: torch.Tensor, maxdisp: int, h: int, w: int, *,

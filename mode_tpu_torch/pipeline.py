@@ -6,6 +6,15 @@ The reference runs its two stages through the filesystem. Here a frame
 stays on the device from its input images to the fused depth map: it
 uploads its inputs and nothing else (the bridge's and the normalisation's
 constants are kept on the device), and no step waits on the host.
+
+Under ``with activate(make_mesh(data=1, spatial=S)):`` (``parallel/``, one
+process a card) every rank serves the frame over the spatial axis: stage 1
+on its rows of every chunk (``models/disparity.py``), one ``gather_rows`` of
+the disparities and one of the confidences, the bridge whole on every rank
+(its re-projection moves pixels across rows), the fusion net on its rows of
+the bridged maps and the views (``models/fusion.py``), and one
+``gather_rows`` of the fused map: every rank returns the whole frame. The
+frame's fusion runs at batch 1, so a data axis above 1 raises.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from mode_tpu_torch.geometry.reprojection import (
     depth_view_transforms_batched)
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.models.fusion import ModeFusion
+from mode_tpu_torch.parallel.mesh import Mesh, active_mesh, gather_rows
 from mode_tpu_torch.training import (cast_conv_params,
                                      normalize_rgb_on_device)
 from mode_tpu_torch.utils.convert import load_reference_state_dict
@@ -134,7 +144,8 @@ class TwoStagePipeline:
   def stage1(self, lefts, rights, *, plain: bool = False
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Disparities and confidences ``(6, H, W)`` f32 of the six pairs
-    ``(6, H, W, 3)``."""
+    ``(6, H, W, 3)`` (under a spatial mesh this rank's ``(6, H / S, W)``
+    rows)."""
     lefts = self._input(lefts, self.dtype)
     rights = self._input(rights, self.dtype)
     preds, confs = [], []
@@ -148,7 +159,8 @@ class TwoStagePipeline:
   def fuse(self, depths: torch.Tensor, confs: torch.Tensor, rgbs, *,
            plain: bool = False) -> torch.Tensor:
     """The fused depth ``(H, W)`` f32 of the bridged maps ``(6, H, W)`` and
-    the four views ``(4, H, W, 3)``."""
+    the four views ``(4, H, W, 3)`` (under a spatial mesh this rank's
+    ``(H / S, W)`` rows)."""
     rgbs = self._input(rgbs, torch.float32).to(self.fusion_dtype)
     fdt = self.fusion_dtype
     out = self.fusion([depths[k][None, :, :, None].to(fdt) for k in range(6)],
@@ -163,8 +175,29 @@ class TwoStagePipeline:
     34's left and right), tensors or arrays. Returns ``(fused (H, W),
     disparities (6, H, W), confidences (6, H, W))``, f32 on the device.
     ``plain=True`` runs the kernels' plain versions (a reference for the
-    card)."""
+    card). Under a spatial mesh every rank returns the whole frame (module
+    docstring)."""
+    mesh = _frame_mesh()
     disp, conf = self.stage1(lefts, rights, plain=plain)
+    if mesh is not None:
+      disp, conf = gather_rows(disp, 1, mesh), gather_rows(conf, 1, mesh)
     depths, confs = bridge_all_pairs(disp, conf)
-    return self.fuse(depths, confs, rgbs, plain=plain), disp, conf
+    fused = self.fuse(depths, confs, rgbs, plain=plain)
+    if mesh is not None:
+      fused = gather_rows(fused, 0, mesh)
+    return fused, disp, conf
+
+
+def _frame_mesh() -> Mesh | None:
+  """The active mesh if it splits H, None without one; a data axis above 1
+  raises (the frame is one example)."""
+  mesh = active_mesh()
+  if mesh is None:
+    return None
+  if mesh.data > 1:
+    raise ValueError(
+        f"the frame runs its fusion net at batch 1 and takes no data axis: "
+        f"got a mesh of data {mesh.data} x spatial {mesh.spatial}; serve "
+        "frames on a (1, S) mesh")
+  return mesh if mesh.spatial > 1 else None
 

@@ -16,7 +16,10 @@ shape past 48 KB of shared memory; one training step at 512x256, where
 every kernel family trains, in f32 and in mixed precision (bf16), against
 the same step through the plain versions; and one fusion training step at
 256x128, f32 and bf16, K9 forward and grad-input, against its plain step;
-and both training CLIs, one step each at 512x256.
+and both training CLIs, one step each at 512x256; the halo forms of the
+3-D kernels and of the 2-D kernel (the fusion net's rows at spatial 2 and
+4, the Sphere stem's, ragged shards) and the 2-D C entry's refusal of a
+halo at dilation 2; K2's row window.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -1069,6 +1072,67 @@ def test_halo_kernel_matches_plain(gen, fn, x_shape, cout, res, relu, dtype):
   assert sum(kernels.HALO_LAUNCHES.values()) == 1
   assert got.dtype == dtype and got.shape == want.shape
   _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_shape,cout,res,relu", [
+    # a rank's rows of the fusion net's 1024x512 maps at spatial 2, with
+    # its two halo rows: every level the 2-D kernel takes, Cin 12 padded
+    ((1, 514, 512, 16), 32, False, True),     # depth_layer1.0.conv1
+    ((1, 514, 512, 32), 32, False, True),
+    ((1, 514, 512, 64), 32, False, True),     # fusion_layer1, depth_layer7
+    ((1, 258, 256, 32), 64, False, True),
+    ((1, 258, 256, 64), 64, False, True),
+    ((1, 258, 256, 128), 64, False, True),
+    ((1, 130, 128, 64), 128, False, True),
+    ((1, 130, 128, 128), 128, False, True),
+    ((1, 130, 128, 256), 128, False, True),
+    # spatial 4, the Sphere stem at spatial 2, and ragged shards
+    ((1, 66, 128, 128), 128, False, True),
+    ((1, 258, 256, 32), 32, False, True),
+    ((2, 5, 13, 24), 40, True, False),
+    ((1, 3, 9, 40), 8, True, True),
+])
+def test_conv2d_halo_kernel_matches_plain(gen, x_shape, cout, res, relu,
+                                          dtype):
+  """K8's halo form (``h_halo=True``) against its plain halo version on the
+  same haloed rows: one launch, counted as haloed."""
+  cin = x_shape[-1]
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((x_shape[0], x_shape[1] - 2, x_shape[2], cout),
+                   generator=gen, device="cuda").to(dtype) if res else None)
+  packed = C2.pack_weight_tc(w)
+  kernels.reset_launches()
+  got = C2.conv2d_s1_bn_act(x, packed, scale, bias, r, relu, h_halo=True)
+  want = C2.conv2d_s1_bn_act(x, w, scale, bias, r, relu, h_halo=True,
+                             plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv2d_s1_bn_act": 1}
+  assert dict(kernels.HALO_LAUNCHES) == {"conv2d_s1_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape == (
+      x_shape[0], x_shape[1] - 2, *x_shape[2:3], cout)
+  _close(got, want, dtype)
+
+
+def test_conv2d_halo_entry_refuses_dilation_2(gen):
+  """The C entry refuses a halo with dilation 2 (the JAX package shards
+  only dilation-1 convs), returning cudaErrorInvalidValue unlaunched."""
+  x = torch.randn((1, 6, 8, 16), generator=gen, device="cuda")
+  tw = C2.pack_weight_tc(torch.randn((16, 16, 3, 3), generator=gen,
+                                     device="cuda"))
+  one = torch.ones(16, device="cuda")
+  out = torch.full((1, 4, 8, 16), 7.0, device="cuda")
+  err = C2._conv2d_lib().conv2d_s1_bn_act(
+      0, x.data_ptr(), tw.parts[0].data_ptr(), tw.parts[1].data_ptr(),
+      one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(), 1, 6, 8,
+      16, 16, 2, 0, 1, torch.cuda.current_stream().cuda_stream)
+  torch.cuda.synchronize()
+  assert err == 1                                      # cudaErrorInvalidValue
+  assert bool((out == 7.0).all())                      # nothing launched
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -22,7 +22,15 @@ they leave them a 1e-7 input jitter moves the JAX package's own output by
 The routing: the JAX fusion net traced under ``jax.eval_shape`` with
 counting stubs for its Pallas 2-D kernels, against the port's calls of
 ``ops/conv2d.py:conv2d_s1_bn_act``, at 16x128 and at the frame's 1024x512,
-where ``chip_smoke.py`` expects the count.
+where ``chip_smoke.py`` expects the count; and under a ``(1, 2)`` mesh at
+1024x512, the JAX net's ``conv2d_band_sharded`` calls against the port's
+halo-form calls (``parallel/shard_ops.py``), shapes only.
+
+The spatial axis: ``ModeFusion`` in eval on ``(1, 2)`` and ``(2, 2)`` gloo
+meshes (``tests/torch_spatial_ranks.py``) at 32x128, batch 2, the fused
+batch gathered from every rank, against the single-device JAX net at the
+bars above and against the port in one process at 1e-5 (relative: the
+depths reach 1000 m), with 38 halo exchanges a forward on every rank.
 """
 
 import functools
@@ -38,10 +46,16 @@ import chip_smoke
 from mode_tpu.models import fusion as jfusion
 from mode_tpu.ops.pallas import conv2d_kernel as c2k
 from mode_tpu.ops.pallas import conv3d_kernel as c3k
+from mode_tpu.parallel import mesh as jmesh
+from mode_tpu.parallel import shard_ops as jshard
 from mode_tpu_torch.models import blocks as tblocks
 from mode_tpu_torch.models import fusion as tfusion
 from mode_tpu_torch.ops import conv2d as conv2d_ops
+from mode_tpu_torch.parallel import mesh as pmesh
+from mode_tpu_torch.parallel import shard_ops
+from mode_tpu_torch.parallel.launch import run_ranks
 from mode_tpu_torch.utils.convert import load_reference_state_dict
+from tests import torch_spatial_ranks as ranks
 from tests.port_weights import carry, numpy_variables
 from tests.torch_mirror import ModeFusionT
 
@@ -250,3 +264,128 @@ def test_fusion_conv_pads_cin_to_a_multiple_of_8():
   packed = layer._packed.get((layer[0].weight,), None)
   assert packed.weight.shape == (16, 16, 3, 3)
   torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# --- the spatial axis ---------------------------------------------------------
+
+SPATIAL = 2
+FRAME_HALO_CONVS = 38       # every 3x3 conv of the net exchanges its halo
+
+
+def _count_jax_mesh(monkeypatch, h, w, channels, spatial):
+  """The JAX fusion net's eval forward traced under a ``(1, spatial)`` mesh
+  of the CPU's virtual devices with its Pallas policy on: the shard-local
+  shapes (lane-major ``(B, M / S, C, L)``) of its ``conv2d_band_sharded``
+  calls, and its unsharded 2-D kernels' calls (none)."""
+  monkeypatch.setattr(c3k, "_CONV3D_MODE", "on")
+  sharded, bare = [], []
+
+  def stub(x, weight, scale, bias, residual, relu, mesh):
+    sharded.append((x.shape[0], x.shape[1] // spatial, *x.shape[2:]))
+    return jnp.zeros((x.shape[0], x.shape[1], weight.shape[-1], x.shape[3]),
+                     x.dtype)
+
+  def bare_stub(x, weight, *args, **kwargs):
+    bare.append(x.shape)
+    return jnp.zeros((x.shape[0], x.shape[1], weight.shape[-1], x.shape[3]),
+                     x.dtype)
+
+  monkeypatch.setattr(jshard, "conv2d_band_sharded", stub)
+  monkeypatch.setattr(c2k, "conv2d_band_pallas", bare_stub)
+  model = jfusion.ModeFusion(1000.0, channels)
+  zeros = [jnp.zeros((1, h, w, 1))] * 6
+  views = [jnp.zeros((1, h, w, 3))] * 4
+  variables = jax.eval_shape(lambda: model.init(
+      jax.random.PRNGKey(0), zeros, zeros, views, False))
+  sharded.clear()
+  bare.clear()
+  with jmesh.activate(jmesh.make_mesh(data=1, spatial=spatial)):
+    jax.eval_shape(lambda v: model.apply(v, zeros, zeros, views, False),
+                   variables)
+  return sharded, bare
+
+
+def _count_port_mesh(monkeypatch, h, w, channels, spatial):
+  """The port's eval forward under a ``(1, spatial)`` mesh (rank 0; the
+  halo exchanges stubbed, so no process group): the NHWC shapes of a
+  rank's rows reaching the kernel's halo form and the library form."""
+  kernel, library = [], []
+
+  def kernel_stub(x, weight, scale, bias, residual, relu, *, mesh, plain):
+    kernel.append(tuple(x.shape))
+    return torch.zeros((*x.shape[:3], weight.cout))
+
+  def library_stub(x, weight, *, mesh):
+    library.append(tuple(x.shape))
+    return torch.zeros((*x.shape[:3], weight.shape[0]))
+
+  monkeypatch.setattr(shard_ops, "conv2d_s1_sharded", kernel_stub)
+  monkeypatch.setattr(shard_ops, "conv2d_library_sharded", library_stub)
+  model = tfusion.ModeFusion(1000.0, channels, device="cpu")
+  zeros = [torch.zeros((1, h, w, 1))] * 6
+  views = [torch.zeros((1, h, w, 3))] * 4
+  mesh = pmesh.Mesh(data=1, rank=0, device=torch.device("cpu"),
+                    spatial=spatial)
+  with pmesh.activate(mesh):
+    out = model(zeros, zeros, views)
+  assert out.shape == (1, h // spatial, w, 1)
+  return kernel, library
+
+
+def test_routing_under_a_spatial_mesh(monkeypatch):
+  """At 1024x512 on a (1, 2) mesh the JAX net sends 36 convs to
+  ``conv2d_band_sharded`` (every lane-major conv but depth_layer4's two,
+  W = 64) and none to the bare kernel; the port sends the same 36, at the
+  same shard-local shapes, to the kernel's halo form and depth_layer4's
+  two to the library form: ``chip_smoke.FUSION_K8`` halo launches a
+  frame."""
+  channels = (32, 64, 128, 256)
+  jax_calls, bare = _count_jax_mesh(monkeypatch, 1024, 512, channels,
+                                    SPATIAL)
+  kernel, library = _count_port_mesh(monkeypatch, 1024, 512, channels,
+                                     SPATIAL)
+  assert not bare
+  assert len(jax_calls) == len(kernel) == chip_smoke.FUSION_K8 == 36
+  # lane-major (B, M, C, L) against NHWC (B, H, W, C); C padded to 8 both
+  assert [(b, m, l, c) for b, m, c, l in jax_calls] == kernel
+  assert library == [(1, 64, 64, 128), (1, 64, 64, 256)]
+  assert len(kernel) + len(library) == FRAME_HALO_CONVS
+
+
+@pytest.fixture(scope="module")
+def spatial_case():
+  """A lane-eligible 32x128 batch of 2, seeded weights at the small widths,
+  the single-device JAX net's output, the port's in one process, and the
+  port's weights as numpy."""
+  channels, (b, h, w) = SMALL, (2, 32, 128)
+  inputs = _frame_inputs(b, h, w)
+  jmodel = jfusion.ModeFusion(1000.0, channels)
+  shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), *inputs,
+                                              False))
+  variables = numpy_variables(shapes, 3, head_scale=HEAD_SCALE["fusion"])
+  want = np.asarray(jmodel.apply(variables, *inputs, False))
+  port = carry(tfusion.ModeFusion(1000.0, channels, device="cpu"), variables)
+  one = port(*(_torch(x) for x in inputs)).numpy()
+  state = {k: v.numpy() for k, v in port.state_dict().items()}
+  return inputs, want, one, state
+
+
+@pytest.mark.parametrize("data,spatial", [(1, 2), (2, 2)])
+def test_sharded_fusion_matches_jax_and_one_process(spatial_case, data,
+                                                    spatial):
+  """Each rank holds its ``(B / D, H / S, W, 1)`` rows of the one-process
+  output; the fused batch gathered from every rank holds the single-device
+  JAX net at the bars above."""
+  inputs, want, one, state = spatial_case
+  outs = run_ranks(ranks.sharded_fusion, data * spatial,
+                   (state, SMALL, *inputs, data, spatial), timeout=300,
+                   device="cpu", threads=1)
+  b, h = want.shape[0] // data, want.shape[1] // spatial
+  for r, out in enumerate(outs):
+    d, s = r // spatial, r % spatial
+    assert out["place"] == (d, s)
+    mine = one[d * b:(d + 1) * b, s * h:(s + 1) * h]
+    assert out["out"].shape == mine.shape
+    np.testing.assert_allclose(out["out"], mine, rtol=1e-5, atol=1e-5)
+    _assert_close(out["whole"], want)
+    assert out["collectives"] == FRAME_HALO_CONVS

@@ -364,6 +364,20 @@ def test_halo_launches_pass_the_flag_and_count_apart(guard, name, mode,
   assert dict(kernels.HALO_LAUNCHES) == {name: 1}
 
 
+def test_conv2d_halo_launch_passes_the_flag_and_counts_apart(guard):
+  """The 2-D kernel's ``h_halo`` reaches its C entry as the last int after
+  x's own extents, the dilation and the ReLU; the output has two rows
+  fewer than x, and the launch counts again as haloed."""
+  one = torch.ones(16)
+  x, w = torch.randn((1, 6, 4, 16)), torch.randn((16, 16, 3, 3))
+  for halo in (True, False):
+    out = C2._launch(x, w, one, 0 * one, None, True, 1, halo)
+    assert guard.entry_args[-1][-9:-1] == (1, 6, 4, 16, 16, 1, 1, int(halo))
+    assert tuple(out.shape) == (1, 4 if halo else 6, 4, 16)
+  assert dict(kernels.LAUNCHES) == {"conv2d_s1_bn_act": 2}
+  assert dict(kernels.HALO_LAUNCHES) == {"conv2d_s1_bn_act": 1}
+
+
 def test_regression_window_reaches_the_entry(guard):
   """``row0`` and ``h_out`` are the C entry's last two ints; the output
   has ``h_out`` rows, and a window short of the whole output counts as

@@ -1,6 +1,7 @@
 """The ``spatial`` axis of mode_tpu_torch (``parallel/mesh.py``,
 ``parallel/shard_ops.py``, the kernels' halo forms in ``ops/conv3d.py`` and
-the regression head's row window in ``ops/regression.py``) on the CPU, f32.
+``ops/conv2d.py``, the regression head's row window in
+``ops/regression.py``, the frame in ``pipeline.py``) on the CPU, f32.
 
 1. The collectives as gloo ranks (``parallel/launch.py:run_ranks``; the
    ranks' code is ``tests/torch_spatial_ranks.py``, which imports no JAX):
@@ -24,6 +25,18 @@ the regression head's row window in ``ops/regression.py``) on the CPU, f32.
 5. The gates: rows that do not split, a stride-2 conv whose shard would
    not start on an even global row, a training forward and a mesh off the
    world size all raise, naming what is wrong.
+6. The 2-D conv's halo form (K8's ``m_halo``, the fusion net's convs under
+   the mesh): the plain form against ``conv2d_band_pallas(..., m_halo=True)``
+   in interpret mode at 1e-5 (Cin 12 padded to 16, a residual, ReLU on and
+   off), and the plain form and the library form
+   (``shard_ops.conv2d_library_sharded``) against the rows of the unsharded
+   conv, every shard of a 4-way split, at 1e-6; dilation 2 refused.
+7. The frame (``TwoStagePipeline``, 64x32, maxdisp 16, the trained stage 1,
+   a seeded fusion net) on a ``(1, 2)`` gloo mesh against the port's
+   one-process frame at 1e-5, with ``FRAME_COLLECTIVES`` collectives; the
+   fusion net's and the frame's refusals (an H off a multiple of 8 S,
+   training, ``Baseline``, a data axis above 1). The fusion net alone on
+   ``(1, 2)`` and ``(2, 2)`` meshes is in ``tests/test_torch_fusion.py``.
 """
 
 import functools
@@ -36,15 +49,23 @@ import torch
 from jax.experimental import pallas as pl
 
 from mode_tpu.models import disparity as jdisp
+from mode_tpu.models import fusion as jfusion
+from mode_tpu.ops.pallas import conv2d_kernel as c2k
 from mode_tpu.ops.pallas import conv3d_kernel as ck
 from mode_tpu.ops.pallas import regression_kernel as rk
 from mode_tpu.utils.torch_convert import convert_state_dict
 from mode_tpu_torch.models import disparity as tdisp
+from mode_tpu_torch.models import fusion as tfusion
+from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
 from mode_tpu_torch.ops import regression as R
+from mode_tpu_torch.parallel import shard_ops
 from mode_tpu_torch.parallel.launch import run_ranks
+from mode_tpu_torch.pipeline import TwoStagePipeline
 from mode_tpu_torch.utils.convert import load_npz
 from tests import torch_spatial_ranks as ranks
+from tests.port_weights import carry, numpy_variables
+from tests.test_torch_fusion import HEAD_SCALE
 from tests.trained_mirror import _make_batch, get_trained_state_dict
 
 torch.set_num_threads(2)
@@ -56,6 +77,11 @@ ONE_PROCESS = 1e-5
 # a call's collectives: 16 stride-1 convs (the 3 heads among them), 6
 # stride-2 convs and 6 deconvs exchange halos; K2 gathers its input
 COLLECTIVES = 16 + 6 + 6 + 1
+# a frame's at stage1_chunk 6: one stage-1 call, the gathers of its
+# disparities and confidences, the fusion net's 38 3x3 convs' halo
+# exchanges, the fused map's gather
+FUSION_COLLECTIVES = 38
+FRAME_COLLECTIVES = COLLECTIVES + 2 + FUSION_COLLECTIVES + 1
 
 
 @pytest.fixture
@@ -404,3 +430,167 @@ def test_chip_smoke_expects_the_spatial_counts():
            if getattr(m, "weight", None) is not None
            and m.weight.dim() == 5 and m.weight.shape[0] == 1]
   assert len(heads) == chip_smoke.SP_HEADS == 3
+
+
+# --- 6. the 2-D conv's halo form --------------------------------------------
+
+def _haloed_2d(x: np.ndarray, r0: int, r1: int) -> np.ndarray:
+  """Rows [r0, r1) of axis 1 of an NHWC ``x`` with the rows either side,
+  zeros past the ends."""
+  pad = np.pad(x, [(0, 0), (1, 1), (0, 0), (0, 0)])
+  return np.ascontiguousarray(pad[:, r0:r1 + 2])
+
+
+def _conv2d_inputs(seed, shape, cin, cout):
+  rng = np.random.default_rng(seed)
+  x = (rng.normal(size=(*shape, cin)) * 0.3).astype(np.float32)
+  w = (rng.normal(size=(cout, cin, 3, 3)) * 0.2).astype(np.float32)
+  scale = (rng.normal(size=(cout,)) * 0.2 + 1.0).astype(np.float32)
+  bias = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+  return x, w, scale, bias, rng
+
+
+@pytest.mark.parametrize("rows,cin,cout,res,relu", [
+    ((4, 8), 12, 16, False, True),   # a middle shard, Cin 12 padded to 16
+    ((0, 4), 8, 24, True, False),    # the top shard, a residual
+    ((8, 12), 16, 8, True, True),    # the bottom shard, residual and ReLU
+])
+def test_conv2d_halo_form_matches_m_halo_pallas(interpret_pallas, rows, cin,
+                                                cout, res, relu):
+  """``conv2d_s1_bn_act(h_halo=True)`` against ``conv2d_band_pallas(...,
+  m_halo=True)`` (K8, ``conv2d_kernel.py:162-211``) on the same haloed rows
+  of a 12-row map, lane-major there; a Cin off 8 padded with zero channels
+  on both sides, as the fusion net pads it."""
+  x, w, scale, bias, rng = _conv2d_inputs(8, (1, 12, 128), cin, cout)
+  pad = -cin % 8
+  x = np.pad(x, [(0, 0)] * 3 + [(0, pad)])
+  w = np.pad(w, [(0, 0), (0, pad), (0, 0), (0, 0)])
+  xh = _haloed_2d(x, *rows)
+  r = ((rng.normal(size=(1, rows[1] - rows[0], 128, cout)) * 0.3).astype(
+      np.float32) if res else None)
+  want = c2k.conv2d_band_pallas(
+      jnp.asarray(np.transpose(xh, (0, 1, 3, 2))),
+      jnp.asarray(np.transpose(w, (2, 3, 1, 0))), jnp.asarray(scale),
+      jnp.asarray(bias),
+      None if r is None else jnp.asarray(np.transpose(r, (0, 1, 3, 2))),
+      relu=relu, m_halo=True)
+  got = C2.conv2d_s1_bn_act(_t(xh), _t(w), _t(scale), _t(bias), _t(r), relu,
+                            h_halo=True)
+  assert got.shape == (1, rows[1] - rows[0], 128, cout)
+  np.testing.assert_allclose(got.numpy(),
+                             np.transpose(np.asarray(want), (0, 1, 3, 2)),
+                             rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["kernel", "library"])
+def test_conv2d_halo_forms_are_the_rows_of_the_whole_conv(monkeypatch,
+                                                          form):
+  """Every shard of a 4-way split of a 16-row map, haloed as
+  ``halo_concat`` hands it over, gives its rows of the whole map's conv:
+  the kernel's plain halo form (with its residual rows) and the library
+  form, whose halo exchange is stubbed with the haloed rows."""
+  x, w, scale, bias, rng = _conv2d_inputs(9, (2, 16, 6), 8, 16)
+  res = (rng.normal(size=(2, 16, 6, 16)) * 0.3).astype(np.float32)
+  n = 16 // SPLIT
+  if form == "kernel":
+    whole = C2.conv2d_s1_bn_act(_t(x), _t(w), _t(scale), _t(bias), _t(res),
+                                True)
+  else:
+    whole = torch.nn.functional.conv2d(
+        _t(x).permute(0, 3, 1, 2), _t(w), padding=1).permute(0, 2, 3, 1)
+  for s in range(SPLIT):
+    xh = _t(_haloed_2d(x, s * n, (s + 1) * n))
+    rows = slice(s * n, (s + 1) * n)
+    if form == "kernel":
+      got = C2.conv2d_s1_bn_act(xh, _t(w), _t(scale), _t(bias),
+                                _t(res[:, rows]), True, h_halo=True)
+    else:
+      monkeypatch.setattr(shard_ops, "halo_concat",
+                          lambda local, axis, mesh, xh=xh: xh)
+      got = shard_ops.conv2d_library_sharded(_t(x[:, rows]), _t(w),
+                                             mesh=None)
+    torch.testing.assert_close(got, whole[:, rows], rtol=1e-6, atol=1e-6)
+
+
+def test_conv2d_halo_form_refuses_what_it_does_not_take():
+  w = torch.zeros((8, 8, 3, 3))
+  with pytest.raises(ValueError, match="takes dilation 1, got 2"):
+    C2.conv2d_s1_bn_act(torch.zeros((1, 6, 4, 8)), w, dilation=2,
+                        h_halo=True)
+  with pytest.raises(ValueError, match="two halo rows"):
+    C2.conv2d_s1_bn_act(torch.zeros((1, 2, 4, 8)), w, h_halo=True)
+
+
+# --- 7. the frame -----------------------------------------------------------
+
+def _frame_fusion_state():
+  """A seeded fusion net at the Deep360 widths for the 64x32 frame, its
+  head scaled as ``tests/test_torch_fusion.py`` scales it; numpy state."""
+  zeros = [np.zeros((1, H, W, 1), np.float32)] * 6
+  views = [np.zeros((1, H, W, 3), np.float32)] * 4
+  shapes = jax.eval_shape(lambda: jfusion.ModeFusion(1000.0).init(
+      jax.random.PRNGKey(0), zeros, zeros, views, False))
+  variables = numpy_variables(shapes, 6, head_scale=HEAD_SCALE["fusion"])
+  port = carry(tfusion.ModeFusion(1000.0, device="cpu"), variables)
+  return {k: v.numpy() for k, v in port.state_dict().items()}
+
+
+def test_sharded_frame_matches_one_process():
+  """Six textured pairs and four views through ``TwoStagePipeline`` on a
+  (1, 2) mesh: every rank returns the whole frame, within 1e-5 of one
+  process's, relative for the fused depths (up to 1000 m, where 1e-5 m is
+  under one f32 step; the CPU's library convs may sum a haloed shard in
+  another order than the whole map), after ``FRAME_COLLECTIVES``
+  collectives."""
+  rng = np.random.default_rng(12)
+  pairs = [_make_batch(rng, batch=1, disps=(d,), h=H, w=W)
+           for d in (4, 8, 12, 12, 8, 4)]
+  lefts, rights = (np.stack([p[i][0].permute(1, 2, 0).numpy()
+                             for p in pairs]) for i in (0, 1))
+  rgbs = np.stack([lefts[0], rights[0], lefts[5], rights[5]])
+  state = _frame_fusion_state()
+  fusion = tfusion.ModeFusion(1000.0, device="cpu")
+  fusion.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+  pipe = TwoStagePipeline(
+      load_npz(tdisp.ModeDisparity(MAXDISP, out_conf=True, device="cpu"),
+               NPZ), fusion, MAXDISP, 1000.0, device="cpu")
+  want = [t.numpy() for t in pipe(*(torch.from_numpy(a)
+                                    for a in (lefts, rights, rgbs)))]
+  assert 1.0 < want[0].std()
+  outs = run_ranks(ranks.sharded_frame, 2,
+                   (NPZ, MAXDISP, state, lefts, rights, rgbs, 2),
+                   timeout=TIMEOUT, device="cpu", threads=1)
+  for out in outs:
+    for key, ref in zip(("fused", "pred", "conf"), want):
+      assert out[key].shape == ref.shape
+      np.testing.assert_allclose(out[key], ref, rtol=ONE_PROCESS,
+                                 atol=ONE_PROCESS)
+    assert out["collectives"] == FRAME_COLLECTIVES
+
+
+def test_fusion_and_frame_refusals():
+  """On a (1, 2) mesh: a 24-row fusion input leaves a rank 12 rows, an odd
+  count before its third pool; the fusion net's training forward and
+  ``Baseline`` raise; a frame on a (2, 1) mesh names its data axis."""
+  out = run_ranks(ranks.fusion_refusals, 2, (24, 128), timeout=TIMEOUT,
+                  device="cpu", threads=1)
+  for r in out:
+    assert set(r) == {"fusion_h", "fusion_train", "baseline", "frame_data"}
+    assert "H % (8 x spatial) == 0" in r["fusion_h"]
+    assert "H 24 over 2 ranks" in r["fusion_h"]
+    assert r["fusion_train"].startswith(
+        "NotImplementedError: training under a spatial mesh")
+    assert r["baseline"].startswith(
+        "NotImplementedError: Baseline under a spatial mesh")
+    assert "got a mesh of data 2 x spatial 1" in r["frame_data"]
+
+
+def test_chip_smoke_expects_the_frame_counts():
+  """``chip_smoke.py``'s ``sp_frame_gloo_2`` expectations are the counts
+  held here: a frame's collectives, and the fusion net's halo launches
+  of the 2-D kernel (its ``FUSION_K8`` convs, held by
+  ``tests/test_torch_fusion.py``)."""
+  import chip_smoke
+  assert chip_smoke.SP_FRAME_COLLECTIVES == FRAME_COLLECTIVES
+  assert chip_smoke.SP_FRAME_HALO == {**chip_smoke.SP_HALO,
+                                      "conv2d_s1_bn_act": chip_smoke.FUSION_K8}

@@ -441,14 +441,17 @@ def _haloed(x, r0, r1):
     ("s2", (2, 2, 12, 4, 40), 8, 128, 3),    # two rows a shard
     ("deconv", (1, 2, 6, 5, 16), 24, 64, 3),
     ("deconv", (2, 1, 4, 3, 40), 72, 128, 2),
+    ("2d", (1, 1, 8, 5, 16), 24, 64, 2),     # conv2d.cu: D = 1, kd = 1
+    ("2d", (2, 1, 6, 3, 40), 72, 128, 3),    # batch 2, Cin 32 + 8
 ])
 def test_halo_walk_rebuilds_the_rows_of_the_conv(mode, x_shape, cout, bm,
                                                  split, dtype):
-  """The walk at H origin 1 (conv3d_s1.cu, conv3d_s2.cu, conv3d.cu with
-  h_halo): each shard of a ``split``-way split of H, with its halo rows,
-  rebuilds its rows of the conv of the whole volume exactly on
-  integer-valued inputs: at stride 1 and for the deconv's M grid the
-  shard's rows, at stride 2 half of them; every output written once."""
+  """The walk at H origin 1 (conv3d_s1.cu, conv3d_s2.cu, conv3d.cu and
+  conv2d.cu with h_halo): each shard of a ``split``-way split of H, with
+  its halo rows, rebuilds its rows of the conv of the whole volume (or
+  map) exactly on integer-valued inputs: at stride 1 and for the deconv's
+  M grid the shard's rows, at stride 2 half of them; every output written
+  once."""
   rng = np.random.default_rng(7)
   cin = x_shape[-1]
   x = rng.integers(-4, 5, x_shape).astype(np.float64)
@@ -459,17 +462,19 @@ def test_halo_walk_rebuilds_the_rows_of_the_conv(mode, x_shape, cout, bm,
     whole = _deconv_im2col(x, wt)
   else:
     stride = 2 if mode == "s2" else 1
-    wk = rng.integers(-4, 5, (27, cout, cin)).astype(np.float64)
-    whole = _im2col(x, _taps(3, 1), stride) @ wk.transpose(0, 2, 1).reshape(
+    kd = 1 if mode == "2d" else 3
+    wk = rng.integers(-4, 5, (3 * kd * 3, cout, cin)).astype(np.float64)
+    whole = _im2col(x, _taps(kd, 1), stride) @ wk.transpose(0, 2, 1).reshape(
         -1, cout)
   n, d, h, w = x_shape[:4]
-  out_h = {"s1": h, "s2": h // 2, "deconv": 2 * h}[mode]
-  out_d, out_w = {"s1": (d, w), "s2": (-(-d // 2), -(-w // 2)),
+  out_h = {"s1": h, "2d": h, "s2": h // 2, "deconv": 2 * h}[mode]
+  out_d, out_w = {"s1": (d, w), "2d": (d, w), "s2": (-(-d // 2), -(-w // 2)),
                   "deconv": (2 * d, 2 * w)}[mode]
   whole = whole.reshape(n, out_d, out_h, out_w, cout)
   rows, per = h // split, out_h // split
   for s in range(split):
-    got = _walk_conv(_haloed(x, s * rows, (s + 1) * rows), wk, 3, 1, dtype,
+    got = _walk_conv(_haloed(x, s * rows, (s + 1) * rows), wk,
+                     1 if mode == "2d" else 3, 1, dtype,
                      bm, bn, stride=2 if mode == "s2" else 1,
                      deconv=mode == "deconv", h0=1)
     want = whole[:, :, s * per:(s + 1) * per].reshape(-1, cout)
