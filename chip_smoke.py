@@ -116,7 +116,18 @@
    ``SP_FRAME_HALO``, with ``SP_FRAME_COLLECTIVES`` collectives a frame;
    the f32 frame must hold the one-process ``frame`` (stage 1 at the served
    bars, the fused depths at ``FUSED_MAE``/``FUSED_MAX``) and the bf16
-   disparities the f32 ones within ``BF16_DISP_MAE``.
+   disparities the f32 ones within ``BF16_DISP_MAE``. Then
+   ``sp_train_gloo_2``: the two ranks train ``train_b2``'s seeded model on
+   the same mesh, each on the whole global batch of two (a batch made as
+   ``train_b2``'s, from its own seed) and its half of the cost volume's
+   rows, f32 and bf16 (four steps each) and one ERP f32 step at 512x1024:
+   each rank's launches a step one process's (``train_expect``), the 3-D
+   ones on their halo forms forward and as grad-inputs (``SP_TRAIN_HALO``),
+   every launch in the step's dtype, ``SP_TRAIN_COLLECTIVES`` collectives
+   a step, the ranks bit-equal after every step; rank 0's first step held
+   against the one-process plain step at ``STEP_BARS`` and, in f32, its BN
+   statistics against this process's kernel step; rank 0's ms a step, its
+   collectives' share of a profiled step's host time and its peak.
 5. The serving CLIs (``mode_tpu_torch/cli``), ``cli``: a Deep360-layout
    tree of 1024x512 PNGs in a temporary directory (one episode; four frames
    in training, one in validation, two in testing; each frame the frame
@@ -164,10 +175,11 @@
    the served counts; the packs must be their frames' arrays, the event
    files the returned scalars, the trace must name the training kernels;
    ``train_disparity --dp 2`` as two gloo ranks on the card (one epoch of
-   two steps) must launch each rank's steps (rank 0 also its validation)
-   at the counts above, return the same losses on both ranks and write its
-   files from rank 0 alone; in one process ``--dp 2`` and ``--sp 2`` must
-   be refused. Prints each run's wall time, ms per
+   two steps) and ``train_disparity --sp 2`` (one step of a global batch
+   of two, the 3-D kernels on their halo forms) must launch each rank's
+   steps (rank 0 also its validation) at the counts above, return the same
+   losses on both ranks and write their files from rank 0 alone; in one
+   process ``--dp 2`` and ``--sp 2`` must be refused. Prints each run's wall time, ms per
    step, validation ms per item, loader wait and peak memory.
 7. Kernel phase: calls each kernel's wrapper at every shape the paths gave
    it (the recorded calls; the training steps add the grad-input shapes and
@@ -987,14 +999,18 @@ def _recorded_launches(tag: str = "step"):
       setattr(mod, name, fn)
 
 
-def _train_batch(gen, batch, h, w):
+def _train_batch(gen, batch, h, w, device=None, maxdisp=None):
   """A uint8 pair (the right view the left rolled by 24 and 64 columns,
-  in turns) and ground truth in [0, MAXDISP) with a NaN patch."""
+  in turns) and ground truth in [0, MAXDISP) with a NaN patch, on
+  ``DEVICE`` (``device``, ``maxdisp``: a spawned rank's, from its
+  parent)."""
+  device = device or DEVICE
   left = torch.randint(0, 256, (batch, h, w, 3), generator=gen,
-                       device=DEVICE, dtype=torch.uint8)
+                       device=device, dtype=torch.uint8)
   right = torch.stack([torch.roll(left[b], -(24, 64)[b % 2], dims=1)
                        for b in range(batch)])
-  gt = torch.rand((batch, h, w), generator=gen, device=DEVICE) * MAXDISP
+  gt = torch.rand((batch, h, w), generator=gen, device=device) * (
+      maxdisp or MAXDISP)
   gt[:, 300:400, 100:220] = float("nan")
   return left, right.contiguous(), gt
 
@@ -1145,7 +1161,8 @@ def _profile(fn, args, collectives: str | None = None):
   included, so their sum may exceed the call's wall time) and the counts
   of the CUDA runtime and driver calls (``cuda*``, ``cu*``): kernel
   launches, synchronisations, copies; with ``collectives`` (a regex) the
-  host share of the collectives it names (:func:`_allreduce_share`)."""
+  host share of the collectives it names (:func:`_allreduce_share`; a
+  dict of regexes: each one's)."""
   from torch.profiler import ProfilerActivity, profile
   kinds = (("port: sphere conv backward", ("bwd_input_tc_kernel",
                                            "bwd_weight_tc_kernel",
@@ -1203,8 +1220,14 @@ def _profile(fn, args, collectives: str | None = None):
   def calls(*subs):
     return sum(n for k, (n, _) in runtime.items() if any(t in k for t in subs))
 
-  extra = ({} if collectives is None else {"collectives": _allreduce_share(
-      prof.key_averages(), host_ms, collectives)})
+  extra = {}
+  if isinstance(collectives, str):
+    extra["collectives"] = _allreduce_share(prof.key_averages(), host_ms,
+                                            collectives)
+  elif collectives is not None:      # {kind: regex}: each kind's share
+    extra["collectives"] = {k: _allreduce_share(prof.key_averages(), host_ms,
+                                                pattern)
+                            for k, pattern in collectives.items()}
   return {**extra, "host_ms": host_ms, "device_ms": device_ms,
           "idle_share": (1 - device_ms / host_ms) if device_ms else None,
           "by_kind_ms": by_kind,
@@ -2240,6 +2263,228 @@ def _sp_frame_phase(card: str, fusion_state: dict, ref: dict) -> dict:
   return out
 
 
+# Training over the spatial axis: sp_train_gloo_2 runs train_b2's step
+# (the seeded weights, a batch made as _train_batch makes train_b2's, from
+# SP_TRAIN_SEED) on a (data 1, spatial 2) mesh of two gloo ranks sharing the
+# card, both ranks on the whole global batch of 2: each runs the feature
+# extractor whole and its half of the cost volume's rows, every 3-D kernel
+# conv on its halo form, forward and grad-input. f32 and bf16, SP_TRAIN_STEPS
+# steps each after the first, then one ERP f32 step at 512x1024.
+SP_TRAIN_SEED, SP_TRAIN_STEPS = 21, 3
+# Per rank and step: train_expect's launches, the 3-D ones all haloed
+SP_TRAIN_HALO = {k: n for k, n in train_expect("train_b2").items()
+                 if k in ("conv3d_s1_bn_act", "conv3d_s2_bn_act",
+                          "deconv3d_bn_act")}
+# Collectives per rank and step, at any shape whose rows split (held by
+# tests/test_torch_spatial_train.py at 64x32): the 3-D stack's 25 BN layers
+# sum twice each on the forward, the three hourglasses' 18 again in their
+# rerun and all 25 in the backward (50 + 36 + 50); its 28 convs exchange
+# halo planes on the forward, the hourglasses' 18 in the rerun and all 28
+# in the backward (74); the three losses' sums and counts (6) and the sums'
+# backward (3); the heads' gather and its backward (2); the gradient
+# all-reduce (1)
+SP_TRAIN_COLLECTIVES = 50 + 36 + 50 + 74 + 6 + 3 + 2 + 1
+SP_TRAIN_PATTERNS = {"all_reduce": r"all_?reduce",
+                     "all_gather": r"all_?gather"}
+
+
+def _sp_train_batch(device, h, w, maxdisp):
+  gen = torch.Generator(device=device).manual_seed(SP_TRAIN_SEED)
+  return _train_batch(gen, TRAINS["train_b2"][1], h, w, device, maxdisp)
+
+
+def _sp_train_model(device, maxdisp, sphere_type):
+  from mode_tpu_torch.models.disparity import ModeDisparity
+  return ModeDisparity(maxdisp, "Sphere", sphere_type, device=device,
+                       generator=torch.Generator().manual_seed(0))
+
+
+def _sp_train_rank(device: str, hw: tuple, erp_hw: tuple,
+                   maxdisp: int) -> dict:
+  """One rank of ``sp_train_gloo_2`` (run by :func:`_sp_train_phase` in a
+  process of its own): for ``f32``, ``bf16`` (Cassini, ``hw``) and ``erp``
+  (f32, ``erp_hw``), the seeded model's step under the ``(1, 2)`` mesh on
+  the whole global batch. Each step with the launch counts and the
+  collectives set to 0 before and read after; the first with the
+  kernels' input dtypes recorded, its loss and (rank 0) its gradients and
+  BN statistics kept; then, but for ``erp``, ``SP_TRAIN_STEPS`` steps
+  timed and one profiled. After every step whether the ranks hold
+  bit-equal parameters, gradients and buffers. ``device``, ``hw``,
+  ``erp_hw`` and ``maxdisp`` come from the parent (a CPU rehearsal's
+  ranks have no card)."""
+  from mode_tpu_torch import kernels, training
+  from mode_tpu_torch.parallel import mesh as pmesh
+  cuda = torch.device(device).type == "cuda"
+  mesh = pmesh.make_mesh(data=1, spatial=SP_WORLD, device=device)
+  out = {"place": (mesh.rank, mesh.spatial_rank)}
+  for label, sphere_type, (h, w), dtype, steps in (
+      ("f32", "Cassini", hw, torch.float32, SP_TRAIN_STEPS),
+      ("bf16", "Cassini", hw, torch.bfloat16, SP_TRAIN_STEPS),
+      ("erp", "ERP", erp_hw, torch.float32, 0)):
+    model = _sp_train_model(device, maxdisp, sphere_type)
+    optimizer = training.make_optimizer(model.parameters())
+    step = training.make_disparity_train_step(
+        model, optimizer, mesh=mesh,
+        compute_dtype=None if dtype == torch.float32 else dtype)
+    rows = pmesh.shard_batch(mesh, _sp_train_batch(device, h, w, maxdisp))
+    params = list(model.parameters())
+    got = {"losses": [], "launches": [], "halo": [], "collectives": [],
+           "same": [], "step_ms": [], "dtypes": []}
+    if cuda:
+      torch.cuda.reset_peak_memory_stats(device)
+    for i in range(1 + steps):
+      kernels.reset_launches()
+      before = mesh.collectives
+      t = time.perf_counter()
+      with (_recorded_launches() if i == 0
+            else contextlib.nullcontext()) as calls:
+        loss = float(step(*rows))
+      if cuda:
+        torch.cuda.synchronize(device)
+      got["step_ms"].append((time.perf_counter() - t) * 1e3)
+      got["losses"].append(loss)
+      got["launches"].append(dict(kernels.LAUNCHES))
+      got["halo"].append(dict(kernels.HALO_LAUNCHES))
+      got["collectives"].append(mesh.collectives - before)
+      got["same"].append(pmesh.same_on_every_rank(
+          params + [p.grad for p in params] + list(model.buffers()), mesh))
+      if i == 0:
+        got["dtypes"] = sorted(str(d) for d in calls.dtypes)
+        got["calls"] = {c: v for c, v in calls.items()
+                        if c[0] in SP_TRAIN_HALO}
+        if mesh.global_rank == 0:
+          got["grads"] = {n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()}
+          got["stats"] = {n: b.detach().cpu().clone()
+                          for n, b in model.named_buffers()
+                          if n.endswith(("running_mean", "running_var"))}
+    got["peak_gib"] = (torch.cuda.max_memory_allocated(device) / 2**30
+                       if cuda else None)
+    got["profile"] = (_profile(step, rows, collectives=SP_TRAIN_PATTERNS)
+                      if cuda and steps else None)
+    out[label] = got
+    del model, optimizer, step, rows, params
+    if cuda:
+      torch.cuda.empty_cache()
+  return out
+
+
+def _sp_train_phase(card: str) -> dict:
+  """``sp_train_gloo_2``: two gloo ranks sharing the card on a ``(1, 2)``
+  mesh, each training the seeded model on the whole global batch, its half
+  of the cost volume's rows: f32 and bf16 (Cassini, 1024x512) and one ERP
+  f32 step (512x1024). Each rank's launches a step must be one process's
+  (``train_expect``), the 3-D ones on their halo forms
+  (``SP_TRAIN_HALO``), every launch in the step's dtype, with
+  ``SP_TRAIN_COLLECTIVES`` collectives a step; the ranks bit-equal after
+  every step, with the same losses; the loss must fall over the timed
+  steps. Rank 0's first step of each against the one-process plain step of
+  the same model and batch (``grad_check``, ``STEP_BARS`` of its dtype) and,
+  in f32, its BN statistics against this process's kernel step within
+  ``GRAD_RTOL`` of their norm (as ``ddp_gloo_2``). A rank that fails fails
+  the phase. Returns rank 0's haloed 3-D calls of a step too (forward and
+  grad-input), which the kernel phase times."""
+  from mode_tpu_torch import training
+  from mode_tpu_torch.parallel.launch import run_ranks
+  t0 = time.perf_counter()
+  ranks = run_ranks(_sp_train_rank, SP_WORLD,
+                    (RANK_DEVICE, GEOMETRY["Cassini"], GEOMETRY["ERP"],
+                     MAXDISP), timeout=900, device=RANK_DEVICE,
+                    backend="gloo")
+  wall = time.perf_counter() - t0
+  dtypes = {"f32": torch.float32, "bf16": torch.bfloat16,
+            "erp": torch.float32}
+  for r, rank in enumerate(ranks):
+    if rank["place"] != (0, r):
+      _fail(f"sp_train_gloo_2 rank {r}: mesh place {rank['place']}")
+    for label, dtype in dtypes.items():
+      got, tag = rank[label], f"sp_train_gloo_2 rank {r} {label}"
+      want = train_expect("erp_train_b2" if label == "erp" else "train_b2")
+      for i, (launches, halo) in enumerate(zip(got["launches"],
+                                               got["halo"])):
+        _launch_check(f"{tag} step {i + 1}", launches, want)
+        if halo != SP_TRAIN_HALO:
+          _fail(f"{tag} step {i + 1}: halo launches {halo}, expected "
+                f"{SP_TRAIN_HALO}")
+      if set(got["collectives"]) != {SP_TRAIN_COLLECTIVES}:
+        _fail(f"{tag}: {got['collectives']} collectives a step, expected "
+              f"{SP_TRAIN_COLLECTIVES}")
+      if got["dtypes"] != [str(dtype)]:
+        _fail(f"{tag}: the kernels took {got['dtypes']}, expected {dtype}")
+      if not all(got["same"]) or got["losses"] != ranks[0][label]["losses"]:
+        _fail(f"{tag}: the ranks parted (bit-equal after each step: "
+              f"{got['same']}; losses {got['losses']})")
+      if len(got["losses"]) > 1 and not got["losses"][-1] < got["losses"][0]:
+        _fail(f"{tag}: the loss did not fall: {got['losses']}")
+  checks = {}
+  for label, dtype in dtypes.items():
+    sphere_type = "ERP" if label == "erp" else "Cassini"
+    rank0 = ranks[0][label]
+    model = _sp_train_model(DEVICE, MAXDISP, sphere_type)
+    batch = _sp_train_batch(DEVICE, *GEOMETRY[sphere_type], MAXDISP)
+    cdt = None if dtype == torch.float32 else dtype
+    plain_step = plain_stepper(model, functools.partial(
+        _stage1_step, compute_dtype=cdt), (
+            training.normalize_rgb_on_device(batch[0]),
+            training.normalize_rgb_on_device(batch[1]), batch[2]))
+    check = grad_check(f"sp_train_gloo_2 {label} rank 0", plain_step,
+                       rank0["losses"][0],
+                       {n: torch.from_numpy(g).to(DEVICE)
+                        for n, g in rank0["grads"].items()}, dtype)
+    if not check["ok"]:
+      _fail(f"sp_train_gloo_2 {label}: rank 0's step disagrees with the "
+            "one-process step")
+    _stage1_step(model, cdt)(*batch)
+    stats_rel = 0.0
+    for n, b in model.named_buffers():
+      if n in rank0["stats"]:
+        err = float(torch.linalg.vector_norm(
+            torch.from_numpy(rank0["stats"][n]).to(DEVICE) - b))
+        stats_rel = max(stats_rel, err / float(torch.linalg.vector_norm(b)))
+    check["stats_rel"] = stats_rel
+    print(f"sp_train_gloo_2 {label}: rank 0's BN statistics "
+          f"{stats_rel:.3g} of their norm from the one-process kernel "
+          "step's" + (f" (bar {GRAD_RTOL})" if dtype == torch.float32
+                      else " (no bar in bf16)"), flush=True)
+    if dtype == torch.float32 and stats_rel > GRAD_RTOL:
+      _fail(f"sp_train_gloo_2 {label}: rank 0's BN statistics part from the "
+            f"one-process step's by {stats_rel:.3g} of their norm")
+    checks[label] = check
+    del model, plain_step
+    torch.cuda.empty_cache()
+  out = {"wall_s": wall, "checks": checks, "ranks": [
+      {"place": r["place"], **{label: {k: r[label][k] for k in (
+          "losses", "launches", "halo", "collectives", "step_ms",
+          "peak_gib", "profile")} for label in dtypes}} for r in ranks],
+         "calls": ranks[0]["f32"]["calls"]}
+  for label in dtypes:
+    got = ranks[0][label]
+    timed = got["step_ms"][1:]
+    prof = got["profile"]
+    share = ""
+    if prof is not None:
+      coll = sum(c["allreduce_ms"] for c in prof["collectives"].values())
+      share = (f"; profiled step host {prof['host_ms']:.1f} ms, device "
+               f"{prof['device_ms']:.1f} ms, collectives {coll:.1f} ms on "
+               f"the host ({100 * coll / prof['host_ms']:.1f}%: "
+               + ", ".join(f"{k} {c['allreduce_ms']:.1f}" for k, c in
+                           prof["collectives"].items()) + ")")
+    print(f"sp_train_gloo_2 {label}: two gloo ranks on one card ({card}), "
+          f"rank 0 step 1 {got['step_ms'][0]:.1f} ms"
+          + (f", steps 2-{len(got['step_ms'])} "
+             + ", ".join(f"{t:.1f}" for t in timed) + " ms (median "
+             f"{statistics.median(timed):.1f}; both ranks share the card)"
+             if timed else "")
+          + f"; {got['collectives'][0]} collectives a step; peak "
+          f"{got['peak_gib'] or 0.0:.2f} GiB a rank; loss "
+          + " -> ".join(f"{x:.5g}" for x in got["losses"]) + share,
+          flush=True)
+  print(f"sp_train_gloo_2: {wall:.1f} s with the processes' start; "
+        f"launches a rank and step {json.dumps(ranks[0]['f32']['launches'][0])}"
+        f", halo forms {json.dumps(ranks[0]['f32']['halo'][0])}", flush=True)
+  return out
+
+
 def _halo_cases(served_calls: dict, rank_calls: dict) -> dict:
   """The kernel phase's halo cases: each 3-D call of the served
   ``sphere_b1`` path at a rank's rows for every ``SP_SIZES`` spatial size,
@@ -2302,8 +2547,9 @@ def _conv2d_halo_cases(frame_calls: dict, stem_calls: dict,
 
 
 def _cli_rank(argv: list) -> dict:
-  """One rank of the two-rank ``train_disparity`` run (``train_cli``): its
-  launches and the files it opened to write while ``main(argv)`` ran."""
+  """One rank of a two-rank ``train_disparity`` run (``train_cli``): its
+  launches (all, and on the halo forms) and the files it opened to write
+  while ``main(argv)`` ran."""
   import builtins
   from mode_tpu_torch import kernels
   from mode_tpu_torch.cli import train_disparity
@@ -2322,7 +2568,8 @@ def _cli_rank(argv: list) -> dict:
     builtins.open = real_open
   torch.cuda.synchronize()
   return {"rank": torch.distributed.get_rank(), "losses": out["losses"],
-          "launches": dict(kernels.LAUNCHES), "written": written}
+          "launches": dict(kernels.LAUNCHES),
+          "halo": dict(kernels.HALO_LAUNCHES), "written": written}
 
 
 def _sphere_bwd_case(case, dtype, gen):
@@ -3732,9 +3979,11 @@ def _train_cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
   result["direct"].update(_fusion_direct_steps(
       work, fusion_runs, returned, result, tars, (td, tc, tr, tg)))
 
-  # ---- two ranks over gloo on the card (--dp 2 at a world of 2), then
-  # --dp 2 at a world of 1 and --sp 2 refused
+  # ---- two ranks over gloo on the card (--dp 2 and --sp 2 at a world of
+  # 2), then --dp 2 and --sp 2 at a world of 1 refused
   result["two_ranks"] = _train_cli_two_ranks(stage1, work, bn, card)
+  result["two_ranks_sp"] = _train_cli_two_ranks(stage1, work, bn, card,
+                                                "--sp")
   for flag in (["--dp", "2"], ["--sp", "2"]):
     try:
       train_disparity.main([*stage1, *flag, "--save_checkpoint_path",
@@ -3752,32 +4001,43 @@ def _train_cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
 
 
 def _train_cli_two_ranks(stage1: list, work: Path, served: dict,
-                         card: str) -> dict:
-  """``train_disparity --dp 2`` as two gloo ranks on the card, one epoch of
-  two steps of the CLI's global batch 4 (two pairs a rank): each rank's
-  launches (rank 1 the two steps', rank 0 also the validation's two
-  batches, 4 and 2 pairs, at the served counts), rank 0 alone writing
-  files, the checkpoint loading strictly."""
+                         card: str, axis: str = "--dp") -> dict:
+  """``train_disparity`` as two gloo ranks on the card: with ``--dp 2`` one
+  epoch of two steps of the CLI's global batch 4 (two pairs a rank); with
+  ``--sp 2`` one step of a global batch of 2 (both pairs on each rank, each
+  on its half of the cost volume's rows, the 3-D kernels on their halo
+  forms). Each rank's launches (rank 1 its steps', rank 0 also the
+  validation's batches, as many as the steps, at the served counts: 4 and
+  2 pairs, or 2), the halo launches (none under ``--dp``), rank 0 alone
+  writing files, the checkpoint loading strictly."""
   from mode_tpu_torch.models.disparity import ModeDisparity
   from mode_tpu_torch.parallel.launch import run_ranks
-  root = work / "disp_2ranks"
-  argv = [*stage1, "--epochs", "1", "--steps_per_epoch", "2",
-          "--save_checkpoint_path", str(root), "--dp", str(DDP_WORLD),
-          "--device", RANK_DEVICE]
+  sp = axis == "--sp"
+  n = 1 if sp else 2                      # steps, and validation batches
+  root = work / ("disp_2ranks_sp" if sp else "disp_2ranks")
+  argv = [*stage1, "--epochs", "1", "--steps_per_epoch", str(n),
+          "--save_checkpoint_path", str(root), axis, str(DDP_WORLD),
+          "--device", RANK_DEVICE, *(["--batch_size", "2"] if sp else [])]
+  label = f"train_cli two ranks ({axis} 2)"
   t0 = time.perf_counter()
   ranks = run_ranks(_cli_rank, DDP_WORLD, (argv,), timeout=600,
                     device=RANK_DEVICE, backend="gloo")
   wall = time.perf_counter() - t0
-  steps = {k: 2 * n for k, n in train_expect("train_b2").items()}
-  _launch_check("train_cli two ranks, rank 1", ranks[1]["launches"], steps)
-  _launch_check("train_cli two ranks, rank 0", ranks[0]["launches"], {
-      k: steps.get(k, 0) + 2 * served.get(k, 0)
+  steps = {k: n * c for k, c in train_expect("train_b2").items()}
+  halo = {k: n * c for k, c in SP_TRAIN_HALO.items()} if sp else {}
+  _launch_check(f"{label}, rank 1", ranks[1]["launches"], steps)
+  _launch_check(f"{label}, rank 0", ranks[0]["launches"], {
+      k: steps.get(k, 0) + n * served.get(k, 0)
       for k in set(steps) | set(served)})
-  if ranks[0]["losses"] != ranks[1]["losses"] or len(ranks[0]["losses"]) != 2:
-    _fail(f"train_cli two ranks: losses {ranks[0]['losses']} and "
+  for r in ranks:
+    if r["halo"] != halo:
+      _fail(f"{label}, rank {r['rank']}: halo launches {r['halo']}, "
+            f"expected {halo}")
+  if ranks[0]["losses"] != ranks[1]["losses"] or len(ranks[0]["losses"]) != n:
+    _fail(f"{label}: losses {ranks[0]['losses']} and "
           f"{ranks[1]['losses']}")
   if ranks[1]["written"] or not ranks[0]["written"]:
-    _fail(f"train_cli two ranks: rank 0 wrote {ranks[0]['written']}, rank 1 "
+    _fail(f"{label}: rank 0 wrote {ranks[0]['written']}, rank 1 "
           f"{ranks[1]['written']}")
   save = root / "ModeDisparity" / "Deep360"
   files = sorted(str(p.relative_to(save)) for p in save.rglob("*")
@@ -3785,15 +4045,17 @@ def _train_cli_two_ranks(stage1: list, work: Path, served: dict,
   if (len(files) != 3 or files[0] != "ckpt_disp_ModeDisparity_Deep360_1.tar"
       or not files[1].startswith("logs/events.out.tfevents.")
       or files[2] != "outputs/001_val.png"):
-    _fail(f"train_cli two ranks: wrote {files}")
+    _fail(f"{label}: wrote {files}")
   ModeDisparity(MAXDISP, device=DEVICE).load_state_dict(torch.load(
       save / files[0], weights_only=True)["state_dict"], strict=True)
-  print(f"train_cli two ranks (gloo, {card}): {wall:.1f} s with the "
-        f"processes' start; losses {ranks[0]['losses']}; rank 0 wrote "
+  print(f"{label} (gloo, {card}): {wall:.1f} s with the processes' start; "
+        f"losses {ranks[0]['losses']}; rank 0 wrote "
         f"{len(ranks[0]['written'])} files, rank 1 none; launches rank 0 "
-        f"{json.dumps(ranks[0]['launches'])}", flush=True)
+        f"{json.dumps(ranks[0]['launches'])}, halo forms "
+        f"{json.dumps(ranks[0]['halo'])}", flush=True)
   return {"wall_s": wall, "losses": ranks[0]["losses"], "files": files,
-          "launches": [r["launches"] for r in ranks]}
+          "launches": [r["launches"] for r in ranks],
+          "halo": [r["halo"] for r in ranks]}
 
 
 def _plain_check(label, out, plain_step, loss, model, dtype) -> None:
@@ -3977,7 +4239,9 @@ def _halo_summary(rows, sp_gloo, sp_frame) -> list:
         "unsharded_ms": main["unsharded_ms"],
         "unsharded_library_ms": main["unsharded_library_ms"],
         "times": f"f32, ms per call of one {phase} rank ({what}); by_size "
-                 "gives spatial 2 and 4 in f32 and bf16; library_ms is "
+                 "gives spatial 2 and 4 in f32 and bf16 (and a step of "
+                 "one sp_train_gloo_2 rank, forward and grad-input, for "
+                 "the 3-D convs); library_ms is "
                  "cuDNN on the same haloed rows, unsharded_ms and "
                  "unsharded_library_ms the kernel and cuDNN on the whole "
                  "shapes",
@@ -4082,6 +4346,9 @@ def main() -> int:
   sp_frame = _sp_frame_phase(card, cli_fusion,
                              seen["frame"].pop("outputs"))
   torch.cuda.empty_cache()
+  # training over the spatial axis, held against one process's step
+  sp_train = _sp_train_phase(card)
+  torch.cuda.empty_cache()
 
   # ---- the serving CLIs on a Deep360 tree on disk, then the training
   # CLIs on the same tree and the serving phase's stage-1 outputs
@@ -4114,6 +4381,12 @@ def main() -> int:
   halo_cases.update(_conv2d_halo_cases(seen["frame"]["calls"],
                                        seen["sphere_b1"]["calls"],
                                        sp_frame.pop("calls")))
+  # and the training step's, forward and grad-input, at a rank's rows
+  for case, layers in sp_train.pop("calls").items():
+    key = (*case, SP_WORLD)
+    if key in halo_cases:
+      _fail(f"the halo case {key} stands for two paths")
+    halo_cases[key] = ({"sp_train_gloo_2": len(layers)}, layers)
   h, w = GEOMETRY["Cassini"]
   for size in SP_SIZES:
     label = "sp_gloo_2" if size == SP_WORLD else f"spatial_{size}"
@@ -4221,6 +4494,7 @@ def main() -> int:
           "train_anchor_bf16": train_anchor_bf16, "anchor": anchor,
           "remat": remat, "ddp_nccl": ddp_nccl, "ddp_gloo_2": ddp_gloo,
           "sp_gloo_2": sp_gloo, "sp_frame_gloo_2": sp_frame,
+          "sp_train_gloo_2": sp_train,
           "cli": cli, "train_cli": train_cli}, default=str))
   print(f"total {time.time() - t_start:.1f} s", flush=True)
   print(json.dumps({"kernels": summary}), flush=True)

@@ -12,8 +12,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from mode_tpu_torch.parallel.mesh import (SPATIAL_TRAINING_ITEM, Mesh,
-                                          initialize_distributed, make_mesh)
+from mode_tpu_torch.parallel.mesh import (Mesh, initialize_distributed,
+                                          make_mesh)
 from mode_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from mode_tpu_torch.utils.convert import (load_reference_state_dict,
                                           load_stack_hourglass_only)
@@ -51,15 +51,10 @@ def format_table(headers: list[str], rows: list[list]) -> str:
 def training_mesh(dp: int | None, sp: int, device: str | None) -> Mesh:
   """The trainers' mesh, as the JAX CLIs' ``make_mesh(data=--dp,
   spatial=--sp)``: join ``torchrun``'s process group if there is one
-  (``parallel/mesh.py``), then ``--dp`` None means the world size and any
-  other value must equal it, and ``--sp`` must be 1: the spatial axis
-  serves (``ModeDisparity`` in eval under a ``(data, spatial)`` mesh) but
-  does not train yet. Without ``torchrun`` the world is this one process,
-  on ``device``."""
-  if sp != 1:
-    raise ValueError(f"--sp {sp}: training with the cost volume split over "
-                     f"cards is not ported yet ({SPATIAL_TRAINING_ITEM}); "
-                     "use 1 (the spatial axis serves in eval only)")
+  (``parallel/mesh.py``), then ``--sp`` must divide the world size and
+  ``--dp`` None means the world size over ``--sp``; any other value times
+  ``--sp`` must equal it (``mesh.make_mesh``'s refusals). Without
+  ``torchrun`` the world is this one process, on ``device``."""
   initialize_distributed(device)
   return make_mesh(data=dp, spatial=sp, device=device)
 
@@ -75,8 +70,8 @@ class NullWriter:
 
 
 def rank_zero(mesh: Mesh):
-  """``print`` on rank 0, a no-op on the others."""
-  return print if mesh.rank == 0 else (lambda *a, **k: None)
+  """``print`` on rank 0 of the mesh, a no-op on the others."""
+  return print if mesh.global_rank == 0 else (lambda *a, **k: None)
 
 
 def barrier() -> None:

@@ -24,15 +24,22 @@ On several cards, one process each:
 
     torchrun --nproc_per_node W -m mode_tpu_torch.cli.train_disparity ...
 
-``--batch_size`` is the global batch, split over the W ranks as the JAX
-CLI's ``--dp`` mesh splits it (``parallel/mesh.py``): every rank shuffles
-the same way and decodes only its own rows, the BN statistics and the loss
-are the global batch's and the gradients are averaged, so every rank takes
-the same step. ``--dp`` None is the world size, and any other value must
-equal it; ``--sp`` (the spatial axis) takes only 1. Rank 0 alone writes the
-checkpoints, event files, trace and validation images, runs the
-validation (unsharded, as the JAX CLI runs it) and prints; the others wait
-for it. ``--resume`` and ``--loadSHGonly`` load on every rank.
+``--batch_size`` is the global batch, split over the ranks as the JAX
+CLI's ``make_mesh(data=--dp, spatial=--sp)`` splits it
+(``parallel/mesh.py``): the ``--dp`` data indices take its rows, every
+rank shuffling the same way and decoding only its data index's rows, and
+the ``--sp`` spatial ranks of a data index split the cost volume's H (each
+runs the feature extractor on the whole images, then its rows of the 3-D
+stack and of the heads, and takes its rows of the ground truth). The BN
+statistics and the loss are the global batch's and the gradients are
+averaged over every rank, so every rank takes the same step. The world
+must be ``--dp x --sp`` (``--dp`` None: the world size over ``--sp``), and
+under ``--sp`` above 1 ``--height`` a multiple of 16 x ``--sp`` (every
+rank's rows of the 1/4 and 1/8 levels even, as the stride-2 convs need).
+Rank 0 alone writes the checkpoints, event files, trace and validation
+images, runs the validation (unsharded, as the JAX CLI runs it) and
+prints; the others wait for it. ``--resume`` and ``--loadSHGonly`` load on
+every rank.
 """
 
 from __future__ import annotations
@@ -103,12 +110,13 @@ def build_parser():
   p.add_argument("--seed", type=int, default=123)
   p.add_argument("--save_checkpoint_path", default="./checkpoints/disp/")
   p.add_argument("--dp", type=int, default=None,
-                 help="data-parallel ranks (default: the world size, "
-                      "torchrun's --nproc_per_node; any other value must "
-                      "equal it)")
+                 help="data-parallel ranks (default: the world size over "
+                      "--sp; --dp x --sp must be the world size, "
+                      "torchrun's --nproc_per_node)")
   p.add_argument("--sp", type=int, default=1,
-                 help="spatial-parallel cards: 1 (training under the "
-                      "spatial axis is not ported yet)")
+                 help="spatial-parallel ranks of each data index: they "
+                      "split the cost volume's H (--height a multiple of "
+                      "16 x --sp)")
   p.add_argument("--steps_per_epoch", type=int, default=None,
                  help="debug: truncate epochs to N steps")
   p.add_argument("--device", default=None,
@@ -117,12 +125,23 @@ def build_parser():
   return p
 
 
+def check_spatial_rows(height: int, spatial: int) -> None:
+  """Refuse a ``--height`` that the spatial ranks cannot split: each
+  rank's rows of the 1/4 and 1/8 levels must be even (the stride-2 convs'
+  rows start on an even row), so H % (16 x --sp) == 0."""
+  if spatial > 1 and height % (16 * spatial):
+    raise ValueError(f"--height {height} does not split over --sp "
+                     f"{spatial}: the stride-2 convs need H % (16 x --sp) "
+                     "== 0")
+
+
 def main(argv=None):
   """Returns each step's loss, and each epoch's mean training loss and
   validation (EPE, D1; on rank 0), by epoch."""
   args = build_parser().parse_args(argv)
   mesh = training_mesh(args.dp, args.sp, args.device)
-  device, main_rank = mesh.device, mesh.rank == 0
+  check_spatial_rows(args.height, mesh.spatial)
+  device, main_rank = mesh.device, mesh.global_rank == 0
   log = rank_zero(mesh)
   seed_everything(args.seed)
 

@@ -44,9 +44,12 @@ Under a mesh with a ``spatial`` axis (``parallel/mesh.py``) the 3-D layers
 and the fusion net's 3x3 convs hold their rank's rows of the volume's or
 the map's H and run through ``parallel/shard_ops.py`` (a one-plane halo
 exchange with the neighbouring ranks, then the kernel's halo form, or the
-library conv on the haloed rows), in eval only: a shape whose rows the
-sharded kernel cannot take raises, and nothing runs the layer unsharded in
-its place.
+library conv on the haloed rows): a shape whose rows the sharded kernel
+cannot take raises, and nothing runs the layer unsharded in its place. The
+3-D layers train so too (the kernels' Functions on the rows, where the
+gates take the whole volume's shape, else the library conv on the haloed
+rows), their BN over the whole mesh; the fusion net does not train under
+the axis (:func:`no_spatial_training`).
 
 The training convs' library calls go through ``remat.library_conv``: the
 call itself, except inside a block that ``ModeDisparity`` rematerialises
@@ -73,8 +76,9 @@ from mode_tpu_torch.ops.conv3d import (conv3d_s1_bn_act, conv3d_s2_bn_act,
 from mode_tpu_torch.ops.epilogue import epilogue
 from mode_tpu_torch.ops.sphere_conv import sphere_conv_bn_act
 from mode_tpu_torch.parallel import shard_ops
-from mode_tpu_torch.parallel.mesh import (SPATIAL_TRAINING_ITEM, active_mesh,
-                                          all_sum, sharded, spatial_mesh)
+from mode_tpu_torch.parallel.mesh import (DATA, FUSION_SPATIAL_TRAINING_ITEM,
+                                          MESH, active_mesh, all_sum,
+                                          sharded, spatial_mesh)
 
 
 class _Operands:
@@ -107,15 +111,21 @@ class TorchBatchNorm(nn.Module):
   Under a mesh whose batch is split over ranks (``parallel/mesh.py``) the
   statistics are the global batch's, in the JAX package's two passes: the
   mean from the all-reduced sum, then the variance from the all-reduced sum
-  of ``(x - mean)^2``, both f32 and differentiable. Where a rematerialised
-  block runs again for its backward (``remat.replaying``) the running
-  statistics are not updated a second time."""
+  of ``(x - mean)^2``, both f32 and differentiable. ``over`` is the group
+  whose ranks hold parts of the layer's batch: ``mesh.DATA`` where every
+  spatial rank holds its data index's whole maps (the 2-D layers),
+  ``mesh.MESH`` where a spatial rank holds its rows of H (the 3-D stack).
+  Where a rematerialised block runs again for its backward
+  (``remat.replaying``) the running statistics are not updated a second
+  time."""
 
   momentum = 0.1
 
-  def __init__(self, num_features: int, eps: float = 1e-5):
+  def __init__(self, num_features: int, eps: float = 1e-5, *,
+               over: str = DATA):
     super().__init__()
     self.eps = eps
+    self.over = over
     self.weight = nn.Parameter(torch.ones(num_features))
     self.bias = nn.Parameter(torch.zeros(num_features))
     self.register_buffer("running_mean", torch.zeros(num_features))
@@ -124,14 +134,15 @@ class TorchBatchNorm(nn.Module):
                          torch.tensor(0, dtype=torch.long))
 
   def _global_batch(self, xf: torch.Tensor, mesh) -> torch.Tensor:
-    """Normalise with the statistics of every rank's batch (the ranks'
-    batches are the same size, so ``n`` is this rank's times ``W``)."""
+    """Normalise with the statistics of the batch of every rank of the
+    group ``over`` (the ranks' parts are the same size, so ``n`` is this
+    rank's times the group's ranks)."""
     dims = [0, *range(2, xf.dim())]
     shape = (1, -1) + (1,) * (xf.dim() - 2)
-    n = xf.numel() // xf.shape[1] * mesh.data
-    mean = all_sum(xf.sum(dims), mesh) / n
+    n = xf.numel() // xf.shape[1] * mesh.ranks(self.over)
+    mean = all_sum(xf.sum(dims), mesh, self.over) / n
     d = xf - mean.view(shape)
-    var = all_sum((d * d).sum(dims), mesh) / n
+    var = all_sum((d * d).sum(dims), mesh, self.over) / n
     if not remat.replaying():
       with torch.no_grad():
         m = self.momentum
@@ -150,7 +161,7 @@ class TorchBatchNorm(nn.Module):
     if self.training:
       xf = x.to(torch.promote_types(x.dtype, torch.float32))
       mesh = active_mesh()
-      if sharded(mesh):
+      if sharded(mesh, self.over):
         return self._global_batch(xf, mesh).to(x.dtype)
       # the rerun's momentum 0 leaves the running statistics as they are
       replaying = remat.replaying()
@@ -192,24 +203,39 @@ def _bn_act(bn: TorchBatchNorm, y: torch.Tensor,
 
 
 def no_spatial_training() -> None:
-  """Refuse a training forward under a mesh that splits H: its halo
-  exchange has no backward yet."""
+  """Refuse the fusion net's training forward under a mesh that splits H
+  (the JAX package trains it only with ``spatial=1``,
+  ``mode_tpu/cli/train_fusion.py:102``)."""
   if spatial_mesh() is not None:
     raise NotImplementedError(
-        "training under a spatial mesh is not ported yet "
-        f"({SPATIAL_TRAINING_ITEM}); the spatial axis serves in eval")
+        "training under a spatial mesh is not ported for the fusion net "
+        f"({FUSION_SPATIAL_TRAINING_ITEM}); it serves over the spatial axis "
+        "in eval")
+
+
+def _whole_shape(shape, mesh) -> tuple[int, ...]:
+  """The whole volume's NDHWC shape of a rank's rows under ``mesh`` (the
+  rows' own without one): the training gates read it, so that a rank's
+  rows take the kernels that one process's whole volume takes."""
+  if mesh is None:
+    return tuple(shape)
+  return (*shape[:2], shape[2] * mesh.spatial, *shape[3:])
 
 
 def _conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int,
                   plain: bool) -> torch.Tensor:
   """The bare pad-1 3x3x3 conv of a training step, NDHWC: the kernels'
-  Function where the JAX package trains on Pallas, else ``F.conv3d``."""
-  no_spatial_training()
+  Function where the JAX package trains on Pallas, else ``F.conv3d``;
+  under a spatial mesh on this rank's rows (``F.conv3d`` on the haloed
+  rows)."""
   gate = (conv3d_ops.train_s1_eligible if stride == 1
           else conv3d_ops.train_s2_eligible)
   weight = weight.to(x.dtype)
-  if gate(x.shape, weight.shape[0]):
-    return conv3d_ops.conv3d_train(x, weight, stride, plain=plain)
+  mesh = spatial_mesh()
+  if gate(_whole_shape(x.shape, mesh), weight.shape[0]):
+    return conv3d_ops.conv3d_train(x, weight, stride, plain=plain, mesh=mesh)
+  if mesh is not None:
+    return shard_ops.conv3d_library_sharded(x, weight, stride, mesh=mesh)
   return remat.library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), weight,
                             stride=stride, padding=1).permute(0, 2, 3, 4, 1)
 
@@ -447,7 +473,8 @@ class ConvBn3d(nn.Sequential):
   kernel with the BN folded into the epilogue, on NDHWC volumes."""
 
   def __init__(self, cin: int, cout: int, stride: int = 1):
-    super().__init__(Conv3dWeight(cin, cout, stride), TorchBatchNorm(cout))
+    super().__init__(Conv3dWeight(cin, cout, stride),
+                     TorchBatchNorm(cout, over=MESH))
     self._operands = _Operands()
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
@@ -466,16 +493,20 @@ class DeconvBn3d(nn.Sequential):
   on NDHWC volumes."""
 
   def __init__(self, cin: int, cout: int):
-    super().__init__(ConvTranspose3dWeight(cin, cout), TorchBatchNorm(cout))
+    super().__init__(ConvTranspose3dWeight(cin, cout),
+                     TorchBatchNorm(cout, over=MESH))
     self._operands = _Operands()
 
   def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
               relu: bool = False, *, plain: bool = False) -> torch.Tensor:
     if self.training:
-      no_spatial_training()
       weight = self[0].weight.to(x.dtype)
-      if conv3d_ops.train_deconv_eligible(x.shape, weight.shape[1]):
-        y = conv3d_ops.deconv3d_train(x, weight, plain=plain)
+      mesh = spatial_mesh()
+      if conv3d_ops.train_deconv_eligible(_whole_shape(x.shape, mesh),
+                                          weight.shape[1]):
+        y = conv3d_ops.deconv3d_train(x, weight, plain=plain, mesh=mesh)
+      elif mesh is not None:
+        y = shard_ops.deconv3d_library_sharded(x, weight, mesh=mesh)
       else:
         y = remat.library_conv(F.conv_transpose3d, x.permute(0, 4, 1, 2, 3),
                                weight, stride=2, padding=1,

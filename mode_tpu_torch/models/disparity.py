@@ -32,13 +32,17 @@ convs' outputs and rerun their BN, residual and ReLU tails in the backward,
 under ``"full"`` they keep nothing and rerun their convs as well.
 
 Under ``with activate(make_mesh(data=D, spatial=S)):`` (``parallel/``, one
-process a card, in eval) each rank runs the feature extractor whole on its
-rows of the batch (the sphere convs need whole maps), builds its rows of
-the cost volume's H from its rows of the features (the volume shifts along
-W, so slicing H first is exact), runs the 3-D stack on them
+process a card) each rank runs the feature extractor whole on its rows of
+the batch (the sphere convs need whole maps), builds its rows of the cost
+volume's H from its rows of the features (the volume shifts along W, so
+slicing H first is exact), runs the 3-D stack on them
 (``parallel/shard_ops.py``: a halo exchange per conv) and the regression
 head on its output rows, and returns its ``(B / D, H / S, W)`` rows:
 ``mesh.gather_rows`` (then ``global_batch_from_local``) makes the frame.
+In training the three heads do the same: the quarter-resolution logits
+gathered over the spatial group (one all-gather, whose backward sums the
+gradient over the group), then only this rank's output rows expanded,
+through those rows of the H resize matrix.
 """
 
 from __future__ import annotations
@@ -53,13 +57,13 @@ from mode_tpu_torch.device import ieee_f32_convs, resolve_device
 from mode_tpu_torch.models.blocks import (BasicBlockNoRelu, Classif,
                                           ConvBn3d, DeconvBn3d,
                                           RegularBasicBlock, SphereBasicBlock,
-                                          convbn, init_weights,
-                                          no_spatial_training)
+                                          convbn, init_weights)
 from mode_tpu_torch.ops.cost_volume import build_cost_volume
 from mode_tpu_torch.ops.regression import (disparity_regression,
                                            fused_disparity_regression)
 from mode_tpu_torch.ops.resize import interpolate, upsample_trilinear
-from mode_tpu_torch.parallel.mesh import constrain_spatial, spatial_mesh
+from mode_tpu_torch.parallel.mesh import (constrain_spatial, gather_rows,
+                                          row_sharding, spatial_mesh)
 from mode_tpu_torch.parallel.shard_ops import regression_sharded
 
 
@@ -189,11 +193,12 @@ class Hourglass(nn.Module):
     return self.conv6(post, plain=plain), pre, post                # 1/4
 
 
-def _regress(cost: torch.Tensor, maxdisp: int, h: int,
-             w: int) -> torch.Tensor:
+def _regress(cost: torch.Tensor, maxdisp: int, h: int, w: int,
+             rows: slice | None = None) -> torch.Tensor:
   """A training head: ``(B, D, Hq, Wq)`` logits -> ``(B, h, w)`` f32
-  prediction (trilinear upsample, f32 softmax, soft-argmin)."""
-  up = upsample_trilinear(cost[..., None], maxdisp, h, w)[..., 0]
+  prediction (trilinear upsample, f32 softmax, soft-argmin); ``rows``:
+  those rows of the prediction only."""
+  up = upsample_trilinear(cost[..., None], maxdisp, h, w, rows)[..., 0]
   up = up.to(torch.promote_types(up.dtype, torch.float32))
   return disparity_regression(torch.softmax(up, dim=1), maxdisp)
 
@@ -267,10 +272,14 @@ class ModeDisparity(nn.Module):
     h, w = left.shape[1:3]
     with ieee_f32_convs():
       if self.training:
-        no_spatial_training()
+        costs = self._costs(left, right, plain)
+        mesh, rows = spatial_mesh(), None
+        if mesh is not None:      # every rank's logits, this rank's rows
+          costs = gather_rows(torch.stack(costs), 3, mesh).unbind()
+          rows = row_sharding(mesh, h)
         return tuple(torch.utils.checkpoint.checkpoint(
-            _regress, cost, self.maxdisp, h, w, use_reentrant=False)
-                     for cost in self._costs(left, right, plain))
+            _regress, cost, self.maxdisp, h, w, rows, use_reentrant=False)
+                     for cost in costs)
       with torch.no_grad():
         cost3 = self._costs(left, right, plain)[2]
         mesh = spatial_mesh()

@@ -43,7 +43,11 @@ one row; the plain versions pad D and W only.
 For training, :func:`conv3d_train` and :func:`deconv3d_train` are the bare
 convs as autograd Functions whose forward and grad-input run these kernels
 (the JAX package's custom VJPs), and ``train_*_eligible`` are the JAX
-package's gates for them.
+package's gates for them. Given a ``mesh`` with a spatial axis, they run
+on this rank's rows: the forward exchanges ``x``'s halo planes and runs
+the halo form, the backward exchanges the cotangent's and runs the
+grad-input's halo form on it (the JAX package trains under a mesh through
+XLA's partitioner instead, its training kernels gated off).
 """
 
 from __future__ import annotations
@@ -59,11 +63,13 @@ from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
 from mode_tpu_torch.ops.kmajor import TcWeight
+from mode_tpu_torch.parallel.mesh import Mesh, halo_planes
 
 _S1, _S2, _DECONV = 0, 1, 2
 _NAMES = {_S1: "conv3d_s1_bn_act", _S2: "conv3d_s2_bn_act",
           _DECONV: "deconv3d_bn_act"}
 _DTYPES = (torch.float32, torch.bfloat16)
+_H = 2              # the H axis of an NDHWC volume
 
 
 @functools.cache
@@ -364,17 +370,31 @@ def train_deconv_eligible(x_shape, cout: int) -> bool:
           and _s2_routable((b, 2 * d, 2 * h, 2 * w, cout), c))
 
 
-def _grad_weight(mode, x, weight, g):
-  """The weight's gradient, one library call on channels-last views."""
+def _grad_weight(mode, x, weight, g, h_halo=False):
+  """The weight's gradient, one library call on channels-last views; with
+  ``h_halo`` the input of the conv's adjoint (``x``, or the deconv's
+  ``g``) holds its halo rows and H is not padded."""
   xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+  pad = (1, 0, 1) if h_halo else 1
   if mode == _DECONV:
     # the deconv is the adjoint of the stride-2 conv with the same tensor:
     # <g, deconv(x, w)> = <conv_s2(g, w), x>
     return torch.nn.grad.conv3d_weight(gc, weight.shape, xc, stride=2,
-                                       padding=1)
+                                       padding=pad)
   return torch.nn.grad.conv3d_weight(xc, weight.shape, gc,
                                      stride=1 if mode == _S1 else 2,
-                                     padding=1)
+                                     padding=pad)
+
+
+def _grad_input(mode, g, weight, plain, h_halo=False):
+  """The input's gradient on the kernels: the stride-1 conv with the
+  flipped, io-swapped weight, the deconv for the stride-2 conv and the
+  stride-2 conv for the deconv (see :class:`_Conv3d`)."""
+  if mode == _S1:
+    wt = weight.flip((2, 3, 4)).transpose(0, 1)
+    return _run(_S1, g, wt, None, None, None, False, plain, h_halo)
+  return _run(_DECONV if mode == _S2 else _S2, g, weight, None, None, None,
+              False, plain, h_halo)
 
 
 class _Conv3d(torch.autograd.Function):
@@ -403,29 +423,88 @@ class _Conv3d(torch.autograd.Function):
     g = g.contiguous()
     dx = dw = None
     if ctx.needs_input_grad[0]:
-      if mode == _S1:
-        wt = weight.flip((2, 3, 4)).transpose(0, 1)
-        dx = _run(_S1, g, wt, None, None, None, False, plain)
-      else:
-        dx = _run(_DECONV if mode == _S2 else _S2, g, weight, None, None,
-                  None, False, plain)
+      dx = _grad_input(mode, g, weight, plain)
     if ctx.needs_input_grad[1]:
       dw = _grad_weight(mode, x, weight, g)
     return dx, dw, None, None
 
 
+class _Conv3dRows(torch.autograd.Function):
+  """:class:`_Conv3d` on this rank's rows of H under a spatial mesh. The
+  forward brings ``x``'s halo planes from the neighbours
+  (``mesh.halo_planes``) and runs the kernel's halo form; the backward
+  brings the cotangent's and runs the grad-input's halo form on them:
+    * stride 1: ``dx`` of a row reads ``g`` a row either side;
+    * stride 2: the deconv's halo form reads ``g``'s rows and the next
+      rank's first;
+    * deconv: the stride-2 halo form reads the double-resolution ``g``'s
+      rows, which start on an even row, and the previous rank's last.
+  The weight's gradient is this rank's share (the library call on the
+  haloed input, H unpadded); the gradient average over the mesh sums the
+  shares. Each run exchanges its halo planes, a rematerialised block's
+  rerun too, so every rank issues the same collectives."""
+
+  @staticmethod
+  def forward(ctx, x, weight, mode, plain, mesh):
+    x = x.contiguous()
+    above, below = halo_planes(x, _H, mesh)
+    ctx.save_for_backward(x, above, below, weight)
+    ctx.mode, ctx.plain, ctx.mesh = mode, plain, mesh
+    return remat.conv_output(lambda: _run(
+        mode, torch.cat([above, x, below], _H), weight, None, None, None,
+        False, plain, True))
+
+  @staticmethod
+  def backward(ctx, g):
+    x, above, below, weight = ctx.saved_tensors
+    mode, plain = ctx.mode, ctx.plain
+    g = g.contiguous()
+    g_above, g_below = halo_planes(g, _H, ctx.mesh)
+    gh = torch.cat([g_above, g, g_below], _H)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = _grad_input(mode, gh, weight, plain, True)
+    if ctx.needs_input_grad[1]:
+      if mode == _DECONV:
+        dw = _grad_weight(mode, x, weight, gh, True)
+      else:
+        dw = _grad_weight(mode, torch.cat([above, x, below], _H), weight, g,
+                          True)
+    return dx, dw, None, None, None
+
+
+def _sharded(mesh: Mesh | None) -> bool:
+  return mesh is not None and mesh.spatial > 1
+
+
 def conv3d_train(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, *,
-                 plain: bool = False) -> torch.Tensor:
+                 plain: bool = False, mesh: Mesh | None = None
+                 ) -> torch.Tensor:
   """The bare stride-1 or stride-2 pad-1 3x3x3 conv with the kernels'
-  gradients; ``x`` NDHWC, ``weight`` torch ``(Cout, Cin, 3, 3, 3)``."""
+  gradients; ``x`` NDHWC, ``weight`` torch ``(Cout, Cin, 3, 3, 3)``. With
+  a ``mesh`` whose spatial axis is above 1, ``x`` is this rank's rows of H
+  and so is the output (module docstring); at stride 2 the rows must start
+  on an even global row."""
+  rows = _sharded(mesh)
   if stride == 2 and any(n % 2 for n in x.shape[1:4]):
-    raise ValueError("the stride-2 conv trains on even extents only, its "
-                     "grad-input deconv doubles them")
-  return _Conv3d.apply(x, weight, _S1 if stride == 1 else _S2, plain)
+    raise ValueError(
+        "the stride-2 conv trains on even extents only, its grad-input "
+        "deconv doubles them" + (
+            f"; under a spatial mesh the whole H must be a multiple of 2 x "
+            f"spatial (H {x.shape[_H] * mesh.spatial} over {mesh.spatial} "
+            "ranks)" if rows else ""))
+  mode = _S1 if stride == 1 else _S2
+  if rows:
+    return _Conv3dRows.apply(x, weight, mode, plain, mesh)
+  return _Conv3d.apply(x, weight, mode, plain)
 
 
 def deconv3d_train(x: torch.Tensor, weight: torch.Tensor, *,
-                   plain: bool = False) -> torch.Tensor:
+                   plain: bool = False, mesh: Mesh | None = None
+                   ) -> torch.Tensor:
   """The bare ConvTranspose3d(k3, s2, p1, output_padding 1) with the
-  kernels' gradients; ``weight`` torch ``(Cin, Cout, 3, 3, 3)``."""
+  kernels' gradients; ``weight`` torch ``(Cin, Cout, 3, 3, 3)``; ``mesh``
+  as for :func:`conv3d_train` (twice this rank's rows out)."""
+  if _sharded(mesh):
+    return _Conv3dRows.apply(x, weight, _DECONV, plain, mesh)
   return _Conv3d.apply(x, weight, _DECONV, plain)

@@ -24,7 +24,7 @@ import torch
 
 from mode_tpu_torch import kernels
 from mode_tpu_torch.kernels import build
-from mode_tpu_torch.ops.resize import interpolate, linear_matrix, linear_taps
+from mode_tpu_torch.ops.resize import interpolate, linear_taps
 
 _NAME = "fused_disparity_regression"
 
@@ -84,14 +84,8 @@ def _upsample_rows(cost_q, maxdisp, h, w, row0, h_out):
   of ``(N, D, Hq, Wq)`` to ``(N, maxdisp, h, w)``, in f32: the products of
   ``ops/resize.py:upsample_trilinear`` (D, then H, then W), H through the
   window's rows of its matrix."""
-  x = interpolate(cost_q.float(), {1: maxdisp})
-  hq = x.shape[2]
-  mat = torch.from_numpy(linear_matrix(h, hq)[row0:row0 + h_out]).to(
-      x.device)
-  xm = torch.movedim(x, 2, -1)
-  x = torch.movedim((xm.reshape(-1, hq) @ mat.T).reshape(*xm.shape[:-1],
-                                                         h_out), -1, 2)
-  return interpolate(x, {3: w})
+  return interpolate(cost_q.float(), {1: maxdisp, 2: h, 3: w},
+                     windows={2: slice(row0, row0 + h_out)})
 
 
 def _plain(cost_q, maxdisp, h, w, row0, h_out):

@@ -91,35 +91,44 @@ def cubic_matrix(n_out: int, n_in: int,
 
 
 def _resize(x: torch.Tensor, sizes: dict[int, int], matrix,
-            align_corners: bool) -> torch.Tensor:
+            align_corners: bool, windows=None) -> torch.Tensor:
   """Resize the axes of ``x`` named in ``sizes`` (axis -> length) by the
   matrices ``matrix(n_out, n_in, align_corners)``: one product per axis,
   taken in float32 and cast back to ``x.dtype``, in the order of
   ``sizes``. The other axes are folded into the product's rows, so it is
   one GEMM: given the strided view, ``matmul`` may batch it as one
   matrix-vector product per row (the training heads' trailing axis of 1
-  made it do so on the card)."""
+  made it do so on the card). ``windows`` (axis -> slice) keeps only
+  those output positions of an axis, through those rows of its matrix."""
+  windows = windows or {}
   for axis, n_out in sizes.items():
     n_in = x.shape[axis]
-    if n_in == n_out:
+    window = windows.get(axis)
+    if n_in == n_out and window is None:
       continue
-    mat = torch.from_numpy(matrix(n_out, n_in, align_corners)).to(x.device)
+    mat = matrix(n_out, n_in, align_corners)
+    if window is not None:
+      mat = mat[window]
+    mat = torch.from_numpy(np.ascontiguousarray(mat)).to(x.device)
     xm = torch.movedim(x, axis, -1).float()
-    y = (xm.reshape(-1, n_in) @ mat.T).reshape(*xm.shape[:-1], n_out)
+    y = (xm.reshape(-1, n_in) @ mat.T).reshape(*xm.shape[:-1], mat.shape[0])
     x = torch.movedim(y.to(x.dtype), -1, axis)
   return x
 
 
 def interpolate(x: torch.Tensor, sizes: dict[int, int],
-                align_corners: bool = True) -> torch.Tensor:
-  """Linearly resize the axes of ``x`` named in ``sizes`` (axis -> length)."""
-  return _resize(x, sizes, linear_matrix, align_corners)
+                align_corners: bool = True, windows=None) -> torch.Tensor:
+  """Linearly resize the axes of ``x`` named in ``sizes`` (axis -> length);
+  ``windows`` (axis -> slice) keeps those output positions only."""
+  return _resize(x, sizes, linear_matrix, align_corners, windows)
 
 
-def upsample_trilinear(x: torch.Tensor, d: int, h: int,
-                       w: int) -> torch.Tensor:
-  """NDHWC trilinear resize, align_corners=True."""
-  return interpolate(x, {1: d, 2: h, 3: w})
+def upsample_trilinear(x: torch.Tensor, d: int, h: int, w: int,
+                       rows: slice | None = None) -> torch.Tensor:
+  """NDHWC trilinear resize, align_corners=True; ``rows``: those output
+  rows of H only."""
+  return interpolate(x, {1: d, 2: h, 3: w},
+                     windows=None if rows is None else {2: rows})
 
 
 def upsample_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:

@@ -8,28 +8,35 @@ place ``(r // spatial, r % spatial)`` as ``mesh_utils.create_device_mesh``
 lays the JAX mesh out row-major, and makes every cross-rank step explicit.
 
 The ``data`` axis (training and serving): each data index holds its rows
-of the global batch, and every reduction over the batch runs over the data
-group of its spatial index:
+of the global batch. The ``spatial`` axis: the ranks of one data index
+split the cost volume's H (:func:`row_sharding`, :func:`constrain_spatial`);
+each 3-D conv runs on its rows after a one-plane halo exchange with its
+neighbours (:func:`halo_concat`, ``parallel/shard_ops.py``), and
+:func:`gather_rows` assembles the rows over the spatial group.
 
-- the BatchNorm layers in training normalise with the global batch's
-  statistics (``models/blocks.py:TorchBatchNorm``), as ``jnp.mean`` over a
-  sharded axis does;
-- the losses are global masked means (``utils/losses.py``);
-- after the backward one all-reduce averages the gradients
-  (:func:`allreduce_gradients`).
+In training every reduction over the batch runs over the group whose
+ranks hold its parts (``over``: :data:`DATA` or :data:`MESH`):
 
-Every cross-rank sum in the forward is :func:`all_sum`, an all-reduce whose
-backward is the all-reduce of the gradient. Each rank computes the same
-global loss and starts its backward from it, so every rank's gradient comes
-out ``W`` times its share, and the average over ranks is the gradient of
-the global loss (exactly, for ``W`` a power of two).
+- the feature extractor runs whole on every spatial rank of a data index,
+  so its BatchNorm layers reduce over the data group (``DATA``): the sums
+  of its spatial index's ranks already hold the global batch;
+- the 3-D stack's BatchNorm layers and the losses hold a rank's rows of H
+  and reduce over the whole mesh (``MESH``);
+- after the backward one all-reduce over the whole mesh averages the
+  gradients (:func:`allreduce_gradients`).
 
-The ``spatial`` axis (eval only): the ranks of one data index split the
-cost volume's H (:func:`row_sharding`, :func:`constrain_spatial`); each 3-D
-conv runs on its rows after a one-plane halo exchange with its neighbours
-(``parallel/shard_ops.py``), and :func:`gather_rows` assembles the rows
-over the spatial group. Training under ``spatial > 1`` is not ported
-(``SPATIAL_TRAINING_ITEM``).
+Every cross-rank step in the forward has its transpose as its backward:
+:func:`all_sum` (an all-reduce; backward the all-reduce of the gradient
+over the same group), :func:`halo_concat` (backward: each halo plane's
+gradient sent back and added to the neighbour's edge row),
+:func:`gather_rows` (backward: the gradient summed over the spatial group,
+this rank's rows kept) and :func:`constrain_spatial` (a slice; backward:
+zeros outside this rank's rows). Each rank computes the same global loss
+and starts its backward from it, so every rank's gradient comes out ``W =
+data x spatial`` times its share of the global gradient: on a spatial rank
+even the feature extractor's gradient is a partial sum, from its own rows
+of the volume. The average over all ``W`` ranks is the gradient of the
+global loss (exactly, for ``W`` a power of two).
 
 A process that ``torchrun`` did not start is a world of one with no process
 group, and the code paths are the single-card ones.
@@ -49,8 +56,12 @@ import torch.distributed as dist
 
 from mode_tpu_torch.device import resolve_device
 
-# where ROADMAP.md lists what training under a spatial mesh needs
-SPATIAL_TRAINING_ITEM = "training under --sp in ROADMAP.md"
+# where ROADMAP.md lists what training the fusion net under a spatial mesh
+# needs
+FUSION_SPATIAL_TRAINING_ITEM = ("the fusion net's training under --sp in "
+                                "ROADMAP.md")
+# the groups a reduction in training runs over (module docstring)
+DATA, MESH = "data", "mesh"
 # How long a collective may wait for the other ranks. The trainers' rank 0
 # alone packs the fusion set before the first step and validates each
 # epoch while the others wait at a barrier: far longer than the backends'
@@ -122,6 +133,22 @@ class Mesh:
   @property
   def shape(self) -> dict[str, int]:
     return {"data": self.data, "spatial": self.spatial}
+
+  @property
+  def global_rank(self) -> int:
+    """This rank in the process group: ``rank * spatial + spatial_rank``."""
+    return self.rank * self.spatial + self.spatial_rank
+
+  def ranks(self, over: str) -> int:
+    """How many ranks a reduction ``over`` :data:`DATA` or :data:`MESH`
+    sums."""
+    return self.data * (self.spatial if over == MESH else 1)
+
+  def group(self, over: str) -> Optional[dist.ProcessGroup]:
+    """The process group of a reduction ``over`` :data:`DATA` (this
+    spatial index's data group) or :data:`MESH` (every rank: None, the
+    default group)."""
+    return None if over == MESH else self.data_group
 
 
 def _axis_groups(data: int, spatial: int, world: int, mine: int):
@@ -222,13 +249,81 @@ def global_batch_from_local(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
   return torch.cat(_gather(local, mesh.data, mesh.data_group, mesh))
 
 
+class _GatherRows(torch.autograd.Function):
+  """The spatial group's rows, in order; its backward sums the gradient of
+  the whole over the group and keeps this rank's rows (the transpose)."""
+
+  @staticmethod
+  def forward(ctx, t, axis, mesh):
+    ctx.axis, ctx.mesh, ctx.n = axis, mesh, t.shape[axis]
+    return torch.cat(_gather(t, mesh.spatial, mesh.spatial_group, mesh),
+                     dim=axis)
+
+  @staticmethod
+  def backward(ctx, g):
+    mesh = ctx.mesh
+    g = g.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(g, group=mesh.spatial_group)
+    mesh.collectives += 1
+    return g.narrow(ctx.axis, mesh.spatial_rank * ctx.n, ctx.n), None, None
+
+
 def gather_rows(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
   """The spatial group's rows of ``t`` along ``axis``, in order (an
-  all-gather over the spatial group; ``t`` itself at one)."""
+  all-gather over the spatial group; ``t`` itself at one),
+  differentiable (module docstring)."""
   if mesh.spatial == 1:
     return t
-  return torch.cat(_gather(t, mesh.spatial, mesh.spatial_group, mesh),
-                   dim=axis)
+  return _GatherRows.apply(t, axis, mesh)
+
+
+def halo_planes(x: torch.Tensor, axis: int, mesh: Mesh):
+  """The previous rank's last plane of ``x`` along ``axis`` and the next
+  rank's first plane (zeros at the spatial group's ends), not
+  differentiable: one all-gather of every rank's (first, last) planes over
+  the spatial group, from which each rank takes its neighbours'."""
+  n = x.shape[axis]
+  ends = torch.stack([x.select(axis, 0), x.select(axis, n - 1)]).contiguous()
+  parts = _gather(ends, mesh.spatial, mesh.spatial_group, mesh)
+  s = mesh.spatial_rank
+  zero = torch.zeros_like(ends[0])
+  above = parts[s - 1][1] if s > 0 else zero
+  below = parts[s + 1][0] if s + 1 < mesh.spatial else zero
+  return above.unsqueeze(axis), below.unsqueeze(axis)
+
+
+class _HaloConcat(torch.autograd.Function):
+  """:func:`halo_concat`; its backward sends each halo plane's gradient
+  back to the rank whose plane it is, which adds it to its edge row (one
+  all-gather), and keeps the gradient of its own rows."""
+
+  @staticmethod
+  def forward(ctx, x, axis, mesh):
+    ctx.axis, ctx.mesh = axis, mesh
+    above, below = halo_planes(x, axis, mesh)
+    return torch.cat([above, x, below], dim=axis)
+
+  @staticmethod
+  def backward(ctx, g):
+    axis, n = ctx.axis, g.shape[ctx.axis] - 2
+    # this rank's halo planes are its neighbours' edge rows: the gradient
+    # of its upper plane goes to the rank above as that rank's last row,
+    # the lower plane's to the rank below as its first row
+    above, below = halo_planes(
+        torch.cat([g.narrow(axis, 0, 1), g.narrow(axis, n + 1, 1)], axis),
+        axis, ctx.mesh)
+    dx = g.narrow(axis, 1, n).clone(memory_format=torch.contiguous_format)
+    dx.narrow(axis, 0, 1).add_(above)
+    dx.narrow(axis, n - 1, 1).add_(below)
+    return dx, None, None
+
+
+def halo_concat(x: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+  """``x`` with the previous rank's last plane along ``axis`` before it and
+  the next rank's first plane after it (zeros at the spatial group's ends),
+  from one all-gather over the spatial group; differentiable (its backward
+  is the transpose, one more all-gather)."""
+  return _HaloConcat.apply(x, axis, mesh)
 
 
 @contextlib.contextmanager
@@ -247,9 +342,10 @@ def active_mesh() -> Optional[Mesh]:
   return getattr(_state, "mesh", None)
 
 
-def sharded(mesh: Optional[Mesh]) -> bool:
-  """Whether the batch is split over more than one rank."""
-  return mesh is not None and mesh.data > 1
+def sharded(mesh: Optional[Mesh], over: str) -> bool:
+  """Whether a reduction ``over`` :data:`DATA` or :data:`MESH` spans more
+  than one rank."""
+  return mesh is not None and mesh.ranks(over) > 1
 
 
 def spatial_mesh() -> Optional[Mesh]:
@@ -268,48 +364,51 @@ def constrain_spatial(x: torch.Tensor, h_axis: int) -> torch.Tensor:
 
 
 class _AllSum(torch.autograd.Function):
-  """The sum over the ranks; its backward is the sum of the gradients."""
+  """The sum over the ranks of a group; its backward is the sum of the
+  gradients over the same group."""
 
   @staticmethod
-  def forward(ctx, x, mesh):
-    ctx.mesh = mesh
+  def forward(ctx, x, mesh, over):
+    ctx.mesh, ctx.over = mesh, over
     x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x, group=mesh.data_group)
+    dist.all_reduce(x, group=mesh.group(over))
     mesh.collectives += 1
     return x
 
   @staticmethod
   def backward(ctx, g):
-    return _AllSum.apply(g, ctx.mesh), None
+    return _AllSum.apply(g, ctx.mesh, ctx.over), None, None
 
 
-def all_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-  """The sum of ``x`` over the ranks, differentiable (module docstring)."""
-  return _AllSum.apply(x, mesh)
+def all_sum(x: torch.Tensor, mesh: Mesh, over: str) -> torch.Tensor:
+  """The sum of ``x`` over the ranks of the group ``over``, differentiable
+  (module docstring)."""
+  return _AllSum.apply(x, mesh, over)
 
 
 def all_count(n: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-  """The sum of a count over the ranks, without a gradient."""
+  """The sum of a count over every rank of the mesh, without a
+  gradient."""
   n = n.detach().clone()
-  dist.all_reduce(n, group=mesh.data_group)
+  dist.all_reduce(n)
   mesh.collectives += 1
   return n
 
 
 def broadcast_state(module: torch.nn.Module, mesh: Mesh) -> None:
-  """Copy data index 0's parameters and buffers to every rank of the data
-  group, in place."""
+  """Copy rank 0's (data index 0, spatial index 0) parameters and buffers
+  to every rank of the mesh, in place."""
   with torch.no_grad():
     for t in [*module.parameters(), *module.buffers()]:
-      dist.broadcast(t.data, src=mesh.spatial_rank, group=mesh.data_group)
+      dist.broadcast(t.data, src=0)
       mesh.collectives += 1
 
 
 def allreduce_gradients(params: Iterable[torch.nn.Parameter],
                         mesh: Mesh) -> None:
-  """Average the gradients over the ranks in place: one all-reduce of a
-  flat buffer per dtype. A parameter without a gradient takes zeros, so
-  every rank sends the same layout."""
+  """Average the gradients over every rank of the mesh in place (module
+  docstring): one all-reduce of a flat buffer per dtype. A parameter
+  without a gradient takes zeros, so every rank sends the same layout."""
   by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
   for p in params:
     if p.grad is None:
@@ -317,9 +416,9 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
     by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
   for grads in by_dtype.values():
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.data_group)
+    dist.all_reduce(flat)
     mesh.collectives += 1
-    flat.div_(mesh.data)
+    flat.div_(mesh.ranks(MESH))
     offset = 0
     for g in grads:
       g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -327,14 +426,14 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
 
 
 def same_on_every_rank(tensors: Iterable[torch.Tensor], mesh: Mesh) -> bool:
-  """Whether every rank of the data group holds bit-equal ``tensors`` (data
-  index 0's bytes, broadcast, compared on each rank; then the verdicts
+  """Whether every rank of the mesh holds bit-equal ``tensors`` (rank 0's
+  bytes, broadcast, compared on each rank; then the verdicts
   all-reduced)."""
   flat = torch.cat([t.detach().reshape(-1).view(torch.uint8)
                     for t in tensors])
   ref = flat.clone()
-  dist.broadcast(ref, src=mesh.spatial_rank, group=mesh.data_group)
+  dist.broadcast(ref, src=0)
   bad = torch.tensor([float(not torch.equal(ref, flat))], device=flat.device)
-  dist.all_reduce(bad, group=mesh.data_group)
+  dist.all_reduce(bad)
   mesh.collectives += 2
   return float(bad) == 0.0

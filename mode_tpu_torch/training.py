@@ -17,11 +17,15 @@ softmax, sigmoid head and loss; the parameters and Adam's state stay f32.
 
 ``mesh=`` (``parallel/mesh.py``, one process per card) trains on the
 global batch split over the ranks, as the JAX steps' ``mesh`` does: each
-rank takes its own rows, the BN layers and the loss reduce over every
-rank's rows, and after the backward one all-reduce averages the f32
-gradients, so every rank takes the same Adam step. Building the step
-broadcasts rank 0's parameters and buffers once. Each rank's convs take
-the kernels as the single-card step takes them at the per-rank batch.
+data index takes its own rows of the batch, and under a ``spatial`` axis
+each of its spatial ranks its rows of the cost volume's H and of the
+ground truth (stage 1 only; the fusion net does not train under the axis).
+The BN layers and the loss reduce over every rank's part, and after the
+backward one all-reduce over the whole mesh averages the f32 gradients, so
+every rank takes the same Adam step. Building the step broadcasts rank 0's
+parameters and buffers once. Each rank's convs take the kernels as the
+single-card step takes them at the per-rank batch and the whole volume's
+shape.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from mode_tpu_torch.models.blocks import (Conv3dWeight,
                                           ConvTranspose3dWeight, SphereConv)
 from mode_tpu_torch.parallel.mesh import (Mesh, activate,
                                           allreduce_gradients,
-                                          broadcast_state)
+                                          broadcast_state, constrain_spatial)
 from mode_tpu_torch.utils.losses import disparity_deep_supervision, silog_loss
 
 # ImageNet statistics (the JAX package's data/preprocess.py)
@@ -153,8 +157,10 @@ def make_disparity_train_step(model: torch.nn.Module,
   the kernels' plain versions (a reference for the kernels on the card).
   The forward and the backward run their library convs in IEEE f32
   (``device.ieee_f32_convs``). With ``mesh`` the arguments are this rank's
-  rows of the global batch (``parallel.mesh.shard_batch``) and the loss is
-  the global batch's, the same on every rank (module docstring).
+  data index's rows of the global batch (``parallel.mesh.shard_batch``),
+  whole images: under a spatial axis the step takes this rank's rows of
+  ``disp_gt`` itself (``mesh.row_sharding``). The loss is the global
+  batch's, the same on every rank (module docstring).
   """
   replicate(model, mesh)
 
@@ -168,6 +174,8 @@ def make_disparity_train_step(model: torch.nn.Module,
       preds = model(normalize_rgb_on_device(left, compute_dtype),
                     normalize_rgb_on_device(right, compute_dtype),
                     plain=plain)
+      # this rank's rows under a spatial mesh, as the predictions are
+      gt, mask = (constrain_spatial(t, 1) for t in (gt, mask))
       loss = disparity_deep_supervision(preds, gt, mask, mesh)
       loss.backward()
     sync_gradients(model, mesh)

@@ -3,29 +3,30 @@ smooth-L1 and stage 2's scale-invariant log loss, with masks so every pixel
 keeps its place in the batch.
 
 Each loss is a masked mean over the batch. With a ``mesh`` whose batch is
-split over ranks (``parallel/mesh.py``) it is the mean over the global
-batch, as the JAX package's loss over a sharded batch is: the sums and the
-counts are all-reduced before the division, the sums differentiably, and
-every rank returns the same value.
+split over ranks (``parallel/mesh.py``), by data index and by rows of H, it
+is the mean over the global batch, as the JAX package's loss over a
+sharded batch is: the sums and the counts are all-reduced over the whole
+mesh before the division, the sums differentiably, and every rank returns
+the same value.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mode_tpu_torch.parallel.mesh import Mesh, all_count, all_sum, sharded
+from mode_tpu_torch.parallel.mesh import MESH, Mesh, all_count, all_sum, sharded
 
 
 def _sums(mesh: Mesh | None, *sums: torch.Tensor) -> tuple:
   """``sums`` over the global batch (as they are without a split one)."""
-  if not sharded(mesh):
+  if not sharded(mesh, MESH):
     return sums
-  return tuple(all_sum(torch.stack(sums), mesh).unbind())
+  return tuple(all_sum(torch.stack(sums), mesh, MESH).unbind())
 
 
 def _count(mesh: Mesh | None, mask: torch.Tensor) -> torch.Tensor:
   n = torch.sum(mask)
-  return all_count(n, mesh) if sharded(mesh) else n
+  return all_count(n, mesh) if sharded(mesh, MESH) else n
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,

@@ -19,7 +19,9 @@ the same step through the plain versions; and one fusion training step at
 and both training CLIs, one step each at 512x256; the halo forms of the
 3-D kernels and of the 2-D kernel (the fusion net's rows at spatial 2 and
 4, the Sphere stem's, ragged shards) and the 2-D C entry's refusal of a
-halo at dilation 2; K2's row window.
+halo at dilation 2; K2's row window; the 3-D training Function on a
+rank's rows (``conv3d_train``/``deconv3d_train`` with a mesh), forward
+and grad-input on the halo forms, at a 1024x512 rank's shapes.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -1152,3 +1154,67 @@ def test_regression_window_matches_plain(gen, row0, h_out, dtype):
   _close(pred, ref_pred, torch.float32)
   tie = (ref_pred - ref_pred.floor() - 0.5).abs() < 1e-3
   _close(conf[~tie], ref_conf[~tie], torch.float32)
+
+
+# a rank's rows of a batch-2 1024x512 training step at spatial 2: (stride
+# 1, 2 or the deconv, x's shape, Cout)
+TRAIN_HALO_CASES = [
+    (1, (2, 48, 128, 128, 64), 32),       # dres0.0
+    (1, (2, 48, 128, 128, 32), 32),       # dres1, classif.0
+    (1, (2, 24, 64, 64, 64), 64),         # hourglass conv2 (1/8)
+    (2, (2, 48, 128, 128, 32), 64),       # conv1 (its dx: K5's halo form)
+    (2, (2, 24, 64, 64, 64), 64),         # conv3 (its dx: K7's halo form)
+    ("deconv", (2, 12, 32, 32, 64), 64),  # conv5 (its dx: K4's halo form)
+    ("deconv", (2, 24, 64, 64, 64), 32),  # conv6
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride,x_shape,cout", TRAIN_HALO_CASES)
+def test_sharded_training_function_matches_plain(gen, monkeypatch, stride,
+                                                 x_shape, cout, dtype):
+  """The training Function on a rank's rows (``mesh`` with a spatial axis):
+  its forward on the kernel's halo form and its grad-input on the matching
+  halo form of the cotangent, two haloed launches, against the same
+  Function through the plain versions; the grad-weight (a library call)
+  alike. The neighbours' planes come from a stub of the exchange, the
+  same seeded planes for both runs."""
+  from types import SimpleNamespace
+  mesh = SimpleNamespace(spatial=2)
+
+  def planes(t, axis, mesh):
+    g = torch.Generator(device="cuda").manual_seed(t.shape[axis] + t.shape[-1])
+    shape = (*t.shape[:axis], 1, *t.shape[axis + 1:])
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(t.dtype)
+                 for _ in range(2))
+
+  monkeypatch.setattr(C, "halo_planes", planes)
+  deconv = stride == "deconv"
+  cin = x_shape[-1]
+  w = (torch.randn((cin, cout, 3, 3, 3) if deconv else (cout, cin, 3, 3, 3),
+                   generator=gen, device="cuda")
+       * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+
+  def run(plain):
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = (C.deconv3d_train(xr, wr, plain=plain, mesh=mesh) if deconv
+         else C.conv3d_train(xr, wr, stride, plain=plain, mesh=mesh))
+    g = (torch.randn(y.shape, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda") * 0.5).to(dtype)
+    y.backward(g)
+    return y.detach(), xr.grad, wr.grad
+
+  kernels.reset_launches()
+  y, dx, dw = run(False)
+  torch.cuda.synchronize()
+  want = ({"conv3d_s1_bn_act": 2} if stride == 1
+          else {"conv3d_s2_bn_act": 1, "deconv3d_bn_act": 1})
+  assert dict(kernels.LAUNCHES) == want
+  assert dict(kernels.HALO_LAUNCHES) == want
+  rows = x_shape[2] * (2 if deconv else 1) // (2 if stride == 2 else 1)
+  assert y.dtype == dtype and y.shape[2] == rows and dx.shape == x.shape
+  want_y, want_dx, want_dw = run(True)
+  _close(y, want_y, dtype)
+  _close(dx, want_dx, dtype)
+  _close(dw, want_dw, dtype)

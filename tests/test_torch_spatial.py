@@ -23,8 +23,9 @@
    (1e-5); 29 collectives a call (28 halo exchanges, K2's gather). The
    ERP model (32x64) on a ``(1, 2)`` mesh against one process.
 5. The gates: rows that do not split, a stride-2 conv whose shard would
-   not start on an even global row, a training forward and a mesh off the
-   world size all raise, naming what is wrong.
+   not start on an even global row, the fusion net's training forward
+   (stage 1 trains under the mesh: ``tests/test_torch_spatial_train.py``)
+   and a mesh off the world size all raise, naming what is wrong.
 6. The 2-D conv's halo form (K8's ``m_halo``, the fusion net's convs under
    the mesh): the plain form against ``conv2d_band_pallas(..., m_halo=True)``
    in interpret mode at 1e-5 (Cin 12 padded to 16, a residual, ReLU on and
@@ -402,7 +403,9 @@ def test_spatial_mesh_refusals():
   """On a (1, 2) mesh: 5 rows do not split; a stride-2 conv on 3 rows a
   rank (6 in all) would start rank 1 on an odd global row; a 72x36 pair
   gives 9 quarter-resolution rows a rank, so its stride-2 convs refuse;
-  training raises; data 2 x spatial 2 is not a world of 2."""
+  the fusion net's training raises (until stage 1 trained under the mesh,
+  its training forward was the case); data 2 x spatial 2 is not a world
+  of 2."""
   left = np.random.default_rng(6).normal(size=(1, 72, 36, 3)).astype(
       np.float32)
   out = run_ranks(ranks.refusals, 2, (NPZ, MAXDISP, left), timeout=TIMEOUT,
@@ -413,7 +416,8 @@ def test_spatial_mesh_refusals():
     assert "H % (2 x spatial) == 0: H 6 over 2" in r["stride2"]
     assert "H % (2 x spatial) == 0: H 18 over 2" in r["model_h"]
     assert r["train"].startswith("NotImplementedError: training under a "
-                                 "spatial mesh")
+                                 "spatial mesh is not ported for the "
+                                 "fusion net")
     assert "must hold the world size, 2" in r["mesh"]
 
 

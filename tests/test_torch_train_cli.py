@@ -472,12 +472,12 @@ TRAINERS = {"train_disparity": ttrain_disp, "train_fusion": ttrain_fusion}
     ("train_fusion", ["--dp", "8"])])
 def test_more_than_one_card_is_refused(setup, tmp_path, name, flag):
   """In one process (a world of one), ``--dp`` other than 1 is not the
-  world size and ``--sp`` above 1 is training under the spatial axis,
-  which is not ported (the axis serves in eval only): both refused before
-  anything is written. (Until the data axis was ported, both were refused
-  as training on more than one card; until the spatial axis served, ``--sp``
-  was refused as the unported axis.)"""
-  match = ("training under --sp in ROADMAP.md" if flag[0] == "--sp"
+  world size and ``--sp`` above 1 does not divide it: both refused, by the
+  mesh, before anything is written. (Until the data axis was ported, both
+  were refused as training on more than one card; until stage 1 trained
+  under the spatial axis, ``--sp`` was refused as the unported axis.)"""
+  match = ("the spatial axis must divide the world size, 1"
+           if flag[0] == "--sp"
            else "the data axis must be the world size, 1")
   with pytest.raises(ValueError, match=match):
     TRAINERS[name].main(_argv(name, setup, str(tmp_path)) + flag
@@ -485,40 +485,52 @@ def test_more_than_one_card_is_refused(setup, tmp_path, name, flag):
   assert not os.listdir(tmp_path)
 
 
+# the two-rank runs: (trainer, its mesh flags, its save directory)
+RANK_RUNS = {"train_disparity": ("train_disparity", ["--dp", "2"],
+                                 "stage1"),
+             "train_disparity_sp": ("train_disparity", ["--sp", "2"],
+                                    "stage1_sp"),
+             "train_fusion": ("train_fusion", ["--dp", "2"], "fusion")}
+
+
 @pytest.fixture(scope="module")
 def two_ranks(setup):
   """Each trainer as two gloo ranks with ``--dp 2`` (the global batch of
   2 split one example a rank): stage 1 for one epoch from the trained
-  .tar, ``ModeFusion`` from float inputs."""
+  .tar, ``ModeFusion`` from float inputs; and stage 1 with ``--sp 2``
+  (both ranks on the whole batch, each on its half of the cost volume's
+  H)."""
   runs = {}
-  for name, argv in (
-      ("train_disparity", ["--dataset_root", setup["data"],
-                           "--checkpoint_disp", setup["tars"]["disp"],
-                           "--epochs", "1", "--save_checkpoint_path",
-                           _root(setup, "ranks", "stage1"), *STAGE1]),
-      ("train_fusion", ["--datapath-input", setup["fusion_in"],
-                        "--datapath-dataset", setup["data"], "--model",
-                        "ModeFusion", "--loadmodel",
-                        setup["tars"]["ModeFusion"], "--savemodel",
-                        _root(setup, "ranks", "fusion"), *FUSION])):
-    runs[name] = run_ranks(ranks.trainer, 2, (
-        name, argv + ["--device", "cpu", "--dp", "2"]), timeout=300,
-                           device="cpu", threads=2)
+  for label, (name, mesh, save) in RANK_RUNS.items():
+    if name == "train_disparity":
+      argv = ["--dataset_root", setup["data"], "--checkpoint_disp",
+              setup["tars"]["disp"], "--epochs", "1",
+              "--save_checkpoint_path", _root(setup, "ranks", save), *STAGE1]
+    else:
+      argv = ["--datapath-input", setup["fusion_in"], "--datapath-dataset",
+              setup["data"], "--model", "ModeFusion", "--loadmodel",
+              setup["tars"]["ModeFusion"], "--savemodel",
+              _root(setup, "ranks", save), *FUSION]
+    runs[label] = run_ranks(ranks.trainer, 2, (
+        name, argv + ["--device", "cpu", *mesh]), timeout=300,
+                            device="cpu", threads=2)
   return runs
 
 
-@pytest.mark.parametrize("name", sorted(TRAINERS))
+@pytest.mark.parametrize("name", sorted(RANK_RUNS))
 def test_two_ranks_train_as_the_jax_cli(setup, stage1, fusion, two_ranks,
                                         name):
   """Two ranks save what the JAX CLI saves after the epoch (its run on
-  one device: the mesh step's numbers are held to the port's two-rank
-  step in ``tests/test_torch_parallel.py``), within this file's bars;
-  every rank returns the same losses; rank 0 alone wrote files."""
+  one device: the mesh steps' numbers are held to the port's two-rank
+  steps in ``tests/test_torch_parallel.py`` and
+  ``tests/test_torch_spatial_train.py``), within this file's bars; every
+  rank returns the same losses; rank 0 alone wrote files."""
   out = two_ranks[name]
   assert out[0]["losses"] == out[1]["losses"]
   assert out[0]["written"] and not out[1]["written"], out[1]["written"]
-  if name == "train_disparity":
-    root = _root(setup, "ranks", "stage1", "ModeDisparity", "Deep360")
+  if RANK_RUNS[name][0] == "train_disparity":
+    root = _root(setup, "ranks", RANK_RUNS[name][2], "ModeDisparity",
+                 "Deep360")
     want = _jax_state(os.path.join(stage1["jax"]["root"],
                                    "ckpt_disp_ModeDisparity_Deep360_1"))
     obj = torch.load(os.path.join(root, "ckpt_disp_ModeDisparity_Deep360_1"

@@ -57,8 +57,9 @@ def refusals(npz: str, maxdisp: int, left: np.ndarray) -> dict:
   """What a ``(1, world)`` mesh refuses, each with its message: rows of
   H that do not split over the spatial axis, a stride-2 conv whose rows
   would not start on an even global row, the trained model on a pair
-  whose quarter-resolution H gives a rank an odd count of rows, a
-  training forward, and a mesh that does not hold the world."""
+  whose quarter-resolution H gives a rank an odd count of rows, the
+  fusion net's training forward (stage 1 trains under the mesh), and a
+  mesh that does not hold the world."""
   from mode_tpu_torch.models.blocks import ConvBn3d
   from mode_tpu_torch.utils.convert import load_npz
   world = torch.distributed.get_world_size()
@@ -66,12 +67,15 @@ def refusals(npz: str, maxdisp: int, left: np.ndarray) -> dict:
   model = load_npz(ModeDisparity(maxdisp, device=CPU), npz)
   conv = ConvBn3d(8, 8, 2).eval()
   pair = torch.from_numpy(left)
+  fusion = ModeFusion(1000.0, (8, 16, 32, 64), device=CPU).train()
+  maps = [torch.zeros((1, 16 * world, 8, 1))] * 6
+  views = [torch.zeros((1, 16 * world, 8, 3))] * 4
   cases = {
       "rows": lambda: pmesh.constrain_spatial(
           torch.zeros((1, 2 * world + 1, 4, 2)), 1),
       "stride2": lambda: conv(torch.zeros((1, 2, 3, 4, 8))),
       "model_h": lambda: model(pair, pair),
-      "train": lambda: model.train()(pair, pair),
+      "train": lambda: fusion(maps, maps, views),
   }
   out = {}
   with pmesh.activate(mesh):
