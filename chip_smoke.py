@@ -69,8 +69,10 @@
    bridge and fusion by CUDA events, profiles one (device time by kind of
    kernel, host time, synchronisations and copies), and checks each stage:
    stage 1 against its plain path, the bridge on the card against the same
-   function on the CPU, the fusion net against its plain versions, and the
-   fused depths' spread. ``frame_bf16`` serves the same frame with both
+   function on the CPU, the bridge under each z-buffer form (``"scatter"``
+   and ``"sort2x"`` bit-equal to ``"sort"``, the three timed in turns), the
+   fusion net against its plain versions, and the fused depths' spread.
+   ``frame_bf16`` serves the same frame with both
    stages in bf16 and holds its disparities to the f32 frame's. Then the
    fusion net's training step (``make_fusion_train_step``) on a packed
    frame of batch 4 at 1024x512 in the wire dtypes (f16 depths, uint8
@@ -151,7 +153,10 @@
    decoded images (the frame's fusion bars); every output file must exist
    with its shape and range. Prints each CLI's wall time, its ms per pair
    or frame after the first batch, its loader's wait per batch and decode
-   path. (``cli_profile.py`` profiles the CLIs' host work.)
+   path. The native library's single-file decoders, ``decode_png`` and
+   ``read_npz``, read one view and one ground truth of the tree, held
+   equal to PIL's and numpy's reading. (``cli_profile.py`` profiles the
+   CLIs' host work.)
 6. The training CLIs, ``train_cli``, on the same tree and the bridge's
    outputs, each through its ``main(argv)`` with its default device at
    1024x512, maxdisp 192 and the CLIs' batch 4: ``train_disparity`` in f32
@@ -339,6 +344,13 @@ BRIDGE_DIFFER, FUSED_MAE, FUSED_MAX, FUSED_INSIDE = 1e-3, 1e-3, 5e-2, 0.9
 # the bf16 frame's disparities against the f32 frame's: 0.15% of the 192 px
 # range, the JAX package's bar (docs/ARCHITECTURE.md)
 BF16_DISP_MAE = 0.0015 * MAXDISP
+# the z-buffer's forms (geometry/reprojection.py:set_zbuffer_impl), each
+# run on the f32 frame's bridge and timed ZBUFFER_REPS times in turns
+ZBUFFER_FORMS = ("scatter", "sort", "sort2x")
+ZBUFFER_REPS = 7
+# a wait of ~20 ms on the card (at 1.98 GHz), longer than the bridge's
+# launches take the host, so they queue behind it
+ZBUFFER_SLEEP_CYCLES = 40_000_000
 # the served path whose per-pair numbers the kernels line carries for the
 # kernels that do not train (the regression head)
 MAIN_PATH = "sphere_b1"
@@ -2745,10 +2757,67 @@ def _frame_split(pipe, inputs) -> dict[str, float]:
           for i, name in enumerate(("stage1_ms", "bridge_ms", "fusion_ms"))}
 
 
-def _frame_checks(label, pipe, inputs, disp, conf):
+def _zbuffer_forms(label, disp, conf, depths, confs, card) -> dict:
+  """The frame's bridge (six pairs, the three "trans" pairs in one z-buffer
+  of K = 3) under each z-buffer form on the card: "scatter" and "sort2x"
+  held bit-equal to "sort" (``depths``, ``confs``: depth and confidence,
+  every pixel), then the forms timed in turns by CUDA events, the median
+  of ZBUFFER_REPS bridges each, once from an idle card (the host's
+  launches included) and once queued behind a wait on the card (the
+  device's own time); "sort" restored after."""
+  from mode_tpu_torch.geometry import reprojection as rep
+  from mode_tpu_torch.pipeline import bridge_all_pairs
+  bits = lambda t: t.contiguous().view(torch.int32)
+  times = {(form, queued): [] for form in ZBUFFER_FORMS
+           for queued in (False, True)}
+  try:
+    for form in ZBUFFER_FORMS:
+      rep.set_zbuffer_impl(form)
+      d, c = bridge_all_pairs(disp, conf)
+      if not (torch.equal(bits(d), bits(depths))
+              and torch.equal(bits(c), bits(confs))):
+        _fail(f"{label}: the bridge's z-buffer form {form!r} is not "
+              "bit-equal to 'sort'")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for turn in range(ZBUFFER_REPS):
+      order = ZBUFFER_FORMS if turn % 2 == 0 else ZBUFFER_FORMS[::-1]
+      for form in order:
+        rep.set_zbuffer_impl(form)
+        for queued in (False, True):
+          torch.cuda.synchronize()
+          if queued:      # the bridge's launches queue behind a busy card
+            torch.cuda._sleep(ZBUFFER_SLEEP_CYCLES)
+          ev[0].record()
+          bridge_all_pairs(disp, conf)
+          ev[1].record()
+          torch.cuda.synchronize()
+          times[form, queued].append(ev[0].elapsed_time(ev[1]))
+  finally:
+    rep.set_zbuffer_impl("sort")
+  out = {}
+  for form in ZBUFFER_FORMS:
+    wall, device = times[form, False], times[form, True]
+    out[form] = {"median_ms": statistics.median(wall), "min_ms": min(wall),
+                 "max_ms": max(wall), "ms": wall,
+                 "device_median_ms": statistics.median(device),
+                 "device_min_ms": min(device), "device_max_ms": max(device),
+                 "device_ms": device}
+  print(f"{label} bridge by z-buffer form (six pairs, bit-equal to 'sort'; "
+        f"ms by CUDA events, median [min, max] of {ZBUFFER_REPS} in turns; "
+        "from an idle card, its launches included / queued behind a busy "
+        f"card, the device's time) on {card}: " + ", ".join(
+            f"{form} {o['median_ms']:.3f} [{o['min_ms']:.3f}, "
+            f"{o['max_ms']:.3f}] / {o['device_median_ms']:.3f} "
+            f"[{o['device_min_ms']:.3f}, {o['device_max_ms']:.3f}]"
+            for form, o in out.items()), flush=True)
+  return out
+
+
+def _frame_checks(label, pipe, inputs, disp, conf, card):
   """The f32 frame's stage-wise checks from one frame's stage-1 outputs:
-  stage 1 against its plain path, the bridge on the card against the CPU,
-  the fusion net against its plain path, and the fused depths' spread."""
+  stage 1 against its plain path, the bridge on the card against the CPU
+  and under each z-buffer form, the fusion net against its plain path, and
+  the fused depths' spread."""
   from mode_tpu_torch.pipeline import bridge_all_pairs
   from mode_tpu_torch.training import normalize_rgb_on_device
   lefts, rights, rgbs = inputs
@@ -2791,6 +2860,8 @@ def _frame_checks(label, pipe, inputs, disp, conf):
         f"{float(depths.max()):.3f} m", flush=True)
   if max(per_pair) > BRIDGE_DIFFER * h * w:
     _fail(f"{label}: the bridge on the card disagrees with the CPU")
+  check["zbuffer_forms"] = _zbuffer_forms(label, disp, conf, depths, confs,
+                                          card)
   with torch.no_grad():
     fused = pipe.fuse(depths, confs, rgbs)
     ref = pipe.fuse(depths, confs, rgbs, plain=True)
@@ -2814,7 +2885,7 @@ def _frame_checks(label, pipe, inputs, disp, conf):
   return check
 
 
-def _frame_path(label, disp, fusion, inputs, f32_frame=None):
+def _frame_path(label, disp, fusion, inputs, card, f32_frame=None):
   """Serve a path of whole frames: the first recorded (every kernel call),
   FRAMES[label][1] more timed with the launch counts set to 0 before and
   read after, one split by stage and one profiled; then the f32 frame's
@@ -2874,7 +2945,7 @@ def _frame_path(label, disp, fusion, inputs, f32_frame=None):
         + json.dumps(prof["top_kernels_ms"]), flush=True)
   fused, disp_out, conf_out = outputs[0]
   if f32_frame is None:
-    check = _frame_checks(label, pipe, inputs, disp_out, conf_out)
+    check = _frame_checks(label, pipe, inputs, disp_out, conf_out, card)
     from mode_tpu_torch.pipeline import bridge_all_pairs
     bridged = bridge_all_pairs(disp_out, conf_out)
   else:
@@ -3151,6 +3222,37 @@ def _cli_setup(root: Path, fusion_state: dict) -> tuple:
   return data, out, frame, disp_tar, fusion_tar, runs
 
 
+def _single_file_decoders(data: Path) -> dict:
+  """The native library's single-file entries on the tree: ``decode_png``
+  on a test view against PIL's decode, ``read_npz`` on its ground truth
+  against numpy's read, each equal."""
+  from mode_tpu_torch.data import native_io
+  from PIL import Image
+  h, w = GEOMETRY["Cassini"]
+  base = data / CLI_EPISODE / "testing"
+  view, gt = base / "rgb" / "000000_12_rgb_l.png", base / "depth" / (
+      "000000_depth.npz")
+  t0 = time.perf_counter()
+  png = native_io.decode_png(str(view))
+  t1 = time.perf_counter()
+  arr = native_io.read_npz(str(gt), (h, w))
+  t2 = time.perf_counter()
+  with Image.open(view) as im:
+    want_png = np.asarray(im)
+  with np.load(gt) as z:
+    want_arr = z[z.files[0]].astype(np.float32)
+  out = {"decode_png_ms": (t1 - t0) * 1e3, "read_npz_ms": (t2 - t1) * 1e3,
+         "png_shape": list(png.shape), "npz_shape": list(arr.shape)}
+  print(f"cli: decode_png {view.name} {png.shape} {out['decode_png_ms']:.2f}"
+        f" ms, read_npz {gt.name} {arr.shape} {out['read_npz_ms']:.2f} ms "
+        "(host), against PIL's and numpy's reading", flush=True)
+  if png.shape != want_png.shape or not np.array_equal(png, want_png):
+    _fail(f"cli: decode_png of {view} is not PIL's decode")
+  if not np.array_equal(arr, want_arr):
+    _fail(f"cli: read_npz of {gt} is not numpy's read")
+  return out
+
+
 def _cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
   """The serving CLIs on the card, each through its ``main(argv)`` with its
   default device, on a tree written under ``root``: then each
@@ -3188,6 +3290,7 @@ def _cli_phase(root: Path, fusion_state: dict, card: str) -> dict:
         f"{result['tree_s']:.2f} s; native decode (libmodeio) "
         f"{'available' if native else 'missing: PIL decodes'}; "
         f"predict decodes with PIL", flush=True)
+  result["single_file_decoders"] = _single_file_decoders(data)
 
   records = []
   returned = {}
@@ -3409,7 +3512,7 @@ TRAIN_CLI_BATCH = 4
 # Per Baseline training forward at that shape: the stride-1 3x3 convs that
 # the JAX package's batch-packed training gate takes with its TPU memory
 # budget left out, as the port's gates leave it out, traced with counting
-# stubs under jax.eval_shape (tests/test_torch_train_cli.py traces it and
+# stubs under jax.eval_shape (tests/test_torch_train_cli_args.py traces it and
 # holds this number): all 18 but the 6-channel input conv (the budget
 # itself leaves one more, the conv with 256 input channels, to XLA on the
 # TPU). Each launches K9 forward and as its grad-input. At the validation's
@@ -4312,12 +4415,12 @@ def main() -> int:
   # ---- the whole frame, f32 then bf16 (stage 1 and fusion)
   inputs = _frame_inputs()
   disp, fusion = _frame_models()
-  seen["frame"] = _frame_path("frame", disp, fusion, inputs)
+  seen["frame"] = _frame_path("frame", disp, fusion, inputs, card)
   # the f32 pipeline's own copies, the fusion head calibrated on the frame
   disp, fusion = seen["frame"].pop("models")
   cli_fusion = {k: v.detach().cpu() for k, v in fusion.state_dict().items()}
   torch.cuda.empty_cache()
-  seen["frame_bf16"] = _frame_path("frame_bf16", disp, fusion, inputs,
+  seen["frame_bf16"] = _frame_path("frame_bf16", disp, fusion, inputs, card,
                                    seen["frame"]["outputs"])
   seen["frame_bf16"].pop("models")
   del disp, fusion, inputs

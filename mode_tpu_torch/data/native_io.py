@@ -58,6 +58,10 @@ def _load_once() -> Optional[ctypes.CDLL]:
   if not os.path.exists(path):
     return None
   lib = ctypes.CDLL(path)
+  lib.modeio_decode_png.restype = ctypes.c_int
+  lib.modeio_decode_png.argtypes = [
+      ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
   lib.modeio_decode_rgb_batch_normalized.restype = ctypes.c_int64
   lib.modeio_decode_rgb_batch_normalized.argtypes = [
       ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int,
@@ -68,6 +72,9 @@ def _load_once() -> Optional[ctypes.CDLL]:
   lib.modeio_decode_rgb_batch_u8.argtypes = [
       ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int,
       ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+  lib.modeio_read_npz.restype = ctypes.c_int64
+  lib.modeio_read_npz.argtypes = [
+      ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
   lib.modeio_read_npz_batch.restype = ctypes.c_int64
   lib.modeio_read_npz_batch.argtypes = [
       ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_int64,
@@ -83,7 +90,8 @@ def available() -> bool:
 def _require() -> ctypes.CDLL:
   lib = _load()
   if lib is None:
-    raise RuntimeError(f"the native IO library is missing: {_lib_path()}")
+    raise RuntimeError(f"the native IO library is missing: {_lib_path()} "
+                       "(build it with `make -C native`)")
   return lib
 
 
@@ -91,6 +99,20 @@ def _paths_array(paths: Sequence[str]):
   arr = (ctypes.c_char_p * len(paths))()
   arr[:] = [p.encode() for p in paths]
   return arr
+
+
+def decode_png(path: str, max_bytes: int = 64 << 20) -> np.ndarray:
+  """Decode one PNG → uint8 (H, W, C), C the file's channel count."""
+  lib = _require()
+  buf = np.empty((max_bytes,), np.uint8)
+  w = ctypes.c_int()
+  h = ctypes.c_int()
+  ch = lib.modeio_decode_png(
+      path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+      max_bytes, ctypes.byref(w), ctypes.byref(h))
+  if ch < 0:
+    raise IOError(f"native PNG decode failed: {path}")
+  return buf[:h.value * w.value * ch].reshape(h.value, w.value, ch).copy()
 
 
 def decode_rgb_batch_normalized(paths: Sequence[str], height: int,
@@ -120,6 +142,19 @@ def decode_rgb_batch_u8(paths: Sequence[str], height: int, width: int,
       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), threads)
   if rc != 0:
     raise IOError(f"native u8 batch decode failed at {paths[rc - 1]}")
+  return out
+
+
+def read_npz(path: str, shape) -> np.ndarray:
+  """Read the first array of an .npz or .npy as float32 of ``shape``;
+  ``IOError`` when its element count is not the shape's."""
+  lib = _require()
+  out = np.empty(shape, np.float32)
+  count = lib.modeio_read_npz(
+      path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+      out.size)
+  if count != out.size:
+    raise IOError(f"native npz read failed: {path} (got {count} elements)")
   return out
 
 

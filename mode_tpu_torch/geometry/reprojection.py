@@ -3,10 +3,12 @@
 
 The reference's bridge forward-projects every source pixel into the target
 panorama and resolves collisions in a serial loop: the first strictly
-smaller radius wins. :func:`_zbuffer_resolve` computes the same winner with
-one stable sort by (target, radius bits) and a scatter of each target's run
-start, the JAX package's ``"sort"`` form, so the winner is the JAX
-package's and the reference's, first-come tie-break included.
+smaller radius wins. :func:`_zbuffer_resolve` computes the same winner in
+the JAX package's three forms (:func:`set_zbuffer_impl`): by default one
+stable sort by (target, radius bits) and a scatter of each target's run
+start (``"sort"``), or two scatter-mins (``"scatter"``), or two stable sorts
+(``"sort2x"``). Each gives the JAX package's and the reference's winner,
+first-come tie-break included.
 
 Every constant a call needs (the phi map, the rays, R and t) is computed
 once per shape and kept on the device; a call makes no upload and nothing
@@ -183,10 +185,26 @@ def _reproject(depths: torch.Tensor, confs: torch.Tensor,
   return view_out.reshape(k_n, h, w), conf_out.reshape(k_n, h, w)
 
 
+_ZBUFFER_IMPL = "sort"   # "scatter" | "sort" | "sort2x" (set_zbuffer_impl)
+
+
+def set_zbuffer_impl(impl: str) -> None:
+  """Select the form of :func:`_zbuffer_resolve` that every re-projection
+  takes (the JAX package's ``set_zbuffer_impl``): ``"scatter"``, ``"sort"``
+  (the default) or ``"sort2x"``. The three are elementwise bit-equal and
+  differ only in speed."""
+  global _ZBUFFER_IMPL
+  if impl not in ("scatter", "sort", "sort2x"):
+    raise ValueError(f"unknown z-buffer form {impl!r}: "
+                     "expected 'scatter', 'sort' or 'sort2x'")
+  _ZBUFFER_IMPL = impl
+
+
 def _zbuffer_resolve(r2f: torch.Tensor, tgt: torch.Tensor, n: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
   """Per target pixel, the least radius and the least flattened source
-  index among the hits with that radius.
+  index among the hits with that radius, in the form
+  :func:`set_zbuffer_impl` selected.
 
   Args:
     r2f: ``(n,)`` f32 radii, ``inf`` where the source is invalid.
@@ -195,20 +213,34 @@ def _zbuffer_resolve(r2f: torch.Tensor, tgt: torch.Tensor, n: int
     ``best`` ``(n,)`` f32, at most ``_SENTINEL``, and ``winner`` ``(n,)``
     int64, ``n`` where no source hit.
 
-  One stable sort of int64 keys ``tgt << 32 | bits``, ``bits`` the radius
-  (capped at ``_SENTINEL``, so ``inf`` sorts as the sentinel) as its f32
-  bit pattern: a radius >= 0 orders as its bits, and stability keeps the
-  sources in ascending order within equal keys, the serial loop's
-  first-come tie-break. The sort's indices are the sources. The first entry
-  of each target's run is its winner, scattered to its target into an
-  ``n + 1`` buffer whose last slot takes every other entry and is cut off
-  (the JAX package scatters with ``mode="drop"``). A real entry capped at
-  exactly ``_SENTINEL`` still scatters; the caller's ``best < _SENTINEL``
-  discards it.
+  * ``"scatter"``: two scatter-mins, the radius and then the least source
+    among the hits at that radius. A minimum does not depend on the order
+    in which the card's atomics land, so it is exact there too.
+  * ``"sort"``: one stable sort of int64 keys ``tgt << 32 | bits``,
+    ``bits`` the radius (capped at ``_SENTINEL``, so ``inf`` sorts as the
+    sentinel) as its f32 bit pattern: a radius >= 0 orders as its bits, and
+    stability keeps the sources in ascending order within equal keys, the
+    serial loop's first-come tie-break. The sort's indices are the sources.
+    The first entry of each target's run is its winner, scattered to its
+    target into an ``n + 1`` buffer whose last slot takes every other entry
+    and is cut off (the JAX package scatters with ``mode="drop"``).
+  * ``"sort2x"``: one sentinel entry per target (radius ``_SENTINEL``,
+    source ``n``) appended, so every target has a run; the 2n entries
+    sorted stably as in ``"sort"``; then a second stable sort on
+    ``1 - start`` brings the n run starts to the front in target order.
+
+  A real entry capped at exactly ``_SENTINEL`` wins its target in the sort
+  forms and not in ``"scatter"``; the caller's ``best < _SENTINEL``
+  discards it in all three.
   """
+  if _ZBUFFER_IMPL == "scatter":
+    return _zbuffer_scatter(r2f, tgt, n)
   r2_cap = torch.clamp_max(r2f, _SENTINEL)
   bits = r2_cap.contiguous().view(torch.int32).long() & 0xFFFFFFFF
-  s_key, s_src = torch.sort((tgt.long() << 32) | bits, stable=True)
+  key = (tgt.long() << 32) | bits
+  if _ZBUFFER_IMPL == "sort2x":
+    return _zbuffer_sort2x(key, n)
+  s_key, s_src = torch.sort(key, stable=True)
   s_tgt = s_key >> 32
   start = torch.ones_like(s_tgt, dtype=torch.bool)
   start[1:] = s_tgt[1:] != s_tgt[:-1]
@@ -219,6 +251,42 @@ def _zbuffer_resolve(r2f: torch.Tensor, tgt: torch.Tensor, n: int
   winner = torch.full((n + 1,), n, dtype=torch.long, device=r2f.device)
   winner.scatter_(0, idx, s_src)
   return best_bits[:n].view(torch.float32), winner[:n]
+
+
+def _zbuffer_scatter(r2f: torch.Tensor, tgt: torch.Tensor, n: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+  """The ``"scatter"`` form of :func:`_zbuffer_resolve`."""
+  dev = r2f.device
+  tgt = tgt.long()
+  best = torch.full((n,), _SENTINEL, dtype=torch.float32, device=dev)
+  best.scatter_reduce_(0, tgt, r2f, "amin", include_self=True)
+  contender = (r2f < _SENTINEL) & (r2f == best[tgt])
+  src = torch.arange(n, device=dev)
+  winner = torch.full((n,), n, dtype=torch.long, device=dev)
+  winner.scatter_reduce_(0, tgt, torch.where(contender, src, n), "amin",
+                         include_self=True)
+  return best, winner
+
+
+def _zbuffer_sort2x(key: torch.Tensor, n: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+  """The ``"sort2x"`` form of :func:`_zbuffer_resolve` on the ``"sort"``
+  form's keys."""
+  dev = key.device
+  sentinels = (torch.arange(n, device=dev) << 32) | _SENTINEL_BITS
+  all_src = torch.cat([torch.arange(n, device=dev),
+                       torch.full((n,), n, dtype=torch.long, device=dev)])
+  s_key, order = torch.sort(torch.cat([key, sentinels]), stable=True)
+  s_tgt = s_key >> 32
+  later = torch.ones_like(s_tgt, dtype=torch.int32)
+  later[0] = 0
+  later[1:] = (s_tgt[1:] == s_tgt[:-1]).int()     # 1 - start
+  # every target has a run (its sentinel), so there are exactly n run
+  # starts, and the k-th in order belongs to target k
+  _, front = torch.sort(later, stable=True)
+  first = front[:n]
+  best = (s_key[first] & 0xFFFFFFFF).int().view(torch.float32)
+  return best, all_src[order[first]]
 
 
 def depth_view_transform_with_conf(depth: torch.Tensor, conf: torch.Tensor,

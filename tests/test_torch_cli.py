@@ -6,7 +6,8 @@ trained ``tests/data/trained_mirror.npz`` wrapped as the reference's
 training checkpoint, the fusion nets seeded (``tests/port_weights.py``)
 with their 1x1 heads scaled by ``tests/test_torch_fusion.py:HEAD_SCALE``.
 The JAX package loads the ``.tar`` through its own
-``load_model_checkpoint``; each JAX CLI runs once, in a module fixture.
+``load_model_checkpoint``; each JAX CLI runs once, in a module fixture,
+beside the port's CLIs (three threads).
 
 Bars:
 - ``test_disparity`` at batch 6 on both sides: each metric within 1e-4
@@ -37,6 +38,7 @@ directory given to a port CLI raises, naming the converter; and without a
 card each CLI raises unless given ``--device cpu``.
 """
 
+import functools
 import os
 import shutil
 
@@ -62,6 +64,7 @@ from mode_tpu_torch.cli import test_disparity as ttest_disp
 from mode_tpu_torch.cli import test_fusion as ttest_fusion
 from mode_tpu_torch.utils.convert import params_from_jax
 from scripts import jax_checkpoint_to_torch
+from tests.background import in_threads
 from tests.port_weights import numpy_variables
 from tests.synth_data import make_deep360_tree, make_fusion_inputs
 from tests.test_torch_fusion import HEAD_SCALE
@@ -127,46 +130,68 @@ def setup(tmp_path_factory):
           "pair": [os.path.join(frame, f"ca_12_{s}.png") for s in "lr"]}
 
 
-def _run_all(cli, setup, side: str, extra=()) -> dict:
-  """Every CLI once, writing under ``<base>/<side>``; returns the dicts
-  that ``test_disparity`` and ``test_fusion`` return."""
+def _invocations(cli, setup, side: str, extra=()) -> list:
+  """Every CLI once, writing under ``<base>/<side>``: ``(key, main,
+  argv)``, ``key`` naming the dicts that ``test_disparity`` and
+  ``test_fusion`` return (None for the others). No run reads another's
+  output. The fusion runs come right after ``test_disparity``: run in
+  another thread, they need none of the stage-1 model's eager ops that
+  ``test_disparity`` compiles first."""
   out = os.path.join(setup["base"], side)
   shape = ["--height", str(H), "--width", str(W), "--max_disp",
            str(MAXDISP)]
   tars = setup["tars"]
-  got = {"disp": cli["test_disparity"].main(
-      ["--dataset_root", setup["data"], "--checkpoint_disp", tars["disp"],
-       "--batch_size", "6", "--save_output_path", f"{out}/disp",
-       "--save_ori", *shape, *extra])}
+  runs = [("disp", cli["test_disparity"].main, [
+      "--dataset_root", setup["data"], "--checkpoint_disp", tars["disp"],
+      "--batch_size", "6", "--save_output_path", f"{out}/disp",
+      "--save_ori", *shape, *extra])]
   if side == "port":
-    got["disp4"] = cli["test_disparity"].main(
-        ["--dataset_root", setup["data"], "--checkpoint_disp", tars["disp"],
-         "--batch_size", "4", "--save_output_path", f"{out}/disp4",
-         "--save_ori", *shape, *extra])
-  cli["save_output_disparity_stage"].main(
-      ["--datapath", setup["data"], "--outpath", f"{out}/bridge",
-       "--checkpoint_disp", tars["disp"], *shape, *extra])
+    runs.append(("disp4", cli["test_disparity"].main, [
+        "--dataset_root", setup["data"], "--checkpoint_disp", tars["disp"],
+        "--batch_size", "4", "--save_output_path", f"{out}/disp4",
+        "--save_ori", *shape, *extra]))
   for model in ("ModeFusion", "Baseline"):
-    got[model] = cli["test_fusion"].main(
-        ["--datapath-input", setup["fusion_in"], "--datapath-dataset",
-         setup["data"], "--loadmodel", tars[model], "--model", model,
-         "--outpath", f"{out}/fusion", *extra])
+    runs.append((model, cli["test_fusion"].main, [
+        "--datapath-input", setup["fusion_in"], "--datapath-dataset",
+        setup["data"], "--loadmodel", tars[model], "--model", model,
+        "--outpath", f"{out}/fusion", *extra]))
+  runs.append((None, cli["save_output_disparity_stage"].main, [
+      "--datapath", setup["data"], "--outpath", f"{out}/bridge",
+      "--checkpoint_disp", tars["disp"], *shape, *extra]))
   pshape = ["--heightC", str(H), "--widthC", str(W), "--max_disp",
             str(MAXDISP), "--checkpoint_disp", tars["disp"]]
-  cli["predict"].main(["--stage", "disp", "--left_name", setup["pair"][0],
-                       "--right_name", setup["pair"][1], "--save_root",
-                       f"{out}/predict_disp", *pshape, *extra])
-  cli["predict"].main(["--stage", "all", "--data_root", setup["frame"],
-                       "--checkpoint_fusion", tars["ModeFusion"],
-                       "--save_root", f"{out}/predict_all", *pshape, *extra])
-  return got
+  runs.append((None, cli["predict"].main, [
+      "--stage", "disp", "--left_name", setup["pair"][0], "--right_name",
+      setup["pair"][1], "--save_root", f"{out}/predict_disp", *pshape,
+      *extra]))
+  runs.append((None, cli["predict"].main, [
+      "--stage", "all", "--data_root", setup["frame"], "--checkpoint_fusion",
+      tars["ModeFusion"], "--save_root", f"{out}/predict_all", *pshape,
+      *extra]))
+  return runs
+
+
+def _run_in_turn(runs) -> dict:
+  return {key: got for key, got in ((key, main(argv))
+                                    for key, main, argv in runs)
+          if key is not None}
 
 
 @pytest.fixture(scope="module")
 def runs(setup):
-  return {"jax": _run_all({k: v[0] for k, v in CLIS.items()}, setup, "jax"),
-          "port": _run_all({k: v[1] for k, v in CLIS.items()}, setup, "port",
-                           ("--device", "cpu"))}
+  """Both packages' CLIs, in three threads of this process: the JAX
+  ``test_disparity``, the other JAX CLIs in turn, the port's CLIs in turn
+  (XLA compiles and PyTorch's CPU kernels run at once; tracing and the
+  host's Python take turns)."""
+  jax_runs = _invocations({k: v[0] for k, v in CLIS.items()}, setup, "jax")
+  port_runs = _invocations({k: v[1] for k, v in CLIS.items()}, setup,
+                           "port", ("--device", "cpu"))
+  done = in_threads({part: functools.partial(_run_in_turn, runs)
+                     for part, runs in (("jax_first", jax_runs[:1]),
+                                        ("jax_rest", jax_runs[1:]),
+                                        ("port", port_runs))})
+  return {"jax": {**done["jax_first"], **done["jax_rest"]},
+          "port": done["port"]}
 
 
 def _files(root: str) -> list[str]:

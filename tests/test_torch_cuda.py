@@ -21,7 +21,8 @@ and both training CLIs, one step each at 512x256; the halo forms of the
 4, the Sphere stem's, ragged shards) and the 2-D C entry's refusal of a
 halo at dilation 2; K2's row window; the 3-D training Function on a
 rank's rows (``conv3d_train``/``deconv3d_train`` with a mesh), forward
-and grad-input on the halo forms, at a 1024x512 rank's shapes.
+and grad-input on the halo forms, at a 1024x512 rank's shapes; the
+z-buffer's three forms at 1024x512 with K = 3.
 
 Every test needs a CUDA card and skips without one. On the card:
 
@@ -904,6 +905,52 @@ def test_bridge_on_the_card_matches_the_cpu(gen, h, w):
     conf_differ = (c[k] != rc[k]).float().mean()
     depth_differ = ((d[k] - rd[k]).abs() > 4e-7 * rd[k].abs()).float().mean()
     assert conf_differ <= 1e-3 and depth_differ <= 1e-3, (k, conf_differ,
+                                                          depth_differ)
+
+
+@pytest.mark.parametrize("form", ["scatter", "sort", "sort2x"])
+def test_zbuffer_forms_on_the_card_match_the_cpu_sort(gen, form):
+  """Each z-buffer form on the card at 1024x512, K = 3 (the three "trans"
+  pairs): ``_zbuffer_resolve`` on the CPU's radii and targets bit-equal to
+  the CPU's "sort" (``best``; ``winner`` wherever ``best`` is under the
+  sentinel, the only winners a caller reads), the batched re-projection
+  bit-equal to the card's "sort", and within the bridge's bar of the CPU's
+  "sort" (the radii are computed on each device)."""
+  from mode_tpu_torch.geometry import reprojection as rep
+  h, w, k = 1024, 512, 3
+  params = tuple(rep.DEEP360_PAIR_TRANSFORMS[p][1] for p in ("23", "24",
+                                                              "34"))
+  depths = torch.rand((k, h, w), generator=gen, device="cuda") * 40
+  depths[torch.rand((k, h, w), generator=gen, device="cuda") < 0.1] = 0.0
+  confs = torch.rand((k, h, w), generator=gen, device="cuda")
+  n = k * h * w
+  tgt = torch.randint(0, n // 4, (n,), generator=gen, device="cuda")
+  r2 = (torch.randint(0, 64, (n,), generator=gen, device="cuda") * 0.25
+        ).float()
+  r2[torch.rand((n,), generator=gen, device="cuda") < 0.05] = torch.inf
+  r2[torch.rand((n,), generator=gen, device="cuda") < 0.02] = rep._SENTINEL
+  bits = lambda t: t.cpu().view(torch.int32)
+  rep.set_zbuffer_impl("sort")
+  want_best, want_win = rep._zbuffer_resolve(r2.cpu(), tgt.cpu(), n)
+  want_d, want_c = rep.depth_view_transforms_batched(depths.cpu(),
+                                                     confs.cpu(), params)
+  card_d, card_c = rep.depth_view_transforms_batched(depths, confs, params)
+  try:
+    rep.set_zbuffer_impl(form)
+    best, win = rep._zbuffer_resolve(r2, tgt, n)
+    d, c = rep.depth_view_transforms_batched(depths, confs, params)
+  finally:
+    rep.set_zbuffer_impl("sort")
+  assert torch.equal(bits(best), bits(want_best))
+  read = want_best < rep._SENTINEL
+  assert torch.equal(win.cpu()[read], want_win[read])
+  assert torch.equal(bits(d), bits(card_d)) and torch.equal(bits(c),
+                                                           bits(card_c))
+  d, c = d.cpu(), c.cpu()
+  for i in range(k):
+    conf_differ = (c[i] != want_c[i]).float().mean()
+    depth_differ = (d[i] != want_d[i]).float().mean()
+    assert conf_differ <= 1e-3 and depth_differ <= 1e-3, (i, conf_differ,
                                                           depth_differ)
 
 

@@ -12,6 +12,8 @@ JAX model runs its XLA path on the CPU, the plain reference of its kernels.
 Bars as in ``tests/test_torch_sphere_disparity.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +27,12 @@ from mode_tpu.utils.torch_convert import convert_state_dict
 from mode_tpu_torch.models import blocks as tblocks
 from mode_tpu_torch.models import disparity as tdisp
 from tests.port_weights import carry
-from tests.test_torch_sphere_disparity import (MID, SMALL, _assert_slice_matches,
+from tests.background import in_threads
+from tests.test_torch_sphere_disparity import (MID, SMALL,
+                                               _assert_port_matches,
                                                _count_calls, _flax_case,
-                                               _nchw, _trained_case)
+                                               _nchw, _trained_case,
+                                               jax_slice_of)
 
 torch.set_num_threads(2)
 
@@ -69,14 +74,24 @@ def test_erp_feature_extraction_matches_flax(batch):
                              atol=1e-5 * scale)
 
 
-def test_erp_slice_matches_jax_at_32x64():
-  _assert_slice_matches(*_trained_case(SMALL_ERP, 1, (4,), "ERP"))
+@pytest.fixture(scope="module")
+def erp_slices():
+  """The JAX ERP model at 32x64 and at 256x512, each built and run in a
+  thread of its own (tracing takes turns, XLA compiles the two at once)."""
+  cases = {"small": (SMALL_ERP, 1, (4,), "ERP"),
+           "mid": (MID_ERP, 1, (20,), "ERP")}
+  return in_threads({k: functools.partial(jax_slice_of, case)
+                     for k, case in cases.items()})
 
 
-def test_erp_slice_matches_jax_at_256x512():
+def test_erp_slice_matches_jax_at_32x64(erp_slices):
+  _assert_port_matches(*erp_slices["small"])
+
+
+def test_erp_slice_matches_jax_at_256x512(erp_slices):
   """The mid-resolution operating point: the sphere convs at 64x128, where
   the lane axis reaches 128 and the tables have dropped samples."""
-  _assert_slice_matches(*_trained_case(MID_ERP, 1, (20,), "ERP"))
+  _assert_port_matches(*erp_slices["mid"])
 
 
 def test_erp_weights_are_the_cassini_weights():

@@ -18,6 +18,8 @@ of it; ``test_erp_port_f32_is_nearer_the_f64_step_than_jax_f32`` shows
 both. So the f32 JAX step is no reference at the 1e-4 bar, and the f64 one
 is.
 
+Both JAX steps are built in one module fixture, in two threads.
+
 The routing: the JAX package's Pallas training gates traced with counting
 stubs (``_count_jax``) against the port's Functions at 256x512, and at each
 of ``chip_smoke.py``'s training paths against the launch counts it expects.
@@ -28,6 +30,7 @@ import torch
 
 import chip_smoke
 from mode_tpu_torch.utils.convert import grads_from_jax
+from tests.background import started
 from tests.test_torch_train_step import (FAMILIES, MAXDISP,
                                          _assert_bn_statistics_match,
                                          _assert_gradients_match,
@@ -41,8 +44,23 @@ ERP = ("ERP", 32, 64)
 
 
 @pytest.fixture(scope="module")
-def jax_step():
-  return _jax_step(*ERP, x64=True)
+def jax_steps_started():
+  """The JAX step in f64 and in f32, each built and run in a thread of its
+  own (tracing takes turns, XLA compiles the two at once; ``x64`` is a
+  thread's own setting)."""
+  return {"f64": started(_jax_step, *ERP, x64=True),
+          "f32": started(_jax_step, *ERP)}
+
+
+@pytest.fixture(scope="module")
+def jax_steps(jax_steps_started, port_step, port_spread):
+  """(The port's step and its spread run meanwhile, in this thread.)"""
+  return {k: f.result() for k, f in jax_steps_started.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_steps):
+  return jax_steps["f64"]
 
 
 @pytest.fixture(scope="module")
@@ -67,13 +85,13 @@ def test_erp_bn_statistics_match_jax(jax_step, port_step):
   _assert_bn_statistics_match(jax_step, port_step)
 
 
-def test_erp_port_f32_is_nearer_the_f64_step_than_jax_f32(jax_step,
+def test_erp_port_f32_is_nearer_the_f64_step_than_jax_f32(jax_steps,
                                                           port_step):
   """Each leaf's distance from the f64 JAX step, relative to its norm: the
   port's f32 gradients within 1e-5 on every leaf, the JAX package's f32
   gradients beyond 1e-4 on some."""
-  want = grads_from_jax(jax_step["grads"])
-  jax_f32 = grads_from_jax(_jax_step(*ERP)["grads"])
+  want = grads_from_jax(jax_steps["f64"]["grads"])
+  jax_f32 = grads_from_jax(jax_steps["f32"]["grads"])
   model, _ = port_step
 
   def rel(got):

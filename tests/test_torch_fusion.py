@@ -12,9 +12,10 @@ logit std of ~20, most pixels sit in the sigmoid's flat tails, and where
 they leave them a 1e-7 input jitter moves the JAX package's own output by
 0.02-0.18 m, at or past the bar.
 
-- the NHWC forward at 32x16, batch 2, channels (8, 16, 32, 64);
-- the lane-major forward at 16x128, batch 1, where the JAX package runs
-  its 2-D band kernel (``_CONV3D_MODE="on"``, Pallas in interpret mode);
+- the NHWC forward at 32x16, batch 2, channels (8, 16, 32, 64), and the
+  lane-major forward at 16x128, batch 1, where the JAX package runs its
+  2-D band kernel (``_CONV3D_MODE="on"``, Pallas in interpret mode): in
+  ``tests/test_torch_fusion_forward.py``, with this file's helpers;
 - ``Baseline`` on the NHWC forward;
 - the eval forward keeps no graph (the training forward is held in
   ``tests/test_torch_fusion_train.py``).
@@ -108,17 +109,6 @@ def _assert_close(got, want):
   # the outputs spread over the depth range, so the bar sees the net
   assert 100.0 < want.std() and 0.05 < (want < 500).mean() < 0.95
   np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-
-
-def test_fusion_nhwc_matches_jax():
-  _assert_close(*_fusion_case(2, 32, 16))
-
-
-def test_fusion_lane_forward_matches_jax(monkeypatch, interpret_pallas):
-  monkeypatch.setattr(c3k, "_CONV3D_MODE", "on")
-  assert jfusion._lane_eligible((1, 16, 128, 12))
-  assert tfusion.lane_eligible((1, 16, 128, 12))
-  _assert_close(*_fusion_case(1, 16, 128))
 
 
 def test_baseline_matches_jax():

@@ -44,6 +44,8 @@ keep f32 between fused bf16 operations and torch rounds each op's result
 to bf16.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +63,7 @@ from mode_tpu_torch.models import fusion as tfusion
 from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.utils import losses as tlosses
 from mode_tpu_torch.utils.convert import grads_from_jax
+from tests.background import in_threads, started
 from tests.port_weights import carry, numpy_variables
 
 torch.set_num_threads(2)
@@ -152,11 +155,14 @@ def _jax_step(variables, inputs, gt, raw, dtype):
 
 @pytest.fixture(scope="module")
 def jax_steps(variables, wire):
+  """The three JAX steps, each built and run in a thread of its own
+  (tracing takes turns, XLA compiles them at once)."""
   floats = _float_inputs(wire)
   gt = wire[3]
-  return {(raw, dtype): _jax_step(variables, wire[:3] if raw else floats, gt,
-                                  raw, dtype)
-          for raw, dtype in ((False, F32), (True, F32), (True, BF16))}
+  return in_threads({(raw, dtype): functools.partial(
+      _jax_step, variables, wire[:3] if raw else floats, gt, raw, dtype)
+                     for raw, dtype in ((False, F32), (True, F32),
+                                        (True, BF16))})
 
 
 def _port_step(variables, wire, raw, dtype):
@@ -383,8 +389,9 @@ def test_baseline_trains_as_jax():
                           depths, True, mutable=["batch_stats"])
     return jlosses.silog_loss(0.5, out[..., 0], jnp.asarray(gt), mask), out
 
-  (_, want_out), want = jax.value_and_grad(jloss, has_aux=True)(
-      variables["params"])
+  # the JAX side in a thread of its own, while the port's runs go on here
+  jax_run = started(jax.value_and_grad(jloss, has_aux=True),
+                    variables["params"])
 
   def run():
     port = carry(tfusion.Baseline(MAX_DEPTH, device="cpu"), variables).train()
@@ -404,6 +411,7 @@ def test_baseline_trains_as_jax():
       out_spread = np.maximum(out_spread, np.abs(run()["out"].numpy() - out))
   finally:
     torch.set_num_threads(2)
+  (_, want_out), want = jax_run.result()
   want_out = np.asarray(want_out)
   assert 50.0 < want_out.std()
   assert np.abs(out - want_out).mean() <= 1e-2

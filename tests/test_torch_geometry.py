@@ -6,10 +6,13 @@
 - Projections: the sampling maps bit-equal, the outputs within 1e-5.
 - Disparity <-> depth: rtol = atol = 1e-5, NaN where the JAX package has
   NaN.
-- The z-buffer: ``_zbuffer_resolve`` on the same radii and targets as the
-  JAX package's (ties, invalid radii, radii past the sentinel): ``best`` and
+- The z-buffer, in each of its three forms (``set_zbuffer_impl``:
+  ``"scatter"``, ``"sort"``, ``"sort2x"``, set on both sides):
+  ``_zbuffer_resolve`` on the same radii and targets as the JAX package's
+  same form (ties, invalid radii, radii past the sentinel): ``best`` and
   ``winner`` bit-equal; the re-projection from the same depth map bit-equal
-  at >= 99.9% of pixels per pair; batched bit-equal to per-pair.
+  at >= 99.9% of pixels per pair; single and batched calls bit-equal to the
+  port's ``"sort"``; batched bit-equal to per-pair.
 - The bridge from the same disparities: the confidences it carries (which
   show each target's winner) bit-equal at >= 99.9% of pixels per pair, and
   the depths within 4e-7 of their value (about 3 f32 steps) there. They are
@@ -173,10 +176,34 @@ def test_depth_to_cassini_disp_matches_jax(rng):
 # --- the z-buffer -------------------------------------------------------------
 
 
-def test_zbuffer_resolve_is_bit_equal_to_jax(rng):
-  """The same radii and targets on both sides: many collisions (targets
-  from a tenth of the cells), forced ties (radii from a short list), invalid
-  sources (inf), radii past the sentinel and exactly at it."""
+FORMS = ["scatter", "sort", "sort2x"]
+
+
+@pytest.fixture(params=FORMS)
+def zbuffer_form(request):
+  """Both packages' z-buffer form set to the case's, and "sort" (the
+  default of both) restored after: the form is module-wide state."""
+  try:
+    trep.set_zbuffer_impl(request.param)
+    jrep.set_zbuffer_impl(request.param)
+    yield request.param
+  finally:
+    trep.set_zbuffer_impl("sort")
+    jrep.set_zbuffer_impl("sort")
+
+
+def test_zbuffer_default_is_sort_and_an_unknown_form_raises():
+  assert trep._ZBUFFER_IMPL == "sort"
+  with pytest.raises(ValueError, match="sort3x"):
+    trep.set_zbuffer_impl("sort3x")
+  assert trep._ZBUFFER_IMPL == "sort"
+
+
+def test_zbuffer_resolve_is_bit_equal_to_jax(rng, zbuffer_form):
+  """The same radii and targets on both sides, in the same form: many
+  collisions (targets from a tenth of the cells), forced ties (radii from a
+  short list), invalid sources (inf), radii past the sentinel and exactly
+  at it."""
   n = 4096
   tgt = rng.integers(0, n // 10, size=n).astype(np.int32)
   r2 = rng.choice(np.float32([0.5, 1.25, 3.0, 7.5]), size=n)
@@ -193,6 +220,8 @@ def test_zbuffer_resolve_is_bit_equal_to_jax(rng):
   assert np.array_equal(best.numpy().view(np.uint32), jbest.view(np.uint32))
   assert np.array_equal(win.numpy(), jwin)
   assert (jwin < n).sum() > 100 and (jwin == n).sum() > 100
+  # a target whose least radius is exactly the sentinel
+  assert (jbest == trep._SENTINEL).sum() > 0
 
 
 def _depth_case(rng, h, w, k=1):
@@ -237,6 +266,32 @@ def test_batched_view_transforms_bit_equal_per_pair(rng):
     v, c = trep.depth_view_transform_with_conf(_t(depths[k]), _t(confs[k]),
                                                *params[k])
     assert torch.equal(bd[k], v) and torch.equal(bc[k], c), k
+
+
+def _bits_equal(a, b):
+  return np.array_equal(a.numpy().view(np.uint32), b.numpy().view(np.uint32))
+
+
+def test_zbuffer_forms_are_bit_equal_to_sort(rng, zbuffer_form):
+  """Single and batched (K = 3, the three "trans" pairs) re-projections in
+  the case's form, bit-equal to the port's "sort" on the same maps; and
+  the single call against the JAX package's same form."""
+  params = tuple(trep.DEEP360_PAIR_TRANSFORMS[p][1] for p in ("23", "24",
+                                                               "34"))
+  depths, confs = _depth_case(rng, 64, 32, 3)
+  bd, bc = trep.depth_view_transforms_batched(_t(depths), _t(confs), params)
+  singles = [trep.depth_view_transform_with_conf(_t(depths[k]), _t(confs[k]),
+                                                 *params[k])
+             for k in range(3)]
+  jv, jc = (np.asarray(a) for a in jrep.depth_view_transform_with_conf(
+      depths[0], confs[0], *params[0]))
+  trep.set_zbuffer_impl("sort")
+  sd, sc = trep.depth_view_transforms_batched(_t(depths), _t(confs), params)
+  assert _bits_equal(bd, sd) and _bits_equal(bc, sc)
+  for k, (v, c) in enumerate(singles):
+    assert _bits_equal(v, sd[k]) and _bits_equal(c, sc[k]), k
+  _agree(f"view transform ({zbuffer_form}) depth", singles[0][0].numpy(), jv)
+  _agree(f"view transform ({zbuffer_form}) conf", singles[0][1].numpy(), jc)
 
 
 @pytest.mark.parametrize("h,w", SIZES)

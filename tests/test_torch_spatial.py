@@ -65,6 +65,7 @@ from mode_tpu_torch.parallel.launch import run_ranks
 from mode_tpu_torch.pipeline import TwoStagePipeline
 from mode_tpu_torch.utils.convert import load_npz
 from tests import torch_spatial_ranks as ranks
+from tests.background import started
 from tests.port_weights import carry, numpy_variables
 from tests.test_torch_fusion import HEAD_SCALE
 from tests.trained_mirror import _make_batch, get_trained_state_dict
@@ -308,13 +309,35 @@ def test_halo_forms_refuse_rows_they_cannot_take():
 # --- 4. the sharded model ---------------------------------------------------
 
 @pytest.fixture(scope="module")
-def frame():
-  """The trained pair, the single-device JAX model's (pred, conf) and the
-  port's in one process."""
+def pair():
+  """The trained pair, NHWC."""
   rng = np.random.default_rng(5)
   left, right, _ = _make_batch(rng, batch=2, disps=(4, 12), h=H, w=W)
-  left = left.permute(0, 2, 3, 1).contiguous().numpy()
-  right = right.permute(0, 2, 3, 1).contiguous().numpy()
+  return (left.permute(0, 2, 3, 1).contiguous().numpy(),
+          right.permute(0, 2, 3, 1).contiguous().numpy())
+
+
+@pytest.fixture(scope="module")
+def sharded_started(pair):
+  """The port's ranks on the pair, a ``(1, 2)`` and a ``(2, 2)`` mesh, one
+  ``run_ranks`` call after the other in a thread of this process, so they
+  run while the JAX model compiles."""
+  left, right = pair
+
+  def run():
+    return {(d, s): run_ranks(ranks.sharded_eval, d * s,
+                              (NPZ, MAXDISP, left, right, d, s),
+                              timeout=TIMEOUT, device="cpu", threads=1)
+            for d, s in ((1, 2), (2, 2))}
+
+  return started(run)
+
+
+@pytest.fixture(scope="module")
+def frame(pair, sharded_started):
+  """The trained pair, the single-device JAX model's (pred, conf) and the
+  port's in one process."""
+  left, right = pair
   jmodel = jdisp.ModeDisparity(maxdisp=MAXDISP, out_conf=True)
   variables = jax.eval_shape(lambda: jmodel.init(
       jax.random.PRNGKey(0), jnp.asarray(left), jnp.asarray(right),
@@ -333,12 +356,8 @@ def frame():
 
 
 @pytest.fixture(scope="module")
-def sharded(frame):
-  left, right = frame[:2]
-  return {(d, s): run_ranks(ranks.sharded_eval, d * s,
-                            (NPZ, MAXDISP, left, right, d, s),
-                            timeout=TIMEOUT, device="cpu", threads=1)
-          for d, s in ((1, 2), (2, 2))}
+def sharded(frame, sharded_started):
+  return sharded_started.result()
 
 
 @pytest.mark.parametrize("data,spatial", [(1, 2), (2, 2)])

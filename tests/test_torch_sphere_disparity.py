@@ -11,6 +11,8 @@ same weights through its own converter. The JAX model runs its XLA path on
 the CPU, the plain reference of its kernels.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from mode_tpu_torch.models import blocks as tblocks
 from mode_tpu_torch.models import disparity as tdisp
 from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.utils.convert import load_npz
+from tests.background import in_threads
 from tests.port_weights import carry, numpy_variables
 from tests.trained_mirror import (MID_H, MID_MAXDISP, MID_W, _make_batch,
                                   get_trained_state_dict,
@@ -140,7 +143,10 @@ def test_feature_extractors_dispatch_as_the_jax_package(monkeypatch, conv,
   assert calls == want
 
 
+@functools.lru_cache(maxsize=None)
 def _trained_case(case, batch, disps, sphere_type="Cassini"):
+  """The JAX model and its variables, the port's model and the pair (NHWC
+  numpy) at ``case``; memoised, as tests read but never change them."""
   npz, state_dict, h, w, maxdisp = case
   rng = np.random.default_rng(5)
   left, right, _ = _make_batch(rng, batch=batch, disps=disps, h=h, w=w)
@@ -159,9 +165,18 @@ def _trained_case(case, batch, disps, sphere_type="Cassini"):
   return jmodel, variables, port, left, right
 
 
-def _assert_slice_matches(jmodel, variables, port, left, right):
+def _jax_slice(jmodel, variables, port, left, right):
+  """The JAX model's outputs on the pair, and what the port needs."""
   j_pred, j_conf = jax.jit(lambda v, a, b: jmodel.apply(
       v, a, b, train=False))(variables, jnp.asarray(left), jnp.asarray(right))
+  return port, left, right, np.asarray(j_pred), np.asarray(j_conf)
+
+
+def _assert_slice_matches(jmodel, variables, port, left, right):
+  _assert_port_matches(*_jax_slice(jmodel, variables, port, left, right))
+
+
+def _assert_port_matches(port, left, right, j_pred, j_conf):
   pred, conf = port(torch.from_numpy(left), torch.from_numpy(right))
   assert pred.shape == conf.shape == left.shape[:3]
   err = np.abs(pred.numpy() - np.asarray(j_pred))
@@ -171,15 +186,30 @@ def _assert_slice_matches(jmodel, variables, port, left, right):
   assert conf_mae <= CONF_MAE, conf_mae
 
 
-def test_sphere_slice_matches_jax_at_64x32():
-  _assert_slice_matches(*_trained_case(SMALL, 2, (4, 12)))
+@pytest.fixture(scope="module")
+def slices():
+  """The JAX model at 64x32 (batch 2) and at the mid-resolution operating
+  point (batch 1 and 2), each built and run in a thread of its own
+  (tracing takes turns, XLA compiles them at once)."""
+  cases = {"small": (SMALL, 2, (4, 12)), 1: (MID, 1, (20, 36)),
+           2: (MID, 2, (20, 36))}
+  return in_threads({k: functools.partial(jax_slice_of, case)
+                     for k, case in cases.items()})
+
+
+def jax_slice_of(case):
+  return _jax_slice(*_trained_case(*case))
+
+
+def test_sphere_slice_matches_jax_at_64x32(slices):
+  _assert_port_matches(*slices["small"])
 
 
 @pytest.mark.parametrize("batch", [1, 2])
-def test_sphere_slice_matches_jax_at_512x256(batch):
+def test_sphere_slice_matches_jax_at_512x256(slices, batch):
   """The trained mid-resolution operating point, where the sphere conv
   runs at 128x64 with the production tables' structure."""
-  _assert_slice_matches(*_trained_case(MID, batch, (20, 36)))
+  _assert_port_matches(*slices[batch])
 
 
 def test_state_dict_round_trips_to_jax_variables():

@@ -1,15 +1,19 @@
-"""The port's training CLIs (``mode_tpu_torch/cli/train_disparity.py``,
-``train_fusion.py``) against the JAX package's, both on the CPU, on one
-synthetic Deep360 tree at 64x32, maxdisp 16 (``tests/synth_data.py``: two
-frames a subset, so 12 training pairs and 2 fusion frames), from the same
-``.tar`` weights on both sides: stage 1 the trained
-``tests/data/trained_mirror.npz`` wrapped as the reference's training
-checkpoint, the fusion nets seeded with their heads scaled
-(``tests/test_torch_cli.py:_fusion_state``). Each JAX CLI runs once, in f32,
-with ``--dp 1 --sp 1``, in a module fixture; its orbax checkpoints are read
-through ``mode_tpu.utils.checkpoint.load_checkpoint`` and
+"""The port's stage-1 training CLI (``mode_tpu_torch/cli/train_disparity.py``)
+against the JAX package's, both on the CPU, on one synthetic Deep360 tree
+at 64x32, maxdisp 16 (``tests/synth_data.py``: two frames a subset, so 12
+training pairs and 2 fusion frames), from the same ``.tar`` weights on both
+sides: stage 1 the trained ``tests/data/trained_mirror.npz`` wrapped as the
+reference's training checkpoint, the fusion nets seeded with their heads
+scaled (``tests/test_torch_cli.py:_fusion_state``). Each JAX CLI runs once,
+in f32, with ``--dp 1 --sp 1``, in a module fixture; its orbax checkpoints
+are read through ``mode_tpu.utils.checkpoint.load_checkpoint`` and
 ``utils/convert.py:params_from_jax``, its event files (and the port's)
-through ``utils/tb_writer.py:read_scalars``.
+through ``utils/tb_writer.py:read_scalars``. The port's trainer also runs
+as two gloo ranks (``--dp 2``, ``--sp 2``), started before the JAX CLI so
+that the two overlap. ``tests/test_torch_train_cli_fusion.py`` holds
+``train_fusion`` the same way, with this file's fixtures and bars, and
+``tests/test_torch_train_cli_args.py`` the trainers' loading, data and
+refusals.
 
 Bars:
 - each logged loss within 1e-4 relative (one step of
@@ -34,51 +38,35 @@ Bars:
   (Adam's first update is just under lr), so besides, all but
   ``FLIP_SHARE`` of the fusion nets' elements must have moved by lr / 2 or
   more;
-- the loader hands both CLIs the same batches, bit-equal;
 - ``--resume`` starts at the checkpoint's epoch + 1 in both packages, and
-  the resumed step's loss agrees at the loss bar;
-- ``--loadSHGonly``: the non-feature-extractor tensors bit-equal to JAX's
-  ``convert_shg_only`` of the same ``.tar``, the feature extractor left as
-  it was.
+  the resumed step's loss agrees at the loss bar.
+
+The JAX CLIs' runs share what is the same between them: the resumed run
+reuses the first run's jitted train step, eval function and initial state
+(``_memo_step``, ``_MemoJax``, ``_memo_init``), which are the same function
+of the same model and shapes.
 """
 
-import collections
 import glob
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from mode_tpu import training as jtraining
 from mode_tpu.cli import train_disparity as jtrain_disp
-from mode_tpu.cli import train_fusion as jtrain_fusion
-from mode_tpu.data.deep360 import Deep360DatasetDisparity as JDisparitySet
 from mode_tpu.data.file_lists import list_deep360_disparity_train
-from mode_tpu.data.loader import DataLoader as JLoader
-from mode_tpu.models import disparity as jdisp
-from mode_tpu.models import fusion as jfusion
-from mode_tpu.ops.pallas import conv2d_kernel as c2k
-from mode_tpu.ops.pallas import conv3d_kernel as c3k
 from mode_tpu.utils.checkpoint import load_checkpoint
-from mode_tpu.utils.torch_convert import convert_shg_only
-from mode_tpu_torch.cli import common
 from mode_tpu_torch.cli import train_disparity as ttrain_disp
-from mode_tpu_torch.cli import train_fusion as ttrain_fusion
-from mode_tpu_torch.data.deep360 import Deep360DatasetDisparity
-from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.models import fusion as tfusion
 from mode_tpu_torch.models.disparity import ModeDisparity
-from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.parallel.launch import run_ranks
 from mode_tpu_torch.utils.convert import params_from_jax
 from mode_tpu_torch.utils.tb_writer import read_scalars
 from tests import torch_parallel_ranks as ranks
-from tests.synth_data import (make_3d60_tree, make_deep360_tree,
-                              make_fusion_inputs)
+from tests.background import started
+from tests.synth_data import make_deep360_tree, make_fusion_inputs
 from tests.test_torch_cli import _fusion_state
 from tests.trained_mirror import get_trained_state_dict
 
@@ -93,9 +81,6 @@ STAGE1 = ["--start_decay", "1", "--steps_per_epoch", "1", "--batch_size",
           str(BATCH), "--seed", str(SEED), *SHAPE]
 FUSION = ["--epochs", "1", "--steps_per_epoch", "1", "--batch-size",
           str(BATCH)]
-FUSION_RUNS = {"float": ("ModeFusion", []),
-               "packed": ("ModeFusion", ["--packed_dir"]),
-               "baseline": ("Baseline", [])}
 PCT = ("total disp validation d1", "δ1", "δ2", "δ3")
 
 
@@ -128,29 +113,81 @@ def _scalars(log_dir) -> dict:
 
 def _memo_step(make):
   """``make`` that hands the same jitted step to every run with the same
-  model and compute dtype: a resumed run reuses the first run's compiled
-  step instead of compiling an identical one."""
+  model and arguments: a resumed run reuses the first run's compiled step
+  instead of compiling an identical one."""
   built = {}
 
-  def memo(model, optimizer, mesh, compute_dtype=None, **kw):
-    key = (model, compute_dtype, tuple(sorted(kw.items())))
+  def memo(model, optimizer, *args, **kw):
+    key = (model, args, tuple(sorted(kw.items())))
     if key not in built:
-      built[key] = make(model, optimizer, mesh, compute_dtype=compute_dtype,
-                        **kw)
+      built[key] = make(model, optimizer, *args, **kw)
     return built[key]
 
   return memo
 
 
+class _MemoJax:
+  """``jax`` as a JAX CLI module sees it, its ``jit`` memoised on the
+  function's code and the values it closes over (the model): a resumed run
+  reuses the first run's jitted eval function for the same model instead
+  of compiling an identical one. A function that closes over anything
+  unhashable is jitted as it comes."""
+
+  def __init__(self):
+    self._built = {}
+
+  def __getattr__(self, name):
+    return getattr(jax, name)
+
+  def jit(self, fn, **kw):
+    try:
+      key = (fn.__code__, tuple(c.cell_contents for c in fn.__closure__ or
+                                ()), tuple(sorted(kw.items())))
+      hash(key)
+    except TypeError:
+      return jax.jit(fn, **kw)
+    if key not in self._built:
+      self._built[key] = jax.jit(fn, **kw)
+    return self._built[key]
+
+
+def _memo_init(init):
+  """``training.init_state`` that hands every run with the same model,
+  seed and input shapes a copy of the same initial state (a pure function
+  of them; the runs load their checkpoints over it). A copy: the train
+  steps donate the state they are given."""
+  built = {}
+
+  def memo(model, optimizer, rng, *args, **kw):
+    key = (model, np.asarray(rng).tobytes(), tuple(
+        tuple(np.shape(a)) for a in jax.tree_util.tree_leaves(args)),
+           tuple(sorted(kw.items())))
+    if key not in built:
+      built[key] = init(model, optimizer, rng, *args, **kw)
+    return jax.tree_util.tree_map(
+        lambda a: a.copy() if hasattr(a, "copy") else a, built[key])
+
+  return memo
+
+
+def memo_jax_cli(mp, module, make_step: str):
+  """Patch ``module`` (a JAX CLI) and ``jtraining`` for the JAX runs of one
+  fixture: the train-step builder ``make_step``, ``init_state`` and the
+  CLI's ``jax.jit`` memoised across its runs."""
+  mp.setattr(jtraining, make_step,
+             _memo_step(getattr(jtraining, make_step)))
+  mp.setattr(jtraining, "init_state", _memo_init(jtraining.init_state))
+  mp.setattr(module, "jax", _MemoJax())
+
+
 @pytest.fixture(scope="module")
-def stage1(setup):
+def stage1(setup, two_ranks_started):
   """Both stage-1 CLIs: two epochs from the trained .tar (one step each,
   lr 1e-3 then 1e-4), then ``--resume`` from the epoch-2 checkpoint to
-  epoch 3."""
+  epoch 3. (The two-rank runs, started first, run meanwhile.)"""
   runs = {}
   mp = pytest.MonkeyPatch()
-  mp.setattr(jtraining, "make_disparity_train_step",
-             _memo_step(jtraining.make_disparity_train_step))
+  memo_jax_cli(mp, jtrain_disp, "make_disparity_train_step")
   try:
     for side, main, extra, suffix in (
         ("jax", jtrain_disp.main, ["--dp", "1", "--sp", "1"], ""),
@@ -284,207 +321,6 @@ def test_stage1_validation_colormaps(stage1):
                                          f"{epoch:03d}_val.png")), side
 
 
-def test_loader_gives_both_clis_the_same_batches(setup):
-  lists = list_deep360_disparity_train(setup["data"])[:3]
-  sets = (JDisparitySet(*lists, shape=(H, W)),
-          Deep360DatasetDisparity(*lists, shape=(H, W)))
-  loaders = (JLoader(sets[0], batch_size=BATCH, num_workers=4, shuffle=True,
-                     seed=SEED),
-             DataLoader(sets[1], batch_size=BATCH, num_workers=4,
-                        shuffle=True, seed=SEED))
-  orders = []
-  for epoch in (1, 2):
-    for loader in loaders:
-      loader.set_epoch(epoch)
-    batches = [list(loader) for loader in loaders]
-    assert len(batches[0]) == len(batches[1]) == 6
-    for a, b in zip(*batches):
-      assert a["dispNames"] == b["dispNames"]
-      for k in ("leftImg", "rightImg", "dispMap"):
-        np.testing.assert_array_equal(a[k], b[k])
-    orders.append(batches[1][0]["dispNames"])
-  assert orders[0] != orders[1]         # each epoch its own shuffle
-
-
-@pytest.fixture(scope="module")
-def fusion(setup):
-  runs = {}
-  for label, (model, extra) in FUSION_RUNS.items():
-    runs[label] = {}
-    for side, main, flags in (("jax", jtrain_fusion.main, ["--dp", "1"]),
-                              ("port", ttrain_fusion.main,
-                               ["--device", "cpu"])):
-      out = _root(setup, side, "fusion", label)
-      args = ["--packed_dir", _root(setup, side, "packs")] if extra else []
-      returned = main(["--datapath-input", setup["fusion_in"],
-                       "--datapath-dataset", setup["data"], "--model", model,
-                       "--loadmodel", setup["tars"][model], "--savemodel",
-                       out, *FUSION, *args, *flags])
-      root = os.path.join(out, model, "Deep360")
-      runs[label][side] = {"root": root, "out": returned,
-                           "logs": _scalars(os.path.join(root, "log"))}
-  return runs
-
-
-@pytest.mark.parametrize("label", sorted(FUSION_RUNS))
-def test_fusion_matches_jax(setup, fusion, label):
-  run = fusion[label]
-  got, want = run["port"]["logs"], run["jax"]["logs"]
-  assert set(got) == set(want) == {"Training Loss", "MAE", "RMSE", "AbsRel",
-                                   "SqRel", "SILog", "δ1"}
-  pixel = 100.0 / (H * W)
-  for tag, steps in want.items():
-    assert sorted(got[tag]) == sorted(steps) == [0], tag
-    if tag in PCT:
-      assert abs(got[tag][0] - steps[0]) <= pixel, tag
-    else:
-      _assert_close_rel(got[tag][0], steps[0],
-                        LOSS_RTOL if "Loss" in tag else METRIC_RTOL, tag)
-  # the 8-metric table's last two, which the CLIs print but do not log
-  assert len(run["port"]["out"]["val"][0]) == 8
-  model = FUSION_RUNS[label][0]
-  want_state = _jax_state(os.path.join(run["jax"]["root"],
-                                       "ckpt_fusion_epoch0"))
-  obj = torch.load(os.path.join(run["port"]["root"], "ckpt_fusion_epoch0.tar"),
-                   weights_only=True)
-  assert obj["epoch"] == 0
-  before = {k: torch.as_tensor(v) for k, v in _fusion_state(model).items()}
-  keep = [k for k in want_state if not k.endswith("num_batches_tracked")]
-  got = {k: obj["state_dict"][k] for k in keep}
-  share = _assert_state_matches(got, {k: want_state[k] for k in keep}, before,
-                                FUSION_LR, FUSION_LR / 2)
-  params = [k for k in keep if k.endswith(("weight", "bias"))]
-  moved = sum(int(((got[k] - before[k]).abs() >= FUSION_LR / 2).sum())
-              for k in params) / sum(got[k].numel() for k in params)
-  print(f"{label}: the share of the parameters whose update parts from "
-        f"JAX's by more than lr / 2: {share:.3g}; the share that moved by "
-        f"lr / 2 or more: {moved:.4g}")
-  assert moved >= 1 - FLIP_SHARE, moved
-
-
-def test_fusion_packs_are_the_jax_packs(setup, fusion):
-  got = sorted(glob.glob(_root(setup, "port", "packs", "train", "*.mfp")))
-  want = sorted(glob.glob(_root(setup, "jax", "packs", "train", "*.mfp")))
-  assert len(got) == len(want) == 2
-  for a, b in zip(got, want):
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-      assert fa.read() == fb.read()
-
-
-# ---- SHG-only loading
-def _jax_disparity_variables():
-  model = jdisp.ModeDisparity(maxdisp=MAXDISP)
-  x = jax.numpy.zeros((1, H, W, 3))
-  shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, x,
-                                             train=False))
-  rng = np.random.default_rng(4)
-  return jax.tree_util.tree_map(
-      lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
-
-
-def _is_fe(key: str) -> bool:
-  return "feature_extraction" in key or "forfilter1" in key
-
-
-def test_shg_only_loads_what_jax_loads(setup):
-  variables = _jax_disparity_variables()
-  obj = torch.load(setup["tars"]["disp"], weights_only=True)
-  want = params_from_jax(jax.tree_util.tree_map(
-      np.asarray, convert_shg_only(obj, variables)))
-  fresh = params_from_jax(variables)
-  model = ModeDisparity(MAXDISP, device="cpu")
-  model.load_state_dict(fresh, strict=True)
-  assert common.load_model_checkpoint(setup["tars"]["disp"], model,
-                                      shg_only=True) == 7
-  got = model.state_dict()
-  n_fe = 0
-  for key, value in got.items():
-    if key.endswith("num_batches_tracked"):
-      continue
-    if _is_fe(key):
-      n_fe += 1
-      assert torch.equal(value, fresh[key]), key      # its own weights
-    else:
-      assert torch.equal(value, want[key]), key
-      assert torch.equal(value, torch.as_tensor(obj["state_dict"][key])), key
-  assert n_fe > 50
-
-
-def test_shg_only_refuses_a_file_missing_a_stack_key(setup, tmp_path):
-  state = dict(get_trained_state_dict())
-  del state["dres0.0.0.weight"]
-  path = str(tmp_path / "short.tar")
-  torch.save({"epoch": 1, "state_dict": state}, path)
-  with pytest.raises(KeyError, match="outside the feature extractor"):
-    common.load_model_checkpoint(path, ModeDisparity(MAXDISP, device="cpu"),
-                                 shg_only=True)
-
-
-def test_train_disparity_load_shg_only(setup, tmp_path):
-  """The CLI with ``--loadSHGonly``: after one step at lr 1e-3 the feature
-  extractor lies within one Adam step of the model's own fresh weights,
-  the rest within one step of the checkpoint's."""
-  ttrain_disp.main(["--dataset_root", setup["data"], "--checkpoint_disp",
-                    setup["tars"]["disp"], "--loadSHGonly", "--epochs", "1",
-                    "--save_checkpoint_path", str(tmp_path), *STAGE1,
-                    "--device", "cpu"])
-  saved = torch.load(str(tmp_path / "ModeDisparity" / "Deep360" /
-                         "ckpt_disp_ModeDisparity_Deep360_1.tar"),
-                     weights_only=True)["state_dict"]
-  fresh = ModeDisparity(MAXDISP, device="cpu",
-                        generator=torch.Generator().manual_seed(SEED))
-  trained = get_trained_state_dict()
-  for key, param in fresh.named_parameters():
-    ref = param.detach() if _is_fe(key) else torch.as_tensor(trained[key])
-    assert float((saved[key] - ref).abs().max()) <= 1e-3 * (1 + 1e-4), key
-
-
-# ---- 3D60, refusals
-def test_train_disparity_3d60(tmp_path):
-  root = tmp_path / "d60"
-  list_file = make_3d60_tree(root, n_frames=2)
-  out = ttrain_disp.main(["--dataset", "3D60", "--dataset_root", str(root),
-                          "--filenames_train", list_file, "--filenames_val",
-                          list_file, "--epochs", "1", "--save_checkpoint_path",
-                          str(tmp_path / "ck"), *STAGE1, "--device", "cpu"])
-  assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
-  assert all(np.isfinite(out["val"][1]))
-  obj = torch.load(str(tmp_path / "ck" / "ModeDisparity" / "3D60" /
-                       "ckpt_disp_ModeDisparity_3D60_1.tar"),
-                   weights_only=True)
-  assert obj["epoch"] == 1 and np.isfinite(obj["train_loss"])
-
-
-def _argv(name, setup, tmp):
-  if name == "train_disparity":
-    return ["--dataset_root", setup["data"], "--save_checkpoint_path", tmp,
-            *STAGE1]
-  return ["--datapath-input", setup["fusion_in"], "--datapath-dataset",
-          setup["data"], "--savemodel", tmp, *FUSION]
-
-
-TRAINERS = {"train_disparity": ttrain_disp, "train_fusion": ttrain_fusion}
-
-
-@pytest.mark.parametrize("name,flag", [
-    ("train_disparity", ["--dp", "2"]), ("train_disparity", ["--sp", "2"]),
-    ("train_disparity", ["--dp", "8"]), ("train_fusion", ["--dp", "2"]),
-    ("train_fusion", ["--dp", "8"])])
-def test_more_than_one_card_is_refused(setup, tmp_path, name, flag):
-  """In one process (a world of one), ``--dp`` other than 1 is not the
-  world size and ``--sp`` above 1 does not divide it: both refused, by the
-  mesh, before anything is written. (Until the data axis was ported, both
-  were refused as training on more than one card; until stage 1 trained
-  under the spatial axis, ``--sp`` was refused as the unported axis.)"""
-  match = ("the spatial axis must divide the world size, 1"
-           if flag[0] == "--sp"
-           else "the data axis must be the world size, 1")
-  with pytest.raises(ValueError, match=match):
-    TRAINERS[name].main(_argv(name, setup, str(tmp_path)) + flag
-                        + ["--device", "cpu"])
-  assert not os.listdir(tmp_path)
-
-
 # the two-rank runs: (trainer, its mesh flags, its save directory)
 RANK_RUNS = {"train_disparity": ("train_disparity", ["--dp", "2"],
                                  "stage1"),
@@ -493,45 +329,63 @@ RANK_RUNS = {"train_disparity": ("train_disparity", ["--dp", "2"],
              "train_fusion": ("train_fusion", ["--dp", "2"], "fusion")}
 
 
+def start_ranks(setup, labels):
+  """Each trainer of ``labels`` as two gloo ranks with its mesh flags, one
+  ``run_ranks`` call after another in a thread of this process: stage 1
+  for one epoch from the trained .tar with ``--dp 2`` (the global batch
+  of 2 split one example a rank) or ``--sp 2`` (both ranks on the whole
+  batch, each on its half of the cost volume's H), ``ModeFusion`` from
+  float inputs with ``--dp 2``. Returns the future of ``{label: the
+  ranks' returns}``."""
+
+  def run():
+    runs = {}
+    for label in labels:
+      name, mesh, save = RANK_RUNS[label]
+      if name == "train_disparity":
+        argv = ["--dataset_root", setup["data"], "--checkpoint_disp",
+                setup["tars"]["disp"], "--epochs", "1",
+                "--save_checkpoint_path", _root(setup, "ranks", save),
+                *STAGE1]
+      else:
+        argv = ["--datapath-input", setup["fusion_in"],
+                "--datapath-dataset", setup["data"], "--model",
+                "ModeFusion", "--loadmodel", setup["tars"]["ModeFusion"],
+                "--savemodel", _root(setup, "ranks", save), *FUSION]
+      runs[label] = run_ranks(ranks.trainer, 2, (
+          name, argv + ["--device", "cpu", *mesh]), timeout=300,
+                              device="cpu", threads=2)
+    return runs
+
+  return started(run)
+
+
+STAGE1_RANKS = ("train_disparity", "train_disparity_sp")
+
+
 @pytest.fixture(scope="module")
-def two_ranks(setup):
-  """Each trainer as two gloo ranks with ``--dp 2`` (the global batch of
-  2 split one example a rank): stage 1 for one epoch from the trained
-  .tar, ``ModeFusion`` from float inputs; and stage 1 with ``--sp 2``
-  (both ranks on the whole batch, each on its half of the cost volume's
-  H)."""
-  runs = {}
-  for label, (name, mesh, save) in RANK_RUNS.items():
-    if name == "train_disparity":
-      argv = ["--dataset_root", setup["data"], "--checkpoint_disp",
-              setup["tars"]["disp"], "--epochs", "1",
-              "--save_checkpoint_path", _root(setup, "ranks", save), *STAGE1]
-    else:
-      argv = ["--datapath-input", setup["fusion_in"], "--datapath-dataset",
-              setup["data"], "--model", "ModeFusion", "--loadmodel",
-              setup["tars"]["ModeFusion"], "--savemodel",
-              _root(setup, "ranks", save), *FUSION]
-    runs[label] = run_ranks(ranks.trainer, 2, (
-        name, argv + ["--device", "cpu", *mesh]), timeout=300,
-                            device="cpu", threads=2)
-  return runs
+def two_ranks_started(setup):
+  return start_ranks(setup, STAGE1_RANKS)
 
 
-@pytest.mark.parametrize("name", sorted(RANK_RUNS))
-def test_two_ranks_train_as_the_jax_cli(setup, stage1, fusion, two_ranks,
-                                        name):
+@pytest.fixture(scope="module")
+def two_ranks(two_ranks_started):
+  return two_ranks_started.result()
+
+
+def assert_two_ranks_match(setup, out, name, jax_root, jax_loss):
   """Two ranks save what the JAX CLI saves after the epoch (its run on
-  one device: the mesh steps' numbers are held to the port's two-rank
-  steps in ``tests/test_torch_parallel.py`` and
+  one device, under ``jax_root``, its logged loss ``jax_loss``: the mesh
+  steps' numbers are held to the port's two-rank steps in
+  ``tests/test_torch_parallel.py`` and
   ``tests/test_torch_spatial_train.py``), within this file's bars; every
   rank returns the same losses; rank 0 alone wrote files."""
-  out = two_ranks[name]
   assert out[0]["losses"] == out[1]["losses"]
   assert out[0]["written"] and not out[1]["written"], out[1]["written"]
   if RANK_RUNS[name][0] == "train_disparity":
     root = _root(setup, "ranks", RANK_RUNS[name][2], "ModeDisparity",
                  "Deep360")
-    want = _jax_state(os.path.join(stage1["jax"]["root"],
+    want = _jax_state(os.path.join(jax_root,
                                    "ckpt_disp_ModeDisparity_Deep360_1"))
     obj = torch.load(os.path.join(root, "ckpt_disp_ModeDisparity_Deep360_1"
                                   ".tar"), weights_only=True)
@@ -541,80 +395,22 @@ def test_two_ranks_train_as_the_jax_cli(setup, stage1, fusion, two_ranks,
     assert sorted(os.listdir(root)) == ["ckpt_disp_ModeDisparity_Deep360_1"
                                         ".tar", "logs", "outputs"]
     assert len(os.listdir(os.path.join(root, "logs"))) == 1
-    _assert_close_rel(out[0]["losses"][0],
-                      stage1["jax"]["logs"]["loss disp"][1], LOSS_RTOL,
-                      "loss")
   else:
     root = _root(setup, "ranks", "fusion", "ModeFusion", "Deep360")
-    want = _jax_state(os.path.join(fusion["float"]["jax"]["root"],
-                                   "ckpt_fusion_epoch0"))
+    want = _jax_state(os.path.join(jax_root, "ckpt_fusion_epoch0"))
     obj = torch.load(os.path.join(root, "ckpt_fusion_epoch0.tar"),
                      weights_only=True)
     before = {k: torch.as_tensor(v)
               for k, v in _fusion_state("ModeFusion").items()}
     lr, atol = FUSION_LR, FUSION_LR / 2
     assert sorted(os.listdir(root)) == ["ckpt_fusion_epoch0.tar", "log"]
-    _assert_close_rel(out[0]["losses"][0],
-                      fusion["float"]["jax"]["logs"]["Training Loss"][0],
-                      LOSS_RTOL, "loss")
+  _assert_close_rel(out[0]["losses"][0], jax_loss, LOSS_RTOL, "loss")
   keep = [k for k in want if not k.endswith("num_batches_tracked")]
   _assert_state_matches({k: obj["state_dict"][k] for k in keep},
                         {k: want[k] for k in keep}, before, lr, atol)
 
 
-@pytest.mark.parametrize("name", sorted(TRAINERS))
-def test_trainer_needs_a_card_or_cpu(setup, tmp_path, monkeypatch, name):
-  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-  with pytest.raises(RuntimeError, match="no CUDA device"):
-    TRAINERS[name].main(_argv(name, setup, str(tmp_path)))
-
-
-# ---- the Baseline's training convs on the kernel, at chip_smoke.py's shape
-def test_baseline_training_routes_as_the_jax_package(monkeypatch):
-  """The Baseline's training forward at the training CLIs' batch 4 and
-  1024x512, traced on both sides with counting stubs and no kernel run (as
-  ``tests/test_torch_fusion_train.py`` traces ModeFusion's). The port's
-  gate is the JAX package's batch-packed training gate with its TPU memory
-  budget left out (``ops/conv2d.py:train_kernel_eligible``), as all the
-  port's gates leave it out: traced so (``_pick_mb_bpack`` admitting every
-  block height), the JAX gate takes every stride-1 3x3 conv but the
-  6-channel input conv, and so does the port,
-  ``chip_smoke.BASELINE_TRAIN_K9`` a forward. With the budget the JAX
-  package leaves one more to XLA, the conv with 256 input channels."""
-  batch, (h, w) = chip_smoke.TRAIN_CLI_BATCH, chip_smoke.GEOMETRY["Cassini"]
-  monkeypatch.setattr(c3k, "_CONV3D_MODE", "on")
-  jax_calls, port_calls = [], []
-
-  def jax_stub(x, k, g, dil):
-    jax_calls.append(tuple(x.shape))
-    return jnp.zeros((*x.shape[:3], k.shape[-1]), x.dtype)
-
-  def port_stub(x, weight, dilation=1, *, plain=False):
-    port_calls.append(tuple(x.shape))
-    return torch.empty((*x.shape[:3], weight.shape[0]), dtype=x.dtype,
-                       device=x.device)
-
-  monkeypatch.setattr(c2k, "conv2d_3x3_fast_train", jax_stub)
-  monkeypatch.setattr(conv2d_ops, "conv2d_train", port_stub)
-  model = jfusion.Baseline(1000.0)
-  depths = [jnp.zeros((batch, h, w, 1))] * 6
-  variables = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0),
-                                                depths, False))
-
-  def trace_jax():
-    jax_calls.clear()
-    jax.eval_shape(lambda v: model.apply(v, depths, True,
-                                         mutable=["batch_stats"]), variables)
-    return list(jax_calls)
-
-  budgeted = trace_jax()
-  monkeypatch.setattr(c2k, "_pick_mb_bpack", lambda *a, **k: 1)
-  unbudgeted = trace_jax()
-  port = tfusion.Baseline(1000.0, device="cpu").to("meta")
-  port.device = torch.device("meta")
-  port.train()([torch.empty((batch, h, w, 1), device="meta")] * 6)
-  assert port_calls == unbudgeted
-  assert len(port_calls) == chip_smoke.BASELINE_TRAIN_K9 == 17
-  left = collections.Counter(unbudgeted) - collections.Counter(budgeted)
-  assert left == {(batch, h, w, 256): 1}
-  assert len(budgeted) == len(unbudgeted) - 1
+@pytest.mark.parametrize("name", STAGE1_RANKS)
+def test_two_ranks_train_as_the_jax_cli(setup, stage1, two_ranks, name):
+  assert_two_ranks_match(setup, two_ranks[name], name, stage1["jax"]["root"],
+                         stage1["jax"]["logs"]["loss disp"][1])

@@ -43,6 +43,7 @@ from mode_tpu_torch.ops import conv2d as conv2d_ops
 from mode_tpu_torch.ops import conv3d as conv3d_ops
 from mode_tpu_torch.ops import sphere_conv as sphere_ops
 from mode_tpu_torch.utils.convert import grads_from_jax, load_npz
+from tests.background import started
 from tests.trained_mirror import get_trained_state_dict
 
 jsc = importlib.import_module("mode_tpu.ops.sphere_conv")
@@ -123,8 +124,15 @@ def _run_jax_step(sphere_type, h, w, compute_dtype):
 
 
 @pytest.fixture(scope="module")
-def jax_step():
-  return _jax_step()
+def jax_step_started():
+  return started(_jax_step)
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_step_started, port_step, port_spread):
+  """(The port's step and its spread are computed while the JAX step
+  compiles.)"""
+  return jax_step_started.result()
 
 
 def _port_run(sphere_type="Cassini", h=H, w=W, compute_dtype=None,
@@ -325,12 +333,19 @@ def _count_jax(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini",
 
 def _count_port(monkeypatch, batch, h, w, maxdisp, sphere_type="Cassini",
                 dtype=torch.float32):
+  """The port's training forward, as :func:`_count_jax` traces the JAX
+  model's: the calls of the kernels' Functions counted, each replaced by
+  zeros of the shape its plain version gives on meta tensors, so no
+  eligible conv computes."""
   calls = dict.fromkeys(FAMILIES, 0)
 
   def counted(family, fn):
     def wrapper(*args, **kwargs):
       calls[family] += 1
-      return fn(*args, **kwargs)
+      meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
+              for a in args]
+      out = fn(*meta, **{**kwargs, "plain": True})
+      return torch.zeros(out.shape, dtype=out.dtype)
     return wrapper
 
   conv3d_train = conv3d_ops.conv3d_train

@@ -41,6 +41,7 @@ import torch
 import chip_smoke
 from mode_tpu import training as jtraining
 from mode_tpu_torch.utils.convert import grads_from_jax
+from tests.background import started
 from tests.test_torch_train_step import (FAMILIES, MAXDISP, _batch,
                                          _count_jax, _count_port, _jax_state,
                                          _numpy, _port_run)
@@ -64,12 +65,14 @@ def _jax_bf16_step():
 @pytest.fixture(scope="module")
 def steps():
   """JAX's bf16 step and the port's bf16 and f32 steps, from the same
-  weights on the same batch."""
+  weights on the same batch (the JAX step in a thread of its own, while
+  the port's run)."""
+  jax_bf16 = started(_jax_bf16_step)
   optimizers = []
   port_bf16 = _port_run(compute_dtype=torch.bfloat16,
                         optimizer_out=optimizers)
-  return {"jax_bf16": _jax_bf16_step(), "port_bf16": port_bf16,
-          "port_f32": _port_run(), "optimizer": optimizers[0]}
+  return {"port_bf16": port_bf16, "port_f32": _port_run(),
+          "optimizer": optimizers[0], "jax_bf16": jax_bf16.result()}
 
 
 def _dist(a, b):

@@ -11,8 +11,8 @@ Bars:
   path's, uint8 exactly, normalised at ``tests/test_native_io.py``'s bars;
 - event files: byte-equal, with ``time.time`` fixed on both sides;
 - the init menu: the same set of tensors re-initialised as the JAX menu's
-  (its leaves named through ``utils/convert.py:params_from_jax``), BN
-  weights 1 and biases 0 exactly; on each drawn tensor of 2000 values or
+  (``tests/test_torch_init_menus.py``), BN weights 1 and biases 0
+  exactly; on each drawn tensor of 2000 values or
   more, its std within 10% of its formula, its std and mean |w| within 10%
   of torch's own initialiser's on the same shape, and a uniform draw's
   largest |w| inside its bound and within 15% of it
@@ -28,8 +28,6 @@ import math
 import os
 import time
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,9 +35,6 @@ import torch
 from mode_tpu.data import deep360 as jdeep360
 from mode_tpu.data import fusion_pack as jpack
 from mode_tpu.data.file_lists import list_deep360_fusion_train
-from mode_tpu.models import disparity as jdisp
-from mode_tpu.models import fusion as jfusion
-from mode_tpu.models.initialize import init_model_params as jinit
 from mode_tpu.utils import tb_writer as jtb
 from mode_tpu_torch.cli import common
 from mode_tpu_torch.data import deep360 as tdeep360
@@ -52,7 +47,6 @@ from mode_tpu_torch.models.initialize import INIT_TYPES, init_model_params
 from mode_tpu_torch.utils import profiling
 from mode_tpu_torch.utils import tb_writer as ttb
 from mode_tpu_torch.utils.checkpoint import save_checkpoint
-from mode_tpu_torch.utils.convert import params_from_jax
 from tests.synth_data import make_deep360_tree, make_fusion_inputs
 
 torch.set_num_threads(2)
@@ -221,55 +215,10 @@ def test_step_timer_keeps_a_window():
 
 
 # ---- the init menu
-def _jax_variables(kind):
-  if kind == "disparity":
-    model = jdisp.ModeDisparity(maxdisp=MAXDISP)
-    x = jnp.zeros((1, H, W, 3))
-    return jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, x,
-                                             train=False))
-  zeros = [jnp.zeros((1, H, W, 1))] * 6
-  views = [jnp.zeros((1, H, W, 3))] * 4
-  return jax.eval_shape(lambda: jfusion.ModeFusion(1000.0).init(
-      jax.random.PRNGKey(0), zeros, zeros, views, False))
-
-
 def _port_model(kind):
   if kind == "disparity":
     return ModeDisparity(MAXDISP, device="cpu")
   return ModeFusion(1000.0, device="cpu")
-
-
-def _changed_jax(kind, init_type) -> set:
-  """The torch names of the leaves the JAX menu changes in a tree whose
-  every parameter is 0.5."""
-  shapes = _jax_variables(kind)
-  variables = {"params": jax.tree_util.tree_map(
-      lambda s: np.full(s.shape, 0.5, np.float32), shapes["params"])}
-  new = jinit(variables, init_type, jax.random.PRNGKey(0))
-  before = params_from_jax(variables)
-  after = params_from_jax(jax.tree_util.tree_map(np.asarray, new))
-  return {k for k in before if not torch.equal(before[k], after[k])}
-
-
-@pytest.mark.parametrize("kind", ["disparity", "fusion"])
-def test_init_touches_the_jax_menus_tensors(kind):
-  init_type = "kaiming_normal"
-  want = _changed_jax(kind, init_type)
-  model = _port_model(kind)
-  with torch.no_grad():
-    for p in model.parameters():
-      p.fill_(0.5)
-  before = {n: p.clone() for n, p in model.named_parameters()}
-  init_model_params(model, init_type, torch.Generator().manual_seed(1))
-  got = {n for n, p in model.named_parameters()
-         if not torch.equal(p, before[n])}
-  assert got == want
-  assert len(got) > 100
-  for n, p in model.named_parameters():
-    if n.endswith("bias"):
-      assert bool((p == 0).all()), n
-    elif p.ndim == 1:
-      assert bool((p == 1).all()), n
 
 
 _FORMULAS = {
