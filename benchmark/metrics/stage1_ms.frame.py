@@ -1,0 +1,7 @@
+"""The mean device time (ms) of the frame's stage1 over every frame of a traced
+window: CUDA events the benchmark records around its call of the stage."""
+
+
+def read(run):
+  spans = run["spans"].get("stage1")
+  return 1e3 * sum(spans) / len(spans) if spans else None

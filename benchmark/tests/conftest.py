@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests import it as the package ``benchmark`` from the
+root of the checkout."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+  sys.path.insert(0, str(ROOT))
