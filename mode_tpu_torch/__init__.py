@@ -42,7 +42,9 @@ Ported so far:
   (``fusion_pack.py``); ``models/initialize.py``: the ``--init_type``
   menu; ``utils/``: the metrics, the colormaps, checkpoint reading and
   saving (SHG-only loading in ``convert.py``), the TensorBoard writer
-  (``tb_writer.py``), tracing (``profiling.py``) and the model-FLOP
+  (``tb_writer.py``), the tracer (``profiling.py``: spans at the
+  frame's stages and the training step's phases, upload counters and
+  kernel launch records, on ``torch.profiler``'s clock) and the model-FLOP
   counts;
 - ``parallel/``: data-parallel training, one process a card under
   ``torchrun`` (the steps' and trainers' ``mesh``), and ``remat.py``: the

@@ -1,10 +1,11 @@
 """What the CLIs share (``mode_tpu/cli/common.py``): seeding, the metric
-table, parameter counts, loading a checkpoint into a model, and the
-trainers' mesh (one process per card under ``torchrun``) with what only
-rank 0 does."""
+table, parameter counts, loading a checkpoint into a model, the trainers'
+mesh (one process per card under ``torchrun``) with what only rank 0 does,
+and the trainers' batches on the device."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import random
 
@@ -17,6 +18,7 @@ from mode_tpu_torch.parallel.mesh import (Mesh, initialize_distributed,
 from mode_tpu_torch.utils.checkpoint import load_torch_checkpoint
 from mode_tpu_torch.utils.convert import (load_reference_state_dict,
                                           load_stack_hourglass_only)
+from mode_tpu_torch.utils.profiling import span
 
 # converts a JAX (orbax) checkpoint directory into a reference .tar
 CONVERTER = "scripts/jax_checkpoint_to_torch.py"
@@ -103,3 +105,17 @@ def load_model_checkpoint(path: str, model: nn.Module,
   else:
     load_reference_state_dict(model, obj)
   return int(obj.get("epoch", 0))
+
+
+def device_batches(loader, to_device, limit: int | None = None):
+  """``to_device(batch)`` for each batch of ``loader``, the first ``limit``
+  (all if None), each fetch and upload in a ``loader.wait`` span
+  (``utils/profiling.py``): the time the step waits for its data."""
+  batches = iter(loader)
+  for i in itertools.count():
+    with span("loader.wait"):
+      batch = next(batches, None)
+      if batch is None or (limit and i >= limit):
+        return
+      out = to_device(batch)
+    yield out

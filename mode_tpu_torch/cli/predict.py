@@ -25,7 +25,7 @@ from PIL import Image
 
 from mode_tpu_torch.cli.common import load_model_checkpoint
 from mode_tpu_torch.data.preprocess import rgb_to_tensor
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import resolve_device, upload
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.models.fusion import ModeFusion
 from mode_tpu_torch.pipeline import CAM_PAIRS, TwoStagePipeline
@@ -81,8 +81,8 @@ def main(argv=None):
   os.makedirs(args.save_root, exist_ok=True)
 
   if args.stage == "disp":
-    left = torch.from_numpy(_load(args.left_name, h, w)[None]).to(device)
-    right = torch.from_numpy(_load(args.right_name, h, w)[None]).to(device)
+    left = upload(_load(args.left_name, h, w)[None], device)
+    right = upload(_load(args.right_name, h, w)[None], device)
     pred, conf = disp_model(left, right)
     out = torch.stack([pred[0].clamp(min=0), conf[0]]).cpu().numpy()
     _save_log_jet(os.path.join(args.save_root, "output_disp.png"), out[0])

@@ -27,7 +27,7 @@ from mode_tpu_torch.cli.common import count_params, load_model_checkpoint
 from mode_tpu_torch.data.deep360 import Deep360DatasetDisparity
 from mode_tpu_torch.data.file_lists import list_deep360_disparity_all
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import resolve_device, upload
 from mode_tpu_torch.geometry.reprojection import (DEEP360_BASELINES,
                                                   FISHEYE_BASELINES,
                                                   disp_to_depth_at_cam1)
@@ -134,8 +134,7 @@ def main(argv=None):
       break
     imgl, top, rgt = pad16(batch["leftImg"])
     imgr, _, _ = pad16(batch["rightImg"])
-    pred, conf = model(torch.from_numpy(imgl).to(device),
-                       torch.from_numpy(imgr).to(device))
+    pred, conf = model(upload(imgl, device), upload(imgr, device))
     pred = pred[:, top:, :pred.shape[2] - rgt]
     conf = conf[:, top:, :conf.shape[2] - rgt]
     for i in range(pred.shape[0]):

@@ -28,7 +28,7 @@ from mode_tpu_torch.cli.common import (count_params, format_table,
 from mode_tpu_torch.data.deep360 import Deep360DatasetDisparity
 from mode_tpu_torch.data.file_lists import list_deep360_disparity_test
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import resolve_device, upload
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.utils import metrics
 from mode_tpu_torch.utils.colormap import save_colormapped
@@ -104,9 +104,9 @@ def main(argv=None):
   for bi, batch in enumerate(loader):
     if args.max_batches and bi >= args.max_batches:
       break
-    left = torch.from_numpy(batch["leftImg"]).to(device)
-    right = torch.from_numpy(batch["rightImg"]).to(device)
-    gt = torch.from_numpy(batch["dispMap"]).to(device)
+    left = upload(batch["leftImg"], device)
+    right = upload(batch["rightImg"], device)
+    gt = upload(batch["dispMap"], device)
     mask = (gt > 0) & torch.isfinite(gt) & (gt <= args.max_disp)
     gt0 = torch.nan_to_num(gt)
     pred = model(left, right)

@@ -33,7 +33,7 @@ from mode_tpu_torch.cli.common import (METRIC_NAMES, count_params,
 from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
 from mode_tpu_torch.data.file_lists import list_deep360_fusion_test
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import resolve_device, upload
 from mode_tpu_torch.geometry import cassini_to_erp
 from mode_tpu_torch.models.fusion import Baseline, ModeFusion
 from mode_tpu_torch.ops.resize import upsample_bicubic
@@ -100,10 +100,10 @@ def main(argv=None):
     if args.max_batches and bi >= args.max_batches:
       break
     print(f"\rStage2 Test: {100 * (bi + 1) / len(loader):.2f}%", end="")
-    depths = torch.from_numpy(batch["depths"]).to(device)
+    depths = upload(batch["depths"], device)
     if args.model == "ModeFusion":
-      confs = torch.from_numpy(batch["confs"]).to(device)
-      rgbs = torch.from_numpy(batch["rgbs"]).to(device)
+      confs = upload(batch["confs"], device)
+      rgbs = upload(batch["rgbs"], device)
       pred = model([depths[:, k] for k in range(6)],
                    [confs[:, k] for k in range(6)],
                    [rgbs[:, k] for k in range(4)])
@@ -111,7 +111,7 @@ def main(argv=None):
       pred = model([depths[:, k] for k in range(6)])
     if args.resize:
       pred = upsample_bicubic(pred, pred.shape[1] * 2, pred.shape[2] * 2)
-    gt = torch.from_numpy(batch["gt"]).to(device)
+    gt = upload(batch["gt"], device)
     pred_erp = cassini_to_erp(pred)[..., 0]
     gt_erp = cassini_to_erp(gt[..., None])[..., 0]
     m = metrics.depth_metrics(pred_erp, gt_erp, gt_erp <= args.maxdepth)

@@ -54,11 +54,13 @@ import torch
 
 from mode_tpu_torch import training
 from mode_tpu_torch.cli.common import (NullWriter, barrier, count_params,
+                                       device_batches,
                                        load_model_checkpoint, rank_zero,
                                        seed_everything, training_mesh)
 from mode_tpu_torch.data.deep360 import Deep360DatasetDisparity
 from mode_tpu_torch.data.file_lists import list_deep360_disparity_train
 from mode_tpu_torch.data.loader import DataLoader
+from mode_tpu_torch.device import upload
 from mode_tpu_torch.parallel.mesh import batch_sharding
 from mode_tpu_torch.models.disparity import ModeDisparity
 from mode_tpu_torch.models.initialize import INIT_TYPES, init_model_params
@@ -100,7 +102,8 @@ def build_parser():
                  help="weight re-initialization menu (initModel.py:9-32)")
   p.add_argument("--trace_dir", default=None,
                  help="write a torch.profiler trace of the first epoch "
-                      "there")
+                      "there, and the program's spans beside it "
+                      "(utils/profiling.py)")
   p.add_argument("--bf16", action="store_true",
                  help="mixed-precision training (bf16 activations, f32 "
                       "master weights and loss)")
@@ -217,11 +220,10 @@ def main(argv=None):
     total_loss, n_batches = 0.0, 0
     first = epoch == start_epoch + 1 and main_rank
     with trace(args.trace_dir if first else None, device):
-      for i, batch in enumerate(train_loader):
-        if args.steps_per_epoch and i >= args.steps_per_epoch:
-          break
-        left, right, disp = (torch.from_numpy(batch[k]).to(device) for k in
-                             ("leftImg", "rightImg", "dispMap"))
+      for left, right, disp in device_batches(
+          train_loader, lambda b: [upload(b[k], device) for k in
+                                   ("leftImg", "rightImg", "dispMap")],
+          args.steps_per_epoch):
         loss = float(train_step(left, right, disp))
         total_loss += loss
         n_batches += 1
@@ -256,7 +258,7 @@ def _validate(args, model, val_loader, device, writer, image_path,
   for i, batch in enumerate(val_loader):
     if args.steps_per_epoch and i >= args.steps_per_epoch:
       break
-    left, right, gt = (torch.from_numpy(batch[k]).to(device) for k in
+    left, right, gt = (upload(batch[k], device) for k in
                        ("leftImg", "rightImg", "dispMap"))
     mask = (gt > 0) & torch.isfinite(gt) & (gt <= args.max_disp)
     gt = torch.nan_to_num(gt)

@@ -16,7 +16,9 @@ ablation trains through the step inlined below, in f32, as the JAX CLI
 inlines it. The scalars go to TensorBoard event files under ``log/``,
 opened with ``purge_step=--epoch-start``: ``Training Loss`` and the first
 six metrics per epoch. The flags are the JAX CLI's, plus ``--device`` (the
-CUDA card by default; ``cpu`` runs the kernels' plain versions).
+CUDA card by default; ``cpu`` runs the kernels' plain versions) and
+``--trace_dir`` (a ``torch.profiler`` trace of the first epoch and the
+program's spans, as ``train_disparity`` writes them).
 
 Each batch goes to the device in one copy per array; each step's loss is
 read back as the JAX CLI reads it.
@@ -41,18 +43,20 @@ import torch
 
 from mode_tpu_torch import training
 from mode_tpu_torch.cli.common import (METRIC_NAMES, NullWriter, barrier,
-                                       count_params, format_table,
-                                       load_model_checkpoint, rank_zero,
-                                       seed_everything, training_mesh)
+                                       count_params, device_batches,
+                                       format_table, load_model_checkpoint,
+                                       rank_zero, seed_everything,
+                                       training_mesh)
 from mode_tpu_torch.data.deep360 import Deep360DatasetFusion
 from mode_tpu_torch.data.file_lists import list_deep360_fusion_train
 from mode_tpu_torch.data.loader import DataLoader
-from mode_tpu_torch.device import ieee_f32_convs
+from mode_tpu_torch.device import ieee_f32_convs, upload
 from mode_tpu_torch.models.fusion import Baseline, ModeFusion
 from mode_tpu_torch.parallel.mesh import activate, batch_sharding
 from mode_tpu_torch.utils import metrics
 from mode_tpu_torch.utils.checkpoint import save_checkpoint
 from mode_tpu_torch.utils.losses import silog_loss
+from mode_tpu_torch.utils.profiling import span, trace
 from mode_tpu_torch.utils.tb_writer import SummaryWriter
 
 
@@ -86,6 +90,10 @@ def build_parser():
                       "torchrun's --nproc_per_node; any other value must "
                       "equal it)")
   p.add_argument("--steps_per_epoch", type=int, default=None)
+  p.add_argument("--trace_dir", default=None,
+                 help="write a torch.profiler trace of the first epoch "
+                      "there, and the program's spans beside it "
+                      "(utils/profiling.py)")
   p.add_argument("--device", default=None,
                  help="torch device; the CUDA card by default, 'cpu' runs "
                       "the kernels' plain versions")
@@ -104,26 +112,33 @@ def make_baseline_step(model: Baseline, optimizer: torch.optim.Optimizer,
   training.replicate(model, mesh)
 
   def step(depths, gt: torch.Tensor) -> torch.Tensor:
-    mask = gt <= max_depth
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs(), activate(mesh):
-      out = model(depths, plain=plain)
-      loss = silog_loss(training.SILOG_LAMBDA, out[..., 0], gt, mask, mesh)
-      loss.backward()
-    training.sync_gradients(model, mesh)
-    optimizer.step()
-    return loss.detach()
+    with span("step"):
+      with span("step.inputs"):
+        mask = gt <= max_depth
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+      with ieee_f32_convs(), activate(mesh):
+        with span("step.forward"):
+          out = model(depths, plain=plain)
+        with span("step.loss"):
+          loss = silog_loss(training.SILOG_LAMBDA, out[..., 0], gt, mask,
+                            mesh)
+        with span("step.backward"):
+          loss.backward()
+      training.sync_gradients(model, mesh)
+      with span("step.optimizer"):
+        optimizer.step()
+      return loss.detach()
 
   return step
 
 
-def upload(batch: dict, keys, device) -> list:
+def batch_to_device(batch: dict, keys, device) -> list:
   """``batch[key]`` on ``device``, one copy per array, the per-source
   stacks split into lists of ``(B, H, W, C)`` maps."""
   out = []
   for key in keys:
-    x = torch.from_numpy(batch[key]).to(device)
+    x = upload(batch[key], device)
     out.append(x if key == "gt" else [x[:, k] for k in range(x.shape[1])])
   return out
 
@@ -197,13 +212,15 @@ def main(argv=None):
     log(f"This is {epoch}-th epoch")
     train_loader.set_epoch(epoch)
     total_loss, nb = 0.0, 0
-    for i, batch in enumerate(train_loader):
-      if args.steps_per_epoch and i >= args.steps_per_epoch:
-        break
-      loss = float(train_step(*upload(batch, keys, device)))
-      out["losses"].append(loss)
-      total_loss += loss
-      nb += 1
+    first = epoch == args.epoch_start and main_rank
+    with trace(args.trace_dir if first else None, device):
+      for batch in device_batches(
+          train_loader, lambda b: batch_to_device(b, keys, device),
+          args.steps_per_epoch):
+        loss = float(train_step(*batch))
+        out["losses"].append(loss)
+        total_loss += loss
+        nb += 1
     avg_loss = total_loss / max(nb, 1)
     writer.add_scalar("Training Loss", avg_loss, epoch)
     out["train_loss"][epoch] = avg_loss
@@ -230,7 +247,7 @@ def _validate(args, model, val_loader, keys, device, writer, epoch) -> dict:
   for i, batch in enumerate(val_loader):
     if args.steps_per_epoch and i >= args.steps_per_epoch:
       break
-    *inputs, gt = upload(batch, keys, device)
+    *inputs, gt = batch_to_device(batch, keys, device)
     pred = model(*inputs)[..., 0]
     m = metrics.depth_metrics(pred, gt, gt <= args.maxdepth)
     totals += torch.stack([m[k] for k in METRIC_NAMES]).cpu().numpy()

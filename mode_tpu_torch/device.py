@@ -1,11 +1,15 @@
-"""Where the port runs: CUDA by default, the CPU only when asked for; and
-the precision of the library convs it runs."""
+"""Where the port runs: CUDA by default, the CPU only when asked for; the
+precision of the library convs it runs; and its copies of host arrays to
+the device."""
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+from mode_tpu_torch.utils import profiling
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -53,3 +57,18 @@ def ieee_f32_convs():
     yield
   finally:
     torch.backends.cudnn.allow_tf32 = before
+
+
+def upload(array: np.ndarray | torch.Tensor,
+           device: str | torch.device) -> torch.Tensor:
+  """A host array (numpy, or a CPU tensor) as a tensor on ``device``: the
+  one way the program copies host arrays to the device. While the tracer
+  is on (``utils/profiling.py``) each call counts one ``uploads`` and its
+  ``upload_bytes`` in the innermost open span (on a CPU device too, where
+  nothing is copied). From pageable memory the copy waits for the
+  device."""
+  t = torch.from_numpy(array) if isinstance(array, np.ndarray) else array
+  if profiling.on():
+    profiling.count("uploads")
+    profiling.count("upload_bytes", t.numel() * t.element_size())
+  return t.to(device)

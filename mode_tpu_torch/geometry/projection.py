@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from mode_tpu_torch.device import upload
 from mode_tpu_torch.ops.grid_sample import sample_bilinear_shared
 
 
@@ -123,7 +124,7 @@ def _erp_to_rect_pix(he: int, we: int, ca_h: int, ca_w: int,
 def _on_device(maps_fn, args: tuple, device: torch.device
                ) -> tuple[torch.Tensor, torch.Tensor]:
   """``maps_fn(*args)``'s ``(y, x)`` maps, uploaded once per device."""
-  return tuple(torch.from_numpy(m).to(device) for m in maps_fn(*args))
+  return tuple(upload(m, device) for m in maps_fn(*args))
 
 
 def cassini_to_erp(cassini: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from mode_tpu_torch.device import upload
 from mode_tpu_torch.geometry.projection import (_axis_angles, rotate_cassini,
                                                 rotation_matrix)
 
@@ -86,7 +87,7 @@ def _per_radian(n: int, angle: float) -> float:
 def _phi_map(h: int, w: int, device: torch.device) -> torch.Tensor:
   """The latitude-like angle along Cassini columns, ``(h, w)`` f32."""
   phi = np.tile(_axis_angles(w, full=False)[None, :], (h, 1))
-  return torch.from_numpy(phi.astype(np.float32)).to(device)
+  return upload(phi.astype(np.float32), device)
 
 
 def cassini_disp_to_depth(disp: torch.Tensor, baseline) -> torch.Tensor:
@@ -139,8 +140,8 @@ def _view_transform_consts(h: int, w: int, transforms: tuple,
                   np.cos(phi1) * np.cos(theta1)], axis=-1).astype(np.float32)
   rots = [rotation_matrix(p, yw, rl) for _, _, _, p, yw, rl in transforms]
   trs = [(x0, y0, z0) for y0, z0, x0, *_ in transforms]
-  as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(
-      np.asarray(a, np.float64).astype(np.float32))).to(device)
+  as_dev = lambda a: upload(np.ascontiguousarray(
+      np.asarray(a, np.float64).astype(np.float32)), device)
   return (as_dev(np.broadcast_to(ray, (len(transforms), h, w, 3))),
           as_dev(rots), as_dev(trs))
 

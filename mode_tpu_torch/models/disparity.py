@@ -43,13 +43,17 @@ In training the three heads do the same: the quarter-resolution logits
 gathered over the spatial group (one all-gather, whose backward sums the
 gradient over the group), then only this rank's output rows expanded,
 through those rows of the H resize matrix.
+
+The forward opens the tracer's spans (``utils/profiling.py``)
+``stage1.features`` (each feature extractor call), ``stage1.cost_volume``,
+``stage1.aggregation`` (``dres0`` to ``classif3``) and
+``stage1.regression`` (the heads).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 from torch import nn
 
 from mode_tpu_torch import remat as rematerialisation
@@ -65,6 +69,7 @@ from mode_tpu_torch.ops.resize import interpolate, upsample_trilinear
 from mode_tpu_torch.parallel.mesh import (constrain_spatial, gather_rows,
                                           row_sharding, spatial_mesh)
 from mode_tpu_torch.parallel.shard_ops import regression_sharded
+from mode_tpu_torch.utils.profiling import span
 
 
 def _stage(block, cin: int, cout: int, blocks: int, stride: int,
@@ -273,22 +278,23 @@ class ModeDisparity(nn.Module):
     with ieee_f32_convs():
       if self.training:
         costs = self._costs(left, right, plain)
-        mesh, rows = spatial_mesh(), None
-        if mesh is not None:      # every rank's logits, this rank's rows
-          costs = gather_rows(torch.stack(costs), 3, mesh).unbind()
-          rows = row_sharding(mesh, h)
-        return tuple(torch.utils.checkpoint.checkpoint(
-            _regress, cost, self.maxdisp, h, w, rows, use_reentrant=False)
-                     for cost in costs)
+        with span("stage1.regression"):
+          mesh, rows = spatial_mesh(), None
+          if mesh is not None:      # every rank's logits, this rank's rows
+            costs = gather_rows(torch.stack(costs), 3, mesh).unbind()
+            rows = row_sharding(mesh, h)
+          return tuple(rematerialisation.checkpoint(
+              _regress, cost, self.maxdisp, h, w, rows) for cost in costs)
       with torch.no_grad():
         cost3 = self._costs(left, right, plain)[2]
-        mesh = spatial_mesh()
-        if mesh is not None:
-          pred, conf = regression_sharded(cost3, self.maxdisp, h, w,
-                                          mesh=mesh, plain=plain)
-        else:
-          pred, conf = fused_disparity_regression(cost3, self.maxdisp, h, w,
-                                                  plain=plain)
+        with span("stage1.regression"):
+          mesh = spatial_mesh()
+          if mesh is not None:
+            pred, conf = regression_sharded(cost3, self.maxdisp, h, w,
+                                            mesh=mesh, plain=plain)
+          else:
+            pred, conf = fused_disparity_regression(cost3, self.maxdisp, h,
+                                                    w, plain=plain)
     return (pred, conf) if self.out_conf else pred
 
   def _remat(self, block, *args, **kwargs):
@@ -302,12 +308,19 @@ class ModeDisparity(nn.Module):
   def _costs(self, left, right, plain):
     """The three classifiers' summed logits ``(B, D, Hq, Wq)``."""
     fe = self.feature_extraction
-    # this rank's rows of H under a spatial mesh (the whole maps otherwise)
-    cost = build_cost_volume(
-        constrain_spatial(self._remat(fe, left, plain=plain), 1),
-        constrain_spatial(self._remat(fe, right, plain=plain), 1),
-        self.maxdisp // 4)
+    feats = []
+    for x in (left, right):
+      with span("stage1.features"):
+        feats.append(self._remat(fe, x, plain=plain))
+    with span("stage1.cost_volume"):
+      # this rank's rows of H under a spatial mesh (the whole maps otherwise)
+      cost = build_cost_volume(*(constrain_spatial(f, 1) for f in feats),
+                               self.maxdisp // 4)
+    with span("stage1.aggregation", time_launches=True):
+      return self._aggregate(cost, plain)
 
+  def _aggregate(self, cost, plain):
+    """``dres0`` to ``classif3`` on the cost volume."""
     cost0 = self.dres0[0](cost, relu=True, plain=plain)
     cost0 = self.dres0[2](cost0, relu=True, plain=plain)
     d1 = self.dres1[0](cost0, relu=True, plain=plain)

@@ -140,7 +140,8 @@ def _launch(x, weight, scale, bias, residual, relu, dilation, h_halo=False):
       int(x.dtype == torch.bfloat16), x.data_ptr(), wbig, wsmall,
       scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      n, h, w, cin, cout, dilation, int(relu), int(h_halo), halo=h_halo)
+      n, h, w, cin, cout, dilation, int(relu), int(h_halo), halo=h_halo,
+      shape=(n, h, w, cin, cout))
   return out
 
 

@@ -235,13 +235,15 @@ def _launch(mode, x, weight, scale, bias, residual, relu, h_halo=False):
   extents = (*x.shape[:4], cin, cout, int(relu), int(h_halo))
   if mode == _S2:
     kernels.launch(name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
-                   *ptrs, out.data_ptr(), *extents, halo=h_halo)
+                   *ptrs, out.data_ptr(), *extents, halo=h_halo,
+                   shape=extents[:6])
   else:
     fn = (_deconv3d_lib().deconv3d_bn_act if deconv
           else _conv3d_s1_lib().conv3d_s1_bn_act)
     kernels.launch(name, fn, x.device, flag, *ptrs,
                    None if residual is None else residual.data_ptr(),
-                   out.data_ptr(), *extents, halo=h_halo)
+                   out.data_ptr(), *extents, halo=h_halo,
+                   shape=extents[:6])
   return out
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from mode_tpu_torch import kernels
+from mode_tpu_torch.device import upload
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops.resize import interpolate, linear_taps
 
@@ -75,8 +76,8 @@ def _tap_tables(d: int, hq: int, wq: int, maxdisp: int, h: int, w: int,
   idx = np.concatenate([np.stack([t[0], t[1]], axis=1).reshape(-1)
                         for t in taps] + [starts])
   wgt = np.concatenate([np.stack([t[2], t[3]], axis=1) for t in taps])
-  return (torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(device),
-          torch.from_numpy(np.ascontiguousarray(wgt, np.float32)).to(device))
+  return (upload(np.ascontiguousarray(idx, np.int32), device),
+          upload(np.ascontiguousarray(wgt, np.float32), device))
 
 
 def _upsample_rows(cost_q, maxdisp, h, w, row0, h_out):
@@ -111,7 +112,8 @@ def _launch(cost_q, maxdisp, h, w, row0=0, h_out=None):
       _NAME, _regression_lib().fused_disparity_regression, cost_q.device,
       int(cost_q.dtype == torch.bfloat16), cost_q.data_ptr(), idx.data_ptr(),
       wgt.data_ptr(), pred.data_ptr(), conf.data_ptr(), n, d, hq, wq,
-      maxdisp, h, w, row0, h_out, halo=h_out != h)
+      maxdisp, h, w, row0, h_out, halo=h_out != h,
+      shape=(n, d, hq, wq, maxdisp, h_out, w))
   return pred, conf
 
 

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from mode_tpu_torch.device import upload
+
 
 def _linear_src(n_out: int, n_in: int, align_corners: bool):
   """Left source index and float64 fraction per output position."""
@@ -109,7 +111,7 @@ def _resize(x: torch.Tensor, sizes: dict[int, int], matrix,
     mat = matrix(n_out, n_in, align_corners)
     if window is not None:
       mat = mat[window]
-    mat = torch.from_numpy(np.ascontiguousarray(mat)).to(x.device)
+    mat = upload(np.ascontiguousarray(mat), x.device)
     xm = torch.movedim(x, axis, -1).float()
     y = (xm.reshape(-1, n_in) @ mat.T).reshape(*xm.shape[:-1], mat.shape[0])
     x = torch.movedim(y.to(x.dtype), -1, axis)

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from mode_tpu_torch import kernels, remat
+from mode_tpu_torch.device import upload
 from mode_tpu_torch.kernels import build
 from mode_tpu_torch.ops import conv2d, kmajor
 from mode_tpu_torch.ops.conv2d import pack_weight
@@ -343,18 +344,17 @@ def _device_tables(kind: str, h: int, w: int, sphere_type: str,
   tensors on ``device``."""
   if kind == "gather":
     idx, wgt = build_gather_tables(h, w, 3, 3, sphere_type, 1, 1, 1)
-    return (torch.from_numpy(idx.astype(np.int64)).to(device),
-            torch.from_numpy(wgt).to(device))
+    return upload(idx.astype(np.int64), device), upload(wgt, device)
   if kind == "transpose":
-    return tuple(torch.from_numpy(t).to(device)
+    return tuple(upload(t, device)
                  for t in transpose_table(h, w, sphere_type))
   sigma, pairint, quad, drop = shift_tables(h, w, sphere_type)
   # per (band index, tap): int4 (sigma, first, second source band index,
   # drop), float4 quad
   itab = np.stack([sigma, pairint[..., 0].astype(np.int32),
                    pairint[..., 1].astype(np.int32), drop], axis=-1)
-  return (torch.from_numpy(np.ascontiguousarray(itab, np.int32)).to(device),
-          torch.from_numpy(quad).to(device))
+  return (upload(np.ascontiguousarray(itab, np.int32), device),
+          upload(quad, device))
 
 
 def _im2col(x: torch.Tensor, sphere_type: str) -> torch.Tensor:
@@ -424,7 +424,7 @@ def _launch(x, weight, scale, bias, residual, relu, sphere_type):
       int(x.dtype == torch.bfloat16), x.data_ptr(), wbig, wsmall,
       itab.data_ptr(), ftab.data_ptr(), scale.data_ptr(), bias.data_ptr(),
       None if residual is None else residual.data_ptr(), out.data_ptr(),
-      n, h, w, cin, cout, int(relu))
+      n, h, w, cin, cout, int(relu), shape=(n, h, w, cin, cout))
   return out
 
 
@@ -607,7 +607,7 @@ def _launch_bwd_input(g, weight, sphere_type):
       name, getattr(_bwd_lib(), name), g.device,
       int(g.dtype == torch.bfloat16), g.data_ptr(), wbig, wsmall,
       entries.data_ptr(), weights.data_ptr(), dx.data_ptr(), n, h, w, cin,
-      cout)
+      cout, shape=(n, h, w, cin, cout))
   return dx
 
 
@@ -656,7 +656,7 @@ def _launch_bwd_weight(x, g, sphere_type):
       name, getattr(_bwd_lib(), name), x.device,
       int(x.dtype == torch.bfloat16), x.data_ptr(), g.data_ptr(),
       itab.data_ptr(), ftab.data_ptr(), part.data_ptr(), dw.data_ptr(),
-      n, h, w, cin, cout, nsplit, chunk)
+      n, h, w, cin, cout, nsplit, chunk, shape=(n, h, w, cin, cout))
   return dw
 
 

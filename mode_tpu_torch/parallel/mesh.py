@@ -40,6 +40,10 @@ global loss (exactly, for ``W`` a power of two).
 
 A process that ``torchrun`` did not start is a world of one with no process
 group, and the code paths are the single-card ones.
+
+:func:`all_sum`, :func:`gather_rows` (forward and backward),
+:func:`allreduce_gradients` and :func:`broadcast_state` open the tracer's
+span ``collective.<name>`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.utils.profiling import span
 
 # where ROADMAP.md lists what training the fusion net under a spatial mesh
 # needs
@@ -256,14 +261,16 @@ class _GatherRows(torch.autograd.Function):
   @staticmethod
   def forward(ctx, t, axis, mesh):
     ctx.axis, ctx.mesh, ctx.n = axis, mesh, t.shape[axis]
-    return torch.cat(_gather(t, mesh.spatial, mesh.spatial_group, mesh),
-                     dim=axis)
+    with span("collective.gather_rows"):
+      return torch.cat(_gather(t, mesh.spatial, mesh.spatial_group, mesh),
+                       dim=axis)
 
   @staticmethod
   def backward(ctx, g):
     mesh = ctx.mesh
-    g = g.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(g, group=mesh.spatial_group)
+    with span("collective.gather_rows"):
+      g = g.clone(memory_format=torch.contiguous_format)
+      dist.all_reduce(g, group=mesh.spatial_group)
     mesh.collectives += 1
     return g.narrow(ctx.axis, mesh.spatial_rank * ctx.n, ctx.n), None, None
 
@@ -370,8 +377,9 @@ class _AllSum(torch.autograd.Function):
   @staticmethod
   def forward(ctx, x, mesh, over):
     ctx.mesh, ctx.over = mesh, over
-    x = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(x, group=mesh.group(over))
+    with span("collective.all_sum"):
+      x = x.clone(memory_format=torch.contiguous_format)
+      dist.all_reduce(x, group=mesh.group(over))
     mesh.collectives += 1
     return x
 
@@ -398,7 +406,7 @@ def all_count(n: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def broadcast_state(module: torch.nn.Module, mesh: Mesh) -> None:
   """Copy rank 0's (data index 0, spatial index 0) parameters and buffers
   to every rank of the mesh, in place."""
-  with torch.no_grad():
+  with torch.no_grad(), span("collective.broadcast_state"):
     for t in [*module.parameters(), *module.buffers()]:
       dist.broadcast(t.data, src=0)
       mesh.collectives += 1
@@ -409,6 +417,11 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
   """Average the gradients over every rank of the mesh in place (module
   docstring): one all-reduce of a flat buffer per dtype. A parameter
   without a gradient takes zeros, so every rank sends the same layout."""
+  with span("collective.allreduce_gradients"):
+    _allreduce_gradients(params, mesh)
+
+
+def _allreduce_gradients(params, mesh: Mesh) -> None:
   by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
   for p in params:
     if p.grad is None:

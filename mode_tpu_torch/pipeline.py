@@ -15,6 +15,10 @@ the disparities and one of the confidences, the bridge whole on every rank
 the bridged maps and the views (``models/fusion.py``), and one
 ``gather_rows`` of the fused map: every rank returns the whole frame. The
 frame's fusion runs at batch 1, so a data axis above 1 raises.
+
+A frame opens the tracer's spans (``utils/profiling.py``) ``frame``, and
+inside it ``frame.stage1``, ``frame.gather`` (under a spatial mesh),
+``frame.bridge`` and ``frame.fusion``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Any, Mapping
 
 import torch
 
-from mode_tpu_torch.device import resolve_device
+from mode_tpu_torch.device import resolve_device, upload
 from mode_tpu_torch.geometry.projection import rotate_cassini
 from mode_tpu_torch.geometry.reprojection import (
     DEEP360_BASELINES, DEEP360_PAIR_TRANSFORMS, cassini_disp_to_depth,
@@ -35,6 +39,7 @@ from mode_tpu_torch.parallel.mesh import Mesh, active_mesh, gather_rows
 from mode_tpu_torch.training import (cast_conv_params,
                                      normalize_rgb_on_device)
 from mode_tpu_torch.utils.convert import load_reference_state_dict
+from mode_tpu_torch.utils.profiling import span
 
 CAM_PAIRS = ("12", "13", "14", "23", "24", "34")
 # the "trans" pairs, the last three: a slice, so that selecting them makes
@@ -47,8 +52,8 @@ assert all((DEEP360_PAIR_TRANSFORMS[p][0] == "trans")
 @functools.lru_cache(maxsize=8)
 def _baselines(device: torch.device) -> torch.Tensor:
   """The pairs' baselines ``(6, 1, 1)`` f32, uploaded once per device."""
-  return torch.tensor([DEEP360_BASELINES[p] for p in CAM_PAIRS],
-                      dtype=torch.float32).to(device)[:, None, None]
+  return upload(torch.tensor([DEEP360_BASELINES[p] for p in CAM_PAIRS],
+                             dtype=torch.float32), device)[:, None, None]
 
 
 def bridge_all_pairs(disps: torch.Tensor, confs: torch.Tensor
@@ -136,7 +141,9 @@ class TwoStagePipeline:
     self.uint8_inputs = uint8_inputs
 
   def _input(self, imgs, dtype: torch.dtype) -> torch.Tensor:
-    imgs = torch.as_tensor(imgs, device=self.device)
+    imgs = torch.as_tensor(imgs)
+    if imgs.device != self.device:
+      imgs = upload(imgs, self.device)
     if self.uint8_inputs:
       return normalize_rgb_on_device(imgs, dtype)
     return imgs.to(dtype)
@@ -178,13 +185,19 @@ class TwoStagePipeline:
     card). Under a spatial mesh every rank returns the whole frame (module
     docstring)."""
     mesh = _frame_mesh()
-    disp, conf = self.stage1(lefts, rights, plain=plain)
-    if mesh is not None:
-      disp, conf = gather_rows(disp, 1, mesh), gather_rows(conf, 1, mesh)
-    depths, confs = bridge_all_pairs(disp, conf)
-    fused = self.fuse(depths, confs, rgbs, plain=plain)
-    if mesh is not None:
-      fused = gather_rows(fused, 0, mesh)
+    with span("frame"):
+      with span("frame.stage1"):
+        disp, conf = self.stage1(lefts, rights, plain=plain)
+      if mesh is not None:
+        with span("frame.gather"):
+          disp, conf = gather_rows(disp, 1, mesh), gather_rows(conf, 1, mesh)
+      with span("frame.bridge"):
+        depths, confs = bridge_all_pairs(disp, conf)
+      with span("frame.fusion"):
+        fused = self.fuse(depths, confs, rgbs, plain=plain)
+      if mesh is not None:
+        with span("frame.gather"):
+          fused = gather_rows(fused, 0, mesh)
     return fused, disp, conf
 
 

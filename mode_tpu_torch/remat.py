@@ -34,18 +34,22 @@ the forward, so the checkpoint finds the tensors it expects.
 The BatchNorm layers update their running statistics on the forward only
 (:func:`replaying`). The block's rerun may run in autograd's backward
 thread: it makes its scope, and the mesh that was active on the forward,
-current there for its own duration.
+current there for its own duration. Each rerun, the training heads' too
+(:func:`checkpoint`), opens the tracer's span ``remat.rerun``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import threading
+import types
 from typing import Callable
 
 import torch
 import torch.utils.checkpoint
 
 from mode_tpu_torch.parallel.mesh import activate, active_mesh
+from mode_tpu_torch.utils.profiling import span
 
 POLICIES = ("save_convs", "full")
 
@@ -89,6 +93,23 @@ def replaying() -> bool:
   return scope is not None and scope.runs > 1
 
 
+def checkpoint(fn: Callable, *args, scope=None):
+  """``fn(*args)`` under ``torch.utils.checkpoint`` (non reentrant): its
+  backward runs ``fn`` again, in a ``remat.rerun`` span. ``scope.runs``
+  counts the runs, where a rematerialised block's :class:`Scope` is
+  given."""
+  scope = scope if scope is not None else types.SimpleNamespace(runs=0)
+
+  def run(*a):
+    scope.runs += 1
+    if scope.runs == 1:
+      return fn(*a)
+    with span("remat.rerun"):
+      return fn(*a)
+
+  return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
 def rematerialise(fn: Callable, policy: str, *args, **kwargs):
   """``fn(*args, **kwargs)``, rematerialised under ``policy`` (module
   docstring). Without autograd recording it is just the call."""
@@ -97,7 +118,6 @@ def rematerialise(fn: Callable, policy: str, *args, **kwargs):
   scope = Scope(policy)
 
   def run(*a):
-    scope.runs += 1
     scope._next = 0
     prev = current()
     _state.scope = scope
@@ -107,7 +127,7 @@ def rematerialise(fn: Callable, policy: str, *args, **kwargs):
     finally:
       _state.scope = prev
 
-  return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+  return checkpoint(run, *args, scope=scope)
 
 
 def conv_output(compute: Callable[[], torch.Tensor]) -> torch.Tensor:

@@ -26,6 +26,11 @@ every rank takes the same Adam step. Building the step broadcasts rank 0's
 parameters and buffers once. Each rank's convs take the kernels as the
 single-card step takes them at the per-rank batch and the whole volume's
 shape.
+
+A step opens the tracer's spans (``utils/profiling.py``) ``step``, and
+inside it ``step.inputs`` (the mask, the inputs' normalisation or unpacking,
+``zero_grad``), ``step.forward``, ``step.loss``, ``step.backward``,
+``step.allreduce`` (under a mesh) and ``step.optimizer``.
 """
 
 from __future__ import annotations
@@ -37,13 +42,14 @@ from typing import Callable, Iterable, Sequence
 import torch
 from torch import nn
 
-from mode_tpu_torch.device import ieee_f32_convs
+from mode_tpu_torch.device import ieee_f32_convs, upload
 from mode_tpu_torch.models.blocks import (Conv3dWeight,
                                           ConvTranspose3dWeight, SphereConv)
 from mode_tpu_torch.parallel.mesh import (Mesh, activate,
                                           allreduce_gradients,
                                           broadcast_state, constrain_spatial)
 from mode_tpu_torch.utils.losses import disparity_deep_supervision, silog_loss
+from mode_tpu_torch.utils.profiling import span
 
 # ImageNet statistics (the JAX package's data/preprocess.py)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -69,7 +75,7 @@ def imagenet_stats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
   them waits on the device (an upload from pageable memory synchronises)."""
   mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32).double()
   inv_std = torch.tensor(IMAGENET_STD, dtype=torch.float32).reciprocal()
-  return mean.to(device), inv_std.to(device)
+  return upload(mean, device), upload(inv_std, device)
 
 
 def normalize_rgb_on_device(x: torch.Tensor,
@@ -137,7 +143,8 @@ def sync_gradients(model: torch.nn.Module, mesh: Mesh | None) -> None:
   """Average the gradients over the ranks of ``mesh`` (nothing without a
   process group)."""
   if mesh is not None and torch.distributed.is_initialized():
-    allreduce_gradients(model.parameters(), mesh)
+    with span("step.allreduce"):
+      allreduce_gradients(model.parameters(), mesh)
 
 
 def make_disparity_train_step(model: torch.nn.Module,
@@ -166,21 +173,27 @@ def make_disparity_train_step(model: torch.nn.Module,
 
   def step(left: torch.Tensor, right: torch.Tensor,
            disp_gt: torch.Tensor) -> torch.Tensor:
-    mask = ~torch.isnan(disp_gt)
-    gt = torch.where(mask, disp_gt, torch.zeros_like(disp_gt))
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs(), activate(mesh):
-      preds = model(normalize_rgb_on_device(left, compute_dtype),
-                    normalize_rgb_on_device(right, compute_dtype),
-                    plain=plain)
-      # this rank's rows under a spatial mesh, as the predictions are
-      gt, mask = (constrain_spatial(t, 1) for t in (gt, mask))
-      loss = disparity_deep_supervision(preds, gt, mask, mesh)
-      loss.backward()
-    sync_gradients(model, mesh)
-    optimizer.step()
-    return loss.detach()
+    with span("step"):
+      with span("step.inputs"):
+        mask = ~torch.isnan(disp_gt)
+        gt = torch.where(mask, disp_gt, torch.zeros_like(disp_gt))
+        left = normalize_rgb_on_device(left, compute_dtype)
+        right = normalize_rgb_on_device(right, compute_dtype)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+      with ieee_f32_convs(), activate(mesh):
+        with span("step.forward"):
+          preds = model(left, right, plain=plain)
+        with span("step.loss"):
+          # this rank's rows under a spatial mesh, as the predictions are
+          gt, mask = (constrain_spatial(t, 1) for t in (gt, mask))
+          loss = disparity_deep_supervision(preds, gt, mask, mesh)
+        with span("step.backward"):
+          loss.backward()
+      sync_gradients(model, mesh)
+      with span("step.optimizer"):
+        optimizer.step()
+      return loss.detach()
 
   return step
 
@@ -229,17 +242,24 @@ def make_fusion_train_step(model: torch.nn.Module,
   replicate(model, mesh)
 
   def step(depths, confs, rgbs, gt: torch.Tensor) -> torch.Tensor:
-    mask = gt <= max_depth
-    if raw_inputs:
-      depths, confs, rgbs = unpack_fusion_inputs(depths, confs, rgbs, dtype)
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    with ieee_f32_convs(), activate(mesh):
-      out = model(depths, confs, rgbs, plain=plain)
-      loss = silog_loss(SILOG_LAMBDA, out[..., 0], gt, mask, mesh)
-      loss.backward()
-    sync_gradients(model, mesh)
-    optimizer.step()
-    return loss.detach()
+    with span("step"):
+      with span("step.inputs"):
+        mask = gt <= max_depth
+        if raw_inputs:
+          depths, confs, rgbs = unpack_fusion_inputs(depths, confs, rgbs,
+                                                     dtype)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+      with ieee_f32_convs(), activate(mesh):
+        with span("step.forward"):
+          out = model(depths, confs, rgbs, plain=plain)
+        with span("step.loss"):
+          loss = silog_loss(SILOG_LAMBDA, out[..., 0], gt, mask, mesh)
+        with span("step.backward"):
+          loss.backward()
+      sync_gradients(model, mesh)
+      with span("step.optimizer"):
+        optimizer.step()
+      return loss.detach()
 
   return step

@@ -193,25 +193,20 @@ def test_read_scalars_refuses_a_corrupt_file(tmp_path):
 # ---- profiling
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
   with profiling.trace(str(tmp_path / "trace")) as prof:
-    with profiling.annotate("the step"):
+    with profiling.span("the step"):
       torch.ones(64, 64) @ torch.ones(64, 64)
   assert prof is not None
-  (name,) = os.listdir(tmp_path / "trace")
+  spans, name = sorted(os.listdir(tmp_path / "trace"))
   assert name.startswith("trace.") and name.endswith(".json")
+  assert spans == "spans." + name[len("trace."):]
   events = json.loads((tmp_path / "trace" / name).read_text())["traceEvents"]
   names = {e.get("name") for e in events}
   assert "the step" in names and "aten::mm" in names
+  summary = json.loads((tmp_path / "trace" / spans).read_text())["summary"]
+  assert summary["spans"]["the step"]["count"] == 1
   with profiling.trace(None) as prof:
     pass
   assert prof is None
-
-
-def test_step_timer_keeps_a_window():
-  timer = profiling.StepTimer(window=2)
-  for step in range(3):
-    timer.start()
-    timer.stop(step)
-  assert len(timer._times) == 2 and timer.mean_ms >= 0
 
 
 # ---- the init menu
