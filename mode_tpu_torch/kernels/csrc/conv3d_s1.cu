@@ -8,9 +8,16 @@
 // fold answered the TPU's 128-lane tiles; here the volume stays NDHWC with
 // the channels innermost, and one entry point serves every level.
 //
-// Two kernels behind the one entry point:
-//  * Cout > 1 (every conv of the hourglass stack): an implicit GEMM on the
-//    tensor cores, igemm_tc.cuh (wgmma; f32 as 3xTF32, bf16 directly).
+// Three kernels behind the one entry point:
+//  * bf16 with Cout 32 or 64 and Cin 32 or 64, unhaloed (every stride-1
+//    conv of the bf16 3-D stack but the heads; the caller passes box = 1):
+//    the box-tiled implicit GEMM of conv3d_box.cuh, which copies each input
+//    voxel into shared memory once per output box, not once per tap, and
+//    keeps the block's weight slice resident (that header's note says
+//    why).
+//  * Cout > 1 otherwise (f32, the halo forms, Cout 2-31 and past 64): an
+//    implicit GEMM on the tensor cores, igemm_tc.cuh (wgmma; f32 as
+//    3xTF32, bf16 directly).
 //    What bounds it: each output voxel costs 2*27*Cin*Cout flops (110
 //    kflop at 64 -> 32) against (Cin + Cout) values of compulsory traffic,
 //    far above the ridge point even at the 3xTF32 rate (495/3 = 165
@@ -35,9 +42,14 @@
 // along H: both kernels read it from an H origin of one row (tc::Shape's
 // h0; the head kernel's h0), and the output has two rows fewer than x.
 
+#include "conv3d_box.cuh"
 #include "igemm_tc.cuh"
 
 namespace {
+
+// The box kernel's output box depth (conv3d_box.cuh: TZ x 8 x 16 voxels)
+// by Cin: at Cin 64 the resident weight leaves room for boxes of depth 2.
+constexpr int BOX_TZ_CIN32 = 4, BOX_TZ_CIN64 = 2;
 
 template <typename T, int BM, int BN, bool HALOED>
 __global__ void __launch_bounds__(2 * BM)
@@ -202,13 +214,19 @@ template <typename T>
 cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
                    const float* scale, const float* bias, const void* res,
                    void* out, int nb, int d, int h, int w, int cin, int cout,
-                   int relu, int h_halo, cudaStream_t stream) {
+                   int relu, int h_halo, int box, cudaStream_t stream) {
   const int ho = h - 2 * h_halo;
   if (cout == 1) {
     return launch_head<T>(x, wbig, scale, bias, res, out, nb, d, ho, w, cin,
                           relu, h_halo, stream);
   }
   const tc::Shape s{nb, d, ho, w, cin, cout, 3, 1, d, h, w, h_halo};
+  if (box) {
+    return cin == 32 ? tcbox::launch<BOX_TZ_CIN32>(x, wbig, scale, bias, res,
+                                                   out, s, relu, stream)
+                     : tcbox::launch<BOX_TZ_CIN64>(x, wbig, scale, bias, res,
+                                                   out, s, relu, stream);
+  }
   return tc::dispatch<Kernels, T>(x, wbig, wsmall, scale, bias, res, out, s,
                                   relu, stream);
 }
@@ -220,19 +238,22 @@ cudaError_t launch(const void* x, const void* wbig, const void* wsmall,
 // its tf32 remainder (wbig + wsmall = w), else null (the head kernel takes
 // wbig as the whole weight); scale, bias: (cout,) f32; res (may be
 // null) and out: (nb, d, h - 2 h_halo, w, cout); h_halo 1: x's first and
-// last rows are halo rows (see the top). x, w*, res and out are f32
-// (bf16 == 0) or bf16 (bf16 == 1), 16-byte aligned. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
-// launching where the head kernel's Cin does not fit in shared memory or
-// the halo leaves no row.
+// last rows are halo rows (see the top); box 1: the box kernel (bf16,
+// h_halo 0, Cin and Cout 32 or 64). x, w*, res and out are f32 (bf16 ==
+// 0) or bf16 (bf16 == 1), 16-byte aligned. Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue without launching where the
+// head kernel's Cin does not fit in shared memory, the halo leaves no row
+// or the box kernel does not take the call.
 extern "C" int conv3d_s1_bn_act(int bf16, const void* x, const void* wbig,
                                 const void* wsmall, const void* scale,
                                 const void* bias, const void* res, void* out,
                                 int nb, int d, int h, int w, int cin,
-                                int cout, int relu, int h_halo,
+                                int cout, int relu, int h_halo, int box,
                                 void* stream) {
   if (cin % 8 != 0 || cout < 1 || (h_halo != 0 && h_halo != 1) ||
-      h - 2 * h_halo < 1) {
+      h - 2 * h_halo < 1 ||
+      (box != 0 && (box != 1 || !bf16 || h_halo || (cin != 32 && cin != 64) ||
+                    (cout != 32 && cout != 64)))) {
     return (int)cudaErrorInvalidValue;
   }
   const float* s = static_cast<const float*>(scale);
@@ -240,8 +261,8 @@ extern "C" int conv3d_s1_bn_act(int bf16, const void* x, const void* wbig,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       bf16 ? launch<__nv_bfloat16>(x, wbig, wsmall, s, b, res, out, nb, d, h,
-                                   w, cin, cout, relu, h_halo, st)
+                                   w, cin, cout, relu, h_halo, box, st)
            : launch<float>(x, wbig, wsmall, s, b, res, out, nb, d, h, w, cin,
-                           cout, relu, h_halo, st);
+                           cout, relu, h_halo, 0, st);
   return (int)e;
 }

@@ -16,7 +16,9 @@ an optional ReLU, and returns ``x.dtype``:
 
 On a CUDA tensor each function launches its kernel, all three on the
 tensor-core machinery of ``kernels/csrc/igemm_tc.cuh`` (the stride-1 conv:
-``conv3d_s1.cu``, with a kernel of its own for Cout 1; the stride-2 conv:
+``conv3d_s1.cu``, with a kernel of its own for Cout 1 and, for the bf16
+calls :func:`box_eligible` admits, the box-tiled kernel of
+``conv3d_box.cuh``; the stride-2 conv:
 ``conv3d_s2.cu``; the deconv: ``conv3d.cu``, its eight output parity
 phases walked one after another; each source's note says what bounds it
 and how it is built), or raises on an input the kernel does not take. On a
@@ -64,6 +66,7 @@ from mode_tpu_torch.ops import kmajor
 from mode_tpu_torch.ops.epilogue import affine, epilogue
 from mode_tpu_torch.ops.kmajor import TcWeight
 from mode_tpu_torch.parallel.mesh import Mesh, halo_planes
+from mode_tpu_torch.utils import profiling
 
 _S1, _S2, _DECONV = 0, 1, 2
 _NAMES = {_S1: "conv3d_s1_bn_act", _S2: "conv3d_s2_bn_act",
@@ -85,7 +88,7 @@ def _deconv3d_lib():
 def _conv3d_s1_lib():
   lib = build.load("conv3d_s1")
   lib.conv3d_s1_bn_act.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
   lib.conv3d_s1_bn_act.restype = ctypes.c_int
   return lib
 
@@ -108,6 +111,22 @@ SMEM_MAX = 232448
 
 def head_smem(cin: int, itemsize: int) -> int:
   return 2 * 340 * (cin * itemsize + 16) + 27 * cin * 4
+
+
+# The channel counts the box kernel takes: its weight slice (27 x Cin x 32
+# bf16, 110 KB at Cin 64) stays in shared memory beside two input boxes.
+BOX_CHANNELS = (32, 64)
+
+
+def box_eligible(dtype: torch.dtype, cin: int, cout: int,
+                 h_halo: bool = False) -> bool:
+  """Whether a stride-1 call runs on the box kernel
+  (``conv3d_s1.cu``'s ``box`` flag): bf16, unhaloed, Cin and Cout 32 or
+  64. Everything else (f32, the halo forms, the Cout-1 head, other
+  widths) stays on the tile kernel of ``igemm_tc.cuh`` or the head
+  kernel."""
+  return (dtype == torch.bfloat16 and not h_halo and cin in BOX_CHANNELS
+          and cout in BOX_CHANNELS)
 
 
 def pack_weight(weight: torch.Tensor, transpose: bool = False
@@ -206,10 +225,11 @@ def _check_residual(name, x, residual, shape):
 
 
 def _launch(mode, x, weight, scale, bias, residual, relu, h_halo=False):
-  """The stride-1 conv on ``conv3d_s1.cu`` (the tensor-core kernel, or the
-  head kernel for Cout 1), the stride-2 conv on ``conv3d_s2.cu``, the
-  deconv on ``conv3d.cu``; each C entry takes x's extents and the halo
-  flag."""
+  """The stride-1 conv on ``conv3d_s1.cu`` (the box kernel where
+  :func:`box_eligible`, else the tensor-core kernel, or the head kernel for
+  Cout 1), the stride-2 conv on ``conv3d_s2.cu``, the deconv on
+  ``conv3d.cu``; each C entry takes x's extents and the halo flag, the
+  stride-1 conv's the box flag too."""
   name = _NAMES[mode]
   if x.dim() != 5 or x.dtype not in _DTYPES or not x.is_contiguous():
     raise ValueError(f"{name}: x must be a contiguous f32 or bf16 NDHWC "
@@ -237,13 +257,18 @@ def _launch(mode, x, weight, scale, bias, residual, relu, h_halo=False):
     kernels.launch(name, _conv3d_s2_lib().conv3d_s2_bn_act, x.device, flag,
                    *ptrs, out.data_ptr(), *extents, halo=h_halo,
                    shape=extents[:6])
+  elif deconv:
+    kernels.launch(name, _deconv3d_lib().deconv3d_bn_act, x.device, flag,
+                   *ptrs, None if residual is None else residual.data_ptr(),
+                   out.data_ptr(), *extents, halo=h_halo, shape=extents[:6])
   else:
-    fn = (_deconv3d_lib().deconv3d_bn_act if deconv
-          else _conv3d_s1_lib().conv3d_s1_bn_act)
-    kernels.launch(name, fn, x.device, flag, *ptrs,
-                   None if residual is None else residual.data_ptr(),
-                   out.data_ptr(), *extents, halo=h_halo,
+    box = box_eligible(x.dtype, cin, cout, h_halo)
+    kernels.launch(name, _conv3d_s1_lib().conv3d_s1_bn_act, x.device, flag,
+                   *ptrs, None if residual is None else residual.data_ptr(),
+                   out.data_ptr(), *extents, int(box), halo=h_halo, box=box,
                    shape=extents[:6])
+    if box:
+      profiling.count("conv3d_s1.box")
   return out
 
 

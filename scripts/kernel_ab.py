@@ -10,15 +10,18 @@ checkout, e.g. the parent commit unpacked with ``git archive``, times its
 own kernels), builds its 3-D and 2-D conv sources, and times each kernel
 through its public wrapper (the unsharded call, which every commit has) at
 the whole-volume shapes of a 1024x512 pair: the stride-1 conv at the 1/4,
-1/8 and 1/16 levels and its Cout-1 head, the stride-2 conv, the deconv at
-both levels; and the 2-D conv (K8/K9) at the feature extractor's batch-6
-shape, the Sphere stem at batch 1 (``sphere_b1``), the training step's
-batch-2 shapes (``train_b2``) and the fusion net's 1024x512 levels; f32
-and bf16, CUDA events over at least ``REPS`` launches and ``WINDOW_MS`` of
-device time after a warm-up, the fastest of ``ROUNDS`` rounds. Prints the
-card, one JSON line ``{case: ms}`` and one of the 2-D source's registers
-per unsharded kernel (``ptxas -v`` in its build log, keyed by the
-kernel's tile and dtype: the parent's and a change's must agree).
+1/8 and 1/16 levels and its Cout-1 head (and at the stage-1 training
+step's batch 16 of 512x256 pairs: the 1/4, 1/8 and 1/16 levels and the
+grad-input of dres0's first conv, 32 -> 64 at 1/4), the stride-2 conv, the
+deconv at both levels; and the 2-D conv (K8/K9) at the feature extractor's
+batch-6 shape, the Sphere stem at batch 1 (``sphere_b1``), the training
+step's batch-2 shapes (``train_b2``) and the fusion net's 1024x512 levels;
+f32 and bf16, CUDA events over at least ``REPS`` launches and
+``WINDOW_MS`` of device time after a warm-up, the fastest of ``ROUNDS``
+rounds. Prints the card, one JSON line ``{case: ms}`` and one of the 2-D
+source's registers per unsharded kernel (``ptxas -v`` in its build log,
+keyed by the kernel's tile and dtype: the parent's and a change's must
+agree).
 Run the two checkouts in turns (A, B, B, A) in one call. Arguments, if
 any, keep only the cases whose name starts with one of them (``s1``,
 ``s2``, ``deconv``, ``2d``).
@@ -42,7 +45,12 @@ ROUNDS = 3
 # (kernel, x shape (NDHWC / NHWC), Cout)
 CASES = [("s1", (1, 48, 256, 128, 32), 32), ("s1", (1, 48, 256, 128, 64), 32),
          ("s1", (1, 24, 128, 64, 64), 64), ("s1", (1, 12, 64, 32, 64), 64),
-         ("s1", (1, 48, 256, 128, 32), 1), ("s2", (1, 48, 256, 128, 32), 64),
+         ("s1", (1, 48, 256, 128, 32), 1),
+         # the 3D60 training step at batch 16: 1/4 (64 -> 32, 32 -> 32, the
+         # grad-input 32 -> 64), 1/8 and 1/16
+         ("s1", (16, 48, 128, 64, 64), 32), ("s1", (16, 48, 128, 64, 32), 32),
+         ("s1", (16, 48, 128, 64, 32), 64), ("s1", (16, 24, 64, 32, 64), 64),
+         ("s1", (16, 12, 32, 16, 64), 64), ("s2", (1, 48, 256, 128, 32), 64),
          ("s2", (1, 24, 128, 64, 64), 64), ("deconv", (1, 12, 64, 32, 64), 64),
          ("deconv", (1, 24, 128, 64, 64), 32), ("2d", (6, 128, 64, 64), 64),
          # K8 at the stem (sphere_b1), K9 at train_b2's feature extractor,

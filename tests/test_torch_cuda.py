@@ -7,7 +7,10 @@ tables have a drop column; the tensor-core kernels at the production
 shapes of the stride-2 conv and the sphere convs, and the strided
 training grad-inputs; the deconv's tensor-core kernel at the K5 and K7
 shapes and its C entry's refusal of a Cin off its 16-byte copies; the
-head kernel's refusal of a Cin past shared memory; the stage-1 model
+head kernel's refusal of a Cin past shared memory; the bf16 box kernel of
+the stride-1 conv at ragged shapes and at the cells' levels, as the
+training's grad-input at Cout 64, and the launches that do not take it;
+the stage-1 model
 (Cassini and ERP) at batch 2 against its plain path; the sphere conv's
 two backward kernels in both layouts, the layer-4 shapes of a batch-2
 step and a 16-lane dw stage included, and the two kernels' refusals; the
@@ -277,6 +280,116 @@ def test_conv3d_s1_tensor_core_kernels_match_plain(gen, x_shape, cout, res,
   _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("x_shape,cout,res,relu", [
+    ((1, 2, 8, 16, 32), 32, False, False),     # one output box, exactly
+    ((1, 3, 9, 17, 32), 32, True, True),       # ragged D, H, W: every edge
+    ((2, 4, 16, 16, 64), 32, True, True),      # dres0's 64 -> 32, batch 2
+    ((1, 5, 7, 8, 64), 64, True, False),       # W under the box, Cout 64
+    ((6, 3, 8, 4, 32), 32, False, True),       # batch 6, W 4
+    ((1, 48, 256, 128, 32), 32, True, True),   # the frame's 1/4 level
+    ((1, 24, 128, 64, 64), 64, True, True),    # its 1/8 level (conv2)
+    ((6, 12, 64, 32, 64), 64, False, True),    # its 1/16 level at batch 6
+    ((16, 12, 32, 16, 64), 64, False, True),   # 3D60's 1/16 at batch 16
+    ((16, 6, 32, 64, 32), 64, False, False),   # a 3D60 grad-input's 32 -> 64
+])
+def test_conv3d_s1_box_kernel_matches_plain(gen, x_shape, cout, res, relu):
+  """The box kernel (``conv3d_box.cuh``) takes every bf16 call with Cin and
+  Cout 32 or 64 and matches the plain version at the bf16 bar, with and
+  without a residual and a ReLU, at ragged shapes and at the cells'
+  levels; each launch counts once as a box launch."""
+  cin = x_shape[-1]
+  dtype = torch.bfloat16
+  x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+  w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+  scale = torch.randn(cout, generator=gen, device="cuda") * 0.3 + 1
+  bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+  r = (torch.randn((*x_shape[:4], cout), generator=gen, device="cuda")
+       .to(dtype) if res else None)
+  packed = C.pack_weight_tc(w)
+  kernels.reset_launches()
+  got = C.conv3d_s1_bn_act(x, packed, scale, bias, r, relu)
+  want = C.conv3d_s1_bn_act(x, w, scale, bias, r, relu, plain=True)
+  torch.cuda.synchronize()
+  assert dict(kernels.LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert dict(kernels.BOX_LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert got.dtype == dtype and got.shape == want.shape
+  _close(got, want, dtype)
+
+
+def test_box_kernel_runs_the_grad_input_at_cout_64(gen):
+  """The training Function's stride-1 grad-input of a 64 -> 32 conv (dres0's
+  first) is a 32 -> 64 conv with the flipped, io-swapped weight: in bf16
+  both the forward and the grad-input take the box kernel, and match the
+  plain Function's."""
+  x = torch.randn((2, 8, 32, 16, 64), generator=gen,
+                  device="cuda").to(torch.bfloat16)
+  w = (torch.randn((32, 64, 3, 3, 3), generator=gen, device="cuda")
+       * (2.0 / (27 * 64)) ** 0.5).to(torch.bfloat16)
+  g = torch.randn((2, 8, 32, 16, 32), generator=gen,
+                  device="cuda").to(torch.bfloat16)
+  out = {}
+  for plain in (False, True):
+    xr = x.clone().requires_grad_()
+    kernels.reset_launches()
+    y = C.conv3d_train(xr, w, 1, plain=plain)
+    y.backward(g)
+    torch.cuda.synchronize()
+    out[plain] = (y, xr.grad)
+    if not plain:
+      assert dict(kernels.BOX_LAUNCHES) == {"conv3d_s1_bn_act": 2}
+  _close(out[False][0], out[True][0], torch.bfloat16)
+  _close(out[False][1], out[True][1], torch.bfloat16)
+
+
+def test_box_launches_are_exactly_the_eligible_ones(gen):
+  """f32, the halo form, Cout 1 (the head kernel) and Cout 8 run without
+  the box kernel; the eligible bf16 calls run on it, counted once each,
+  and the tracer counts them as ``conv3d_s1.box`` in their span; the C
+  entry refuses the box flag on a call the kernel does not take."""
+  from mode_tpu_torch.utils import profiling
+  def run(dtype, cin, cout, halo=False):
+    x = torch.randn((1, 2, 6, 16, cin), generator=gen,
+                    device="cuda").to(dtype)
+    w = (torch.randn((cout, cin, 3, 3, 3), generator=gen, device="cuda")
+         * 0.05).to(dtype)
+    got = C.conv3d_s1_bn_act(x, w, relu=True, h_halo=halo)
+    _close(got, C.conv3d_s1_bn_act(x, w, relu=True, h_halo=halo,
+                                   plain=True), dtype)
+  kernels.reset_launches()
+  profiling.reset()
+  with profiling.tracing():
+    with profiling.span("stage1.aggregation"):
+      run(torch.float32, 32, 32)
+      run(torch.bfloat16, 32, 32, halo=True)
+      run(torch.bfloat16, 32, 1)
+      run(torch.bfloat16, 32, 8)
+      assert not kernels.BOX_LAUNCHES
+      run(torch.bfloat16, 32, 32)
+      run(torch.bfloat16, 64, 64)
+  torch.cuda.synchronize()
+  counters = profiling.summary()["counters"]
+  profiling.reset()
+  assert kernels.LAUNCHES["conv3d_s1_bn_act"] == 6
+  assert dict(kernels.HALO_LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert dict(kernels.BOX_LAUNCHES) == {"conv3d_s1_bn_act": 2}
+  assert counters == [{"name": "conv3d_s1.box", "span": "stage1.aggregation",
+                       "n": 2}]
+  x = torch.randn((1, 2, 6, 16, 32), generator=gen, device="cuda")
+  out = torch.empty((1, 2, 6, 16, 32), device="cuda")
+  tw = C.pack_weight_tc(torch.randn((32, 32, 3, 3, 3), generator=gen,
+                                    device="cuda"))
+  one = torch.ones(32, device="cuda")
+  for bf16, cin, halo in ((0, 32, 0), (1, 32, 1), (1, 16, 0)):
+    err = C._conv3d_s1_lib().conv3d_s1_bn_act(
+        bf16, x.data_ptr(), tw.parts[0].data_ptr(), tw.parts[1].data_ptr(),
+        one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(),
+        1, 2, 6, 16, cin, 32, 0, halo, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1                                    # cudaErrorInvalidValue
+  torch.cuda.synchronize()
+
+
 def test_head_kernel_refuses_a_cin_past_shared_memory(gen):
   """The Cout-1 head kernel needs 2 x 340 x (Cin itemsize + 16) + 108 Cin
   bytes of shared memory: past 227 KB (f32 Cin >= 80, bf16 Cin >= 152)
@@ -301,7 +414,7 @@ def test_head_kernel_refuses_a_cin_past_shared_memory(gen):
     err = C._conv3d_s1_lib().conv3d_s1_bn_act(
         int(dtype == torch.bfloat16), x.data_ptr(), tw.parts[0].data_ptr(),
         None, one.data_ptr(), (0 * one).data_ptr(), None, out.data_ptr(),
-        1, 3, 4, 5, past, 1, 0, 0, torch.cuda.current_stream().cuda_stream)
+        1, 3, 4, 5, past, 1, 0, 0, 0, torch.cuda.current_stream().cuda_stream)
     assert err == 1                                    # cudaErrorInvalidValue
   torch.cuda.synchronize()
 

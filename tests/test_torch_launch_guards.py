@@ -12,6 +12,9 @@
    any launch; the tensor-core deconv's wrapper refuses what its 16-byte
    copies and its K-major weight cannot take, and raises, uncounted, when
    its C entry refuses a launch.
+4. Flags: the halo forms and the regression's row window reach their C
+   entries and count apart; the stride-1 conv hands its C entry the box
+   flag (``ops/conv3d.py:box_eligible``) and counts box launches apart.
 """
 
 import contextlib
@@ -26,6 +29,7 @@ from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
 from mode_tpu_torch.ops import regression as R
 from mode_tpu_torch.ops import sphere_conv as S
+from mode_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -356,12 +360,53 @@ def test_halo_launches_pass_the_flag_and_count_apart(guard, name, mode,
   for halo in (True, False):
     out = C._launch(mode, x, w, one, 0 * one, None, False, halo)
     assert guard.calls[-1][0] == name
-    assert guard.entry_args[-1][-9:-1] == (*x_shape[:4], 16, 16, 0,
-                                           int(halo))
+    args = guard.entry_args[-1]
+    if mode == C._S1:      # the stride-1 entry's last int: the box flag
+      assert args[-2] == 0
+      args = args[:-1]
+    assert args[-9:-1] == (*x_shape[:4], 16, 16, 0, int(halo))
     if halo:
       assert tuple(out.shape) == out_shape
   assert dict(kernels.LAUNCHES) == {name: 2}
   assert dict(kernels.HALO_LAUNCHES) == {name: 1}
+
+
+@pytest.mark.parametrize("dtype,cin,cout,halo,box", [
+    (torch.bfloat16, 32, 32, False, True),
+    (torch.bfloat16, 64, 32, False, True),
+    (torch.bfloat16, 32, 64, False, True),
+    (torch.bfloat16, 64, 64, False, True),
+    (torch.bfloat16, 32, 32, True, False),     # the halo form
+    (torch.float32, 32, 32, False, False),     # f32: 3xTF32 on conv_body
+    (torch.bfloat16, 32, 8, False, False),     # Cout 8: conv_body
+    (torch.bfloat16, 32, 1, False, False),     # Cout 1: the head kernel
+    (torch.bfloat16, 16, 32, False, False)])   # Cin 16: conv_body
+def test_box_launches_pass_the_flag_and_count_apart(guard, dtype, cin, cout,
+                                                    halo, box):
+  """The stride-1 wrapper hands ``box_eligible``'s answer to its C entry
+  as the last int before the stream, and counts a box launch in
+  ``BOX_LAUNCHES`` and, while the tracer is on, as the counter
+  ``conv3d_s1.box`` of the innermost open span; every other call counts
+  in neither."""
+  x = torch.randn((1, 2, 6, 4, cin)).to(dtype)
+  w = torch.randn((cout, cin, 3, 3, 3)).to(dtype)
+  one = torch.ones(cout)
+  profiling.reset()
+  with profiling.tracing():
+    with profiling.span("stage1.aggregation"):
+      C._launch(C._S1, x, w, one, 0 * one, None, True, halo)
+  counters = profiling.summary()["counters"]
+  profiling.reset()
+  assert guard.calls[-1][0] == "conv3d_s1_bn_act"
+  assert guard.entry_args[-1][-2] == int(box)
+  assert dict(kernels.LAUNCHES) == {"conv3d_s1_bn_act": 1}
+  assert dict(kernels.HALO_LAUNCHES) == ({"conv3d_s1_bn_act": 1} if halo
+                                         else {})
+  assert dict(kernels.BOX_LAUNCHES) == ({"conv3d_s1_bn_act": 1} if box
+                                        else {})
+  assert counters == ([{"name": "conv3d_s1.box",
+                        "span": "stage1.aggregation", "n": 1}] if box
+                      else [])
 
 
 def test_conv2d_halo_launch_passes_the_flag_and_counts_apart(guard):

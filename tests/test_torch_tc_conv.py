@@ -24,12 +24,21 @@ kernels themselves on the card (``tests/test_torch_cuda.py``,
    kernel rounds it) and the epilogue's scatter in the Cassini and ERP
    output orders rebuild the port's plain ``sphere_conv``, with tiles that
    end at a band edge and tiles that span two bands.
+4. The box walk of the bf16 stride-1 conv (``conv3d_box.cuh``): the
+   producer's box and weight copies, each tap's window read in place
+   through a descriptor without swizzle, the persistent blocks' tiles and
+   the epilogue rebuild the conv exactly; its shared memory, descriptor
+   fields and barrier hand-over; and which launches of the benchmark's
+   cells take it (``ops/conv3d.py:box_eligible``).
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
+from mode_tpu_torch.kernels.build import CSRC_DIR
 from mode_tpu_torch.ops import conv2d as C2
 from mode_tpu_torch.ops import conv3d as C
 from mode_tpu_torch.ops import kmajor
@@ -606,6 +615,299 @@ def _head_plane_walk(h0):
   else:
     want = (_im2col(x, _taps(3, 1)) @ wt.reshape(-1)).reshape(d, h, w)
   assert np.array_equal(out, want)
+
+
+# --- the box walk (conv3d_box.cuh) ------------------------------------------
+# The box kernel's geometry: an output box of TZ x 8 x 16 voxels (D, H, W)
+# times 32 output channels, two consumer warpgroups, m64 tiles of 8 rows of
+# H x 8 voxels of W, the input box 16 bytes a voxel in four 8-channel planes.
+BOX_TY, BOX_TX, BOX_BN, BOX_NWG = 8, 16, 32, 2
+BOX_PY, BOX_PX = BOX_TY + 2, BOX_TX + 2
+BOX_TZ = {32: 4, 64: 2}   # conv3d_s1.cu's depth by Cin
+
+
+def _box_plane(tz):
+  """``Box<TZ>::PLANE``: one 8-channel plane of the input box in bytes,
+  16 bytes a voxel, rounded up to the 128 bytes a bulk copy's destination
+  is aligned to."""
+  nvox = (tz + 2) * BOX_PY * BOX_PX
+  return -(-nvox * 16 // 128) * 128
+
+
+def _box_smem(tz, nkc):
+  """``smem_bytes<TZ>(nkc)``: alignment slack, the resident weight (27 x
+  nkc tiles of 32 rows x 64 bytes), two input boxes."""
+  return 1024 + 27 * nkc * BOX_BN * 64 + 2 * 4 * _box_plane(tz)
+
+
+def _box_grid(shape, cout, tz, sms=SMS):
+  """``tcbox::launch``'s grid: (blocks a column slice, column slices) and
+  the tile count."""
+  n, d, h, w = shape[:4]
+  ntiles = n * -(-d // tz) * -(-h // BOX_TY) * -(-w // BOX_TX)
+  nblk = cout // BOX_BN
+  return min(ntiles, max(1, sms // nblk)), nblk, ntiles
+
+
+def _box_origin(t, shape, tz):
+  """``Walk::origin``: the output box of tile t, W fastest, then H, D,
+  batch."""
+  n, d, h, w = shape[:4]
+  nz, ny, nx = -(-d // tz), -(-h // BOX_TY), -(-w // BOX_TX)
+  x0 = t % nx * BOX_TX
+  t //= nx
+  y0 = t % ny * BOX_TY
+  t //= ny
+  return t // nz, t % nz * tz, y0, x0
+
+
+def _interleave_read(start, r, k, lbo, sbo):
+  """The byte wgmma reads for row r, K index k (bf16) of an A operand
+  through a K-major descriptor without swizzle at ``start``: core matrices
+  of 8 rows x 16 bytes, the next 8 rows SBO bytes on, the next 8 K values
+  LBO bytes on."""
+  return start + (r // 8) * sbo + (r % 8) * 16 + (k // 8) * lbo + (k % 8) * 2
+
+
+def _walk_box(x, wk, tz, sms=SMS):
+  """The box kernel's walk over one call, in f64 (bf16 values are exact in
+  it): the copies of the weight and each step's four TMA boxes of the
+  input box (8 channels x PX x PY x TZ + 2 voxels from (z0 - 1, y0 - 1,
+  x0 - 1), zero outside the volume) into shared memory, each consumer
+  warpgroup's A windows through the INTERLEAVE descriptor and B through the
+  64-byte-swizzled one, the products over the whole K, and the epilogue's
+  scatter of each tile's fragments. x (N, D, H, W, Cin), Cin 32 or 64; wk
+  the K-major weight (27, Cout, Cin), Cout 32 or 64."""
+  n, d, h, w, cin = x.shape
+  cout = wk.shape[1]
+  nkc = cin // BK
+  plane = _box_plane(tz)
+  nvox = (tz + 2) * BOX_PY * BOX_PX
+  w_tile = BOX_BN * 64
+  wbytes = 27 * nkc * w_tile
+  gx, nblk, ntiles = _box_grid(x.shape, cout, tz, sms)
+  xf, wf = x.reshape(-1), wk.reshape(-1)
+  out = np.full((n, d, h, w, cout), np.nan)
+  zw, xh_n = tz // BOX_NWG, BOX_TX // 8
+  # every voxel of the box and the input voxel it holds
+  v = np.arange(nvox)
+  bz, r = divmod(v, BOX_PY * BOX_PX)
+  by, bx = divmod(r, BOX_PX)
+  covered = np.zeros(ntiles * nblk, int)
+  for blk_y in range(nblk):
+    n0 = blk_y * BOX_BN
+    for blk_x in range(gx):
+      smem = np.full((wbytes + 2 * 4 * plane) // 2, np.nan)
+      # the weight, once a block: tile (tap, kc) row nn, chunk c
+      for i in range(27 * nkc * BOX_BN * 4):
+        c, nn, tk = i & 3, i // 4 % BOX_BN, i // (4 * BOX_BN)
+        tap, kc = divmod(tk, nkc)
+        src = (tap * cout + n0 + nn) * cin + kc * BK + c * 8
+        dst = (tk * w_tile + _swizzle(nn, c, 64)) // 2
+        smem[dst:dst + 8] = wf[src:src + 8]
+      b_tiles = {}
+      kb = np.arange(BK) * 2
+      for tk in range(27 * nkc):
+        b_tiles[tk] = np.stack([smem[[_desc_read(tk * w_tile, nn, int(k), 64)
+                                      // 2 for k in kb]]
+                                for nn in range(BOX_BN)])
+      mine = (ntiles - 1 - blk_x) // gx + 1 if blk_x < ntiles else 0
+      acc = np.zeros((BOX_NWG, zw * xh_n, 64, BOX_BN))
+      for j in range(mine * nkc):
+        t, kc = blk_x + j // nkc * gx, j % nkc
+        buf = j & 1
+        b, z0, y0, x0 = _box_origin(t, x.shape, tz)
+        # the TMA boxes: plane c holds voxel v's channels 8 c ... 8 c + 7
+        base = wbytes + buf * 4 * plane
+        z, y, xx = z0 - 1 + bz, y0 - 1 + by, x0 - 1 + bx
+        ok = (z >= 0) & (z < d) & (y >= 0) & (y < h) & (xx >= 0) & (xx < w)
+        for c in range(4):
+          vals = np.zeros((nvox, 8))
+          src = (((b * d + z[ok]) * h + y[ok]) * w + xx[ok]) * cin + kc * BK
+          vals[ok] = xf[src[:, None] + c * 8 + np.arange(8)]
+          dst = (base + c * plane + v * 16) // 2
+          smem[dst[:, None] + np.arange(8)] = vals
+        # each warpgroup's tiles: 27 taps x 2 k16 steps
+        for wg in range(BOX_NWG):
+          start0 = base + wg * zw * BOX_PY * BOX_PX * 16
+          for ti in range(zw * xh_n):
+            for tap in range(27):
+              kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
+              vo = ((ti // xh_n + kd) * BOX_PY + kh) * BOX_PX + (
+                  ti % xh_n) * 8 + kw
+              for kk in range(2):
+                start = start0 + vo * 16 + kk * 2 * plane
+                rr, k = np.meshgrid(np.arange(64), np.arange(16),
+                                    indexing="ij")
+                a = smem[_interleave_read(start, rr, k, plane,
+                                          BOX_PX * 16) // 2]
+                bt = b_tiles[tap * nkc + kc][:, 16 * kk:16 * kk + 16]
+                assert not np.isnan(a).any() and not np.isnan(bt).any()
+                acc[wg, ti] += a @ bt.T
+        if kc != nkc - 1:
+          continue
+        covered[blk_y * ntiles + t] += 1
+        # the epilogue: fragment element 4 jn + 2 hh + e of (warp, lane)
+        for wg in range(BOX_NWG):
+          for ti in range(zw * xh_n):
+            zo = z0 + wg * zw + ti // xh_n
+            for warp in range(4):
+              for lane in range(32):
+                xo = x0 + ti % xh_n * 8 + lane // 4
+                for hh in range(2):
+                  yo = y0 + 2 * warp + hh
+                  if zo >= d or yo >= h or xo >= w:
+                    continue
+                  rrow = 16 * warp + lane // 4 + 8 * hh
+                  for jn in range(BOX_BN // 8):
+                    for e in range(2):
+                      col = 8 * jn + 2 * (lane % 4) + e
+                      assert np.isnan(out[b, zo, yo, xo, n0 + col])
+                      out[b, zo, yo, xo, n0 + col] = acc[wg, ti, rrow, col]
+        acc[:] = 0
+  assert (covered == 1).all()
+  return out
+
+
+@pytest.mark.parametrize("tz", [2, 4])
+@pytest.mark.parametrize("x_shape,cout,sms", [
+    ((1, 2, 8, 16, 32), 32, 1),      # one box, exactly
+    ((1, 3, 9, 17, 32), 32, 3),      # ragged D, H and W: boxes past each edge
+    ((2, 2, 5, 8, 64), 32, 2),       # W under TX, Cin 64, batch 2
+    ((1, 2, 8, 12, 32), 64, 4),      # Cout 64: two column slices
+    ((6, 1, 3, 5, 32), 32, 5),       # batch 6, D 1, H and W under the box
+])
+def test_box_walk_rebuilds_the_conv(x_shape, cout, sms, tz):
+  """The box kernel's walk (conv3d_box.cuh): box origins and halo offsets,
+  each tap's shifted window read in place through the INTERLEAVE
+  descriptor, the zero fill past every edge, the A rows (8 rows of H x 8
+  voxels of W), the resident weight tiles, the persistent blocks' tiles
+  and the epilogue's fragment rows rebuild the f64 conv exactly on
+  integer-valued inputs; every output written once, every tile of every
+  column slice walked once."""
+  rng = np.random.default_rng(11)
+  cin = x_shape[-1]
+  x = rng.integers(-4, 5, x_shape).astype(np.float64)
+  wk = rng.integers(-4, 5, (27, cout, cin)).astype(np.float64)
+  got = _walk_box(x, wk, tz, sms)
+  want = (_im2col(x, _taps(3, 1)) @ wk.transpose(0, 2, 1).reshape(-1, cout)
+          ).reshape(*x_shape[:4], cout)
+  assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+def test_box_walk_covers_3d60s_smallest_level(batch):
+  """3D60's 1/16 level, 12 x 32 x 16 voxels (W one box wide), at batch 1
+  and at the training's batch 16 over two blocks: each output voxel of
+  every batch index gets its own conv."""
+  rng = np.random.default_rng(12)
+  x = rng.integers(-2, 3, (batch, 12, 32, 16, 32)).astype(np.float64)
+  if batch > 1:
+    x = x[:, :2, :8]        # the walk's cost in Python: two planes, a box
+  wk = rng.integers(-2, 3, (27, 32, 32)).astype(np.float64)
+  got = _walk_box(x, wk, BOX_TZ[32], 2)
+  want = (_im2col(x, _taps(3, 1)) @ wk.transpose(0, 2, 1).reshape(-1, 32)
+          ).reshape(*x.shape[:4], 32)
+  assert np.array_equal(got, want)
+
+
+def test_box_kernel_constants_match_the_model():
+  """The model's geometry is the source's: conv3d_box.cuh's tile, warp
+  groups and column width, conv3d_s1.cu's box depth."""
+  src = (CSRC_DIR / "conv3d_box.cuh").read_text()
+  assert re.search(r"constexpr int TY = (\d+), TX = (\d+);", src).groups() \
+      == (str(BOX_TY), str(BOX_TX))
+  assert re.search(r"constexpr int BN = (\d+);", src)[1] == str(BOX_BN)
+  assert re.search(r"constexpr int NWG = (\d+);", src)[1] == str(BOX_NWG)
+  s1 = (CSRC_DIR / "conv3d_s1.cu").read_text()
+  assert re.search(r"constexpr int BOX_TZ_CIN32 = (\d+), BOX_TZ_CIN64 = "
+                   r"(\d+);", s1).groups() == tuple(
+                       str(BOX_TZ[cin]) for cin in (32, 64))
+
+
+@pytest.mark.parametrize("tz", [2, 4])
+def test_box_shared_memory_and_descriptor_fields(tz):
+  """The box kernel's shared memory fits the card at Cin 32 and 64 at depth
+  2 (``max_nkc``: 2), at depth 4 at Cin 32 only; a plane holds whole
+  voxels and starts 128-byte aligned, as a bulk tensor copy's destination
+  must; each TMA box's bytes (the mbarrier's expected count) fill its
+  plane's voxels; LBO (a plane) and every descriptor address fit their
+  14-bit fields."""
+  plane = _box_plane(tz)
+  nvox = (tz + 2) * BOX_PY * BOX_PX
+  assert plane % 128 == 0 and nvox * 16 <= plane < nvox * 16 + 128
+  assert 8 * BOX_PX * BOX_PY * (tz + 2) * 2 == nvox * 16
+  assert plane // 16 < 2 ** 14
+  fits = {nkc: _box_smem(tz, nkc) <= C.SMEM_MAX for nkc in (1, 2)}
+  assert fits == ({1: True, 2: True} if tz == 2 else {1: True, 2: False})
+  assert _box_smem(tz, 2 if tz == 2 else 1) < 2 ** 18
+
+
+def test_box_barriers_balance():
+  """The producer/consumer hand-over (conv3d_box.cuh): over any count of
+  steps, each named barrier's arrivals and waits pair up generation by
+  generation (the producer waits EMPTY of step j - 2 before refilling a
+  buffer, and the last two at the end), so no barrier is left half used."""
+  for nsteps in range(0, 9):
+    producer = {"FULL": [0, 0], "EMPTY": [0, 0]}
+    consumer = {"FULL": [0, 0], "EMPTY": [0, 0]}
+    for j in range(nsteps):
+      if j >= 2:
+        producer["EMPTY"][j & 1] += 1
+      producer["FULL"][j & 1] += 1
+    for j in range(max(nsteps - 2, 0), nsteps):
+      producer["EMPTY"][j & 1] += 1
+    for j in range(nsteps):
+      consumer["FULL"][j & 1] += 1
+      consumer["EMPTY"][j & 1] += 1
+    assert producer == consumer
+
+
+# The K1 launches of the benchmark's three cells: (x shape, Cout), bf16.
+# The frame (stage 1 at batch 6, 1024x512): dres0's 64->32 and 32->32,
+# dres1's two, the classifiers' 32->32 at 1/4; each hourglass's conv2 at
+# 1/8 and conv4 at 1/16; the three Cout-1 heads.
+FRAME_K1 = ([((6, 48, 256, 128, 64), 32)] + [((6, 48, 256, 128, 32), 32)] * 6
+            + [((6, 24, 128, 64, 64), 64)] * 3 + [((6, 12, 64, 32, 64), 64)] * 3
+            + [((6, 48, 256, 128, 32), 1)] * 3)
+# 3D60 training (batch 16, 512x256): the forward at 1/4 and the stride-1
+# grad-inputs with flipped, io-swapped weights (dres0's first: 32 -> 64);
+# the 1/8 and 1/16 shapes the trainer's eval forward runs.
+TRAIN_3D60_K1 = [((16, 48, 128, 64, 64), 32), ((16, 48, 128, 64, 32), 32),
+                 ((16, 48, 128, 64, 32), 64), ((16, 24, 64, 32, 64), 64),
+                 ((16, 12, 32, 16, 64), 64), ((16, 48, 128, 64, 32), 1)]
+
+
+@pytest.mark.parametrize("cell", ["frame", "train_3d60"])
+def test_box_path_takes_every_bf16_k1_launch_of_the_cells(cell):
+  """``ops/conv3d.py:box_eligible`` at every K1 shape of the cells: each
+  bf16 launch with Cout 32 or 64 takes the box kernel, the Cout-1 heads
+  stay on the head kernel; the same shapes in f32, and under a spatial
+  halo, stay on conv_body; the fusion cell runs no K1."""
+  shapes = FRAME_K1 if cell == "frame" else TRAIN_3D60_K1
+  for x_shape, cout in shapes:
+    cin = x_shape[-1]
+    assert C.box_eligible(torch.bfloat16, cin, cout) == (cout != 1)
+    assert not C.box_eligible(torch.float32, cin, cout)
+    assert not C.box_eligible(torch.bfloat16, cin, cout, h_halo=True)
+  if cell == "frame":
+    # 7 launches at 1/4 a stage-1 call, 13 in all
+    assert sum(C.box_eligible(torch.bfloat16, s[-1], c) for s, c in shapes
+               if s[1] == 48) == 7
+    assert sum(C.box_eligible(torch.bfloat16, s[-1], c)
+               for s, c in shapes) == 13
+
+
+@pytest.mark.parametrize("cin,cout,want", [
+    (32, 32, True), (64, 32, True), (32, 64, True), (64, 64, True),
+    (16, 32, False), (96, 32, False), (128, 64, False), (32, 8, False),
+    (32, 1, False), (64, 128, False), (40, 32, False)])
+def test_box_eligibility_by_width(cin, cout, want):
+  """Cin and Cout 32 or 64 (the weight slice and two boxes fit shared
+  memory; Cout 64 as two 32-wide column slices); other widths stay on
+  conv_body (Cout 2-31, past 64, Cin off 32 and 64) or the head kernel."""
+  assert C.box_eligible(torch.bfloat16, cin, cout) == want
+  assert not C.box_eligible(torch.float32, cin, cout)
 
 
 @pytest.mark.parametrize("two_d", [False, True])
